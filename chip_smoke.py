@@ -3,13 +3,26 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``gnnbuilder_tpu_torch/csrc`` with nvcc,
-holds each against its plain torch version at the canonical shapes, then
-drives the main path: the canonical 6-layer PNA model (hidden 128, output
-64, seeded random weights) through ``Program.forward`` on three distinct
-1024-graph block-packed QM9 batches.  It checks the outputs against the
-per-layer plain path on the same card and, on a small batch, against the
-plain path on the CPU, checks that each kernel launched once per forward,
-and times the forward and each kernel with CUDA events.
+holds each against its plain torch version at the shapes its path gives
+it, then drives two paths of the canonical 6-layer PNA model (hidden 128,
+output 64, seeded random weights):
+
+* inference: ``Program.forward`` on three distinct 1024-graph
+  block-packed QM9 batches (the stack and readout kernels), checked
+  against the per-layer plain path on the card and, on a small batch,
+  against the plain path on the CPU;
+* training: ``make_train_step`` with Adam(1e-3) on one standard-packed
+  1024-graph QM9 batch (``node_multiple=256``, as the JAX package's
+  benchmark trains), each step through the PNA layer kernel and its
+  scatter backward in all six layers and the readout kernel; gradients
+  and a 5-step loss curve against the plain path on the card, and a
+  small batch's step against the plain path on the CPU; then
+  ``Program.forward`` on that batch, which runs the layer kernel too.
+
+For each path it sets every launch count to 0 just before and checks the
+counts just after, then times the forward, the train step and each kernel
+with CUDA events and splits the train step's device time by kernel with
+``torch.profiler``.
 
 Output: one flushed, timestamped line before and after every phase; the
 ptxas report of the build; then, each on its own line, a ``kernels`` JSON
@@ -20,6 +33,7 @@ check fails.  Starts no threads; every subprocess has a timeout.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -97,6 +111,98 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
+def pna_widths(model):
+    """(Fin, F, Fout) of each conv layer at the model's own widths, before
+    the kernels' zero-padding to 128 lanes: the work a bound counts."""
+    return [(c.in_channels, c.pre_nn.weight.shape[0], c.out_channels)
+            for c in model.gnn_convs]
+
+
+def layer_flops(n, edges, fin, f, fo, ops_per_gather):
+    """The five products of a PNA layer over n rows, and ops_per_gather
+    operations per gathered neighbour value."""
+    return (2 * n * (2 * fin * f + 12 * f * fo + fin * fo + fo * fo)
+            + ops_per_gather * edges * f)
+
+
+def layer_weights(fin, f, fo):
+    """Floats in one layer's w_pre, b_pre, k_post, b_post, w_lin, b_lin."""
+    return 2 * fin * f + f + (fin + 12 * f) * fo + fo + fo * fo + fo
+
+TRAIN_GRAPHS = 1100      # bench.py's train arm: 1100 graphs, one b1024
+TRAIN_STEPS = 5          # the loss curve held against the plain path
+CURVE_TOL = 1e-3         # relative, per step
+
+
+def layer_operands(model, g, pna_layer):
+    """Each conv layer's kernel operands on batch ``g`` (padded to 128
+    lanes, contiguous), as the model's layer kernel gets them, with the
+    hidden state advanced through the kernel."""
+    L = model.gnn_num_layers
+    h = g.node_feat
+    layers = []
+    for i, c in enumerate(model.gnn_convs):
+        skip = h if model.gnn_skip_connection and 0 < i < L - 1 else None
+        ops = pna_layer.pad_operands(
+            h, c.pre_nn.weight.t(), c.pre_nn.bias, c.post_nn.weight.t(),
+            c.post_nn.bias, c.lin.weight.t(), c.lin.bias, skip)
+        ops = [None if t is None else t.contiguous() for t in ops]
+        args = (ops[0], g.nbr_nodes, g.in_degree, *ops[1:7], c.delta)
+        kw = dict(skip=ops[7], act=model.gnn_activation)
+        layers.append((args, kw))
+        h = pna_layer.fused_pna_layer(*args, **kw)[:, :c.out_channels]
+    return layers
+
+
+def split_device_time(prof, n_steps):
+    """Device ms per step from a torch.profiler run, by part of the train
+    step: the port's kernels by name, Adam, the torch matrix products
+    (the epilogue backward and forward-pass products), and the rest."""
+    from torch.autograd import DeviceType
+
+    parts = {"pna_layer kernel": 0.0, "pna_scatter_bwd kernel": 0.0,
+             "readout kernel": 0.0, "Adam": 0.0, "torch matmul": 0.0,
+             "other torch kernels": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        if "pna_layer" in name:
+            part = "pna_layer kernel"
+        elif "scatter_bwd" in name:
+            part = "pna_scatter_bwd kernel"
+        elif "readout_kernel" in name:
+            part = "readout kernel"
+        elif "adam" in name or "multi_tensor" in name:
+            part = "Adam"
+        elif any(t in name for t in ("gemm", "cutlass", "xmma", "gemv")):
+            part = "torch matmul"
+        else:
+            part = "other torch kernels"
+        parts[part] += us / 1e3 / n_steps
+    return parts
+
+
+def grads_of(model):
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def worst_grad(got, want):
+    """(ok, max abs error, worst error / max |want| over the parameters,
+    the parameter it is in)."""
+    worst, abs_worst, name, ok = 0.0, 0.0, "", True
+    for k in want:
+        o, e, r = close_enough(got[k].double(), want[k].double())
+        ok = ok and o
+        abs_worst = max(abs_worst, e)
+        if r >= worst:
+            worst, name = r, k
+    return ok, abs_worst, worst, name
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -109,9 +215,27 @@ def main():
         canonical_model,
     )
     from gnnbuilder_tpu_torch.ops import dispatch, segment
-    from gnnbuilder_tpu_torch.ops.cuda import _build, pna_block, readout
+    from gnnbuilder_tpu_torch.ops.cuda import (
+        _build,
+        pna_block,
+        pna_layer,
+        readout,
+        scatter_bwd,
+    )
 
-    torch.set_grad_enabled(False)   # inference only
+    counted = {"pna_block_stack": pna_block.fused_pna_block_stack,
+               "readout": readout.fused_readout,
+               "pna_layer": pna_layer.fused_pna_layer,
+               "pna_scatter_bwd": scatter_bwd.fused_pna_scatter_backward}
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    torch.set_grad_enabled(False)   # inference until the train phases
     dev = torch.device("cuda")
     with phase("device"):
         smi = subprocess.run(
@@ -191,18 +315,16 @@ def main():
 
     with phase(f"main path: Program.forward on {N_BATCHES} x "
                f"{BATCH_GRAPHS}-graph batches"):
-        pna_block.fused_pna_block_stack.launches = 0
-        readout.fused_readout.launches = 0
+        zero_counts()
         outs = [prog.forward(b) for b in batches]
         torch.cuda.synchronize()
-        launches = {"pna_block_stack":
-                    pna_block.fused_pna_block_stack.launches,
-                    "readout": readout.fused_readout.launches}
+        launches = counts()
         log(f"launches during the main path: {launches}")
-        if launches != {"pna_block_stack": N_BATCHES, "readout": N_BATCHES}:
+        if launches != {"pna_block_stack": N_BATCHES, "readout": N_BATCHES,
+                        "pna_layer": 0, "pna_scatter_bwd": 0}:
             raise AssertionError("a kernel did not launch once per forward")
-        for k, v in launches.items():
-            report[k]["launches"] = v
+        for k in ("pna_block_stack", "readout"):
+            report[k]["launches"] = launches[k]
 
     with phase("outputs against the per-layer plain path"):
         dispatch.set_fused_mode("never")
@@ -225,7 +347,7 @@ def main():
         # on the CPU with the same weights
         small_g, (small,) = canonical_batches(
             "qm9", n_graphs=64, batch_size=64, block_size=128,
-            node_multiple=128)
+            node_multiple=128, device="cpu")
         cpu_model = canonical_model("pna", "qm9", graphs=graphs)
         cpu_prog = Program(cpu_model, max_nodes=small.num_nodes,
                            max_edges=small.num_edges,
@@ -245,20 +367,226 @@ def main():
         if not ok:
             raise AssertionError("card disagrees with the CPU plain path")
 
+    with phase("train data and model"):
+        from gnnbuilder_tpu_torch import train
+
+        tgraphs, (tb,) = canonical_batches(
+            "qm9", n_graphs=TRAIN_GRAPHS, batch_size=BATCH_GRAPHS,
+            node_multiple=256, device=dev)
+        tmodel = canonical_model("pna", "qm9", graphs=tgraphs)
+        tprog = Program(tmodel, max_nodes=tb.num_nodes,
+                        max_edges=tb.num_edges, max_graphs=tb.num_graphs,
+                        device="cuda")
+        state0 = {k: v.clone() for k, v in tprog.init_params().items()}
+        target = train.stack_targets(tgraphs[:BATCH_GRAPHS], tb.num_graphs,
+                                     device=dev)
+        tm = tb.graph_mask
+        log(f"train batch (standard packing): N={tb.num_nodes} "
+            f"E={int(tb.in_degree.sum())} G={tb.num_graphs} ELL width="
+            f"{tb.ell_width}")
+
+    def fresh_step(mdl):
+        return train.make_train_step(
+            mdl, torch.optim.Adam(mdl.parameters(), lr=1e-3))
+
+    with phase("train kernels against their plain versions (6 layers)"):
+        layers = layer_operands(tmodel, tb, pna_layer)
+        residuals = []
+        err_layer = 0.0
+        for i, (args, kw) in enumerate(layers):
+            got = pna_layer.fused_pna_layer(*args, **kw, save_res=True)
+            torch.cuda.synchronize()
+            want = pna_layer.pna_layer_plain(*args, **kw, save_res=True)
+            F_i = args[3].shape[1]
+            empty = tb.in_degree == 0
+            for name, a, w in zip(("out", "v", "agg_cat", "aux", "mid"),
+                                  got, want):
+                if name == "aux":
+                    # tie counts and empty-row extrema exactly
+                    if not (torch.equal(a[:, 3 * F_i:], w[:, 3 * F_i:])
+                            and torch.equal(a[empty], w[empty])):
+                        raise AssertionError(
+                            f"pna_layer {i}: tie counts or empty-row "
+                            f"extrema differ from the plain version")
+                    a, w = a[~empty, :3 * F_i], w[~empty, :3 * F_i]
+                ok, abs_err, rel_err = close_enough(a, w)
+                err_layer = max(err_layer, abs_err)
+                if not ok:
+                    raise AssertionError(
+                        f"pna_layer {i} {name}: {rel_err:.3e} of max "
+                        f"|value| against its plain version (tol {TOL})")
+            log(f"pna_layer {i} [N={args[0].shape[0]}, Fin="
+                f"{args[0].shape[1]}, F={F_i}, Fout={args[7].shape[1]}]: "
+                f"all outputs within tol, ties exact; "
+                f"{int((got[3][:, 3 * F_i:] > 1).sum())} tied extrema")
+            residuals.append(got)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        sc_args = []
+        err_scatter = 0.0
+        for i, ((args, _), (_, v, agg, aux, _)) in enumerate(
+                zip(layers, residuals)):
+            F_i, Fout_i = args[3].shape[1], args[7].shape[1]
+            ks_t = pna_layer.scaler_blocks(
+                args[5], args[0].shape[1], F_i).t().contiguous()
+            d_mid = torch.randn(tb.num_nodes, Fout_i, generator=gen,
+                                device=dev)
+            sa = (d_mid, aux, agg, tb.in_degree, tb.nbr_nodes, v, ks_t,
+                  args[9])
+            got = scatter_bwd.fused_pna_scatter_backward(*sa)
+            again = scatter_bwd.fused_pna_scatter_backward(*sa)
+            torch.cuda.synchronize()
+            want = scatter_bwd.pna_scatter_backward_plain(*sa)
+            ok, abs_err, rel_err = close_enough(got, want)
+            err_scatter = max(err_scatter, abs_err)
+            # atomic adds in another order each run: not bitwise stable
+            rerun = float((again - got).abs().max())
+            log(f"pna_scatter_bwd {i}: max abs {abs_err:.3e}, {rel_err:.3e} "
+                f"of max |value| (tol {TOL}); two runs differ by max abs "
+                f"{rerun:.3e}")
+            if not ok:
+                raise AssertionError(f"pna_scatter_bwd {i} disagrees with "
+                                     f"its plain version")
+            sc_args.append(sa)
+        report["pna_layer"] = dict(max_abs_err=err_layer)
+        report["pna_scatter_bwd"] = dict(max_abs_err=err_scatter)
+
+    torch.set_grad_enabled(True)
+    with phase("train gradients against the plain path (one step)"):
+        grads = {}
+        for mode in ("auto", "never"):
+            tmodel.load_state_dict(state0)
+            dispatch.set_fused_mode(mode)
+            try:
+                fresh_step(tmodel)(tb, target)
+            finally:
+                dispatch.set_fused_mode("auto")
+            grads[mode] = grads_of(tmodel)
+        # the plain path in float64 as the exact reference of both
+        m64 = canonical_model("pna", "qm9", graphs=tgraphs).to(dev).double()
+        m64.load_state_dict({k: v.double() for k, v in state0.items()})
+        dispatch.set_fused_mode("never")
+        try:
+            loss64 = train.masked_mse_loss(
+                m64(tb.replace(node_feat=tb.node_feat.double())),
+                target.double(), tm)
+            loss64.backward()
+        finally:
+            dispatch.set_fused_mode("auto")
+        grads["f64"] = grads_of(m64)
+        del m64
+        # the gate is the float64 plain path; the float32 plain path
+        # lands further from it than the kernels do (its std over u + v
+        # cancels on near-constant rows), so auto vs never is logged only
+        for a, b in (("auto", "f64"), ("never", "f64"), ("auto", "never")):
+            gate = (a, b) == ("auto", "f64")
+            ok, abs_err, rel, k = worst_grad(grads[a], grads[b])
+            log(f"gradients {a} vs {b}: worst {rel:.3e} of max |value| "
+                f"({k}), max abs {abs_err:.3e}"
+                + (f" (tol {TOL})" if gate else " (logged)"))
+            if gate and not ok:
+                raise AssertionError("kernel-path gradients disagree with "
+                                     "the float64 plain path")
+
+    with phase(f"main path: {TRAIN_STEPS} Adam steps on the train batch"):
+        curves = {}
+        for mode in ("auto", "never"):
+            tmodel.load_state_dict(state0)
+            step = fresh_step(tmodel)
+            dispatch.set_fused_mode(mode)
+            try:
+                if mode == "auto":
+                    zero_counts()
+                curves[mode] = [float(step(tb, target))
+                                for _ in range(TRAIN_STEPS)]
+                torch.cuda.synchronize()
+                if mode == "auto":
+                    launches = counts()
+            finally:
+                dispatch.set_fused_mode("auto")
+        log(f"launches during the train path: {launches}")
+        want = {"pna_layer": 6 * TRAIN_STEPS,
+                "pna_scatter_bwd": 6 * TRAIN_STEPS,
+                "readout": TRAIN_STEPS, "pna_block_stack": 0}
+        if launches != want:
+            raise AssertionError(f"train path launches {launches}, "
+                                 f"expected {want}")
+        for k in ("pna_layer", "pna_scatter_bwd"):
+            report[k]["launches"] = launches[k]
+        log(f"loss curve kernels: {curves['auto']}")
+        log(f"loss curve plain:   {curves['never']}")
+        for i, (a, b) in enumerate(zip(curves["auto"], curves["never"])):
+            if not (math.isfinite(a) and abs(a - b) <= CURVE_TOL * abs(b)):
+                raise AssertionError(f"step {i}: loss {a} against plain {b}")
+
+    with phase("64-graph train step: card kernels vs CPU plain path"):
+        # the reference is the CPU plain path in float64 (in float32 its
+        # std over u + v cancels on near-constant rows; see above)
+        sg, (sb,) = canonical_batches("qm9", n_graphs=64, batch_size=64,
+                                      node_multiple=256, device="cpu")
+        s_target = train.stack_targets(sg, sb.num_graphs, device="cpu")
+        cpu_m = canonical_model("pna", "qm9", graphs=tgraphs).double()
+        cpu_m.load_state_dict({k: v.cpu().double()
+                               for k, v in state0.items()})
+        dispatch.set_fused_mode("never")
+        try:
+            loss = train.masked_mse_loss(
+                cpu_m(sb.replace(node_feat=sb.node_feat.double())),
+                s_target.double(), sb.graph_mask)
+            loss.backward()
+        finally:
+            dispatch.set_fused_mode("auto")
+        l64 = float(loss.detach())
+        tmodel.load_state_dict(state0)
+        l_card = float(fresh_step(tmodel)(sb.to(dev), s_target.to(dev)))
+        card = {n: t.cpu() for n, t in grads_of(tmodel).items()}
+        ok, abs_err, rel, k = worst_grad(card, grads_of(cpu_m))
+        log(f"loss card {l_card} vs CPU f64 {l64}; gradients worst "
+            f"{rel:.3e} of max |value| ({k}) (tol {TOL})")
+        if not ok or abs(l_card - l64) > CURVE_TOL * abs(l64):
+            raise AssertionError("card train step disagrees with the CPU")
+    torch.set_grad_enabled(False)
+
+    with phase("standard-packed inference: Program.forward on the train "
+               "batch"):
+        tmodel.load_state_dict(state0)
+        zero_counts()
+        out_std = tprog.forward(tb)
+        torch.cuda.synchronize()
+        launches = counts()
+        log(f"launches: {launches}")
+        if launches != {"pna_block_stack": 0, "readout": 1, "pna_layer": 6,
+                        "pna_scatter_bwd": 0}:
+            raise AssertionError("standard-packed forward did not run the "
+                                 "layer kernel in every layer")
+        dispatch.set_fused_mode("never")
+        try:
+            ref_std = tprog.forward(tb)
+        finally:
+            dispatch.set_fused_mode("auto")
+        ok, abs_err, rel_err = close_enough(out_std[tm], ref_std[tm])
+        log(f"kernels vs per-layer plain: max abs {abs_err:.3e}, "
+            f"{rel_err:.3e} of max |value| (tol {TOL})")
+        if (not ok or tuple(out_std.shape) != (tb.num_graphs,
+                                                 tmodel.mlp_out_dim)):
+            raise AssertionError("standard-packed forward disagrees")
+
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
         log(f"forward b{BATCH_GRAPHS}: {bench['latency_s'] * 1e3:.4f} ms, "
             f"{bench['graphs_per_s']:.1f} graphs/s on {bench['device']} "
             f"({smi})")
-        N, F = x.shape
-        W = b0.ell_width
+        # bounds count the work at the model's own widths; the kernels run
+        # the layers zero-padded to 128 lanes, logged as pad overhead
+        widths = pna_widths(model)
+        N, W = x.shape[0], b0.ell_width
         edges = int(b0.in_degree.sum())
         # stack: the five products per row and layer, ~5 ops per gathered
         # neighbour value (add, square-add, max, min); every input once,
         # the output once
-        s_flops = N * L * 2 * (4 * F * F + 12 * F * F) + L * edges * F * 5
-        s_bytes = 4 * (2 * N * F + N * W + N + sum(t.numel()
-                                                    for t in stacked))
+        s_flops = sum(layer_flops(N, edges, *w, 5) for w in widths)
+        s_pad = L * layer_flops(N, edges, 128, 128, 128, 5)
+        s_bytes = 4 * (N * widths[0][0] + N * widths[-1][2] + N * W + N
+                       + sum(layer_weights(*w) for w in widths))
         s_bound, s_by = bound(s_flops, s_bytes)
         report["pna_block_stack"].update(
             ms=time_ms(lambda: pna_block.fused_pna_block_stack(*sargs, **skw),
@@ -266,7 +594,7 @@ def main():
             plain_ms=time_ms(lambda: pna_block.pna_block_stack_plain(
                 *sargs, **skw), 3),
             bound_ms=s_bound, bound_by=s_by,
-            flops=s_flops, bytes=s_bytes)
+            flops=s_flops, padded_flops=s_pad, bytes=s_bytes)
         G, Fh = b0.num_graphs, h.shape[1]
         n_params = sum(w.numel() + c.numel() for w, c in head)
         pooled_rows = int(b0.n_node[b0.graph_mask].sum())
@@ -282,9 +610,89 @@ def main():
                 model.mlp_activation, model.output_activation), 20),
             bound_ms=r_bound, bound_by=r_by,
             flops=r_flops, bytes=r_bytes)
+
+        # train kernels: the six launches of one step, at the shapes and on
+        # the operands of the canonical model's layers
+        def run_layers(fn):
+            for args, kw in layers:
+                fn(*args, **kw, save_res=True)
+
+        def run_scatter(fn):
+            for sa in sc_args:
+                fn(*sa)
+
+        E = int(tb.in_degree.sum())
+        Nt, Wt = tb.num_nodes, tb.ell_width
+        l_flops = l_bytes = c_flops = c_bytes = l_pad = c_pad = 0
+        for (args, kw), (Fi, Fl, Fo) in zip(layers, pna_widths(tmodel)):
+            # the five products, ~5 ops per gathered value (add,
+            # square-add, max, min), 2 compares per gathered value for ties
+            l_flops += layer_flops(Nt, E, Fi, Fl, Fo, 7)
+            l_pad += layer_flops(Nt, E, args[0].shape[1], args[3].shape[1],
+                                 args[7].shape[1], 7)
+            # x, the table, the weights and skip in; out, v, agg_cat, aux
+            # and mid out
+            l_bytes += 4 * (Nt * Fi + Nt * Wt + Nt + layer_weights(Fi, Fl, Fo)
+                            + (Nt * Fo if kw["skip"] is not None else 0)
+                            + Nt * (2 * Fo + Fl + 4 * Fl + 5 * Fl))
+            # d_agg, and per gathered value ~8 ops (deviation, two
+            # compares and adds, the atomic add); d_mid, aux, std, the
+            # table, v and ks_t in, dv out
+            c_flops += 2 * Nt * 3 * Fo * 4 * Fl + 8 * E * Fl
+            c_pad += (2 * Nt * 3 * args[7].shape[1] * 4 * args[3].shape[1]
+                      + 8 * E * args[3].shape[1])
+            c_bytes += 4 * (Nt * Fo + Nt * 5 * Fl + Nt * Fl + Nt + Nt * Wt
+                            + Nt * Fl + 3 * Fo * 4 * Fl + Nt * Fl)
+        pads = {"pna_layer": l_pad, "pna_scatter_bwd": c_pad}
+        for name, fn, plain, fl, by in (
+                ("pna_layer", lambda: run_layers(pna_layer.fused_pna_layer),
+                 lambda: run_layers(pna_layer.pna_layer_plain),
+                 l_flops, l_bytes),
+                ("pna_scatter_bwd",
+                 lambda: run_scatter(scatter_bwd.fused_pna_scatter_backward),
+                 lambda: run_scatter(scatter_bwd.pna_scatter_backward_plain),
+                 c_flops, c_bytes)):
+            b_ms, b_by = bound(fl, by)
+            report[name].update(ms=time_ms(fn, 10), plain_ms=time_ms(plain, 3),
+                                bound_ms=b_ms, bound_by=b_by, flops=fl,
+                                padded_flops=pads[name], bytes=by,
+                                per="train step (6 launches)")
         for k, v in report.items():
+            pad = (f"; runs {v['padded_flops'] / v['flops'] - 1:.1%} more "
+                   f"flops zero-padded" if "padded_flops" in v else "")
             log(f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, "
-                f"bound {v['bound_ms']:.4f} ms by {v['bound_by']})")
+                f"bound {v['bound_ms']:.4f} ms by {v['bound_by']}{pad})")
+
+        torch.set_grad_enabled(True)
+        tmodel.load_state_dict(state0)
+        step = fresh_step(tmodel)
+        train_ms = time_ms(lambda: step(tb, target), 10, warmup=3)
+        dispatch.set_fused_mode("never")
+        try:
+            plain_train_ms = time_ms(lambda: step(tb, target), 3, warmup=1)
+        finally:
+            dispatch.set_fused_mode("auto")
+        log(f"train step b{BATCH_GRAPHS}: {train_ms:.4f} ms (plain path "
+            f"{plain_train_ms:.4f} ms) on {smi}")
+
+    with phase("train step split (torch.profiler, 3 steps)"):
+        from torch.profiler import ProfilerActivity, profile
+
+        step(tb, target)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            for _ in range(3):
+                step(tb, target)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t) * 1e3 / 3
+        split = split_device_time(prof, 3)
+        busy = sum(split.values())
+        split_line = ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        log(f"device ms per step by part: {split_line}; busy {busy:.4f} of "
+            f"{wall_ms:.4f} ms wall")
+    torch.set_grad_enabled(False)
 
     kernels = [
         dict(name="pna_block_stack", route="cuda",
@@ -295,12 +703,25 @@ def main():
              source="gnnbuilder_tpu_torch/csrc/readout.cu",
              replaces="gnnbuilder_tpu/ops/pallas/readout.py:186",
              library_ms=None, **report["readout"]),
+        dict(name="pna_layer", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/pna_layer.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/pna_layer.py:458",
+             library_ms=None, **report["pna_layer"]),
+        dict(name="pna_scatter_bwd", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/scatter_bwd.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/scatter_bwd.py:448",
+             library_ms=None, **report["pna_scatter_bwd"]),
     ]
     print(json.dumps({
         "kernels": kernels,
         "forward": dict(batch_graphs=BATCH_GRAPHS,
                         ms=bench["latency_s"] * 1e3,
                         graphs_per_s=bench["graphs_per_s"]),
+        "train": dict(batch_graphs=BATCH_GRAPHS, nodes=tb.num_nodes,
+                      step_ms=train_ms, plain_step_ms=plain_train_ms,
+                      loss_curve=curves["auto"],
+                      plain_loss_curve=curves["never"],
+                      device_ms_per_step=split, profiled_wall_ms=wall_ms),
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

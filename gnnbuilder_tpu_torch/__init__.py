@@ -1,9 +1,11 @@
 """gnnbuilder_tpu_torch — the PyTorch/CUDA port of gnnbuilder_tpu.
 
 The JAX package ``gnnbuilder_tpu`` is the reference; this package imports
-torch and numpy only.  Its first slice is canonical PNA inference on
-block-packed batches through ``Program.forward``, with hand-written CUDA
-kernels for the whole PNA conv stack and the fused readout.
+torch and numpy only.  It runs canonical PNA inference through
+``Program.forward`` and training through ``train.make_train_step``, with
+hand-written CUDA kernels for the whole PNA conv stack, one PNA layer
+(forward with residuals), the PNA aggregation backward and the fused
+readout.
 """
 
 from gnnbuilder_tpu_torch.compile.program import Program

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import math
 
-from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+from gnnbuilder_tpu_torch.core.graph import build_graph_batch, resolve_device
 from gnnbuilder_tpu_torch.data.datasets import DATASET_SPECS, load_dataset
 from gnnbuilder_tpu_torch.nn.model import GNNModel
 from gnnbuilder_tpu_torch.utils.stats import compute_pna_delta
@@ -59,12 +59,14 @@ def canonical_batches(
     edge_multiple: int = 8,
     seed: int = 0,
     block_size: int = 0,
-    device="cpu",
+    device=None,
 ):
     """Pack the first ``n_graphs`` graphs into batches of ``batch_size``
     graphs that share one (max) padding bucket; ``block_size`` > 0 selects
     block packing, the bucket then covering the worst pack waste.  Returns
-    (graphs, batches on ``device``)."""
+    (graphs, batches on ``device``): None = the CUDA card, which raises
+    without one; pass ``device="cpu"`` for the CPU."""
+    device = resolve_device(device)
     graphs = load_dataset(dataset, n=n_graphs, seed=seed)
     chunks = [
         graphs[i: i + batch_size] for i in range(0, len(graphs), batch_size)

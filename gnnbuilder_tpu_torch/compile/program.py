@@ -16,24 +16,14 @@ from typing import Optional, Sequence
 import torch
 
 from gnnbuilder_tpu_torch.compile.precision import Precision
-from gnnbuilder_tpu_torch.core.graph import GraphBatch, build_graph_batch
+from gnnbuilder_tpu_torch.core.graph import (
+    GraphBatch,
+    build_graph_batch,
+    resolve_device,
+)
 from gnnbuilder_tpu_torch.nn.model import GNNModel
 
 __all__ = ["Program", "BucketSpec", "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the CUDA card; raises when CUDA is requested and absent
-    (no silent CPU fallback)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device available; pass device='cpu' to run the plain "
-            "path on the CPU"
-        )
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)

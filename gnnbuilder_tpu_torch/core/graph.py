@@ -21,7 +21,21 @@ import torch
 from gnnbuilder_tpu_torch.core import packing
 
 __all__ = ["GraphBatch", "build_graph_batch", "pad_sizes",
-           "resolve_block_size", "ELL_MAX_WIDTH"]
+           "resolve_block_size", "resolve_device", "ELL_MAX_WIDTH"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the CUDA card; raises when CUDA is requested and absent
+    (no silent CPU fallback)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the plain "
+            "path on the CPU"
+        )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,9 +175,11 @@ def build_graph_batch(
     rev_ell_width: Optional[int] = None,
     dtype=np.float32,
     block_size: Optional[int] = None,
-    device="cpu",
+    device=None,
 ) -> GraphBatch:
-    """Pack a list of host graphs into one padded ``GraphBatch`` on ``device``.
+    """Pack a list of host graphs into one padded ``GraphBatch`` on ``device``
+    (None = the CUDA card, through ``resolve_device``, which raises without
+    one; pass ``device="cpu"`` for the CPU).
 
     ``graphs`` is a sequence of objects with ``x [n,F]``, ``edge_index
     [2,e]`` (numpy) and optionally ``edge_attr [e,Fe]``.  ``block_size=B``
@@ -174,6 +190,7 @@ def build_graph_batch(
     ``ell_width``: None = batch max in-degree rounded up to 4 (no table
     above ELL_MAX_WIDTH), 0 = no table, an int = that width.
     """
+    device = resolve_device(device)
     if block_size == "auto":
         block_size = resolve_block_size(
             "auto", [int(g.x.shape[0]) for g in graphs]

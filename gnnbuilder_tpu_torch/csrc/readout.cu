@@ -18,7 +18,8 @@
 // per graph, ~50 MFLOP for 1,025 graphs, under a microsecond of f32 FMA.
 // Design: a CTA loads every MLP weight and bias into shared memory once
 // (~100 KB for the canonical 192-64-64-64-64-1 head) and reuses it for 8
-// graphs; pooling reads are coalesced along the feature axis; the
+// graphs, or, for a head too large for the card's shared memory per
+// block, reads them from device memory (L2 resident across CTAs); pooling reads are coalesced along the feature axis; the
 // hidden activations ping-pong between two shared [8, width] buffers and
 // never reach device memory.
 
@@ -57,15 +58,18 @@ readout_kernel(const float* __restrict__ x, int N, int F,
                const int* __restrict__ n_node, int G,
                const float* __restrict__ mx,
                const float* __restrict__ params, int n_params, Head hd,
-               int width, int act, int out_act, float* __restrict__ out) {
+               int width, int act, int out_act, bool params_in_smem,
+               float* __restrict__ out) {
   extern __shared__ float sm[];
-  float* P = sm;                                    // packed MLP params
-  float* B0 = P + ((n_params + 3) / 4) * 4;         // [TG, width]
+  float* B0 = sm;                                   // [TG, width]
   float* B1 = B0 + TG * width;                      // [TG, width]
+  float* Ps = B1 + TG * width;                      // packed MLP params
+  const float* P = params_in_smem ? Ps : params;
 
   const int tid = threadIdx.x;
   const int g0 = blockIdx.x * TG;
-  for (int i = tid; i < n_params; i += THREADS) P[i] = params[i];
+  if (params_in_smem)
+    for (int i = tid; i < n_params; i += THREADS) Ps[i] = params[i];
 
   for (int p = tid; p < TG * F; p += THREADS) {
     const int t = p / F, f = p % F, g = g0 + t;
@@ -131,10 +135,11 @@ extern "C" {
 int gnnb_readout_max_linears() { return MAX_LIN; }
 int gnnb_readout_max_aggregators() { return MAX_AGGR; }
 
-// Shared memory the launch needs, in bytes (the wrapper checks it against
-// gnnb_smem_per_block_optin before launching).
+// Shared memory the launch needs, in bytes: the two activation buffers
+// (the wrapper checks it against gnnb_smem_per_block_optin before
+// launching); the launcher adds the MLP parameters where they fit.
 int gnnb_readout_smem_bytes(int n_params, int width) {
-  return (int)((((n_params + 3) / 4) * 4 + 2 * TG * width) * sizeof(float));
+  return (int)(2 * TG * width * sizeof(float));
 }
 
 // Shared memory one block of `device` may use, in bytes (0 on error).
@@ -168,7 +173,15 @@ int gnnb_readout(const void* x, int n_rows, int feat, const void* starts,
   }
   hd.n_aggr = n_aggr;
   for (int a = 0; a < n_aggr; ++a) hd.aggr[a] = aggr[a];
-  const int smem = gnnb_readout_smem_bytes(n_params, width);
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return (int)err;
+  const int buffers = gnnb_readout_smem_bytes(n_params, width);
+  const int staged = buffers + n_params * (int)sizeof(float);
+  const bool params_in_smem = staged <= optin;
+  const int smem = params_in_smem ? staged : buffers;
   err = cudaFuncSetAttribute(readout_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
@@ -179,7 +192,7 @@ int gnnb_readout(const void* x, int n_rows, int feat, const void* starts,
       (const float*)x, n_rows, feat, (const int*)starts,
       (const int*)n_node, n_graphs, (const float*)mx,
       (const float*)params, n_params, hd, width, act, out_act,
-      (float*)out);
+      params_in_smem, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -5,6 +5,11 @@ semantics, the JAX package's ``nn/conv.py`` PNAConv): message
 ``pre_nn([x_i || x_j])``; aggregate with max/min/mean/std over the ELL
 table; scale the concat by identity, log(d+1)/delta and delta/log(d+1)
 with d clamped to >= 1; ``post_nn([x_i || scaled])``; then ``lin``.
+
+With the default aggregators and scalers, and when ``dispatch.pna_layer_cfg``
+allows, the layer runs through ``ops.cuda.pna_layer.fused_pna_layer_auto``
+(the CUDA kernel on the card, differentiable through its hand-written
+backward); otherwise through the plain torch ops below.
 """
 
 from __future__ import annotations
@@ -61,6 +66,20 @@ class PNAConv(torch.nn.Module):
         if g.nbr_nodes is None:
             raise ValueError("PNAConv needs the batch's ELL table "
                              "(build_graph_batch with ell_width != 0)")
+        if (self.aggregators == PNA_AGGREGATORS
+                and self.scalers == PNA_SCALERS):
+            from gnnbuilder_tpu_torch.ops import dispatch
+
+            if dispatch.pna_layer_cfg(g, act) is not None:
+                from gnnbuilder_tpu_torch.ops.cuda.pna_layer import (
+                    fused_pna_layer_auto,
+                )
+
+                return fused_pna_layer_auto(
+                    x, g.nbr_nodes, g.in_degree, self.pre_nn.weight.t(),
+                    self.pre_nn.bias, self.post_nn.weight.t(),
+                    self.post_nn.bias, self.lin.weight.t(), self.lin.bias,
+                    self.delta, skip=skip, act=act)
         u, v = self.pre_nn(x, x)
         table = u[:, None, :] + ell.ell_gather(v, g.nbr_nodes)
         mask = ell.ell_mask(g.nbr_nodes, g.in_degree)

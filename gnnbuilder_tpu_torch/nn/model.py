@@ -7,10 +7,13 @@ before the activation, multi-aggregation global pooling, an MLP head, and
 an optional output activation over the last axis.
 
 Under inference scope (``ops.dispatch.inference_mode``) a block-packed
-batch runs the whole conv stack through ``ops.cuda.pna_block`` and the
-readout through ``ops.cuda.readout``; otherwise, or with
-``set_fused_mode("never")``, it runs the per-layer plain path.  The two
-compute the same function.
+batch runs the whole conv stack through ``ops.cuda.pna_block``; any other
+batch with an ELL table runs each PNA layer through ``ops.cuda.pna_layer``,
+in inference and in training.  The readout runs through
+``ops.cuda.readout``.  With ``set_fused_mode("never")`` the model runs the
+per-layer plain path.  The paths compute the same function.  In training
+(grad mode on) the kernels get the live parameters, so gradients reach
+them; in inference the readout weights come from a cache.
 """
 
 from __future__ import annotations
@@ -220,23 +223,28 @@ class GNNModel(torch.nn.Module):
 
     def _fused_readout(self, g: GraphBatch, h):
         """Pooling + MLP head + output activation in one kernel call when
-        the gate allows; max pooling stays plain and streams in.  None =
-        run GlobalPooling + MLP."""
+        the gate allows; max pooling stays plain and streams in, and the
+        backward recomputes the plain readout.  None = run GlobalPooling +
+        MLP."""
         from gnnbuilder_tpu_torch.ops import dispatch, segment
-        from gnnbuilder_tpu_torch.ops.cuda.readout import fused_readout
+        from gnnbuilder_tpu_torch.ops.cuda.readout import fused_readout_vjp
 
         cfg = dispatch.readout_config(
             g, self.pooling_aggrs, self.mlp_activation,
             self.output_activation)
         if cfg is None:
             return None
-        weights = self._kernel_params(self._stack_width())[1]
+        if torch.is_grad_enabled():
+            weights = [(lin.weight.t(), lin.bias)
+                       for lin in self.mlp_head.linear_layers]
+        else:
+            weights = self._kernel_params(self._stack_width())[1]
         h = h.contiguous()
         mx = None
         if "max" in self.pooling_aggrs:
             mx = segment.contiguous_segment_max(
                 h, g.graph_starts, g.n_node, g.max_graph_nodes_static)
-        return fused_readout(
+        return fused_readout_vjp(
             h, g.n_node, weights, aggrs=self.pooling_aggrs, mx=mx,
             act=self.mlp_activation, out_act=self.output_activation,
             starts=cfg["starts"],

@@ -29,7 +29,7 @@ __all__ = ["load", "build", "build_log", "nvcc", "SOURCES"]
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "gnnbuilder_tpu_torch"
-SOURCES = ("pna_block", "readout")
+SOURCES = ("pna_block", "readout", "pna_layer", "scatter_bwd")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -11,6 +11,11 @@ What bounds it on the H100: bytes (one read of the node rows; the MLP is
 ~25 k MACs per graph), and at this size launch latency.  A CTA loads the
 MLP weights into shared memory once for 8 graphs.
 
+``ReadoutFunction`` makes it differentiable as the JAX package's
+``fused_readout_vjp`` does: the kernel forward, and a backward that
+recomputes ``readout_plain`` under autograd (the JAX package has no
+backward kernel for the readout either).
+
 The ghost graph's row is finite garbage on both versions (they clip its
 row range differently); compare only rows where ``graph_mask`` is true.
 """
@@ -25,8 +30,8 @@ import torch
 from gnnbuilder_tpu_torch.ops.activations import ACTIVATIONS
 from gnnbuilder_tpu_torch.ops.segment import segment_sum
 
-__all__ = ["fused_readout", "readout_plain", "READOUT_ACTS",
-           "READOUT_OUT_ACTS"]
+__all__ = ["fused_readout", "readout_plain", "ReadoutFunction",
+           "fused_readout_vjp", "READOUT_ACTS", "READOUT_OUT_ACTS"]
 
 READOUT_ACTS = {None: 0, "relu": 1, "gelu": 2, "sigmoid": 3, "tanh": 4}
 READOUT_OUT_ACTS = {None: 0, "softmax": 1, "log_softmax": 2}
@@ -175,3 +180,46 @@ def fused_readout(x, n_node, weights, aggrs: Sequence[str] = ("add",),
 
 
 fused_readout.launches = 0
+
+
+def _pairs(flat):
+    return tuple((flat[i], flat[i + 1]) for i in range(0, len(flat), 2))
+
+
+class ReadoutFunction(torch.autograd.Function):
+    """``fused_readout`` forward; the backward recomputes ``readout_plain``
+    under autograd and returns the gradients of x, mx and every weight."""
+
+    @staticmethod
+    def forward(ctx, x, mx, n_node, starts, aggrs, act, out_act, *flat_w):
+        ctx.save_for_backward(x, mx, n_node, starts, *flat_w)
+        ctx.cfg = (aggrs, act, out_act)
+        return fused_readout(x, n_node, _pairs(flat_w), aggrs=aggrs, mx=mx,
+                             act=act, out_act=out_act, starts=starts)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, mx, n_node, starts, *flat_w = ctx.saved_tensors
+        aggrs, act, out_act = ctx.cfg
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_()
+            mxs = None if mx is None else mx.detach().requires_grad_()
+            ws = [w.detach().requires_grad_() for w in flat_w]
+            out = readout_plain(xs, n_node, starts, _pairs(ws), aggrs, mxs,
+                                act, out_act)
+            inputs = [xs] + ([] if mxs is None else [mxs]) + ws
+            grads = list(torch.autograd.grad(out, inputs, ct))
+        dx = grads.pop(0)
+        dmx = None if mx is None else grads.pop(0)
+        return (dx, dmx, None, None, None, None, None, *grads)
+
+
+def fused_readout_vjp(x, n_node, weights, aggrs: Sequence[str] = ("add",),
+                      mx=None, act: Optional[str] = "relu",
+                      out_act: Optional[str] = None, starts=None):
+    """Differentiable ``fused_readout`` (same arguments)."""
+    if starts is None:
+        starts = _starts_of(n_node)
+    flat = [t for wb in weights for t in wb]
+    return ReadoutFunction.apply(x, mx, n_node, starts, tuple(aggrs), act,
+                                 out_act, *flat)

@@ -1,5 +1,5 @@
-"""Kernel dispatch policy: when the model takes the whole-stack and the
-readout kernels instead of the per-layer plain path.
+"""Kernel dispatch policy: when the model takes the whole-stack, the
+per-layer PNA and the readout kernels instead of the plain path.
 
 The gates decide on the batch and the model alone; which implementation a
 kernel function then runs is decided by the tensors' device inside it (a
@@ -18,12 +18,13 @@ import contextvars
 from typing import Optional
 
 __all__ = ["set_fused_mode", "inference_mode",
-           "inference_on", "pna_stack_cfg", "readout_config"]
+           "inference_on", "pna_stack_cfg", "pna_layer_cfg",
+           "readout_config"]
 
 _MODE = "auto"
 
-# inference scope: the stack and readout kernels have no backward, so the
-# model takes them only here; Program.forward enters it
+# inference scope: the stack kernel has no backward, so the model takes it
+# only here; Program.forward enters it
 _INFERENCE: contextvars.ContextVar = contextvars.ContextVar(
     "gnnb_torch_inference", default=False
 )
@@ -67,10 +68,30 @@ def pna_stack_cfg(g) -> Optional[dict]:
     return {"block_size": g.block_size_static}
 
 
+def pna_layer_cfg(g, act) -> Optional[dict]:
+    """{} when the per-layer PNA kernel (``ops.cuda.pna_layer``) applies to
+    batch ``g`` with epilogue activation ``act``, else None (PNAConv runs
+    its plain path).  The caller checks the default aggregators and
+    scalers.  Needs the batch's ELL table, graph-contiguous packing with
+    a known largest graph, and an activation the kernel has; in or out of
+    inference scope, since the layer has a backward.  Widths are the
+    kernel's to check: the CUDA wrapper raises on what it does not
+    take."""
+    from gnnbuilder_tpu_torch.ops.cuda.pna_layer import LAYER_ACTS
+
+    if _MODE == "never" or g.nbr_nodes is None:
+        return None
+    if g.max_graph_nodes_static <= 0 or g.graph_starts is None:
+        return None
+    if act not in LAYER_ACTS:
+        return None
+    return {}
+
+
 def readout_config(g, aggrs, act, out_act) -> Optional[dict]:
     """{"starts": ...} when the fused readout kernel applies, else None
-    (the model runs GlobalPooling + MLP).  Needs inference scope, an
-    add or mean aggregator (pure max pooling would make the kernel dead
+    (the model runs GlobalPooling + MLP).  Needs an add or mean
+    aggregator (pure max pooling would make the kernel dead
     work), activations the kernel has, and the per-graph row starts and
     largest graph of the max window.  Whether the head fits the kernel is
     the CUDA wrapper's to check: it raises on what it does not take."""
@@ -79,7 +100,7 @@ def readout_config(g, aggrs, act, out_act) -> Optional[dict]:
         READOUT_OUT_ACTS,
     )
 
-    if _MODE == "never" or not inference_on():
+    if _MODE == "never":
         return None
     if not ({"add", "mean"} & set(aggrs)):
         return None

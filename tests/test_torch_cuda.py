@@ -16,7 +16,14 @@ from gnnbuilder_tpu_torch.bench.canonical import (
     canonical_model,
 )
 from gnnbuilder_tpu_torch.ops import dispatch, segment
-from gnnbuilder_tpu_torch.ops.cuda import _build, pna_block, readout
+from gnnbuilder_tpu_torch import train
+from gnnbuilder_tpu_torch.ops.cuda import (
+    _build,
+    pna_block,
+    pna_layer,
+    readout,
+    scatter_bwd,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +44,7 @@ def cuda_device():
 def _batch(n_graphs=128):
     gs, (b,) = canonical_batches("qm9", n_graphs=n_graphs,
                                  batch_size=n_graphs, block_size=128,
-                                 node_multiple=128)
+                                 node_multiple=128, device="cpu")
     return gs, b
 
 
@@ -73,17 +80,13 @@ def test_pna_block_kernel_matches_plain(cuda_device):
                                atol=5e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("out_act", [None, "softmax", "log_softmax"])
-def test_readout_kernel_matches_plain(cuda_device, out_act):
-    """atol 1e-4 / rtol 1e-4 on graph_mask rows (pooling sums in another
-    order; the ghost row is garbage on both)."""
+def _readout_case(cuda_device, out_act, F):
     _, b = _batch()
     bc = b.to(cuda_device)
     rng = np.random.default_rng(5)
-    F = 64
     x = torch.from_numpy(
         rng.standard_normal((b.num_nodes, F)).astype(np.float32))
-    dims = (192, 64, 64, 64, 64, 3)
+    dims = (3 * F, 64, 64, 64, 64, 3)
     ws = [(torch.from_numpy((rng.standard_normal((i, o)) * .1)
                             .astype(np.float32)),
            torch.from_numpy(rng.standard_normal(o).astype(np.float32)))
@@ -108,10 +111,24 @@ def test_readout_kernel_matches_plain(cuda_device, out_act):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("out_act", [None, "softmax", "log_softmax"])
+def test_readout_kernel_matches_plain(cuda_device, out_act):
+    """atol 1e-4 / rtol 1e-4 on graph_mask rows (pooling sums in another
+    order; the ghost row is garbage on both)."""
+    _readout_case(cuda_device, out_act, 64)
+
+
+def test_readout_kernel_wide_head_matches_plain(cuda_device):
+    """Pooling 384 features: a 1152-wide head whose ~340 KB of weights
+    exceed shared memory, so the kernel reads them from device memory;
+    atol 1e-4 / rtol 1e-4 as above."""
+    _readout_case(cuda_device, None, 384)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     """On the card a wrapper launches its kernel or raises: F = 256, a
-    256-row block and a head too large for shared memory are refused,
-    with no launch and no plain fallback."""
+    256-row block and a head whose activation buffers exceed shared
+    memory are refused, with no launch and no plain fallback."""
     z = torch.zeros
     for F, N, bs in ((256, 256, 128), (128, 256, 256)):
         args = [z(1, F, F), z(1, F, F), z(1, F), z(1, F, F),
@@ -158,3 +175,207 @@ def test_program_forward_through_kernels(cuda_device):
     assert torch.isfinite(out[m]).all()
     np.testing.assert_allclose(out[m].cpu().numpy(), ref[m].cpu().numpy(),
                                atol=5e-4, rtol=1e-3)
+
+
+def _std_batch(n_graphs=128, device="cpu"):
+    gs, (b,) = canonical_batches("qm9", n_graphs=n_graphs,
+                                 batch_size=n_graphs, node_multiple=256,
+                                 device=device)
+    return gs, b
+
+
+def _scaled_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("Fin,Fout,act,skip", [
+    (128, 128, "relu", True), (256, 128, "tanh", False),
+    (128, 256, "gelu", True), (128, 128, None, False),
+    (384, 384, "relu", True)])
+def test_pna_layer_kernel_matches_plain(cuda_device, Fin, Fout, act, skip):
+    """Every output and residual on a standard-packed QM9 batch, tie
+    counts and empty-row extrema exactly; the rest to 1e-4 of max |value|
+    (products summed in another order).  Hidden 384 needs more shared
+    memory than 32 rows per CTA allow and runs 16."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    F = Fin
+
+    def r(fan_in, *s):
+        return (torch.randn(*s, generator=g) / fan_in ** 0.5).to(cuda_device)
+
+    p = (r(2 * Fin, 2 * Fin, F), r(2 * Fin, F), r(13 * F, Fin + 12 * F, Fout),
+         r(13 * F, Fout), r(Fout, Fout, Fout), r(Fout, Fout))
+    x = torch.randn(b.num_nodes, Fin, generator=g).to(cuda_device)
+    x[1::3] = x[0::3][: x[1::3].shape[0]]      # tied neighbour values
+    sk = torch.randn(b.num_nodes, Fout, generator=g).to(cuda_device)
+    args = (x, b.nbr_nodes, b.in_degree, *p, 1.8)
+    kw = dict(skip=sk if skip else None, act=act)
+    before = pna_layer.fused_pna_layer.launches
+    got = pna_layer.fused_pna_layer(*args, **kw, save_res=True)
+    out_only = pna_layer.fused_pna_layer(*args, **kw)
+    torch.cuda.synchronize()
+    assert pna_layer.fused_pna_layer.launches == before + 2
+    want = pna_layer.pna_layer_plain(*args, **kw, save_res=True)
+    torch.testing.assert_close(out_only, got[0], rtol=0, atol=0)
+    for name, a, w in zip(("out", "v", "agg_cat", "aux", "mid"), got, want):
+        assert torch.isfinite(a).all(), name
+        if name == "aux":
+            torch.testing.assert_close(a[:, 3 * F:], w[:, 3 * F:], rtol=0,
+                                       atol=0)
+            a, w = a[:, :3 * F], w[:, :3 * F]
+            ok = b.in_degree > 0
+            torch.testing.assert_close(a[~ok], w[~ok], rtol=0, atol=0)
+            a, w = a[ok], w[ok]
+        assert _scaled_err(a, w) <= 1e-4, name
+    assert (got[3][:, 3 * F:] > 1).any()
+
+
+def _scatter_case(cuda_device, F):
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(2)
+
+    def r(fan_in, *s):
+        return (torch.randn(*s, generator=g) / fan_in ** 0.5).to(cuda_device)
+
+    p = (r(2 * F, 2 * F, F), r(2 * F, F), r(13 * F, 13 * F, F), r(13 * F, F),
+         r(F, F, F), r(F, F))
+    x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+    x[1::3] = x[0::3][: x[1::3].shape[0]]
+    _, v, agg_cat, aux, _ = pna_layer.fused_pna_layer(
+        x, b.nbr_nodes, b.in_degree, *p, 1.8, act="relu", save_res=True)
+    ks_t = pna_layer.scaler_blocks(p[2], F, F).t().contiguous()
+    d_mid = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+    args = (d_mid, aux, agg_cat, b.in_degree, b.nbr_nodes, v, ks_t, 1.8)
+    before = scatter_bwd.fused_pna_scatter_backward.launches
+    got = scatter_bwd.fused_pna_scatter_backward(*args)
+    torch.cuda.synchronize()
+    assert scatter_bwd.fused_pna_scatter_backward.launches == before + 1
+    want = scatter_bwd.pna_scatter_backward_plain(*args)
+    assert torch.isfinite(got).all()
+    assert _scaled_err(got, want) <= 1e-4
+
+
+def test_scatter_bwd_kernel_matches_plain(cuda_device):
+    """dv on the residuals of a real forward, to 1e-4 of max |value|
+    (atomic adds in another order)."""
+    _scatter_case(cuda_device, 128)
+
+
+def test_scatter_bwd_kernel_wide_matches_plain(cuda_device):
+    """As above at hidden 384."""
+    _scatter_case(cuda_device, 384)
+
+
+def test_train_step_through_kernels(cuda_device):
+    """One Adam step of the canonical model on a 128-graph standard-packed
+    batch: the kernel path launches the layer and scatter kernels once per
+    layer and the readout once, and its loss (1e-5 relative) and every
+    parameter's gradient (1e-4 of its max |value|) match the plain path
+    run in float64.  The float32 plain path is no reference here: its std
+    over u + v cancels on near-constant rows and lands ~3.6e-4 of max
+    |value| off the float64 gradient, where the kernels land ~2.4e-5."""
+    gs, b = _std_batch(device=cuda_device)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    torch.manual_seed(0)
+    model = canonical_model("pna", "qm9", graphs=gs).to(cuda_device)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    step = train.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    counts = _counts()
+    loss = float(step(b, target).detach())
+    torch.cuda.synchronize()
+    assert _delta(counts) == (6, 6, 1)
+    ref = canonical_model("pna", "qm9", graphs=gs).to(cuda_device).double()
+    ref.load_state_dict({k: v.double() for k, v in state.items()})
+    dispatch.set_fused_mode("never")
+    try:
+        ref_loss = train.masked_mse_loss(
+            ref(b.replace(node_feat=b.node_feat.double())), target.double(),
+            b.graph_mask)
+        ref_loss.backward()
+    finally:
+        dispatch.set_fused_mode("auto")
+    ref_loss = float(ref_loss.detach())
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    want = dict(ref.named_parameters())
+    for k, p in model.named_parameters():
+        assert torch.isfinite(p.grad).all(), k
+        err = _scaled_err(p.grad.double(), want[k].grad)
+        assert err <= 1e-4, (k, err)
+
+
+def _counts():
+    return (pna_layer.fused_pna_layer.launches,
+            scatter_bwd.fused_pna_scatter_backward.launches,
+            readout.fused_readout.launches)
+
+
+def _delta(before):
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+def test_wide_model_trains_through_kernels(cuda_device):
+    """Hidden and output width 384 on a 64-graph standard-packed batch:
+    the layer kernel then runs 16 rows per CTA and the readout reads its
+    head from device memory.  Five Adam steps launch 6 + 6 + 1 kernels
+    each, keep every gradient finite, and give a loss curve within 1e-3
+    relative of the plain path run in float64 (the criterion of the
+    canonical train path); standard-packed inference then runs the layer
+    kernel in every layer, to 1e-4 of max |value| of the per-layer plain
+    path.  Gradients are held per kernel at this width above, not per
+    parameter against float64: on this batch a max/min decision whose
+    candidates lie within float32 rounding of each other goes the other
+    way in float64 and sends that gradient to another neighbour, which
+    moves layer 4's pre_nn gradient ~4e-4 of its max: the kernel path on
+    the card, its plain version on the CPU and the float32 per-layer
+    plain path on the CPU all show it (``python -m
+    gnnbuilder_tpu_torch.bench.grad_precision --graphs 64 --hidden 384
+    --output 384`` names the rows)."""
+    widths = dict(gnn_hidden_dim=384, gnn_output_dim=384)
+    gs, b = _std_batch(64, device=cuda_device)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    torch.manual_seed(0)
+    model = canonical_model("pna", "qm9", graphs=gs, **widths)
+    ref = canonical_model("pna", "qm9", graphs=gs, **widths)
+    ref.load_state_dict(model.state_dict())
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    model.to(cuda_device)
+    ref.to(cuda_device).double()
+    curves = {}
+    for name, mdl, bb, t in (
+            ("auto", model, b, target),
+            ("f64", ref, b.replace(node_feat=b.node_feat.double()),
+             target.double())):
+        step = train.make_train_step(
+            mdl, torch.optim.Adam(mdl.parameters(), lr=1e-3))
+        dispatch.set_fused_mode("auto" if name == "auto" else "never")
+        try:
+            curves[name] = []
+            for _ in range(5):
+                counts = _counts()
+                curves[name].append(float(step(bb, t)))
+                torch.cuda.synchronize()
+                if name == "auto":
+                    assert _delta(counts) == (6, 6, 1)
+                    assert all(torch.isfinite(p.grad).all()
+                               for p in mdl.parameters())
+        finally:
+            dispatch.set_fused_mode("auto")
+    for a, w in zip(curves["auto"], curves["f64"]):
+        assert abs(a - w) <= 1e-3 * abs(w), curves
+    p = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, device="cuda")
+    p.set_params(state)
+    before = pna_layer.fused_pna_layer.launches
+    out = p.forward(b)
+    torch.cuda.synchronize()
+    assert pna_layer.fused_pna_layer.launches == before + 6
+    dispatch.set_fused_mode("never")
+    try:
+        ref_out = p.forward(b)
+    finally:
+        dispatch.set_fused_mode("auto")
+    m = b.graph_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out[m], ref_out[m]) <= 1e-4

@@ -57,7 +57,8 @@ def test_datasets_match():
 def test_fake_dataset_batches_bit_equal(block_size, seed):
     kw = dict(num_graphs=20, avg_num_nodes=14, node_dim=8, edge_dim=4,
               seed=seed)
-    ours = build_graph_batch(FakeDataset(**kw), block_size=block_size)
+    ours = build_graph_batch(FakeDataset(**kw), block_size=block_size,
+                             device="cpu")
     ref = jax_build(JaxFakeDataset(**kw), block_size=block_size)
     validate_batch(ours)
     _assert_same_batch(ours, ref)
@@ -67,7 +68,7 @@ def test_fake_dataset_batches_bit_equal(block_size, seed):
 def test_canonical_qm9_batches_bit_equal(block_size):
     kw = dict(n_graphs=96, batch_size=32, block_size=block_size,
               node_multiple=128 if block_size else 8)
-    gs, ours = canonical_batches("qm9", **kw)
+    gs, ours = canonical_batches("qm9", **kw, device="cpu")
     gr, ref = jax_canonical_batches("qm9", **kw)
     assert len(ours) == len(ref) == 3
     for a, b in zip(ours, ref):
@@ -75,10 +76,26 @@ def test_canonical_qm9_batches_bit_equal(block_size):
         _assert_same_batch(a, b)
 
 
+def test_default_device_is_the_card():
+    """With no device named, the data entry points put the batch on the
+    CUDA card, and raise without one rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    gs = FakeDataset(num_graphs=3, avg_num_nodes=6, node_dim=5, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_graph_batch(gs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        canonical_batches("qm9", n_graphs=4, batch_size=4)
+    from gnnbuilder_tpu_torch.train import stack_targets
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stack_targets(gs, 4)
+
+
 def test_budgets_and_device():
     gs = FakeDataset(num_graphs=6, avg_num_nodes=10, node_dim=5, seed=1)
     b = build_graph_batch(gs, node_budget=256, edge_budget=256,
-                          graph_budget=9, block_size=128)
+                          graph_budget=9, block_size=128, device="cpu")
     assert b.num_nodes == 256 and b.num_edges == 256 and b.num_graphs == 9
     assert b.device == torch.device("cpu")
     moved = b.to("cpu")
@@ -95,7 +112,7 @@ def test_auto_block_size_bit_equal(n_graphs):
     """"auto" picks standard packing for a small batch and 128-row block
     packing for one above the JAX package's node threshold."""
     gs = load_dataset("qm9", n=n_graphs, seed=1)
-    ours = build_graph_batch(gs, block_size="auto")
+    ours = build_graph_batch(gs, block_size="auto", device="cpu")
     ref = jax_build(jax_load_dataset("qm9", n=n_graphs, seed=1),
                     block_size="auto")
     assert ours.block_size_static == (128 if n_graphs == 120 else 0)

@@ -59,7 +59,7 @@ def _port_forward(p, b, mode):
 def test_program_matches_jax_program(layers, out_act):
     kw = dict(n_graphs=64, batch_size=32, block_size=128, node_multiple=128)
     gj, jbs = jax_canonical_batches("qm9", **kw)
-    gt, tbs = canonical_batches("qm9", **kw)
+    gt, tbs = canonical_batches("qm9", **kw, device="cpu")
     over = dict(gnn_num_layers=layers, output_activation=out_act,
                 mlp_out_dim=3 if out_act else 1)
     jm = jax_canonical_model("pna", "qm9", graphs=gj, **over)
@@ -108,7 +108,8 @@ def test_per_layer_path_outside_inference_scope():
     """Without inference scope (and under "never") the model runs the
     per-layer loop; both give the kernel path's numbers."""
     gs, (b,) = canonical_batches("qm9", n_graphs=16, batch_size=16,
-                                 block_size=128, node_multiple=128)
+                                 block_size=128, node_multiple=128,
+                                 device="cpu")
     m = canonical_model("pna", "qm9", graphs=gs, gnn_num_layers=2)
     p = Program(m, max_nodes=b.num_nodes, max_edges=b.num_edges,
                 max_graphs=b.num_graphs, block_size=128, device="cpu")
@@ -136,7 +137,7 @@ def test_stack_gate_takes_any_width_and_block(hidden, block_size):
     per-layer path."""
     gs, (b,) = canonical_batches("qm9", n_graphs=24, batch_size=24,
                                  block_size=block_size,
-                                 node_multiple=block_size)
+                                 node_multiple=block_size, device="cpu")
     m = canonical_model("pna", "qm9", graphs=gs, gnn_num_layers=2,
                         gnn_hidden_dim=hidden)
     p = Program(m, max_nodes=b.num_nodes, max_edges=b.num_edges,
@@ -179,7 +180,7 @@ def test_program_without_card_raises():
 def test_benchmark_refuses_cpu():
     m = canonical_model("pna", "qm9", gnn_num_layers=1,
                         conv_kwargs={"delta": 2.0})
-    gs, (b,) = canonical_batches("qm9", n_graphs=4, batch_size=4)
+    gs, (b,) = canonical_batches("qm9", n_graphs=4, batch_size=4, device="cpu")
     p = Program(m, max_nodes=b.num_nodes, max_edges=b.num_edges,
                 max_graphs=b.num_graphs, device="cpu")
     with pytest.raises(RuntimeError, match="measures the card"):
@@ -219,7 +220,7 @@ def test_pna_conv_nondefault_matches_jax(aggregators, scalers):
 
     gs = FakeDataset(num_graphs=10, avg_num_nodes=10, node_dim=16, seed=4)
     g = jax_build(gs)
-    b = build_graph_batch(gs)
+    b = build_graph_batch(gs, device="cpu")
     kw = dict(delta=1.7, aggregators=aggregators, scalers=scalers)
     jconv = JaxPNAConv(in_channels=16, out_channels=24, **kw)
     x = np.random.default_rng(0).standard_normal((g.num_nodes, 16)).astype(

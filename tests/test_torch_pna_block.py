@@ -65,7 +65,7 @@ def test_stack_params_match_jax():
 ])
 def test_plain_stack_matches_jax_kernel_and_reference(act, skips):
     gs = _graphs()
-    b = build_graph_batch(gs, block_size=128, node_multiple=128)
+    b = build_graph_batch(gs, block_size=128, node_multiple=128, device="cpu")
     g = jax_build(gs, block_size=128, node_multiple=128)
     N, F, L = b.num_nodes, 128, 3
     rng = np.random.default_rng(1)
@@ -93,7 +93,7 @@ def test_plain_stack_matches_jax_kernel_and_reference(act, skips):
 def test_auto_padding_canonical_dims():
     """11-wide input -> 128 hidden -> 64 output, zero-padded to 128."""
     gs = _graphs(node_dim=11, seed=2)
-    b = build_graph_batch(gs, block_size=128, node_multiple=128)
+    b = build_graph_batch(gs, block_size=128, node_multiple=128, device="cpu")
     g = jax_build(gs, block_size=128, node_multiple=128)
     rng = np.random.default_rng(3)
     layers = [_layer(rng, 11, 11, 128), _layer(rng, 128, 128, 128),

@@ -42,7 +42,8 @@ def _weights(rng, din, dims):
 ])
 def test_plain_readout_matches_jax(block_size, aggrs, out_act):
     gs = FakeDataset(num_graphs=40, avg_num_nodes=12, node_dim=8, seed=5)
-    b = build_graph_batch(gs, block_size=block_size, node_multiple=128)
+    b = build_graph_batch(gs, block_size=block_size, node_multiple=128,
+                          device="cpu")
     g = jax_build(gs, block_size=block_size, node_multiple=128)
     rng = np.random.default_rng(6)
     F = 64
@@ -83,7 +84,7 @@ def test_plain_readout_matches_jax(block_size, aggrs, out_act):
 
 def test_segment_max_matches_contiguous():
     gs = FakeDataset(num_graphs=30, avg_num_nodes=10, node_dim=4, seed=2)
-    b = build_graph_batch(gs, block_size=128)
+    b = build_graph_batch(gs, block_size=128, device="cpu")
     x = torch.randn(b.num_nodes, 16)
     m = b.graph_mask
     a = segment.contiguous_segment_max(x, b.graph_starts, b.n_node,
@@ -113,14 +114,21 @@ def test_supported_limits():
     CUDA wrapper raises on it; on the CPU the plain version computes it),
     and the gate says no only to what the kernel never computes."""
     gs = FakeDataset(num_graphs=12, avg_num_nodes=10, node_dim=4, seed=3)
-    b = build_graph_batch(gs, block_size=128)
+    b = build_graph_batch(gs, block_size=128, device="cpu")
     with dispatch.inference_mode():
         cfg = dispatch.readout_config(b, ("add", "mean", "max"), "relu",
                                       None)
         assert cfg is not None and cfg["starts"] is b.graph_starts
         assert dispatch.readout_config(b, ("max",), "relu", None) is None
         assert dispatch.readout_config(b, ("add",), "elu", None) is None
-    assert dispatch.readout_config(b, ("add",), "relu", None) is None
+    # the readout has a backward, so the gate needs no inference scope
+    cfg = dispatch.readout_config(b, ("add",), "relu", None)
+    assert cfg is not None and cfg["starts"] is b.graph_starts
+    dispatch.set_fused_mode("never")
+    try:
+        assert dispatch.readout_config(b, ("add",), "relu", None) is None
+    finally:
+        dispatch.set_fused_mode("auto")
     rng = np.random.default_rng(8)
     x = rng.standard_normal((b.num_nodes, 16)).astype(np.float32)
     ws = _weights(rng, 16, (4096, 2))
