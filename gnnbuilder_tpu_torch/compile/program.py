@@ -65,14 +65,17 @@ class Program:
     # ------------------------------------------------------------ params
     def init_params(self, example_batch: Optional[GraphBatch] = None):
         """Seeded init, torch.nn.Linear's law U(+-1/sqrt(fan_in)) for weight
-        and bias, drawn from one ``torch.Generator`` in module order.
-        Returns the state dict."""
+        and bias (where the Linear has one), drawn from one
+        ``torch.Generator`` in module order; GCN's separate bias stays
+        zero, as in the JAX package.  Returns the state dict."""
         gen = torch.Generator().manual_seed(self._seed)
         with torch.no_grad():
             for mod in self.model.modules():
                 if isinstance(mod, torch.nn.Linear):
                     bound = 1.0 / math.sqrt(mod.in_features)
                     for p in (mod.weight, mod.bias):
+                        if p is None:
+                            continue
                         r = torch.rand(p.shape, generator=gen)
                         p.copy_((2.0 * r - 1.0) * bound)
         self._initialized = True

@@ -7,9 +7,12 @@ before the activation, multi-aggregation global pooling, an MLP head, and
 an optional output activation over the last axis.
 
 Under inference scope (``ops.dispatch.inference_mode``) a block-packed
-batch runs the whole conv stack through ``ops.cuda.pna_block``; any other
-batch with an ELL table runs each PNA layer through ``ops.cuda.pna_layer``,
-in inference and in training.  The readout runs through
+batch runs the whole conv stack in one kernel: PNA through
+``ops.cuda.pna_block``, GCN and SAGE through ``ops.cuda.mp_block`` (GIN
+keeps its per-layer path, as in the JAX package).  Any other PNA batch
+with an ELL table runs each layer through ``ops.cuda.pna_layer``, in
+inference and in training; GCN, GIN and SAGE layers otherwise run their
+plain per-layer paths.  The readout runs through
 ``ops.cuda.readout``.  With ``set_fused_mode("never")`` the model runs the
 per-layer plain path.  The paths compute the same function.  In training
 (grad mode on) the kernels get the live parameters, so gradients reach
@@ -165,6 +168,22 @@ class GNNModel(torch.nn.Module):
             dims += [conv.in_channels, conv.out_channels]
         return _round_up(max(dims), 128)
 
+    def _conv_operands(self):
+        """Per-layer conv weights in [in, out] layout, as the stack kernel
+        of the model's conv takes them (None for what a conv lacks)."""
+        t = lambda lin: lin.weight.t()
+        if self.gnn_conv == "pna":
+            return [(t(c.pre_nn), c.pre_nn.bias, t(c.post_nn),
+                     c.post_nn.bias, t(c.lin), c.lin.bias)
+                    for c in self.gnn_convs]
+        if self.gnn_conv == "gcn":
+            return [(t(c.lin), c.bias, None, None) for c in self.gnn_convs]
+        if self.gnn_conv == "gin":
+            return [(t(c.lin0), c.lin0.bias, t(c.lin1), c.lin1.bias)
+                    for c in self.gnn_convs]
+        return [(t(c.lin_l), c.lin_l.bias, t(c.lin_r), None)
+                for c in self.gnn_convs]
+
     def _kernel_params(self, width: int):
         """(stacked conv operands, readout weights): the conv weights
         padded and stacked for the stack kernel and the MLP weights in
@@ -173,17 +192,15 @@ class GNNModel(torch.nn.Module):
         key = (width,) + tuple((id(p), p._version, p.device)
                                for p in self.parameters())
         if self._kernel_cache is None or self._kernel_cache[0] != key:
+            from gnnbuilder_tpu_torch.ops.cuda.mp_block import stack_mp_params
             from gnnbuilder_tpu_torch.ops.cuda.pna_block import stack_params
 
             with torch.no_grad():
                 stacked = None
-                if self.gnn_conv == "pna" and self.gnn_num_layers > 0:
-                    stacked = stack_params([
-                        (c.pre_nn.weight.t(), c.pre_nn.bias,
-                         c.post_nn.weight.t(), c.post_nn.bias,
-                         c.lin.weight.t(), c.lin.bias)
-                        for c in self.gnn_convs
-                    ], width)
+                if self.gnn_num_layers > 0:
+                    stack = (stack_params if self.gnn_conv == "pna"
+                             else stack_mp_params)
+                    stacked = stack(self._conv_operands(), width)
                 readout = [(lin.weight.t().contiguous(), lin.bias.detach())
                            for lin in self.mlp_head.linear_layers]
             self._kernel_cache = (key, (stacked, readout))
@@ -194,8 +211,10 @@ class GNNModel(torch.nn.Module):
         PNA with the default aggregators and scalers, an activation the
         kernel has, a block-packed batch, inference scope.  None = run the
         per-layer loop."""
-        if self.gnn_conv != "pna" or self.gnn_num_layers < 1:
+        if self.gnn_num_layers < 1:
             return None
+        if self.gnn_conv != "pna":
+            return self._fused_mp_stack(g, h)
         if any(tuple(c.aggregators) != PNA_AGGREGATORS
                or tuple(c.scalers) != PNA_SCALERS for c in self.gnn_convs):
             return None
@@ -215,6 +234,32 @@ class GNNModel(torch.nn.Module):
         return pna_block_stack_auto(
             h, g.nbr_nodes, g.in_degree, self._kernel_params(width)[0],
             deltas=[c.delta for c in self.gnn_convs],
+            skips=[self.gnn_skip_connection and 0 < i < L - 1
+                   for i in range(L)],
+            act=self.gnn_activation, out_dim=self.gnn_output_dim,
+            block_size=cfg["block_size"],
+        )
+
+    def _fused_mp_stack(self, g: GraphBatch, h):
+        """The whole GCN or SAGE stack in one ``ops.cuda.mp_block`` call
+        when ``dispatch.mp_stack_cfg`` allows (GIN only when called with
+        the kernel directly); None = run the per-layer loop."""
+        from gnnbuilder_tpu_torch.ops import dispatch
+        from gnnbuilder_tpu_torch.ops.cuda.mp_block import (
+            STACK_ACTS,
+            mp_block_stack_auto,
+        )
+
+        if self.gnn_activation not in STACK_ACTS:
+            return None
+        cfg = dispatch.mp_stack_cfg(g, self.gnn_conv)
+        if cfg is None:
+            return None
+        L = self.gnn_num_layers
+        return mp_block_stack_auto(
+            h, g.block_adj, g.in_degree, self.gnn_conv,
+            self._kernel_params(self._stack_width())[0],
+            epss=[getattr(c, "eps", 0.0) for c in self.gnn_convs],
             skips=[self.gnn_skip_connection and 0 < i < L - 1
                    for i in range(L)],
             act=self.gnn_activation, out_dim=self.gnn_output_dim,

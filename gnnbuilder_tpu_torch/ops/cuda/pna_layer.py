@@ -7,8 +7,14 @@ runs ``pna_layer_plain``, the same function in plain torch, for CPU
 tensors.  It replaces the TPU kernel
 ``gnnbuilder_tpu/ops/pallas/pna_layer.py`` ``fused_pna_layer``; the
 backward follows that file's ``_make_vjp_fn`` line for line, with the
-aggregation backward in ``ops.cuda.scatter_bwd`` and the epilogue's large
-products left to ``torch.matmul``, as the JAX package leaves them to XLA.
+epilogue's large products left to ``torch.matmul``, as the JAX package
+leaves them to XLA.  Its dv takes the JAX VJP's reverse-table route when
+the batch carries ``rev_nbr_nodes`` / ``out_degree``: the coefficient
+stack from ``ops.cuda.scatter_bwd.fused_pna_scatter_cstk``, gathered by
+``ops.cuda.ell_bwd.fused_gather_backward``, so the step's gradients are
+the same bits on every run.  A batch without a reverse table (an
+out-degree over 64) takes ``fused_pna_scatter_backward``, whose atomic
+adds make dv reproducible to f32 rounding only.
 
 What bounds the kernel on the H100: operations (the five products, ~0.5
 MFLOP per row at 128 wide, run as f32 FMAs); see the source.
@@ -27,8 +33,10 @@ from typing import Optional
 import torch
 
 from gnnbuilder_tpu_torch.ops.activations import ACTIVATIONS
+from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import fused_gather_backward
 from gnnbuilder_tpu_torch.ops.cuda.scatter_bwd import (
     fused_pna_scatter_backward,
+    fused_pna_scatter_cstk,
 )
 from gnnbuilder_tpu_torch.ops.ell import _STD_EPS, ell_mask
 
@@ -206,12 +214,15 @@ class PNALayerFunction(torch.autograd.Function):
     (``pna_layer.py`` ``_make_vjp_fn``, its scatter-kernel branch): the
     forward saves (v, agg_cat, aux, mid, out); the backward forms act'
     from the saved out, the epilogue gradients from mid with torch
-    products, du through ``sel``, dv with ``fused_pna_scatter_backward``,
-    then the pre_nn chains."""
+    products, du through ``sel``, dv over the reverse table
+    (``fused_pna_scatter_cstk`` then ``fused_gather_backward``) or, when
+    ``rev_nbr_nodes`` is None, with ``fused_pna_scatter_backward``; then
+    the pre_nn chains."""
 
     @staticmethod
-    def forward(ctx, x, nbr_nodes, in_degree, skip, w_pre, b_pre, k_post,
-                b_post, w_lin, b_lin, delta, act):
+    def forward(ctx, x, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
+                skip, w_pre, b_pre, k_post, b_post, w_lin, b_lin, delta,
+                act):
         args = [t.contiguous() for t in (x, w_pre, b_pre, k_post, b_post,
                                          w_lin, b_lin)]
         skip = None if skip is None else skip.contiguous()
@@ -219,16 +230,17 @@ class PNALayerFunction(torch.autograd.Function):
         out, v, agg_cat, aux, mid = fused_pna_layer(
             x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
             b_lin, delta, skip=skip, act=act, save_res=True)
-        ctx.save_for_backward(x, nbr_nodes, in_degree, skip, w_pre, k_post,
-                              w_lin, b_lin, v, agg_cat, aux, mid, out)
+        ctx.save_for_backward(x, nbr_nodes, in_degree, rev_nbr_nodes,
+                              out_degree, skip, w_pre, k_post, w_lin, b_lin,
+                              v, agg_cat, aux, mid, out)
         ctx.delta = float(delta)
         ctx.act = act
         return out
 
     @staticmethod
     def backward(ctx, ct):
-        (x, nbr, deg, skip, w_pre, k_post, w_lin, b_lin, v, agg_cat, aux,
-         mid, out) = ctx.saved_tensors
+        (x, nbr, deg, rev, out_deg, skip, w_pre, k_post, w_lin, b_lin, v,
+         agg_cat, aux, mid, out) = ctx.saved_tensors
         act, delta = ctx.act, ctx.delta
         Fin = x.shape[1]
         F = w_pre.shape[1]
@@ -271,26 +283,37 @@ class PNALayerFunction(torch.autograd.Function):
         # du: the masked sum of the mx|mn|mean blocks of d_agg = dy ks_t
         sel = ks_t[:, :F] + ks_t[:, F:2 * F] + ks_t[:, 2 * F:3 * F]
         du = torch.where(nonempty, dy @ sel, x.new_zeros(()))
-        dv = fused_pna_scatter_backward(d_mid, aux, agg_cat, deg, nbr, v,
-                                        ks_t, delta)
+        if rev is not None:
+            cstk = fused_pna_scatter_cstk(d_mid, aux, agg_cat, deg, ks_t,
+                                          delta)
+            dv = fused_gather_backward(cstk, rev, out_deg, v, has_lin=True,
+                                       has_dev=True, n_cmp=2)
+        else:
+            dv = fused_pna_scatter_backward(d_mid, aux, agg_cat, deg, nbr,
+                                            v, ks_t, delta)
 
         # pre_nn chains: u = x w_i + b_pre (receiver), v = x w_j
         w_i, w_j = w_pre[:Fin], w_pre[Fin:]
         dx = dx_epi + du @ w_i.t() + dv @ w_j.t()
         dw_pre = torch.cat([x.t() @ du, x.t() @ dv], dim=0)
         db_pre = du.sum(0)
-        return (dx, None, None, dskip, dw_pre, db_pre, dk_post, db_post,
-                dw_lin, db_lin, None, None)
+        return (dx, None, None, None, None, dskip, dw_pre, db_pre, dk_post,
+                db_post, dw_lin, db_lin, None, None)
 
 
 def fused_pna_layer_vjp(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
                         b_post, w_lin, b_lin, delta: float, skip=None,
-                        act: Optional[str] = None):
+                        act: Optional[str] = None, rev_nbr_nodes=None,
+                        out_degree=None):
     """Differentiable ``fused_pna_layer``: the kernel forward with
-    residuals and the hand-written backward."""
-    return PNALayerFunction.apply(x, nbr_nodes, in_degree, skip, w_pre,
-                                  b_pre, k_post, b_post, w_lin, b_lin,
-                                  float(delta), act)
+    residuals and the hand-written backward, whose dv runs over the
+    reverse table when both ``rev_nbr_nodes`` and ``out_degree`` are
+    given."""
+    if rev_nbr_nodes is None or out_degree is None:
+        rev_nbr_nodes = out_degree = None
+    return PNALayerFunction.apply(x, nbr_nodes, in_degree, rev_nbr_nodes,
+                                  out_degree, skip, w_pre, b_pre, k_post,
+                                  b_post, w_lin, b_lin, float(delta), act)
 
 
 def _rup(n: int, m: int = 128) -> int:
@@ -332,7 +355,8 @@ def pad_operands(x, w_pre, b_pre, k_post, b_post, w_lin, b_lin, skip=None):
 
 def fused_pna_layer_auto(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
                          b_post, w_lin, b_lin, delta: float, skip=None,
-                         act: Optional[str] = None):
+                         act: Optional[str] = None, rev_nbr_nodes=None,
+                         out_degree=None):
     """The layer at any widths: ``pad_operands`` outside the autograd
     Function, then the first Fout columns of the result.  Takes the
     differentiable path when grad mode is on and an input needs a
@@ -342,7 +366,9 @@ def fused_pna_layer_auto(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in ops):
         out = fused_pna_layer_vjp(ops[0], nbr_nodes, in_degree, *ops[1:7],
-                                  delta, skip=ops[7], act=act)
+                                  delta, skip=ops[7], act=act,
+                                  rev_nbr_nodes=rev_nbr_nodes,
+                                  out_degree=out_degree)
     else:
         c = [None if t is None else t.contiguous() for t in ops]
         out = fused_pna_layer(c[0], nbr_nodes, in_degree, *c[1:7], delta,

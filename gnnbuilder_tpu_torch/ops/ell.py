@@ -1,4 +1,5 @@
-"""ELL (padded neighbour table) aggregation: the plain PNA aggregation.
+"""ELL (padded neighbour table) aggregation: the plain aggregation of
+every conv on a batch that carries the table.
 
 Each node's incoming neighbours sit in a dense [N, W] table (slot d valid
 iff d < in_degree[n]), so every aggregation is a dense row gather and a
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ell_gather", "ell_mask", "ell_multi_table", "_STD_EPS"]
+__all__ = ["ell_gather", "ell_mask", "ell_sum", "ell_mean",
+           "ell_multi_table", "_STD_EPS"]
 
 _STD_EPS = 1e-5  # PyG StdAggregation epsilon
 
@@ -27,6 +29,20 @@ def ell_mask(nbr_nodes, in_degree):
 def ell_gather(values, table):
     """Gather rows of ``values`` [M, F] by an ELL id table [N, W] -> [N, W, F]."""
     return values[table.long()]
+
+
+def ell_sum(x, nbr_nodes, in_degree, mask=None):
+    """Sum of each node's incoming neighbour rows of x [M, F] -> [N, F]."""
+    g = ell_gather(x, nbr_nodes)
+    m = ell_mask(nbr_nodes, in_degree) if mask is None else mask
+    return torch.where(m[..., None], g, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device)).sum(1)
+
+
+def ell_mean(x, nbr_nodes, in_degree, mask=None):
+    """Mean over max(in_degree, 1) neighbours (0 on an empty row)."""
+    s = ell_sum(x, nbr_nodes, in_degree, mask)
+    return s / in_degree.to(x.dtype).clamp(min=1.0)[:, None]
 
 
 def ell_multi_table(g, in_degree, aggregators, mask):

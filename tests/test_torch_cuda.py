@@ -19,6 +19,8 @@ from gnnbuilder_tpu_torch.ops import dispatch, segment
 from gnnbuilder_tpu_torch import train
 from gnnbuilder_tpu_torch.ops.cuda import (
     _build,
+    ell_bwd,
+    mp_block,
     pna_block,
     pna_layer,
     readout,
@@ -285,7 +287,7 @@ def test_train_step_through_kernels(cuda_device):
     counts = _counts()
     loss = float(step(b, target).detach())
     torch.cuda.synchronize()
-    assert _delta(counts) == (6, 6, 1)
+    assert _delta(counts) == (6, 6, 6, 1)
     ref = canonical_model("pna", "qm9", graphs=gs).to(cuda_device).double()
     ref.load_state_dict({k: v.double() for k, v in state.items()})
     dispatch.set_fused_mode("never")
@@ -306,8 +308,12 @@ def test_train_step_through_kernels(cuda_device):
 
 
 def _counts():
+    """Launches of the layer kernel, the scatter kernel (either mode), the
+    reverse-table gather and the readout."""
     return (pna_layer.fused_pna_layer.launches,
-            scatter_bwd.fused_pna_scatter_backward.launches,
+            scatter_bwd.fused_pna_scatter_backward.launches
+            + scatter_bwd.fused_pna_scatter_cstk.launches,
+            ell_bwd.fused_gather_backward.launches,
             readout.fused_readout.launches)
 
 
@@ -357,7 +363,7 @@ def test_wide_model_trains_through_kernels(cuda_device):
                 curves[name].append(float(step(bb, t)))
                 torch.cuda.synchronize()
                 if name == "auto":
-                    assert _delta(counts) == (6, 6, 1)
+                    assert _delta(counts) == (6, 6, 6, 1)
                     assert all(torch.isfinite(p.grad).all()
                                for p in mdl.parameters())
         finally:
@@ -379,3 +385,179 @@ def test_wide_model_trains_through_kernels(cuda_device):
     m = b.graph_mask
     assert torch.isfinite(out[m]).all()
     assert _scaled_err(out[m], ref_out[m]) <= 1e-4
+
+
+def _hub_block_batch(device, n_graphs=120):
+    """QM9 graphs and a 71-node star whose hub has in-degree 70, packed
+    at 128 rows: the batch ships no ELL table."""
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+    from gnnbuilder_tpu_torch.data.datasets import Graph, load_dataset
+
+    gs = load_dataset("qm9", n=n_graphs)
+    rng = np.random.default_rng(0)
+    leaves = np.arange(1, 71)
+    ei = np.concatenate([np.stack([leaves, 0 * leaves]),
+                         np.stack([0 * leaves, leaves])], axis=1)
+    star = Graph(x=rng.standard_normal((71, 11)).astype(np.float32),
+                 edge_index=ei.astype(np.int64),
+                 edge_attr=np.zeros((ei.shape[1], 4), np.float32))
+    gs = gs[:7] + [star] + gs[7:]
+    b = build_graph_batch(gs, block_size=128, node_multiple=128,
+                          device=device)
+    assert b.nbr_nodes is None
+    return gs, b
+
+
+@pytest.mark.parametrize("conv", ["gcn", "gin", "sage"])
+@pytest.mark.parametrize("F", [128, 384])
+def test_mp_block_kernel_matches_plain(cuda_device, conv, F):
+    """6 layers at width F with skips on the 128-graph block batch, and at
+    128 on a batch with a 70-in-degree hub and no ELL table (the kernel
+    aggregates from block_adj); 1e-4 of max |value| on real rows (sums in
+    another order).  F = 384 keeps H and T in device memory."""
+    batches = [_batch()[1].to(cuda_device)]
+    if F == 128:
+        batches.append(_hub_block_batch(cuda_device)[1])
+    g = torch.Generator(device="cpu").manual_seed(3)
+    L = 6
+    w0, w1 = [(torch.randn(L, F, F, generator=g) / F ** 0.5).to(cuda_device)
+              for _ in range(2)]
+    b0, b1 = [(torch.randn(L, F, generator=g) * .1).to(cuda_device)
+              for _ in range(2)]
+    kw = dict(conv=conv, epss=[0.1 * i for i in range(L)],
+              skips=[0 < i < L - 1 for i in range(L)], act="relu")
+    for b in batches:
+        x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+        before = mp_block.fused_mp_block_stack.launches
+        got = mp_block.fused_mp_block_stack(x, b.block_adj, b.in_degree, w0,
+                                            b0, w1, b1, **kw)
+        torch.cuda.synchronize()
+        assert mp_block.fused_mp_block_stack.launches == before + 1
+        want = mp_block.mp_stack_plain(x, b.block_adj, b.in_degree, w0, b0,
+                                       w1, b1, **kw)
+        m = b.node_mask
+        assert torch.isfinite(got[m]).all()
+        assert _scaled_err(got[m], want[m]) <= 1e-4
+
+
+@pytest.mark.parametrize("conv", ["gcn", "gin", "sage"])
+def test_program_forward_mp_convs_through_kernels(cuda_device, conv):
+    """Canonical GCN, GIN and SAGE on a 256-graph block batch: gcn and
+    sage launch the stack and the readout once per forward, gin the
+    readout only; outputs within 1e-4 of max |value| of the per-layer
+    plain path on the card."""
+    gs, b = _batch(256)
+    model = canonical_model(conv, "qm9", graphs=gs)
+    p = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, block_size=128)
+    p.init_params()
+    bc = b.to(cuda_device)
+    s0 = mp_block.fused_mp_block_stack.launches
+    r0 = readout.fused_readout.launches
+    out = p.forward(bc)
+    torch.cuda.synchronize()
+    stacked = 1 if conv in dispatch.MP_STACK_CONVS else 0
+    assert mp_block.fused_mp_block_stack.launches == s0 + stacked
+    assert readout.fused_readout.launches == r0 + 1
+    dispatch.set_fused_mode("never")
+    try:
+        ref = p.forward(bc)
+    finally:
+        dispatch.set_fused_mode("auto")
+    m = bc.graph_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out[m], ref[m]) <= 1e-4
+
+
+def test_pna_without_ell_table_on_the_card(cuda_device):
+    """PNA on a block batch with a 70-in-degree hub (no ELL table) runs
+    the edge-list path on the card and matches the CPU to 1e-4 of max
+    |value|."""
+    gs, b = _hub_block_batch("cpu")
+    model = canonical_model("pna", "qm9", graphs=gs, gnn_num_layers=3)
+    size = dict(max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, block_size=128)
+    p = Program(model, **size)
+    state = p.init_params()
+    cpu = Program(canonical_model("pna", "qm9", graphs=gs,
+                                  gnn_num_layers=3), **size, device="cpu")
+    cpu.set_params({k: v.cpu() for k, v in state.items()})
+    out = p.forward(b.to(cuda_device)).cpu()
+    ref = cpu.forward(b)
+    m = b.graph_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out[m], ref[m]) <= 1e-4
+
+
+def test_ell_gather_kernel_matches_plain_bitwise_stable(cuda_device):
+    """The reverse-table gather on the 128-graph train batch with PNA's
+    seven coefficient blocks (half the extremum refs hit): within 1e-6 of
+    max |value| of the plain version (another sum order), and the same
+    bits on two launches."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    N, F = b.num_nodes, 128
+    v = torch.randn(N, F, generator=g).to(cuda_device)
+    cstk = torch.randn(N, 7 * F, generator=g).to(cuda_device)
+    hit = torch.rand(N, F, generator=g).to(cuda_device) < 0.5
+    first = v[b.rev_nbr_nodes[:, 0].long()]
+    cstk[:, 3 * F:4 * F] = torch.where(hit, first, cstk[:, 3 * F:4 * F])
+    args = (cstk, b.rev_nbr_nodes, b.out_degree, v, True, True, 2)
+    before = ell_bwd.fused_gather_backward.launches
+    one = ell_bwd.fused_gather_backward(*args)
+    two = ell_bwd.fused_gather_backward(*args)
+    torch.cuda.synchronize()
+    assert ell_bwd.fused_gather_backward.launches == before + 2
+    assert torch.equal(one, two)
+    want = ell_bwd.ell_gather_backward_plain(*args)
+    assert _scaled_err(one, want) <= 1e-6
+
+
+def test_pna_dv_and_train_step_are_bitwise_reproducible(cuda_device):
+    """On a batch with a reverse table the PNA dv (scatter kernel in cstk
+    mode, then the gather) is the same bits on two launches, and two
+    train steps from one saved state give the same bits in every
+    gradient; the cstk rows match the plain version to 1e-5 of max
+    |value|."""
+    gs, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    F = 128
+
+    def r(fan_in, *s):
+        return (torch.randn(*s, generator=g) / fan_in ** 0.5).to(cuda_device)
+
+    p = (r(2 * F, 2 * F, F), r(2 * F, F), r(13 * F, 13 * F, F), r(13 * F, F),
+         r(F, F, F), r(F, F))
+    x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+    _, v, agg_cat, aux, _ = pna_layer.fused_pna_layer(
+        x, b.nbr_nodes, b.in_degree, *p, 1.8, act="relu", save_res=True)
+    ks_t = pna_layer.scaler_blocks(p[2], F, F).t().contiguous()
+    d_mid = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+    cargs = (d_mid, aux, agg_cat, b.in_degree, ks_t, 1.8)
+    dvs = []
+    for _ in range(2):
+        cstk = scatter_bwd.fused_pna_scatter_cstk(*cargs)
+        dvs.append(ell_bwd.fused_gather_backward(
+            cstk, b.rev_nbr_nodes, b.out_degree, v, True, True, 2))
+    torch.cuda.synchronize()
+    assert torch.equal(dvs[0], dvs[1])
+    assert _scaled_err(cstk, scatter_bwd.pna_scatter_cstk_plain(
+        *cargs)) <= 1e-5
+
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    torch.manual_seed(0)
+    model = canonical_model("pna", "qm9", graphs=gs).to(cuda_device)
+    state = {k: t.clone() for k, t in model.state_dict().items()}
+    grads = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        step = train.make_train_step(
+            model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        counts = _counts()
+        step(b, target)
+        torch.cuda.synchronize()
+        assert _delta(counts) == (6, 6, 6, 1)
+        grads.append({k: q.grad.clone() for k, q in
+                      model.named_parameters()})
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k

@@ -56,3 +56,43 @@ def test_rejects_non_pna_tree():
         params_from_jax(bad)
     assert isinstance(params_from_jax(params)["mlp_head.linear_layers.0"
                                               ".weight"], torch.Tensor)
+
+
+@pytest.mark.parametrize("conv,leaves", [
+    ("gcn", 2), ("gin", 4), ("sage", 3)])
+def test_mp_conv_round_trip_every_leaf(conv, leaves):
+    """GCN (lin without bias, separate bias), GIN (lin0, lin1) and SAGE
+    (lin_l, lin_r without bias): every flax leaf lands in the state dict,
+    kernels transposed, exactly."""
+    gs, (b,) = jax_canonical_batches("qm9", n_graphs=8, batch_size=8,
+                                     block_size=128, node_multiple=128)
+    params = jax.tree.map(np.asarray, jax_canonical_model(
+        conv, "qm9", graphs=gs).init(jax.random.PRNGKey(1), b))
+    sd = params_from_jax(params)
+    model = canonical_model(conv, "qm9", graphs=gs)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    flat = jax.tree_util.tree_flatten_with_path(params["params"])[0]
+    assert len(flat) == len(sd) == 6 * leaves + 5 * 2
+    for path, leaf in flat:
+        keys = [p.key for p in path]
+        if keys[0] == "mlp_head":
+            name = (f"mlp_head.linear_layers.{keys[1].rsplit('_', 1)[1]}."
+                    + ("weight" if keys[-1] == "kernel" else "bias"))
+        else:
+            name = ".".join(["gnn_convs", keys[0].rsplit("_", 1)[1]]
+                            + keys[1:])
+            name = name.replace(".kernel", ".weight")
+        got = model.state_dict()[name].numpy()
+        want = leaf.T if keys[-1] == "kernel" else leaf
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_rejects_mixed_convs():
+    _, params = _canonical_flax_params()
+    bad = {"params": dict(params["params"])}
+    bad["params"]["gnn_convs_1"] = {
+        "lin0": params["params"]["gnn_convs_0"]["lin"],
+        "lin1": params["params"]["gnn_convs_0"]["lin"]}
+    with pytest.raises(ValueError, match="mix convs"):
+        params_from_jax(bad)

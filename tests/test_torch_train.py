@@ -180,9 +180,12 @@ def test_model_gradients_match_jax():
         (tb.num_graphs, 1)).astype(np.float32)
     target = torch.from_numpy(target_np)
 
-    calls = {"layer": 0, "scatter": 0, "readout": 0}
-    orig = (pna_layer.fused_pna_layer, scatter_bwd.fused_pna_scatter_backward,
-            readout.fused_readout)
+    # the batch carries a reverse table, so each layer's dv takes the
+    # scatter kernel's cstk mode and the reverse-table gather
+    calls = {"layer": 0, "scatter": 0, "gather": 0, "readout": 0}
+    orig = (pna_layer.fused_pna_layer, scatter_bwd.fused_pna_scatter_cstk,
+            pna_layer.fused_gather_backward, readout.fused_readout)
+    assert tb.rev_nbr_nodes is not None
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -191,15 +194,17 @@ def test_model_gradients_match_jax():
         return wrapped
 
     pna_layer.fused_pna_layer = count("layer", orig[0])
-    pna_layer.fused_pna_scatter_backward = count("scatter", orig[1])
-    readout.fused_readout = count("readout", orig[2])
+    pna_layer.fused_pna_scatter_cstk = count("scatter", orig[1])
+    pna_layer.fused_gather_backward = count("gather", orig[2])
+    readout.fused_readout = count("readout", orig[3])
     try:
         l_auto, g_auto = _torch_grads(tm, tb, target, "auto")
     finally:
         pna_layer.fused_pna_layer = orig[0]
-        pna_layer.fused_pna_scatter_backward = orig[1]
-        readout.fused_readout = orig[2]
-    assert calls == {"layer": 3, "scatter": 3, "readout": 1}
+        pna_layer.fused_pna_scatter_cstk = orig[1]
+        pna_layer.fused_gather_backward = orig[2]
+        readout.fused_readout = orig[3]
+    assert calls == {"layer": 3, "scatter": 3, "gather": 3, "readout": 1}
     l_never, g_never = _torch_grads(tm, tb, target, "never")
     jt = jnp.asarray(target_np)
     l_jn, g_jn = _jax_grads(jm, jb, params, jt, "never")
