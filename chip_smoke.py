@@ -113,6 +113,35 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=2):
+    """Device time per call of ``fn``: the CUDA kernels' self time under
+    torch.profiler over ``iters`` calls.  For calls shorter than the host's
+    launch overhead, CUDA events around back-to-back calls (``time_ms``)
+    measure the host's launch rate instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if us is None else us
+    return total / 1e3 / iters
+
+
+def timed(fn, iters):
+    """(device ms, CUDA-event ms) per call of ``fn``."""
+    return device_ms(fn, iters), time_ms(fn, iters)
+
+
 def bound(flops, nbytes):
     t_ops = flops / PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -200,8 +229,9 @@ def split_device_time(prof, n_steps):
     from torch.autograd import DeviceType
 
     parts = {"pna_layer kernel": 0.0, "pna_scatter_bwd kernel": 0.0,
-             "ell_gather_bwd kernel": 0.0, "readout kernel": 0.0,
-             "Adam": 0.0, "torch matmul": 0.0, "other torch kernels": 0.0}
+             "mp_layer kernel": 0.0, "ell_gather_bwd kernel": 0.0,
+             "readout kernel": 0.0, "Adam": 0.0, "torch matmul": 0.0,
+             "other torch kernels": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -211,6 +241,8 @@ def split_device_time(prof, n_steps):
         name = e.key.lower()
         if "pna_layer" in name:
             part = "pna_layer kernel"
+        elif "mp_layer" in name:
+            part = "mp_layer kernel"
         elif "scatter_bwd" in name:
             part = "pna_scatter_bwd kernel"
         elif "ell_gather_bwd" in name:
@@ -266,6 +298,250 @@ def worst_grad(got, want):
     return ok, abs_worst, worst, name
 
 
+# this slice: the per-layer mp kernel (row 4), GCN / GIN / SAGE training,
+# LG and Simple
+MP_LAYER_CONVS = ("gin", "sage", "gcn", "lg", "simple_sum", "simple_mean")
+SAME_WIDTH = (("lg", "lg", {}),
+              ("simple_sum", "simple", {"aggregation": "sum"}),
+              ("simple_mean", "simple", {"aggregation": "mean"}))
+MP_TRAIN_STEPS = 3
+
+
+def mp_layer_operands(conv, F, gen, dev):
+    """(operands, Fout) of one row-4 launch at input width F: gin and sage
+    128 wide out (the canonical hidden width), the rest F."""
+    def r(*shape, sc=None):
+        sc = 1.0 / math.sqrt(shape[0]) if sc is None else sc
+        return torch.randn(*shape, generator=gen, device=dev) * sc
+
+    if conv == "gin":
+        return dict(w0=r(F, 128), b0=r(128, sc=0.1), w1=r(128, 128),
+                    b1=r(128, sc=0.1), eps=0.2), 128
+    if conv == "sage":
+        return dict(w0=r(F, 128), b0=r(128, sc=0.1), w1=r(F, 128)), 128
+    if conv == "gcn":
+        return dict(b0=r(F, sc=0.1)), F
+    return {}, F
+
+
+def mp_layer_work(conv, n, edges, table_words, F, H, Fout, skip, act,
+                  save_s):
+    """(flops, bytes) of one row-4 launch: one add per real edge and
+    aggregated feature, the epilogue's products (2 per multiply-add) and
+    elementwise operations; v, the table (ELL ids or block counts), the
+    degrees, the weights and skip in, out (and s) out, each once."""
+    flops = edges * F
+    if conv == "gin":
+        flops += 2 * n * F + 2 * n * (F * H + H * Fout) + 2 * n * H
+        weights = F * H + H + H * Fout + Fout
+    elif conv == "sage":
+        flops += n * F + 4 * n * F * Fout + n * Fout
+        weights = 2 * F * Fout + Fout
+    else:
+        flops += {"gcn": 3, "lg": 1, "simple_mean": 1,
+                  "simple_sum": 0}[conv] * n * F
+        weights = F if conv == "gcn" else 0
+    flops += n * Fout * (int(skip) + int(act))
+    nbytes = 4 * (n * F + table_words + n + weights
+                  + n * Fout * (1 + int(skip)) + (n * F if save_s else 0))
+    return flops, nbytes
+
+
+def one_way_star_batch(graphs, dev):
+    """``graphs`` and a 71-node star whose hub sends to 70 leaves,
+    standard-packed: every in-degree is at most 4, so the batch has its
+    ELL table, but the hub's out-degree is over 64, so no reverse
+    table."""
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+    from gnnbuilder_tpu_torch.data.datasets import Graph
+
+    rng = np.random.default_rng(1)
+    leaves = np.arange(1, 71)
+    star = Graph(x=rng.standard_normal((71, 11)).astype(np.float32),
+                 edge_index=np.stack([0 * leaves, leaves]).astype(np.int64),
+                 edge_attr=np.zeros((70, 4), np.float32))
+    gs = list(graphs[:7]) + [star] + list(graphs[7:])
+    return build_graph_batch(gs, node_multiple=256, device=dev)
+
+
+def adjacency_csr(g, transpose=False):
+    """The batch's [N, N] edge counts A (A[i, j] = edges j -> i), or A^T,
+    as a torch CSR on the batch's device, for the library yardstick
+    ``torch.sparse.mm``; built outside any timing."""
+    m = g.edge_mask
+    rows, cols = g.receivers[m].long(), g.senders[m].long()
+    if transpose:
+        rows, cols = cols, rows
+    N = g.num_nodes
+    a = torch.sparse_coo_tensor(torch.stack([rows, cols]),
+                                torch.ones(len(rows), device=g.device),
+                                (N, N)).coalesce()
+    return a.to_sparse_csr()
+
+
+def mp_times(report, *, tb, mp_modes, g_args, sc_args, mp_models,
+             fwd_cells, target, fresh_step):
+    """This slice's times: row 4 per conv and mode and row 7's lin-only
+    and CSR modes by device time (``device_ms``) and by CUDA events, each
+    with its plain version, bound and, where one PyTorch call computes
+    the same function, ``torch.sparse.mm``; the three train steps and the
+    five forwards by CUDA events.  Fills ``report``; returns the train
+    steps' and forwards' times."""
+    from gnnbuilder_tpu_torch.ops import dispatch, ell
+    from gnnbuilder_tpu_torch.ops.cuda import ell_bwd, mp_layer, scatter_bwd
+
+    dev = tb.device
+    gen = torch.Generator(device=dev).manual_seed(29)
+    # row 4: one launch per conv and mode at the interior layer shape
+    # (128 wide, skip, relu; ELL with s saved, the train path's; block
+    # without, the forward's); simple_sum bare (no skip, activation or s),
+    # so that one sparse product computes the same function
+    by_conv = {}
+    for mode, (g_, badj) in mp_modes.items():
+        n_, e_ = g_.num_nodes, int(g_.in_degree.sum())
+        words = n_ * (128 if badj is not None else g_.ell_width)
+        a_csr = adjacency_csr(g_)
+        x_ = torch.randn(n_, 128, generator=gen, device=dev)
+        for conv in MP_LAYER_CONVS:
+            ops, Fout = mp_layer_operands(conv, 128, gen, dev)
+            bare = conv == "simple_sum"
+            sk = None if bare else torch.randn(n_, Fout, generator=gen,
+                                               device=dev)
+            act = None if bare else "relu"
+            save_s = mode == "ell" and not bare
+            kw = dict(ops, skip=sk, act=act, save_s=save_s, block_adj=badj)
+            H = ops["w0"].shape[1] if conv == "gin" else 0
+            fl, by = mp_layer_work(conv, n_, e_, words, 128, H, Fout,
+                                   sk is not None, act is not None, save_s)
+            b_ms, b_by = bound(fl, by)
+            ms, ev = timed(lambda: mp_layer.fused_mp_layer(
+                x_, g_.nbr_nodes, g_.in_degree, conv, **kw), 20)
+            pms, pev = timed(lambda: mp_layer.mp_layer_plain(
+                x_, g_.nbr_nodes, g_.in_degree, conv, **kw), 5)
+            lib = (timed(lambda: torch.sparse.mm(a_csr, x_), 20) if bare
+                   else (None, None))
+            ent = dict(ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev,
+                       bound_ms=b_ms, bound_by=b_by, flops=fl, bytes=by,
+                       library_ms=lib[0], library_event_ms=lib[1], N=n_,
+                       skip=sk is not None, act=act, save_s=save_s)
+            by_conv[f"{conv} {mode}"] = ent
+            libs = ("" if lib[0] is None else
+                    f", torch.sparse.mm {lib[0]:.4f} ({lib[1]:.4f})")
+            log(f"mp_layer {conv} {mode} [N={n_}, 128 wide], device ms "
+                f"(event ms): {ms:.4f} ({ev:.4f}), plain {pms:.4f} "
+                f"({pev:.4f}){libs}; bound {b_ms:.4f} ms by {b_by}")
+    head = by_conv["gcn ell"]
+    report["mp_layer"].update(
+        {k: head[k] for k in ("ms", "event_ms", "plain_ms", "plain_event_ms",
+                              "bound_ms", "bound_by", "flops", "bytes",
+                              "library_ms")},
+        per="one gcn launch in ELL mode on the train batch, 128 wide, "
+            "skip, relu, s saved (by_conv: every conv and mode)",
+        by_conv=by_conv)
+
+    # row 7, lin-only: the six gathers of one GCN train step (ds 128 wide
+    # in five layers, 64 in the last) over the reverse table; the library
+    # yardstick is A^T ds as one sparse product per layer
+    n_, e_ = tb.num_nodes, int(tb.in_degree.sum())
+    at_csr = adjacency_csr(tb, transpose=True)
+    widths = [128] * 5 + [64]
+    dss = [torch.randn(n_, w, generator=gen, device=dev) for w in widths]
+    lin = [(d, tb.rev_nbr_nodes, tb.out_degree, None, True, False, 0)
+           for d in dss]
+    Wr = tb.rev_nbr_nodes.shape[1]
+    fl = sum(e_ * w for w in widths)
+    by = sum(4 * (2 * n_ * w + n_ * Wr + n_) for w in widths)
+    b_ms, b_by = bound(fl, by)
+
+    def each(fn, arg_list):
+        for a in arg_list:
+            fn(*a)
+
+    ms, ev = timed(lambda: each(ell_bwd.fused_gather_backward, lin), 20)
+    pms, pev = timed(lambda: each(ell_bwd.ell_gather_backward_plain, lin), 5)
+    lms, lev = timed(lambda: [torch.sparse.mm(at_csr, d) for d in dss], 20)
+    report["ell_gather_bwd"].update(
+        ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev, library_ms=lms,
+        library_event_ms=lev, bound_ms=b_ms, bound_by=b_by, flops=fl,
+        bytes=by, per="GCN train step, lin-only terms (6 launches)")
+
+    # row 7, CSR mode: the PNA step's six gathers over the reverse CSR, the
+    # whole table-less route per PNA step, and lin-only over the CSR
+    ptr, idx = ell.reverse_csr(tb.nbr_nodes, tb.in_degree)
+    csr = [(a[0], ptr, idx, *a[3:]) for a in g_args]
+    fl = bz = 0
+    for a in csr:
+        F_ = a[3].shape[1]
+        fl += 8 * e_ * F_
+        bz += 4 * (n_ * 7 * F_ + 2 * n_ * F_ + n_ + 1 + e_)
+    b_ms, b_by = bound(fl, bz)
+    lin_csr = [(d, ptr, idx, None, True, False, 0) for d in dss]
+    ms, ev = timed(lambda: each(ell_bwd.fused_gather_backward_csr, csr), 20)
+    pms, pev = timed(lambda: each(ell_bwd.ell_gather_backward_csr_plain,
+                                  csr), 5)
+    lin_ms, lin_ev = timed(lambda: each(ell_bwd.fused_gather_backward_csr,
+                                        lin_csr), 20)
+    rc_ms, rc_ev = timed(lambda: ell.reverse_csr(tb.nbr_nodes,
+                                                 tb.in_degree), 20)
+    rt_ms, rt_ev = timed(lambda: each(scatter_bwd.fused_pna_scatter_backward,
+                                      sc_args), 10)
+    report["ell_gather_bwd_csr"].update(
+        ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, flops=fl, bytes=bz,
+        per="PNA train step without a reverse table (6 launches)",
+        lin_only_ms=lin_ms, lin_only_event_ms=lin_ev, reverse_csr_ms=rc_ms,
+        reverse_csr_event_ms=rc_ev, route_ms=rt_ms, route_event_ms=rt_ev,
+        route_plain_event_ms=time_ms(lambda: each(
+            scatter_bwd.pna_scatter_backward_plain, sc_args), 3))
+    for k in ("ell_gather_bwd", "ell_gather_bwd_csr"):
+        r = report[k]
+        log(f"{k} ({r['per']}), device ms (event ms): {r['ms']:.4f} "
+            f"({r['event_ms']:.4f}), plain {r['plain_ms']:.4f} "
+            f"({r['plain_event_ms']:.4f})"
+            + ("" if r["library_ms"] is None else
+               f", torch.sparse.mm {r['library_ms']:.4f} "
+               f"({r['library_event_ms']:.4f})")
+            + f"; bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    r = report["ell_gather_bwd_csr"]
+    log(f"table-less PNA dv route per step, device ms (event ms): "
+        f"{r['route_ms']:.4f} ({r['route_event_ms']:.4f}), plain "
+        f"({r['route_plain_event_ms']:.4f}); reverse_csr "
+        f"{r['reverse_csr_ms']:.4f} ({r['reverse_csr_event_ms']:.4f}); CSR "
+        f"lin-only gathers {r['lin_only_ms']:.4f} "
+        f"({r['lin_only_event_ms']:.4f}) per GCN step")
+
+    # the three train steps and the five forwards
+    torch.set_grad_enabled(True)
+    steps = {}
+    for conv, (m_, _, st_) in mp_models.items():
+        m_.load_state_dict(st_)
+        step_ = fresh_step(m_)
+        ms = time_ms(lambda: step_(tb, target), 10, warmup=3)
+        dispatch.set_fused_mode("never")
+        try:
+            plain = time_ms(lambda: step_(tb, target), 3, warmup=1)
+        finally:
+            dispatch.set_fused_mode("auto")
+        steps[conv] = dict(step_ms=ms, plain_step_ms=plain)
+        log(f"{conv} train step b{BATCH_GRAPHS}: {ms:.4f} ms (plain path "
+            f"{plain:.4f} ms)")
+    torch.set_grad_enabled(False)
+    forwards = {}
+    for name, (p_, bs_) in fwd_cells.items():
+        if name in mp_models:
+            m_, _, st_ = mp_models[name]
+            m_.load_state_dict(st_)
+        fb = p_.benchmark(bs_[0], iters=20, warmup=3)
+        forwards[name] = dict(ms=fb["latency_s"] * 1e3,
+                              graphs_per_s=fb["graphs_per_s"],
+                              N=bs_[0].num_nodes)
+        log(f"{name} forward b{BATCH_GRAPHS} (N={bs_[0].num_nodes}): "
+            f"{forwards[name]['ms']:.4f} ms, {fb['graphs_per_s']:.1f} "
+            f"graphs/s")
+    return dict(train=steps, forward=forwards)
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -277,28 +553,28 @@ def main():
         canonical_batches,
         canonical_model,
     )
-    from gnnbuilder_tpu_torch.ops import dispatch, segment
+    from gnnbuilder_tpu_torch.ops import dispatch, ell, segment
     from gnnbuilder_tpu_torch.ops.cuda import (
         _build,
         ell_bwd,
         mp_block,
+        mp_layer,
         pna_block,
         pna_layer,
         readout,
         scatter_bwd,
     )
 
-    # the scatter kernel counts per mode: its cstk mode is the train
-    # path's, its scatter (atomic) mode serves batches without a reverse
-    # table
+    # the gather counts per mode: the reverse table's, and the reverse
+    # CSR's of batches without one
     counted = {"pna_block_stack": pna_block.fused_pna_block_stack,
                "readout": readout.fused_readout,
                "pna_layer": pna_layer.fused_pna_layer,
                "pna_scatter_bwd": scatter_bwd.fused_pna_scatter_cstk,
-               "pna_scatter_bwd_atomic":
-                   scatter_bwd.fused_pna_scatter_backward,
                "ell_gather_bwd": ell_bwd.fused_gather_backward,
-               "mp_block_stack": mp_block.fused_mp_block_stack}
+               "ell_gather_bwd_csr": ell_bwd.fused_gather_backward_csr,
+               "mp_block_stack": mp_block.fused_mp_block_stack,
+               "mp_layer": mp_layer.fused_mp_layer}
 
     def only(**nonzero):
         """The launch counts of a path that launches ``nonzero``."""
@@ -523,7 +799,7 @@ def main():
             residuals.append(got)
         gen = torch.Generator(device=dev).manual_seed(7)
         sc_args, cs_args, g_args = [], [], []
-        err_scatter = err_gather = 0.0
+        err_scatter = err_gather = err_csr = 0.0
         for i, ((args, _), (_, v, agg, aux, _)) in enumerate(
                 zip(layers, residuals)):
             F_i, Fout_i = args[3].shape[1], args[7].shape[1]
@@ -531,6 +807,8 @@ def main():
                 args[5], args[0].shape[1], F_i).t().contiguous()
             d_mid = torch.randn(tb.num_nodes, Fout_i, generator=gen,
                                 device=dev)
+            # the route of a batch without a reverse table: the cstk mode,
+            # the reverse CSR of the forward table and the CSR gather
             sa = (d_mid, aux, agg, tb.in_degree, tb.nbr_nodes, v, ks_t,
                   args[9])
             got = scatter_bwd.fused_pna_scatter_backward(*sa)
@@ -538,15 +816,17 @@ def main():
             torch.cuda.synchronize()
             want = scatter_bwd.pna_scatter_backward_plain(*sa)
             ok, abs_err, rel_err = close_enough(got, want)
-            err_scatter = max(err_scatter, abs_err)
-            # atomic adds in another order each run: not bitwise stable
-            rerun = float((again - got).abs().max())
-            log(f"pna_scatter_bwd {i}: max abs {abs_err:.3e}, {rel_err:.3e} "
-                f"of max |value| (tol {TOL}); two runs differ by max abs "
-                f"{rerun:.3e}")
+            err_csr = max(err_csr, abs_err)
+            log(f"table-less PNA dv {i} (cstk, reverse_csr, CSR gather): "
+                f"max abs {abs_err:.3e}, {rel_err:.3e} of max |value| "
+                f"against the plain scatter (tol {TOL}); bitwise equal on "
+                f"two calls: {torch.equal(got, again)}")
             if not ok:
-                raise AssertionError(f"pna_scatter_bwd {i} disagrees with "
+                raise AssertionError(f"table-less PNA dv {i} disagrees with "
                                      f"its plain version")
+            if not torch.equal(got, again):
+                raise AssertionError(f"table-less PNA dv {i}: two calls "
+                                     f"differ")
             sc_args.append(sa)
             # the train path's route: cstk mode, then the reverse-table
             # gather, on this layer's real coefficients
@@ -582,6 +862,7 @@ def main():
         report["pna_layer"] = dict(max_abs_err=err_layer)
         report["pna_scatter_bwd"] = dict(max_abs_err=err_scatter)
         report["ell_gather_bwd"] = dict(max_abs_err=err_gather)
+        report["ell_gather_bwd_csr"] = dict(max_abs_err=err_csr)
 
     torch.set_grad_enabled(True)
     with phase("train gradients against the plain path (one step)"):
@@ -658,8 +939,10 @@ def main():
         if launches != want:
             raise AssertionError(f"train path launches {launches}, "
                                  f"expected {want}")
-        for k in ("pna_layer", "pna_scatter_bwd", "ell_gather_bwd"):
+        for k in ("pna_layer", "pna_scatter_bwd"):
             report[k]["launches"] = launches[k]
+        report["ell_gather_bwd"]["pna_mode_launches"] = launches[
+            "ell_gather_bwd"]
         log(f"loss curve kernels: {curves['auto']}")
         log(f"loss curve plain:   {curves['never']}")
         for i, (a, b) in enumerate(zip(curves["auto"], curves["never"])):
@@ -829,6 +1112,234 @@ def main():
             if not ok:
                 raise AssertionError(f"{conv}: card disagrees with the CPU")
 
+    with phase("row 4 (mp layer) against its plain version: six convs, "
+               "ELL and block modes, canonical widths"):
+        gen4 = torch.Generator(device=dev).manual_seed(17)
+        mp_modes = {"ell": (tb, None), "block": (b0, b0.block_adj)}
+        err_l = 0.0
+        for conv in MP_LAYER_CONVS:
+            for mode, (g_, badj) in mp_modes.items():
+                for F_, act, with_skip, save_s in (
+                        (11, "relu", True, True), (128, "tanh", False, True),
+                        (128, "relu", True, False)):
+                    ops, Fout = mp_layer_operands(conv, F_, gen4, dev)
+                    x_ = torch.randn(g_.num_nodes, F_, generator=gen4,
+                                     device=dev)
+                    sk = (torch.randn(g_.num_nodes, Fout, generator=gen4,
+                                      device=dev) if with_skip else None)
+                    kw = dict(ops, skip=sk, act=act, save_s=save_s,
+                              block_adj=badj)
+                    got = mp_layer.fused_mp_layer(x_, g_.nbr_nodes,
+                                                  g_.in_degree, conv, **kw)
+                    torch.cuda.synchronize()
+                    want = mp_layer.mp_layer_plain(x_, g_.nbr_nodes,
+                                                   g_.in_degree, conv, **kw)
+                    if not save_s:
+                        got, want = (got,), (want,)
+                    real = g_.node_mask
+                    for name, a, w in zip(("out", "s"), got, want):
+                        ok, abs_err, rel_err = close_enough(a[real], w[real])
+                        err_l = max(err_l, abs_err)
+                        if not ok:
+                            raise AssertionError(
+                                f"mp_layer {conv} {mode} F={F_} {name}: "
+                                f"{rel_err:.3e} of max |value| against its "
+                                f"plain version (tol {TOL})")
+                log(f"mp_layer {conv} {mode} [N={g_.num_nodes}]: out and s "
+                    f"within tol at F = 11 and 128, relu + skip and tanh")
+        report["mp_layer"] = dict(max_abs_err=err_l)
+
+    with phase("row 7's CSR mode against its plain version on two batches "
+               "without a reverse table"):
+        star_b = one_way_star_batch(tgraphs[:255], dev)
+        gen7 = torch.Generator(device=dev).manual_seed(19)
+        for label, g_ in (("b1024 train batch, rev_ell_width=0",
+                           tb.replace(rev_nbr_nodes=None, out_degree=None)),
+                          ("one-way 70-leaf star", star_b)):
+            if g_.rev_nbr_nodes is not None or g_.nbr_nodes is None:
+                raise AssertionError(f"{label}: needs an ELL table and no "
+                                     f"reverse table")
+            ptr, idx = ell.reverse_csr(g_.nbr_nodes, g_.in_degree)
+            n_ = g_.num_nodes
+            vv = torch.randn(n_, 128, generator=gen7, device=dev)
+            cs7 = torch.randn(n_, 7 * 128, generator=gen7, device=dev)
+            hit = torch.rand(n_, 128, generator=gen7, device=dev) < 0.5
+            cs7[:, 384:512] = torch.where(hit, vv, cs7[:, 384:512])
+            for terms, ga in (
+                    ("lin-only", (cs7[:, :128].contiguous(), ptr, idx, None,
+                                  True, False, 0)),
+                    ("PNA", (cs7, ptr, idx, vv, True, True, 2))):
+                one = ell_bwd.fused_gather_backward_csr(*ga)
+                two = ell_bwd.fused_gather_backward_csr(*ga)
+                torch.cuda.synchronize()
+                ok, abs_err, rel_err = close_enough(
+                    one, ell_bwd.ell_gather_backward_csr_plain(*ga))
+                report["ell_gather_bwd_csr"]["max_abs_err"] = max(
+                    report["ell_gather_bwd_csr"]["max_abs_err"], abs_err)
+                log(f"{label} (N={n_}, largest out-degree "
+                    f"{int((ptr[1:] - ptr[:-1]).max())}), {terms} terms: "
+                    f"{rel_err:.3e} of max |value| (tol {TOL}); bitwise "
+                    f"equal on two launches: {torch.equal(one, two)}")
+                if not ok or not torch.equal(one, two):
+                    raise AssertionError(f"ell_gather_bwd_csr on {label} "
+                                         f"({terms})")
+
+    torch.set_grad_enabled(True)
+    mp_models = {}
+    with phase("GCN, GIN and SAGE training: gradients of one step against "
+               "the plain path, and two steps from one state"):
+        for conv in MP_CONVS:
+            m_ = canonical_model(conv, "qm9", graphs=tgraphs)
+            p_ = Program(m_, max_nodes=tb.num_nodes, max_edges=tb.num_edges,
+                         max_graphs=tb.num_graphs, device="cuda", seed=21)
+            st_ = {k: v.clone() for k, v in p_.init_params().items()}
+            mp_models[conv] = (m_, p_, st_)
+            again = []
+            for _ in range(2):
+                m_.load_state_dict(st_)
+                fresh_step(m_)(tb, target)
+                torch.cuda.synchronize()
+                again.append(grads_of(m_))
+            same = [k for k in again[0]
+                    if torch.equal(again[0][k], again[1][k])]
+            refs = {}
+            for name, dt in (("float64", torch.float64),
+                             ("float32", torch.float32)):
+                mr = canonical_model(conv, "qm9", graphs=tgraphs).to(dev)
+                mr = mr.to(dt)
+                mr.load_state_dict({k: v.to(dt) for k, v in st_.items()})
+                dispatch.set_fused_mode("never")
+                try:
+                    train.masked_mse_loss(
+                        mr(tb.replace(node_feat=tb.node_feat.to(dt))),
+                        target.to(dt), tm).backward()
+                finally:
+                    dispatch.set_fused_mode("auto")
+                refs[name] = grads_of(mr)
+                del mr
+            # GIN's gate is the float32 plain path: relu decisions within
+            # float32 rounding of 0 go the other way in float64 (three on
+            # this batch in every float32 path), each moving a gradient
+            # by ~1e-3 of its max
+            gate = "float32" if conv == "gin" else "float64"
+            for name in ("float64", "float32"):
+                ok, abs_err, rel, k = worst_grad(again[0], refs[name])
+                log(f"{conv}: gradients vs {name} plain path worst "
+                    f"{rel:.3e} of max |value| ({k}), max abs {abs_err:.3e}"
+                    + (f" (tol {TOL})" if name == gate else " (logged)"))
+                if name == gate and not ok:
+                    raise AssertionError(f"{conv} gradients disagree with "
+                                         f"the {name} plain path")
+            log(f"{conv}: bitwise-equal gradients on two steps: {len(same)} "
+                f"of {len(again[0])}")
+            if len(same) != len(again[0]):
+                raise AssertionError(f"{conv}: two train steps from one "
+                                     f"state gave different gradients")
+
+    with phase(f"main path: {MP_TRAIN_STEPS} Adam steps each of canonical "
+               f"GCN, GIN and SAGE on the train batch"):
+        mp_curves, mp_train_launches, lin_launches = {}, 0, 0
+        for conv in MP_CONVS:
+            m_, _, st_ = mp_models[conv]
+            m_.load_state_dict(st_)
+            step_ = fresh_step(m_)
+            zero_counts()
+            mp_curves[conv] = [float(step_(tb, target))
+                               for _ in range(MP_TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            launches = counts()
+            log(f"{conv}: losses {mp_curves[conv]}; launches {launches}")
+            want = only(mp_layer=6 * MP_TRAIN_STEPS,
+                        ell_gather_bwd=6 * MP_TRAIN_STEPS,
+                        readout=MP_TRAIN_STEPS)
+            if launches != want:
+                raise AssertionError(f"{conv} train launches {launches}, "
+                                     f"expected {want}")
+            if not all(math.isfinite(x_) for x_ in mp_curves[conv]):
+                raise AssertionError(f"{conv}: non-finite loss")
+            mp_train_launches += launches["mp_layer"]
+            lin_launches += launches["ell_gather_bwd"]
+        report["mp_layer"]["launches"] = mp_train_launches
+        report["ell_gather_bwd"]["launches"] = lin_launches
+
+    with phase("PNA and GCN train steps on the train batch without its "
+               "reverse table (rev_ell_width=0): two steps from one state"):
+        tb_nr = tb.replace(rev_nbr_nodes=None, out_degree=None)
+        csr_launches = 0
+        for conv, mdl, st_, want in (
+                ("pna", tmodel, state0,
+                 only(pna_layer=6, pna_scatter_bwd=6, ell_gather_bwd_csr=6,
+                      readout=1)),
+                ("gcn", mp_models["gcn"][0], mp_models["gcn"][2],
+                 only(mp_layer=6, ell_gather_bwd_csr=6, readout=1))):
+            again = []
+            for _ in range(2):
+                mdl.load_state_dict(st_)
+                step_ = fresh_step(mdl)
+                zero_counts()
+                step_(tb_nr, target)
+                torch.cuda.synchronize()
+                launches = counts()
+                if launches != want:
+                    raise AssertionError(f"{conv} table-less step launches "
+                                         f"{launches}, expected {want}")
+                csr_launches += launches["ell_gather_bwd_csr"]
+                again.append(grads_of(mdl))
+            same = [k for k in again[0]
+                    if torch.equal(again[0][k], again[1][k])]
+            log(f"{conv}: launches {launches}; bitwise-equal gradients "
+                f"{len(same)} of {len(again[0])}")
+            if len(same) != len(again[0]):
+                raise AssertionError(f"{conv}: table-less train steps from "
+                                     f"one state gave different gradients")
+        report["ell_gather_bwd_csr"]["launches"] = csr_launches
+    torch.set_grad_enabled(False)
+
+    with phase("Program.forward of GCN, GIN and SAGE on the standard-packed "
+               "batch and of LG, Simple-sum and Simple-mean on the block "
+               "batches, against the plain path"):
+        sw_graphs, sw_batches = canonical_batches(
+            "qm9", n_graphs=BATCH_GRAPHS * N_BATCHES,
+            batch_size=BATCH_GRAPHS, block_size=128, node_multiple=1024,
+            node_dim=128, device=dev)
+        fwd_cells = {}
+        for conv in MP_CONVS:
+            m_, p_, st_ = mp_models[conv]
+            m_.load_state_dict(st_)
+            fwd_cells[conv] = (p_, [tb])
+        for name, conv, kw in SAME_WIDTH:
+            m_ = canonical_model(conv, "qm9", graphs=sw_graphs,
+                                 conv_kwargs=kw)
+            p_ = Program(m_, max_nodes=sw_batches[0].num_nodes,
+                         max_edges=sw_batches[0].num_edges,
+                         max_graphs=sw_batches[0].num_graphs,
+                         block_size=128, device="cuda", seed=23)
+            p_.init_params()
+            fwd_cells[name] = (p_, sw_batches)
+        for name, (p_, bs_) in fwd_cells.items():
+            zero_counts()
+            outs_ = [p_.forward(b) for b in bs_]
+            torch.cuda.synchronize()
+            launches = counts()
+            want = only(mp_layer=6 * len(bs_), readout=len(bs_))
+            if launches != want:
+                raise AssertionError(f"{name} forward launches {launches}, "
+                                     f"expected {want}")
+            dispatch.set_fused_mode("never")
+            try:
+                refs_ = [p_.forward(b) for b in bs_]
+            finally:
+                dispatch.set_fused_mode("auto")
+            for i, (b, o_, r_) in enumerate(zip(bs_, outs_, refs_)):
+                m = b.graph_mask
+                ok, abs_err, rel_err = close_enough(o_[m], r_[m])
+                if not ok or tuple(o_.shape) != (b.num_graphs, 1):
+                    raise AssertionError(f"{name} forward {i} disagrees "
+                                         f"({rel_err:.3e} of max |value|)")
+            log(f"{name}: launches {launches}; outputs within tol ({TOL}) of "
+                f"the per-layer plain path on {len(bs_)} batch(es) of N="
+                f"{bs_[0].num_nodes}")
+
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
         log(f"forward b{BATCH_GRAPHS}: {bench['latency_s'] * 1e3:.4f} ms, "
@@ -912,11 +1423,6 @@ def main():
             g_bytes += 4 * (Nt * 7 * Fl + Nt * Fl + Nt * Wr + Nt + Nt * Fl)
         pads = {"pna_layer": l_pad, "pna_scatter_bwd": c_pad,
                 "ell_gather_bwd": g_pad}
-        report["pna_scatter_bwd"].update(
-            atomic_mode_ms=time_ms(lambda: run_each(
-                scatter_bwd.fused_pna_scatter_backward, sc_args), 10),
-            atomic_mode_plain_ms=time_ms(lambda: run_each(
-                scatter_bwd.pna_scatter_backward_plain, sc_args), 3))
         for name, fn, plain, fl, by in (
                 ("pna_layer", lambda: run_layers(pna_layer.fused_pna_layer),
                  lambda: run_layers(pna_layer.pna_layer_plain),
@@ -932,13 +1438,22 @@ def main():
                  lambda: run_each(ell_bwd.ell_gather_backward_plain, g_args),
                  g_flops, g_bytes)):
             b_ms, b_by = bound(fl, by)
-            report[name].update(ms=time_ms(fn, 10), plain_ms=time_ms(plain, 3),
-                                bound_ms=b_ms, bound_by=b_by, flops=fl,
-                                padded_flops=pads[name], bytes=by,
-                                per="train step (6 launches)")
-        log(f"pna_scatter_bwd scatter (atomic) mode: "
-            f"{report['pna_scatter_bwd']['atomic_mode_ms']:.4f} ms per step "
-            f"(plain {report['pna_scatter_bwd']['atomic_mode_plain_ms']:.4f})")
+            ent = dict(ms=time_ms(fn, 10), plain_ms=time_ms(plain, 3),
+                       bound_ms=b_ms, bound_by=b_by, flops=fl,
+                       padded_flops=pads[name], bytes=by,
+                       per="PNA train step (6 launches)")
+            if name == "ell_gather_bwd":   # the PNA terms; the headline
+                report[name]["pna_mode"] = ent   # is this slice's lin-only
+            else:
+                report[name].update(ent)
+        pm = report["ell_gather_bwd"]["pna_mode"]
+        log(f"ell_gather_bwd PNA terms: {pm['ms']:.4f} ms per PNA step "
+            f"(plain {pm['plain_ms']:.4f} ms, bound {pm['bound_ms']:.4f} ms "
+            f"by {pm['bound_by']})")
+        mp_timed = mp_times(report, tb=tb, mp_modes=mp_modes, g_args=g_args,
+                            sc_args=sc_args, mp_models=mp_models,
+                            fwd_cells=fwd_cells, target=target,
+                            fresh_step=fresh_step)
 
         # mp stack: each conv's launch on the first block batch, its whole
         # forward, and GIN's kernel mode against GIN's per-layer convs
@@ -1018,6 +1533,25 @@ def main():
         split_line = ", ".join(f"{k} {v:.4f}" for k, v in split.items())
         log(f"device ms per step by part: {split_line}; busy {busy:.4f} of "
             f"{wall_ms:.4f} ms wall")
+
+    with phase("GCN train step split (torch.profiler, 3 steps)"):
+        m_, _, st_ = mp_models["gcn"]
+        m_.load_state_dict(st_)
+        step_ = fresh_step(m_)
+        step_(tb, target)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            for _ in range(3):
+                step_(tb, target)
+            torch.cuda.synchronize()
+            gcn_wall_ms = (time.time() - t) * 1e3 / 3
+        gcn_split = split_device_time(prof, 3)
+        gcn_busy = sum(gcn_split.values())
+        split_line = ", ".join(f"{k} {v:.4f}" for k, v in gcn_split.items())
+        log(f"GCN device ms per step by part: {split_line}; busy "
+            f"{gcn_busy:.4f} of {gcn_wall_ms:.4f} ms wall")
     torch.set_grad_enabled(False)
 
     kernels = [
@@ -1044,7 +1578,15 @@ def main():
         dict(name="ell_gather_bwd", route="cuda",
              source="gnnbuilder_tpu_torch/csrc/ell_bwd.cu",
              replaces="gnnbuilder_tpu/ops/pallas/ell_bwd.py:259",
-             library_ms=None, **report["ell_gather_bwd"]),
+             **report["ell_gather_bwd"]),
+        dict(name="ell_gather_bwd_csr", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/ell_bwd.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/ell_bwd.py:259",
+             **report["ell_gather_bwd_csr"]),
+        dict(name="mp_layer", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/mp_layer.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/mp_layer.py:341",
+             **report["mp_layer"]),
     ]
     print(json.dumps({
         "kernels": kernels,
@@ -1060,6 +1602,12 @@ def main():
                       loss_curve=curves["auto"],
                       plain_loss_curve=curves["never"],
                       device_ms_per_step=split, profiled_wall_ms=wall_ms),
+        "mp_train": dict(batch_graphs=BATCH_GRAPHS, **mp_timed["train"],
+                         loss_curves=mp_curves,
+                         gcn_device_ms_per_step=gcn_split,
+                         gcn_profiled_wall_ms=gcn_wall_ms),
+        "mp_layer_forward": dict(batch_graphs=BATCH_GRAPHS,
+                                 **mp_timed["forward"]),
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,19 +2,26 @@
 
 The reference's benchmark model (build_gnnbuilder_benchmarks.py:59-118):
 6 GNN layers, hidden 128, GNN output 64, skip connections, global pooling
-add+mean+max, MLP head with 4 hidden layers x 64, output dim 1.
+add+mean+max, MLP head with 4 hidden layers x 64, output dim 1.  LG and
+Simple need in == out at every layer, so their canonical model runs at
+input = hidden = output (the JAX package's ``dse/measure.py``), on node
+features zero-padded to that width (``canonical_batches(node_dim=...)``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+
+import numpy as np
 
 from gnnbuilder_tpu_torch.core.graph import build_graph_batch, resolve_device
 from gnnbuilder_tpu_torch.data.datasets import DATASET_SPECS, load_dataset
 from gnnbuilder_tpu_torch.nn.model import GNNModel
 from gnnbuilder_tpu_torch.utils.stats import compute_pna_delta
 
-__all__ = ["canonical_model", "canonical_batches", "CANONICAL"]
+__all__ = ["canonical_model", "canonical_batches", "CANONICAL",
+           "SAME_WIDTH_CONVS"]
 
 CANONICAL = dict(
     gnn_hidden_dim=128,
@@ -27,11 +34,19 @@ CANONICAL = dict(
     mlp_out_dim=1,
 )
 
+# convs whose layers keep the width (in == out)
+SAME_WIDTH_CONVS = ("lg", "simple")
+
 
 def canonical_model(conv: str, dataset: str, graphs=None,
                     **overrides) -> GNNModel:
     spec = DATASET_SPECS[dataset]
     kw = dict(CANONICAL)
+    node_dim = spec.node_dim
+    if conv in SAME_WIDTH_CONVS:
+        # input = hidden = output; the batches' features are padded to it
+        hidden = overrides.get("gnn_hidden_dim", kw["gnn_hidden_dim"])
+        kw["gnn_output_dim"] = node_dim = hidden
     kw.update(overrides)
     conv_kwargs = dict(kw.pop("conv_kwargs", {}))
     if conv == "pna" and "delta" not in conv_kwargs:
@@ -39,7 +54,7 @@ def canonical_model(conv: str, dataset: str, graphs=None,
             graphs = load_dataset(dataset, n=200)
         conv_kwargs["delta"] = compute_pna_delta(graphs)
     return GNNModel(
-        graph_input_feature_dim=spec.node_dim,
+        graph_input_feature_dim=node_dim,
         graph_input_edge_dim=spec.edge_dim,
         gnn_conv=conv,
         conv_kwargs=conv_kwargs,
@@ -59,15 +74,23 @@ def canonical_batches(
     edge_multiple: int = 8,
     seed: int = 0,
     block_size: int = 0,
+    node_dim: int = None,
     device=None,
 ):
     """Pack the first ``n_graphs`` graphs into batches of ``batch_size``
     graphs that share one (max) padding bucket; ``block_size`` > 0 selects
-    block packing, the bucket then covering the worst pack waste.  Returns
-    (graphs, batches on ``device``): None = the CUDA card, which raises
-    without one; pass ``device="cpu"`` for the CPU."""
+    block packing, the bucket then covering the worst pack waste.
+    ``node_dim`` cuts or zero-pads the node features to that width (LG
+    and Simple run at input == hidden).  Returns (graphs, batches on
+    ``device``): None = the CUDA card, which raises without one; pass
+    ``device="cpu"`` for the CPU."""
     device = resolve_device(device)
     graphs = load_dataset(dataset, n=n_graphs, seed=seed)
+    if node_dim is not None:
+        graphs = [dataclasses.replace(g, x=np.pad(
+            g.x[:, :node_dim], ((0, 0), (0, max(node_dim - g.x.shape[1],
+                                                0)))))
+                  for g in graphs]
     chunks = [
         graphs[i: i + batch_size] for i in range(0, len(graphs), batch_size)
     ]

@@ -1,22 +1,28 @@
 """How far the train step's float32 gradients sit from float64, by path.
 
     python -m gnnbuilder_tpu_torch.bench.grad_precision [--graphs 128 1024]
-        [--hidden 128] [--output 64] [--device cuda]
+        [--conv pna] [--init-seed N] [--hidden 128] [--output 64]
+        [--device cuda]
 
 On the card (or with ``--device cpu`` on the CPU, where "auto" runs the
-kernels' plain versions), for the canonical PNA model (``torch.manual_seed(0)`` init;
-``--hidden`` and ``--output`` set its widths) on one standard-packed QM9
-batch per ``--graphs`` entry, one masked-MSE backward through four
-paths: the kernels (``"auto"``), the float32 plain path (``"never"``),
-the kernels' plain versions on the CPU in float32 (``"cpu32"``: the same
-arithmetic as the kernels, std over v, other rounding) and the plain
-path in float64.  Prints, per parameter, the worst |error| / max |value|
-of auto, never and cpu32 against float64 and of auto against never;
-then, per layer, the (row, column) pairs whose max or min goes another
-way in the float32 layer kernel than in the float64 plain layer, each on
-its own hidden state (another slot holds the extremum, or a tie holds in
-one precision only), with the rows and graphs they fall in.  Such a
-decision sends that max or min gradient to other neighbours.
+kernels' plain versions), for the canonical model of ``--conv`` (pna,
+gcn, gin or sage; ``torch.manual_seed(0)`` init, or with
+``--init-seed`` ``Program.init_params``'s at that seed, as
+``chip_smoke.py`` inits its models; ``--hidden`` and
+``--output`` set its widths) on one standard-packed QM9 batch per
+``--graphs`` entry, one masked-MSE backward through four paths: the
+kernels (``"auto"``), the float32 plain path (``"never"``), the kernels'
+plain versions on the CPU in float32 (``"cpu32"``: the same arithmetic
+as the kernels, other rounding) and the plain path in float64.  Prints,
+per parameter, the worst |error| / max |value| of auto, never and cpu32
+against float64 and of auto against never.  Then, per layer, the
+decisions that go another way in float32 than in float64, each
+precision on its own hidden state: for PNA the (row, column) pairs whose
+max or min differs between the float32 layer kernel and the float64
+plain layer (another slot holds the extremum, or a tie holds in one
+precision only), with the rows and graphs they fall in; for GIN the
+ReLU decisions of its MLP and of the layer's activation in the float32
+and float64 plain layers.  Such a decision sends a gradient elsewhere.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from gnnbuilder_tpu_torch.bench.canonical import (
     canonical_model,
 )
 from gnnbuilder_tpu_torch.ops import dispatch
+from gnnbuilder_tpu_torch.ops.activations import get_activation
 from gnnbuilder_tpu_torch.ops.cuda import pna_layer
+from gnnbuilder_tpu_torch.ops.ell import ell_sum
 
 
 def _grads(model, b, target, mode):
@@ -100,7 +108,39 @@ def decision_flips(model, b):
     return out
 
 
-def run(n_graphs, device, **widths):
+@torch.no_grad()
+def relu_flips(model, b):
+    """GIN, per layer: ReLU decisions on real rows whose sign differs
+    between the float32 and the float64 plain layer, each on its own
+    hidden state: the MLP's inner ReLU and the layer's activation (when
+    it is relu)."""
+    L = model.gnn_num_layers
+    act = get_activation(model.gnn_activation)
+    h = {torch.float32: b.node_feat, torch.float64: b.node_feat.double()}
+    real = b.node_mask[:, None]
+    out = []
+    for i, c in enumerate(model.gnn_convs):
+        z, o = {}, {}
+        for dt, x in h.items():
+            w0, b0, w1, b1 = (t.to(dt) for t in (
+                c.lin0.weight.t(), c.lin0.bias, c.lin1.weight.t(),
+                c.lin1.bias))
+            z[dt] = ((1.0 + c.eps) * x
+                     + ell_sum(x, b.nbr_nodes, b.in_degree)) @ w0 + b0
+            o[dt] = torch.relu(z[dt]) @ w1 + b1
+            if model.gnn_skip_connection and 0 < i < L - 1:
+                o[dt] = o[dt] + x
+            h[dt] = act(o[dt])
+        f32, f64 = torch.float32, torch.float64
+        inner = ((z[f32] > 0) != (z[f64] > 0)) & real
+        outer = ((o[f32] > 0) != (o[f64] > 0)) & real
+        out.append(dict(layer=i, inner=int(inner.sum()),
+                        outer=int(outer.sum()) if model.gnn_activation
+                        == "relu" else 0))
+    return out
+
+
+def run(n_graphs, device, conv="pna", init_seed=None, **widths):
     # a 1024-graph batch is drawn from 1100 graphs, as chip_smoke.py's
     # train batch (and the JAX package's train benchmark) draws it
     gs, (b,) = canonical_batches("qm9", n_graphs=1100 if n_graphs == 1024
@@ -108,11 +148,17 @@ def run(n_graphs, device, **widths):
                                  node_multiple=256, device=device)
     target = train.stack_targets(gs[:n_graphs], b.num_graphs, device=device)
     torch.manual_seed(0)
-    model = canonical_model("pna", "qm9", graphs=gs, **widths).to(device)
+    model = canonical_model(conv, "qm9", graphs=gs, **widths).to(device)
+    if init_seed is not None:
+        from gnnbuilder_tpu_torch import Program
+
+        Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, seed=init_seed,
+                device=device).init_params()
     state = model.state_dict()
-    ref = canonical_model("pna", "qm9", graphs=gs, **widths).to(device)
+    ref = canonical_model(conv, "qm9", graphs=gs, **widths).to(device)
     ref.double().load_state_dict({k: v.double() for k, v in state.items()})
-    cpu = canonical_model("pna", "qm9", graphs=gs, **widths)
+    cpu = canonical_model(conv, "qm9", graphs=gs, **widths)
     cpu.load_state_dict({k: v.cpu() for k, v in state.items()})
     losses, g = {}, {}
     for mode in ("auto", "never"):
@@ -122,7 +168,8 @@ def run(n_graphs, device, **widths):
         "never")
     losses["cpu32"], g["cpu32"] = _grads(cpu, b.to("cpu"), target.cpu(),
                                          "auto")
-    print(f"== {n_graphs} graphs, {widths or 'canonical widths'}: "
+    print(f"== {conv}, {n_graphs} graphs, init seed {init_seed}, "
+          f"{widths or 'canonical widths'}: "
           f"N={b.num_nodes} losses {losses}")
     print(f"{'parameter':40s} auto-f64  never-f64 cpu32-f64 auto-never")
     for k in g["f64"]:
@@ -130,14 +177,23 @@ def run(n_graphs, device, **widths):
               f"{_scaled(g['never'][k], g['f64'][k]):.2e}  "
               f"{_scaled(g['cpu32'][k].to(device), g['f64'][k]):.2e}  "
               f"{_scaled(g['auto'][k], g['never'][k]):.2e}")
-    for d in decision_flips(model, b):
-        print(f"layer {d['layer']}: {d['flips']} max/min decisions differ, "
-              f"rows {d['rows']}, graphs {sorted(set(d['graphs']))}")
+    if conv == "pna":
+        for d in decision_flips(model, b):
+            print(f"layer {d['layer']}: {d['flips']} max/min decisions "
+                  f"differ, rows {d['rows']}, graphs "
+                  f"{sorted(set(d['graphs']))}")
+    elif conv == "gin":
+        for d in relu_flips(model, b):
+            print(f"layer {d['layer']}: ReLU decisions differ: {d['inner']} "
+                  f"in the MLP, {d['outer']} in the activation")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graphs", type=int, nargs="+", default=[128, 1024])
+    ap.add_argument("--conv", default="pna",
+                    choices=("pna", "gcn", "gin", "sage"))
+    ap.add_argument("--init-seed", type=int, default=None)
     ap.add_argument("--hidden", type=int, default=None)
     ap.add_argument("--output", type=int, default=None)
     ap.add_argument("--device", default="cuda")
@@ -150,7 +206,7 @@ def main():
                                 ("gnn_output_dim", args.output))
               if v is not None}
     for n in args.graphs:
-        run(n, device, **widths)
+        run(n, device, args.conv, args.init_seed, **widths)
 
 
 if __name__ == "__main__":

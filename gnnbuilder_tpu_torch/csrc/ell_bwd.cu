@@ -1,5 +1,11 @@
 // Reverse-table gather backward: dv of an ELL aggregation, as a gather
 // over each sender's out-neighbours, with no scatter and no atomics.
+// Two modes, a template argument each so that neither moves the other's
+// registers: the table mode walks the batch's reverse ELL table
+// rev_nbr[j, :out_degree[j]]; the CSR mode walks
+// rev_idx[rev_ptr[j] : rev_ptr[j + 1]] (ops/ell.py reverse_csr, built on
+// the card from the forward table for batches that carry no reverse
+// table).
 //
 // Replaces: gnnbuilder_tpu/ops/pallas/ell_bwd.py fused_gather_backward
 // (kernel body _kernel).  cstk [N, K*F] holds per-receiver coefficients
@@ -42,13 +48,14 @@ constexpr int THREADS = 256;
 
 struct GatherArgs {
   const float* cstk;   // [N, K*F]
-  const int* rev;      // [N, Wr]
-  const int* odeg;     // [N]
+  const int* rev;      // [N, Wr] (table mode) or rev_idx [E] (CSR mode)
+  const int* odeg;     // [N] (table mode) or rev_ptr [N + 1] (CSR mode)
   const float* v;      // [N, F] (dev / cmp terms; may be null otherwise)
   float* dv;           // [N, F]
   int n_rows, Wr, F, has_lin, has_dev, n_cmp;
 };
 
+template <bool CSR>
 __global__ void __launch_bounds__(THREADS)
 ell_gather_bwd_kernel(GatherArgs a) {
   const size_t total = (size_t)a.n_rows * a.F;
@@ -59,8 +66,16 @@ ell_gather_bwd_kernel(GatherArgs a) {
     const int j = (int)(e / a.F);
     const int c = (int)(e % a.F);
     const float vj = a.v != nullptr ? a.v[e] : 0.f;
-    const int d = a.odeg[j];
-    const int* slots = a.rev + (size_t)j * a.Wr;
+    int d;
+    const int* slots;
+    if (CSR) {
+      const int p0 = a.odeg[j];
+      d = a.odeg[j + 1] - p0;
+      slots = a.rev + p0;
+    } else {
+      d = a.odeg[j];
+      slots = a.rev + (size_t)j * a.Wr;
+    }
     float acc = 0.f;
     for (int r = 0; r < d; ++r) {
       const float* ci = a.cstk + (size_t)slots[r] * ld + c;
@@ -80,17 +95,10 @@ ell_gather_bwd_kernel(GatherArgs a) {
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the gather on `stream` of `device`.  All arrays contiguous
-// f32 / i32 as documented in ops/cuda/ell_bwd.py.  Returns the
-// cudaError_t of the launch (0 = success).
-int gnnb_ell_gather_bwd(const void* cstk, const void* rev, const void* odeg,
-                        const void* v, int n_rows, int rev_width, int F,
-                        int has_lin, int has_dev, int n_cmp, void* dv,
-                        void* stream, int device) {
+int launch(const void* cstk, const void* rev, const void* odeg,
+           const void* v, int n_rows, int rev_width, int F, int has_lin,
+           int has_dev, int n_cmp, void* dv, void* stream, int device,
+           bool csr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_rows < 0 || F < 1 || n_cmp < 0 ||
@@ -113,8 +121,37 @@ int gnnb_ell_gather_bwd(const void* cstk, const void* rev, const void* odeg,
   const size_t total = (size_t)n_rows * F;
   const size_t want = (total + THREADS - 1) / THREADS;
   const int blocks = (int)(want < (size_t)1 << 20 ? want : (size_t)1 << 20);
-  ell_gather_bwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+  if (csr)
+    ell_gather_bwd_kernel<true><<<blocks, THREADS, 0,
+                                  (cudaStream_t)stream>>>(a);
+  else
+    ell_gather_bwd_kernel<false><<<blocks, THREADS, 0,
+                                   (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the gather over the reverse table on `stream` of `device`.
+// All arrays contiguous f32 / i32 as documented in ops/cuda/ell_bwd.py.
+// Returns the cudaError_t of the launch (0 = success).
+int gnnb_ell_gather_bwd(const void* cstk, const void* rev, const void* odeg,
+                        const void* v, int n_rows, int rev_width, int F,
+                        int has_lin, int has_dev, int n_cmp, void* dv,
+                        void* stream, int device) {
+  return launch(cstk, rev, odeg, v, n_rows, rev_width, F, has_lin, has_dev,
+                n_cmp, dv, stream, device, false);
+}
+
+// The same over the reverse CSR (rev_ptr [N + 1], rev_idx [E] int32).
+int gnnb_ell_gather_bwd_csr(const void* cstk, const void* rev_ptr,
+                            const void* rev_idx, const void* v, int n_rows,
+                            int F, int has_lin, int has_dev, int n_cmp,
+                            void* dv, void* stream, int device) {
+  return launch(cstk, rev_idx, rev_ptr, v, n_rows, 0, F, has_lin, has_dev,
+                n_cmp, dv, stream, device, true);
 }
 
 }  // extern "C"

@@ -39,13 +39,17 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "block_lists.cuh"
+
 namespace {
 
+using gnnb::agg_row;
+
 constexpr int BB = 128;               // rows per block = rows per CTA
+static_assert(BB == gnnb::LIST_COLS, "lists cover one block row");
 constexpr int CB = 128;               // columns per column block
 constexpr int THREADS = 256;
 constexpr int GROUPS = THREADS / CB;  // row groups (2)
-constexpr int NWARPS = THREADS / 32;
 constexpr int VT = 32;                // rows per register tile, whole block
 constexpr int MAX_L = 16;
 constexpr int MAX_NNZ = BB * BB;      // a dense block fits the list
@@ -104,17 +108,6 @@ __device__ __forceinline__ void dot_rows(float (&acc)[NR], const float* A,
   }
 }
 
-// sum_j A[r, j] S[j, c] over row r's list; an entry is (count << 8) | j.
-__device__ __forceinline__ float agg_row(const int* ent, int e0, int e1,
-                                         const float* S, int F, int c) {
-  float s = 0.f;
-  for (int e = e0; e < e1; ++e) {
-    const int p = ent[e];
-    s = fmaf((float)(p >> 8), S[(size_t)(p & 0xFF) * F + c], s);
-  }
-  return s;
-}
-
 template <int R>
 __global__ void __launch_bounds__(THREADS, 1)
 mp_block_stack_kernel(StackArgs a, int ht_smem) {
@@ -142,8 +135,6 @@ mp_block_stack_kernel(StackArgs a, int ht_smem) {
   const int tid = threadIdx.x;
   const int col = tid % CB;
   const int grp = tid / CB;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
 
   {  // h = x
     const float4* xs = reinterpret_cast<const float4*>(a.x + row0 * F);
@@ -155,35 +146,8 @@ mp_block_stack_kernel(StackArgs a, int ht_smem) {
     s_dis[r] = 1.f / sqrtf(d + 1.f);
     s_den[r] = fmaxf(d, 1.f);
   }
-  // adjacency rows -> per-row lists: count nonzeros, scan, write
-  const float* A = a.adj + row0 * BB;
-  for (int r = warp; r < BB; r += NWARPS) {
-    const float4 q = reinterpret_cast<const float4*>(A + (size_t)r * BB)[lane];
-    int n = (q.x != 0.f) + (q.y != 0.f) + (q.z != 0.f) + (q.w != 0.f);
-    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
-    if (lane == 0) s_cnt[r] = n;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    s_ptr[0] = 0;
-    for (int r = 0; r < BB; ++r) s_ptr[r + 1] = s_ptr[r] + s_cnt[r];
-  }
-  __syncthreads();
-  for (int r = warp; r < BB; r += NWARPS) {
-    const float4 q = reinterpret_cast<const float4*>(A + (size_t)r * BB)[lane];
-    const float qv[4] = {q.x, q.y, q.z, q.w};
-    const int n = (q.x != 0.f) + (q.y != 0.f) + (q.z != 0.f) + (q.w != 0.f);
-    int incl = n;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += t;
-    }
-    int e = s_ptr[r] + incl - n;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (qv[k] != 0.f) ent[e++] = ((int)qv[k] << 8) | (lane * 4 + k);
-  }
-  __syncthreads();
+  // adjacency rows -> per-row lists (block_lists.cuh)
+  gnnb::compact_rows<THREADS>(a.adj + row0 * BB, BB, s_cnt, s_ptr, ent);
 
   const int rA0 = grp * (BB / GROUPS);            // whole-block rows
   for (int l = 0; l < a.L; ++l) {

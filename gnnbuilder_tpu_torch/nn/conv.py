@@ -1,19 +1,29 @@
-"""Message-passing convs: GCN, GIN, SAGE and PNA (the JAX package's
-``nn/conv.py``, PyG semantics).  Each takes ``(g, x, act, skip)`` and
-returns ``[N, out_channels]``; the skip is added before the activation.
+"""Message-passing convs: GCN, GIN, SAGE, LG, Simple and PNA (the JAX
+package's ``nn/conv.py``, PyG semantics).  Each takes ``(g, x, act,
+skip)`` and returns ``[N, out_channels]``; the skip is added before the
+activation.
 
-GCN, GIN and SAGE aggregate with the block-diagonal product on a
-block-packed batch (``dispatch.block_cfg``), else over the ELL table, else
-over the edge list.  On a block-packed batch under inference scope the
-model runs GCN and SAGE stacks through the mp stack kernel instead
-(``nn/model.py``); these per-layer paths are plain torch.
+GCN, GIN, SAGE, LG and Simple (sum, mean) run their layer through
+``ops.cuda.mp_layer.fused_mp_layer_auto`` (the CUDA kernel on the card,
+differentiable through its hand-written backward) where
+``dispatch.mp_layer_cfg`` allows: over the ELL table on a standard-packed
+batch, over the block adjacency for GCN, LG and Simple on a block-packed
+one.  Otherwise they aggregate in plain torch with the block-diagonal
+product on a block-packed batch (``dispatch.block_cfg``), else over the
+ELL table, else over the edge list.  On a block-packed batch under
+inference scope the model runs GCN and SAGE stacks through the mp stack
+kernel instead (``nn/model.py``).
 
 GCN: self loops added analytically, ``dis = rsqrt(in_degree + 1)``, the
 normalised sum ``dis_i sum_j dis_j h_j + dis_i^2 h_i``; ``lin`` has no
-bias, ``bias`` is added after aggregation; the transform runs first only
-when ``out_channels <= in_channels``.  GIN: ``lin1(relu(lin0((1 + eps) x
-+ sum_j x_j)))``.  SAGE: ``lin_l(mean_j x_j) + lin_r(x)``, the mean over
-max(deg, 1); ``lin_l`` has a bias, ``lin_r`` none.
+bias, ``bias`` is added after aggregation; the plain path transforms
+first only when ``out_channels <= in_channels``, the kernel path always.
+GIN: ``lin1(relu(lin0((1 + eps) x + sum_j x_j)))``.  SAGE:
+``lin_l(mean_j x_j) + lin_r(x)``, the mean over max(deg, 1); ``lin_l``
+has a bias, ``lin_r`` none.  LG (LightGCN): ``sum_j x_j / sqrt(d_i d_j)``,
+no self loops, 0 on an empty row.  Simple: the sum, mean, max or min of
+the neighbour rows (max and min plain: their kernel is not ported).  LG
+and Simple have no parameters and need in_channels == out_channels.
 
 PNA with towers=1, divide_input=False, one pre and one post layer (PyG
 semantics, the JAX package's ``nn/conv.py`` PNAConv): message
@@ -39,8 +49,9 @@ from gnnbuilder_tpu_torch.nn.linear import BlockScaledLinear, PairLinear
 from gnnbuilder_tpu_torch.ops import block, dispatch, ell, segment
 from gnnbuilder_tpu_torch.ops.activations import get_activation
 
-__all__ = ["GCNConv", "GINConv", "SAGEConv", "PNAConv", "PNA_AGGREGATORS",
-           "PNA_SCALERS", "SUPPORTED_GNN_CONVS"]
+__all__ = ["GCNConv", "GINConv", "SAGEConv", "LGConv", "SimpleConv",
+           "PNAConv", "PNA_AGGREGATORS", "PNA_SCALERS",
+           "SUPPORTED_GNN_CONVS"]
 
 PNA_AGGREGATORS = ("max", "min", "mean", "std")
 PNA_SCALERS = ("identity", "amplification", "attenuation")
@@ -53,6 +64,20 @@ def _finish(out, act, skip):
     if act is not None:
         out = get_activation(act)(out)
     return out
+
+
+def _mp_layer(g: GraphBatch, conv: str, v, act, skip, **operands):
+    """The layer through the mp layer kernel when ``dispatch.mp_layer_cfg``
+    gives a route for ``conv``, else None (the caller's plain path)."""
+    cfg = dispatch.mp_layer_cfg(g, conv.split("_")[0])
+    if cfg is None:
+        return None
+    from gnnbuilder_tpu_torch.ops.cuda.mp_layer import fused_mp_layer_auto
+
+    return fused_mp_layer_auto(
+        v, g.nbr_nodes, g.in_degree, conv, skip=skip, act=act,
+        rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree,
+        block_adj=g.block_adj if cfg.get("block") else None, **operands)
 
 
 def _sum(g: GraphBatch, x):
@@ -76,6 +101,10 @@ class GCNConv(torch.nn.Module):
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
         dis = torch.rsqrt(g.in_degree.to(x.dtype) + 1.0)[:, None]
+        if dispatch.mp_layer_cfg(g, "gcn") is not None:
+            # as PyG: transform first, then propagate p_j = h_j dis_j
+            return _mp_layer(g, "gcn", self.lin(x) * dis, act, skip,
+                             b0=self.bias)
         transform_first = self.out_channels <= self.in_channels
         h = self.lin(x) if transform_first else x
         # separable norm 1/sqrt((1+d_i)(1+d_j)) = dis_i dis_j: scale once
@@ -97,6 +126,11 @@ class GINConv(torch.nn.Module):
         self.lin1 = torch.nn.Linear(out_channels, out_channels)
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
+        out = _mp_layer(g, "gin", x, act, skip, w0=self.lin0.weight.t(),
+                        b0=self.lin0.bias, w1=self.lin1.weight.t(),
+                        b1=self.lin1.bias, eps=self.eps)
+        if out is not None:
+            return out
         h = (1.0 + self.eps) * x + _sum(g, x)
         return _finish(self.lin1(torch.relu(self.lin0(h))), act, skip)
 
@@ -110,9 +144,70 @@ class SAGEConv(torch.nn.Module):
         self.lin_r = torch.nn.Linear(in_channels, out_channels, bias=False)
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
+        out = _mp_layer(g, "sage", x, act, skip, w0=self.lin_l.weight.t(),
+                        b0=self.lin_l.bias, w1=self.lin_r.weight.t())
+        if out is not None:
+            return out
         deg = g.in_degree.to(x.dtype)[:, None]
         agg = _sum(g, x) / deg.clamp(min=1.0)
         return _finish(self.lin_l(agg) + self.lin_r(x), act, skip)
+
+
+class _SameWidth(torch.nn.Module):
+    """A parameter-free conv whose output width is its input width."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        if in_channels != out_channels:
+            raise ValueError(f"{type(self).__name__} requires in_channels "
+                             f"== out_channels")
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+
+
+class LGConv(_SameWidth):
+    def forward(self, g: GraphBatch, x, act=None, skip=None):
+        deg = g.in_degree.to(x.dtype)[:, None]
+        dis = torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1.0)),
+                          x.new_zeros(()))
+        out = _mp_layer(g, "lg", x * dis, act, skip)
+        if out is not None:
+            return out
+        return _finish(dis * _sum(g, x * dis), act, skip)
+
+
+class SimpleConv(_SameWidth):
+    def __init__(self, in_channels: int, out_channels: int,
+                 aggregation: str = "sum"):
+        super().__init__(in_channels, out_channels)
+        if aggregation not in ("sum", "add", "mean", "max", "min"):
+            raise ValueError(f"unknown aggregation {aggregation}")
+        self.aggregation = aggregation
+
+    def forward(self, g: GraphBatch, x, act=None, skip=None):
+        name = "sum" if self.aggregation == "add" else self.aggregation
+        if name in ("sum", "mean"):
+            out = _mp_layer(g, f"simple_{name}", x, act, skip)
+            if out is not None:
+                return out
+            if dispatch.block_cfg(g) is not None:
+                s = block.block_sum(x, g.block_adj)
+                if name == "mean":
+                    s = s / g.in_degree.to(x.dtype).clamp(min=1.0)[:, None]
+                return _finish(s, act, skip)
+        if g.nbr_nodes is not None:
+            fn = {"sum": ell.ell_sum, "mean": ell.ell_mean,
+                  "max": ell.ell_max, "min": ell.ell_min}[name]
+            return _finish(fn(x, g.nbr_nodes, g.in_degree), act, skip)
+        msg = x[g.senders.long()]
+        count = g.in_degree.to(x.dtype)[:, None]
+        if name == "sum":
+            out = segment.segment_sum(msg, g.receivers, g.num_nodes)
+        else:
+            fn = {"mean": segment.segment_mean, "max": segment.segment_max,
+                  "min": segment.segment_min}[name]
+            out = fn(msg, g.receivers, g.num_nodes, count=count)
+        return _finish(out, act, skip)
 
 
 class PNAConv(torch.nn.Module):
@@ -179,4 +274,4 @@ class PNAConv(torch.nn.Module):
 
 
 SUPPORTED_GNN_CONVS = {"gcn": GCNConv, "gin": GINConv, "sage": SAGEConv,
-                       "pna": PNAConv}
+                       "lg": LGConv, "simple": SimpleConv, "pna": PNAConv}

@@ -11,8 +11,11 @@ batch runs the whole conv stack in one kernel: PNA through
 ``ops.cuda.pna_block``, GCN and SAGE through ``ops.cuda.mp_block`` (GIN
 keeps its per-layer path, as in the JAX package).  Any other PNA batch
 with an ELL table runs each layer through ``ops.cuda.pna_layer``, in
-inference and in training; GCN, GIN and SAGE layers otherwise run their
-plain per-layer paths.  The readout runs through
+inference and in training; GCN, GIN, SAGE, LG and Simple layers run
+through ``ops.cuda.mp_layer`` where ``dispatch.mp_layer_cfg`` allows
+(every standard-packed batch with an ELL table; block-packed GCN, LG and
+Simple), else their plain per-layer paths.  LG and Simple have no
+parameters and no stack kernel.  The readout runs through
 ``ops.cuda.readout``.  With ``set_fused_mode("never")`` the model runs the
 per-layer plain path.  The paths compute the same function.  In training
 (grad mode on) the kernels get the live parameters, so gradients reach
@@ -42,6 +45,10 @@ from gnnbuilder_tpu_torch.ops.activations import (
 )
 
 __all__ = ["GNNModel"]
+
+
+# convs with a whole-stack kernel (LG and Simple have none)
+_STACK_CONVS = ("pna", "gcn", "gin", "sage")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -197,7 +204,8 @@ class GNNModel(torch.nn.Module):
 
             with torch.no_grad():
                 stacked = None
-                if self.gnn_num_layers > 0:
+                if (self.gnn_num_layers > 0
+                        and self.gnn_conv in _STACK_CONVS):
                     stack = (stack_params if self.gnn_conv == "pna"
                              else stack_mp_params)
                     stacked = stack(self._conv_operands(), width)
@@ -211,7 +219,7 @@ class GNNModel(torch.nn.Module):
         PNA with the default aggregators and scalers, an activation the
         kernel has, a block-packed batch, inference scope.  None = run the
         per-layer loop."""
-        if self.gnn_num_layers < 1:
+        if self.gnn_num_layers < 1 or self.gnn_conv not in _STACK_CONVS:
             return None
         if self.gnn_conv != "pna":
             return self._fused_mp_stack(g, h)

@@ -4,11 +4,12 @@ it with ctypes.
 Every ``csrc/*.cu`` is compiled by its own nvcc process, all started
 together, and one more nvcc links the objects into ``libgnnb.so`` under
 ``build/gnnbuilder_tpu_torch/<hash>/`` at the repository root, where the
-hash covers every source, the flags and the compiler path, so an edit
-rebuilds and an unchanged tree reuses the build.  The library is written
-under a temporary name and renamed into place when every step succeeds.  The
-sources include no PyTorch header; the launchers take raw pointers, sizes
-and a ``cudaStream_t`` and return the ``cudaError_t`` of the launch.
+hash covers every source and header, the flags and the compiler path, so
+an edit rebuilds and an unchanged tree reuses the build.  The library is
+written under a temporary name and renamed into place when every step
+succeeds.  The sources include no PyTorch header; the launchers take raw
+pointers, sizes and a ``cudaStream_t`` and return the ``cudaError_t`` of
+the launch.
 
     python -m gnnbuilder_tpu_torch.ops.cuda._build   # build and print ptxas
 
@@ -31,7 +32,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "gnnbuilder_tpu_torch"
 SOURCES = ("pna_block", "readout", "pna_layer", "scatter_bwd", "mp_block",
-           "ell_bwd")
+           "ell_bwd", "mp_layer")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,9 +61,10 @@ def _build_dir(nvcc_path: str) -> pathlib.Path:
     h = hashlib.sha256()
     h.update(nvcc_path.encode())
     h.update(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in _CSRC.glob("*.cuh"))
+    for name in [f"{n}.cu" for n in SOURCES] + headers:
         h.update(name.encode())
-        h.update((_CSRC / f"{name}.cu").read_bytes())
+        h.update((_CSRC / name).read_bytes())
     return _BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -7,7 +7,9 @@ for CPU tensors.  It replaces the TPU kernel
 each sender row j it walks j's out-neighbours i (the batch's reverse
 table ``rev_nbr_nodes`` / ``out_degree``) and sums per-receiver
 coefficient terms, so dv needs no scatter and comes out the same bits on
-every run.
+every run.  ``fused_gather_backward_csr`` (plain:
+``ell_gather_backward_csr_plain``) is the same gather over the reverse
+CSR of ``ops.ell.reverse_csr``, for batches that carry no reverse table.
 
 ``cstk`` [N, K*F] holds the coefficients in F-wide blocks
 ``[c_lin? | d1, d2? | (ref_1, coef_1) .. (ref_C, coef_C)]``, with K =
@@ -27,8 +29,10 @@ import ctypes
 import torch
 
 from gnnbuilder_tpu_torch.ops.ell import ell_mask
+from gnnbuilder_tpu_torch.ops.segment import segment_sum
 
 __all__ = ["fused_gather_backward", "ell_gather_backward_plain",
+           "fused_gather_backward_csr", "ell_gather_backward_csr_plain",
            "n_blocks"]
 
 
@@ -37,16 +41,10 @@ def n_blocks(has_lin: bool, has_dev: bool, n_cmp: int) -> int:
     return int(bool(has_lin)) + 2 * int(bool(has_dev)) + 2 * int(n_cmp)
 
 
-def ell_gather_backward_plain(cstk, rev_nbr_nodes, out_degree, v=None,
-                              has_lin=True, has_dev=False, n_cmp=0):
-    """The gather in plain torch: [N, Wr, K*F] rows of cstk over the
-    reverse table, the terms per valid slot, summed over the slots."""
-    K = n_blocks(has_lin, has_dev, n_cmp)
-    F = cstk.shape[1] // K
-    g = cstk[rev_nbr_nodes.long()]                      # [N, Wr, K*F]
-    m = ell_mask(rev_nbr_nodes, out_degree)[..., None]
-    zero = cstk.new_zeros(())
-    vj = None if v is None else v[:, None, :]
+def _terms(g, vj, F, has_lin, has_dev, n_cmp):
+    """The gathered terms per slot: g [..., K*F] coefficient rows, vj the
+    sender's v rows broadcast against them."""
+    zero = g.new_zeros(())
     terms = []
     o = 0
     if has_lin:
@@ -59,10 +57,40 @@ def ell_gather_backward_plain(cstk, rev_nbr_nodes, out_degree, v=None,
         terms.append(torch.where(vj == g[..., o:o + F],
                                  g[..., o + F:o + 2 * F], zero))
         o += 2 * F
-    return torch.where(m, sum(terms), zero).sum(1)
+    return sum(terms)
 
 
-def _check(cstk, rev_nbr_nodes, out_degree, v, has_lin, has_dev, n_cmp):
+def ell_gather_backward_plain(cstk, rev_nbr_nodes, out_degree, v=None,
+                              has_lin=True, has_dev=False, n_cmp=0):
+    """The gather in plain torch: [N, Wr, K*F] rows of cstk over the
+    reverse table, the terms per valid slot, summed over the slots."""
+    F = cstk.shape[1] // n_blocks(has_lin, has_dev, n_cmp)
+    g = cstk[rev_nbr_nodes.long()]                      # [N, Wr, K*F]
+    m = ell_mask(rev_nbr_nodes, out_degree)[..., None]
+    vj = None if v is None else v[:, None, :]
+    t = _terms(g, vj, F, has_lin, has_dev, n_cmp)
+    return torch.where(m, t, cstk.new_zeros(())).sum(1)
+
+
+def ell_gather_backward_csr_plain(cstk, rev_ptr, rev_idx, v=None,
+                                  has_lin=True, has_dev=False, n_cmp=0):
+    """The gather over the reverse CSR in plain torch: the terms of every
+    sorted slot (sender j, receiver ``rev_idx[e]``), then a segment sum
+    over the senders."""
+    N = cstk.shape[0]
+    F = cstk.shape[1] // n_blocks(has_lin, has_dev, n_cmp)
+    counts = (rev_ptr[1:] - rev_ptr[:-1]).long()
+    send = torch.repeat_interleave(
+        torch.arange(N, device=cstk.device), counts)
+    g = cstk[rev_idx.long()]                            # [E, K*F]
+    vj = None if v is None else v[send]
+    t = _terms(g, vj, F, has_lin, has_dev, n_cmp)
+    return segment_sum(t, send, N)
+
+
+def _check(cstk, v, has_lin, has_dev, n_cmp, named_ints):
+    """Shapes, types and devices; ``named_ints`` are the table or CSR
+    arrays, (name, tensor, shape) with None for a free extent."""
     K = n_blocks(has_lin, has_dev, n_cmp)
     if K == 0:
         raise ValueError("no terms requested")
@@ -79,43 +107,45 @@ def _check(cstk, rev_nbr_nodes, out_degree, v, has_lin, has_dev, n_cmp):
     if v is not None and (tuple(v.shape) != (N, F)
                           or v.dtype != torch.float32):
         raise ValueError(f"v must be ({N}, {F}) float32")
-    if rev_nbr_nodes.dim() != 2 or rev_nbr_nodes.shape[0] != N:
-        raise ValueError("rev_nbr_nodes must be [N, Wr]")
-    if tuple(out_degree.shape) != (N,):
-        raise ValueError("out_degree must be [N]")
-    devs = {t.device for t in (cstk, rev_nbr_nodes, out_degree, v)
+    for name, t, shape in named_ints:
+        if t.dim() != len(shape) or any(
+                want is not None and got != want
+                for got, want in zip(t.shape, shape)):
+            raise ValueError(f"{name} must be {shape} (None = any), got "
+                             f"{tuple(t.shape)}")
+    devs = {t.device for t in (cstk, v, *(t for _, t, _ in named_ints))
             if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
 
 
-def _launch(cstk, rev_nbr_nodes, out_degree, v, has_lin, has_dev, n_cmp):
+def _launch(entry, cstk, ints, v, has_lin, has_dev, n_cmp, extra=()):
+    """Launch ``entry`` of the library on cstk, the int32 table or CSR
+    arrays ``ints`` and v; ``extra`` are the int arguments between N and
+    F (the table's width)."""
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
     K = n_blocks(has_lin, has_dev, n_cmp)
     N = cstk.shape[0]
     F = cstk.shape[1] // K
-    if rev_nbr_nodes.dtype != torch.int32 or out_degree.dtype != torch.int32:
-        raise ValueError("rev_nbr_nodes and out_degree must be int32")
-    tensors = [t for t in (cstk, rev_nbr_nodes, out_degree, v)
-               if t is not None]
+    if any(t.dtype != torch.int32 for t in ints):
+        raise ValueError("the reverse table or CSR must be int32")
+    tensors = [t for t in (cstk, *ints, v) if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
-    fn = lib.gnnb_ell_gather_bwd
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 4 + [I] * 6 + [P, P, I]
+    fn.argtypes = [P] * 4 + [I] * (5 + len(extra)) + [P, P, I]
     dv = torch.empty((N, F), dtype=torch.float32, device=cstk.device)
     stream = torch.cuda.current_stream(cstk.device).cuda_stream
-    err = fn(cstk.data_ptr(), rev_nbr_nodes.data_ptr(),
-             out_degree.data_ptr(), None if v is None else v.data_ptr(), N,
-             rev_nbr_nodes.shape[1], F, int(bool(has_lin)),
-             int(bool(has_dev)), int(n_cmp), dv.data_ptr(), stream,
-             cstk.device.index or 0)
+    err = fn(cstk.data_ptr(), *(t.data_ptr() for t in ints),
+             None if v is None else v.data_ptr(), N, *extra, F,
+             int(bool(has_lin)), int(bool(has_dev)), int(n_cmp),
+             dv.data_ptr(), stream, cstk.device.index or 0)
     if err != 0:
-        raise RuntimeError(f"ell_gather_bwd launch failed: cudaError {err}")
-    fused_gather_backward.launches += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return dv
 
 
@@ -126,10 +156,16 @@ def fused_gather_backward(cstk, rev_nbr_nodes, out_degree, v=None,
     reverse table ``rev_nbr_nodes`` [N, Wr] / ``out_degree`` [N] (int32),
     with the local rows ``v`` [N, F] for dev and cmp terms.  A CUDA
     ``cstk`` launches the kernel; a CPU one runs the plain version."""
-    _check(cstk, rev_nbr_nodes, out_degree, v, has_lin, has_dev, n_cmp)
+    N = cstk.shape[0]
+    _check(cstk, v, has_lin, has_dev, n_cmp,
+           (("rev_nbr_nodes", rev_nbr_nodes, (N, None)),
+            ("out_degree", out_degree, (N,))))
     if cstk.device.type == "cuda":
-        return _launch(cstk, rev_nbr_nodes, out_degree, v, has_lin, has_dev,
-                       n_cmp)
+        dv = _launch("gnnb_ell_gather_bwd", cstk,
+                     (rev_nbr_nodes, out_degree), v, has_lin, has_dev, n_cmp,
+                     extra=(rev_nbr_nodes.shape[1],))
+        fused_gather_backward.launches += 1
+        return dv
     if cstk.device.type != "cpu":
         raise ValueError(f"no gather backward for device {cstk.device}")
     return ell_gather_backward_plain(cstk, rev_nbr_nodes, out_degree, v,
@@ -137,3 +173,28 @@ def fused_gather_backward(cstk, rev_nbr_nodes, out_degree, v=None,
 
 
 fused_gather_backward.launches = 0
+
+
+def fused_gather_backward_csr(cstk, rev_ptr, rev_idx, v=None,
+                              has_lin: bool = True, has_dev: bool = False,
+                              n_cmp: int = 0):
+    """``fused_gather_backward`` over the reverse CSR ``rev_ptr`` [N + 1],
+    ``rev_idx`` [E] (int32, ``ops.ell.reverse_csr``) in place of the
+    reverse table: the kernel's CSR mode for a CUDA ``cstk``, the plain
+    version for a CPU one.  Each output element still has one owner that
+    sums in slot order, so dv is the same bits on every run."""
+    N = cstk.shape[0]
+    _check(cstk, v, has_lin, has_dev, n_cmp,
+           (("rev_ptr", rev_ptr, (N + 1,)), ("rev_idx", rev_idx, (None,))))
+    if cstk.device.type == "cuda":
+        dv = _launch("gnnb_ell_gather_bwd_csr", cstk, (rev_ptr, rev_idx), v,
+                     has_lin, has_dev, n_cmp)
+        fused_gather_backward_csr.launches += 1
+        return dv
+    if cstk.device.type != "cpu":
+        raise ValueError(f"no gather backward for device {cstk.device}")
+    return ell_gather_backward_csr_plain(cstk, rev_ptr, rev_idx, v, has_lin,
+                                         has_dev, n_cmp)
+
+
+fused_gather_backward_csr.launches = 0

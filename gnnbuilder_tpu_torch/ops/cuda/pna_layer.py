@@ -13,8 +13,9 @@ the batch carries ``rev_nbr_nodes`` / ``out_degree``: the coefficient
 stack from ``ops.cuda.scatter_bwd.fused_pna_scatter_cstk``, gathered by
 ``ops.cuda.ell_bwd.fused_gather_backward``, so the step's gradients are
 the same bits on every run.  A batch without a reverse table (an
-out-degree over 64) takes ``fused_pna_scatter_backward``, whose atomic
-adds make dv reproducible to f32 rounding only.
+out-degree over 64, or ``rev_ell_width=0``) takes
+``fused_pna_scatter_backward``: the same coefficient stack, gathered over
+the reverse CSR built from the forward table, the same bits too.
 
 What bounds the kernel on the H100: operations (the five products, ~0.5
 MFLOP per row at 128 wide, run as f32 FMAs); see the source.
@@ -216,8 +217,8 @@ class PNALayerFunction(torch.autograd.Function):
     from the saved out, the epilogue gradients from mid with torch
     products, du through ``sel``, dv over the reverse table
     (``fused_pna_scatter_cstk`` then ``fused_gather_backward``) or, when
-    ``rev_nbr_nodes`` is None, with ``fused_pna_scatter_backward``; then
-    the pre_nn chains."""
+    ``rev_nbr_nodes`` is None, over the reverse CSR
+    (``fused_pna_scatter_backward``); then the pre_nn chains."""
 
     @staticmethod
     def forward(ctx, x, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,

@@ -1,22 +1,21 @@
 """PNA aggregation backward over the forward ELL table.
 
-Both entry points launch ``csrc/scatter_bwd.cu`` for CUDA tensors and run
-the same function in plain torch for CPU tensors.  The kernel replaces
-the TPU kernel ``gnnbuilder_tpu/ops/pallas/scatter_bwd.py``
-``fused_pna_scatter_backward`` (its raw PNA mode): from the cotangent of
-mid and the forward's residuals it forms d_agg = dy ks_t and the
-per-receiver coefficients.
+The kernel ``csrc/scatter_bwd.cu`` replaces the TPU kernel
+``gnnbuilder_tpu/ops/pallas/scatter_bwd.py`` ``fused_pna_scatter_backward``
+(its raw PNA mode): from the cotangent of mid and the forward's residuals
+it forms d_agg = dy ks_t and the per-receiver coefficients.
 
-* ``fused_pna_scatter_cstk`` (plain: ``pna_scatter_cstk_plain``) writes
-  them as the coefficient stack cstk [N, 7F] = [c_lin | c_a | c_a*mean |
-  mx | c_mx | mn | c_mn], which ``ops.cuda.ell_bwd.fused_gather_backward``
-  turns into dv over the reverse table, the same bits on every run: the
-  route of the JAX PNA VJP when the batch carries reverse tables.
-* ``fused_pna_scatter_backward`` (plain: ``pna_scatter_backward_plain``)
-  forms each valid slot's contribution C and adds it into the slot's
-  sender row of dv, with atomics on the card, so dv agrees with the plain
-  version, and with itself from run to run, to f32 rounding, not bitwise.
-  It serves batches without a reverse table.
+* ``fused_pna_scatter_cstk`` (plain: ``pna_scatter_cstk_plain``) launches
+  it for CUDA tensors: it writes the coefficient stack cstk [N, 7F] =
+  [c_lin | c_a | c_a*mean | mx | c_mx | mn | c_mn], which
+  ``ops.cuda.ell_bwd.fused_gather_backward`` turns into dv over the
+  reverse table, the same bits on every run: the route of the JAX PNA VJP
+  when the batch carries reverse tables.
+* ``fused_pna_scatter_backward`` (plain: ``pna_scatter_backward_plain``,
+  the coefficients, each valid slot's contribution and ``index_add_`` into
+  the senders) gives dv on a batch without a reverse table: on the card
+  the cstk kernel, then ``ops.ell.reverse_csr`` of the forward table and
+  the gather's CSR mode, so dv is the same bits on every run there too.
 
 What bounds the kernel on the H100: operations (d_agg, 2 * 3Fout * 4F
 flops per row, run as f32 FMAs).
@@ -28,7 +27,8 @@ import ctypes
 
 import torch
 
-from gnnbuilder_tpu_torch.ops.ell import ell_mask
+from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import fused_gather_backward_csr
+from gnnbuilder_tpu_torch.ops.ell import ell_mask, reverse_csr
 
 __all__ = ["fused_pna_scatter_backward", "pna_scatter_backward_plain",
            "fused_pna_scatter_cstk", "pna_scatter_cstk_plain"]
@@ -83,8 +83,8 @@ def pna_scatter_backward_plain(d_mid, aux, agg_cat, in_degree, nbr_nodes,
 
 
 def _check(d_mid, aux, agg_cat, in_degree, nbr_nodes, v, ks_t):
-    """Shapes, types and devices; ``nbr_nodes`` and ``v`` are None in cstk
-    mode."""
+    """Shapes, types and devices; ``nbr_nodes`` and ``v`` are None for the
+    coefficient stack alone."""
     if agg_cat.dim() != 2 or agg_cat.shape[1] % 4:
         raise ValueError("agg_cat must be [N, 4F]")
     N, F = agg_cat.shape[0], agg_cat.shape[1] // 4
@@ -109,8 +109,8 @@ def _check(d_mid, aux, agg_cat, in_degree, nbr_nodes, v, ks_t):
         raise ValueError(f"tensors on several devices: {devs}")
 
 
-def _launch(d_mid, aux, agg_cat, in_degree, nbr_nodes, v, ks_t, delta):
-    """Scatter mode (dv) when ``nbr_nodes`` is given, else cstk mode."""
+def _launch(d_mid, aux, agg_cat, in_degree, ks_t, delta):
+    """The kernel: cstk [N, 7F]."""
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -124,12 +124,9 @@ def _launch(d_mid, aux, agg_cat, in_degree, nbr_nodes, v, ks_t, delta):
             f"the CUDA PNA scatter backward takes widths that are multiples "
             f"of {mult} within {smem_max} bytes of shared memory; got F={F} "
             f"Fout={Fout} ({smem} bytes)")
-    scatter = nbr_nodes is not None
-    if in_degree.dtype != torch.int32 or (
-            scatter and nbr_nodes.dtype != torch.int32):
-        raise ValueError("nbr_nodes and in_degree must be int32")
-    tensors = [t for t in (d_mid, aux, agg_cat, in_degree, nbr_nodes, v,
-                           ks_t) if t is not None]
+    if in_degree.dtype != torch.int32:
+        raise ValueError("in_degree must be int32")
+    tensors = (d_mid, aux, agg_cat, in_degree, ks_t)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -137,49 +134,40 @@ def _launch(d_mid, aux, agg_cat, in_degree, nbr_nodes, v, ks_t, delta):
     fn = lib.gnnb_pna_scatter_bwd
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 7 + [I] * 4 + [ctypes.c_float, P, P, P, I]
+    fn.argtypes = [P] * 5 + [I] * 3 + [ctypes.c_float, P, P, I]
     dev = d_mid.device
-    if scatter:
-        dv, cstk = torch.zeros((N, F), dtype=torch.float32, device=dev), None
-    else:
-        dv = None
-        cstk = torch.empty((N, 7 * F), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    cstk = torch.empty((N, 7 * F), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(d_mid.data_ptr(), aux.data_ptr(), agg_cat.data_ptr(),
-             in_degree.data_ptr(), ptr(nbr_nodes), ptr(v), ks_t.data_ptr(),
-             N, nbr_nodes.shape[1] if scatter else 0, F, Fout, float(delta),
-             ptr(dv), ptr(cstk), stream, dev.index or 0)
+             in_degree.data_ptr(), ks_t.data_ptr(), N, F, Fout, float(delta),
+             cstk.data_ptr(), stream, dev.index or 0)
     if err != 0:
         raise RuntimeError(f"pna_scatter_bwd launch failed: cudaError {err}")
-    return dv if scatter else cstk
+    return cstk
 
 
 def fused_pna_scatter_backward(d_mid, aux, agg_cat, in_degree, nbr_nodes, v,
                                ks_t, delta: float):
-    """dv [N, F] of the PNA aggregation.  d_mid [N, Fout] is the cotangent
-    of mid; aux [N, 5F], agg_cat [N, 4F] (its std block is read) and v
-    [N, F] are the forward's residuals; nbr_nodes [N, W] and in_degree [N]
-    int32 the forward's table; ks_t [3Fout, 4F] the transposed scaler
-    blocks of k_post.  A CUDA ``v`` launches the kernel, which takes
-    widths that are multiples of 128 and raises on others; a CPU ``v``
-    runs the plain version."""
+    """dv [N, F] of the PNA aggregation, on a batch with or without a
+    reverse table.  d_mid [N, Fout] is the cotangent of mid; aux [N, 5F],
+    agg_cat [N, 4F] (its std block is read) and v [N, F] are the forward's
+    residuals; nbr_nodes [N, W] and in_degree [N] int32 the forward's
+    table; ks_t [3Fout, 4F] the transposed scaler blocks of k_post.  A
+    CUDA ``v`` runs ``fused_pna_scatter_cstk`` (widths that are multiples
+    of 128, else it raises), ``reverse_csr`` and
+    ``fused_gather_backward_csr``, each launch counted by its own wrapper;
+    a CPU ``v`` runs the plain version."""
     _check(d_mid, aux, agg_cat, in_degree, nbr_nodes, v, ks_t)
     if v.device.type == "cuda":
-        dv = _launch(d_mid, aux, agg_cat, in_degree, nbr_nodes, v, ks_t,
-                     delta)
-        fused_pna_scatter_backward.launches += 1
-        return dv
+        cstk = fused_pna_scatter_cstk(d_mid, aux, agg_cat, in_degree, ks_t,
+                                      delta)
+        rev_ptr, rev_idx = reverse_csr(nbr_nodes, in_degree)
+        return fused_gather_backward_csr(cstk, rev_ptr, rev_idx, v,
+                                         has_lin=True, has_dev=True, n_cmp=2)
     if v.device.type != "cpu":
         raise ValueError(f"no PNA scatter backward for device {v.device}")
     return pna_scatter_backward_plain(d_mid, aux, agg_cat, in_degree,
                                       nbr_nodes, v, ks_t, delta)
-
-
-fused_pna_scatter_backward.launches = 0
 
 
 def fused_pna_scatter_cstk(d_mid, aux, agg_cat, in_degree, ks_t,
@@ -187,13 +175,12 @@ def fused_pna_scatter_cstk(d_mid, aux, agg_cat, in_degree, ks_t,
     """The coefficient stack cstk [N, 7F] of the PNA aggregation backward
     (arguments as ``fused_pna_scatter_backward``, without the table and
     v), for ``ell_bwd.fused_gather_backward`` with has_lin, has_dev and
-    n_cmp=2.  A CUDA ``d_mid`` launches the kernel in its cstk mode, which
-    takes widths that are multiples of 128 and raises on others; a CPU
-    ``d_mid`` runs the plain version."""
+    n_cmp=2.  A CUDA ``d_mid`` launches the kernel, which takes widths
+    that are multiples of 128 and raises on others; a CPU ``d_mid`` runs
+    the plain version."""
     _check(d_mid, aux, agg_cat, in_degree, None, None, ks_t)
     if d_mid.device.type == "cuda":
-        cstk = _launch(d_mid, aux, agg_cat, in_degree, None, None, ks_t,
-                       delta)
+        cstk = _launch(d_mid, aux, agg_cat, in_degree, ks_t, delta)
         fused_pna_scatter_cstk.launches += 1
         return cstk
     if d_mid.device.type != "cpu":

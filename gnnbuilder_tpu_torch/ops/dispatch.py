@@ -1,6 +1,6 @@
 """Kernel dispatch policy: when the model takes the whole-stack, the
-per-layer PNA and the readout kernels instead of the plain path, and
-which plain aggregation a conv runs on a block-packed batch.
+per-layer PNA and mp and the readout kernels instead of the plain path,
+and which plain aggregation a conv runs on a block-packed batch.
 
 The gates decide on the batch and the model alone; which implementation a
 kernel function then runs is decided by the tensors' device inside it (a
@@ -20,13 +20,18 @@ from typing import Optional
 
 __all__ = ["set_fused_mode", "inference_mode",
            "inference_on", "block_cfg", "pna_stack_cfg", "mp_stack_cfg",
-           "pna_layer_cfg", "readout_config"]
+           "mp_layer_cfg", "pna_layer_cfg", "readout_config"]
 
 # convs whose whole stack runs in the mp stack kernel under "auto": the JAX
 # package's A/B on its TPU kept GIN on the per-layer path
 # (``gnnbuilder_tpu/ops/dispatch.py`` ``_MP_STACK_CONVS``); the kernel
 # itself also takes "gin"
 MP_STACK_CONVS = ("gcn", "sage")
+
+# convs whose layer takes the mp layer kernel's block mode on a
+# block-packed batch (the JAX package's ``_BLOCK_KERNEL_CONVS``: its TPU
+# A/B kept GIN and SAGE on the plain block product there)
+BLOCK_LAYER_CONVS = ("gcn", "lg", "simple")
 
 _MODE = "auto"
 
@@ -74,9 +79,8 @@ def mp_stack_cfg(g, conv: str) -> Optional[dict]:
 
     Preconditions: inference scope and a block-packed batch at a block
     size that is a multiple of 128.  Unlike the PNA stack it needs no ELL
-    table: the kernel aggregates from ``block_adj``.  A standard-packed
-    batch runs the per-layer plain path: the per-layer mp kernel is not
-    ported yet."""
+    table: the kernel aggregates from ``block_adj``.  Elsewhere each layer
+    takes ``mp_layer_cfg``'s route."""
     if conv not in MP_STACK_CONVS:
         return None
     if _MODE == "never" or not inference_on():
@@ -84,6 +88,27 @@ def mp_stack_cfg(g, conv: str) -> Optional[dict]:
     if g.block_adj is None or g.block_size_static % 128:
         return None
     return {"block_size": g.block_size_static}
+
+
+def mp_layer_cfg(g, conv: str) -> Optional[dict]:
+    """The per-layer mp kernel's route (``ops.cuda.mp_layer``) for a
+    ``conv`` layer ("gcn", "gin", "sage", "lg" or "simple") on batch
+    ``g``: {"block": True} (block mode) on a block-packed batch at a
+    block size that is a multiple of 128 for gcn, lg and simple; {} (ELL
+    mode) on a standard-packed batch with an ELL table; else None (the
+    conv's plain path: the block product for GIN and SAGE and other block
+    sizes on block batches, the edge list without a table).  In or
+    out of inference scope, since the layer has a backward.  The JAX
+    package's alignment and batch-size gates are left out: they weighed
+    the TPU's 128-lane padding and grid steps, which this kernel does
+    not have."""
+    if _MODE == "never":
+        return None
+    if g.block_adj is not None:
+        if conv not in BLOCK_LAYER_CONVS or g.block_size_static % 128:
+            return None
+        return {"block": True}
+    return {} if g.nbr_nodes is not None else None
 
 
 def pna_stack_cfg(g) -> Optional[dict]:

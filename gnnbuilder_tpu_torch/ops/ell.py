@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ell_gather", "ell_mask", "ell_sum", "ell_mean",
-           "ell_multi_table", "_STD_EPS"]
+__all__ = ["ell_gather", "ell_mask", "ell_sum", "ell_mean", "ell_max",
+           "ell_min", "ell_multi_table", "reverse_csr", "_STD_EPS"]
 
 _STD_EPS = 1e-5  # PyG StdAggregation epsilon
 
@@ -43,6 +43,44 @@ def ell_mean(x, nbr_nodes, in_degree, mask=None):
     """Mean over max(in_degree, 1) neighbours (0 on an empty row)."""
     s = ell_sum(x, nbr_nodes, in_degree, mask)
     return s / in_degree.to(x.dtype).clamp(min=1.0)[:, None]
+
+
+def _ell_extremum(x, nbr_nodes, in_degree, mask, fill, reduce):
+    g = ell_gather(x, nbr_nodes)
+    m = ell_mask(nbr_nodes, in_degree) if mask is None else mask
+    r = reduce(torch.where(m[..., None], g, fill), dim=1)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where(in_degree[:, None] > 0, r, zero)
+
+
+def ell_max(x, nbr_nodes, in_degree, mask=None):
+    """Max over each node's incoming neighbour rows (0 on an empty row)."""
+    return _ell_extremum(x, nbr_nodes, in_degree, mask, float("-inf"),
+                         torch.amax)
+
+
+def ell_min(x, nbr_nodes, in_degree, mask=None):
+    """Min over each node's incoming neighbour rows (0 on an empty row)."""
+    return _ell_extremum(x, nbr_nodes, in_degree, mask, float("inf"),
+                         torch.amin)
+
+
+def reverse_csr(nbr_nodes, in_degree):
+    """The transpose of the forward ELL table as a CSR, built on the
+    table's device: (rev_ptr [N + 1] int32, rev_idx [E] int32), where
+    ``rev_idx[rev_ptr[j]:rev_ptr[j + 1]]`` are the receivers i of sender j
+    over the valid slots (i, w), w < in_degree[i], in row-major slot order
+    (a stable sort by sender).  Every edge of a batch that carries the
+    ELL table is in it, so this serves batches whose reverse table was
+    not built (an out-degree over 64, or ``rev_ell_width=0``)."""
+    N, W = nbr_nodes.shape
+    m = ell_mask(nbr_nodes, in_degree)
+    recv = torch.arange(N, device=nbr_nodes.device)[:, None].expand(N, W)
+    send, order = torch.sort(nbr_nodes[m].long(), stable=True)
+    rev_idx = recv[m][order].to(torch.int32)
+    bounds = torch.arange(N + 1, device=nbr_nodes.device)
+    rev_ptr = torch.searchsorted(send, bounds).to(torch.int32)
+    return rev_ptr, rev_idx
 
 
 def ell_multi_table(g, in_degree, aggregators, mask):

@@ -5,7 +5,8 @@
 package's ``GNNModel`` state dict.  The conv leaves per conv (the JAX
 package's ``verify/port.py`` ``port_conv`` names): PNA ``pre_nn``,
 ``post_nn``, ``lin``; GCN ``lin`` (no bias) and ``bias``; GIN ``lin0``,
-``lin1``; SAGE ``lin_l`` and ``lin_r`` (no bias).  A flax kernel is
+``lin1``; SAGE ``lin_l`` and ``lin_r`` (no bias); LG and Simple none
+(flax leaves their layers out of the tree).  A flax kernel is
 [in, out]; a torch Linear weight is [out, in], so kernels are transposed
 on the way over.  Only numpy crosses the boundary: this module imports
 nothing of JAX.

@@ -2,10 +2,12 @@
 checkpoints (the JAX package's ``train.py``).
 
 Losses mask the ghost graph (core/graph.py padding) so padding never
-leaks into gradients.  ``make_train_step`` runs the model's forward (on a
-standard-packed batch, each PNA layer through the CUDA layer kernel and
-its hand-written backward), the loss, ``loss.backward()`` and the
-optimizer.  ``torch.optim.Adam``'s defaults (betas 0.9 / 0.999, eps 1e-8)
+leaks into gradients.  ``make_train_step`` runs the model's forward, the
+loss, ``loss.backward()`` and the optimizer.  On a standard-packed batch
+each PNA layer runs through the CUDA layer kernel (``PNALayerFunction``)
+and each GCN, GIN, SAGE, LG and Simple (sum, mean) layer through the mp
+layer kernel (``MPLayerFunction``), each with its hand-written backward;
+the readout through ``ReadoutFunction``.  ``torch.optim.Adam``'s defaults (betas 0.9 / 0.999, eps 1e-8)
 are ``optax.adam``'s.  Checkpoints are ``torch.save`` of the model's and
 the optimizer's state dicts.
 """

@@ -17,10 +17,12 @@ from gnnbuilder_tpu_torch.bench.canonical import (
 )
 from gnnbuilder_tpu_torch.ops import dispatch, segment
 from gnnbuilder_tpu_torch import train
+from gnnbuilder_tpu_torch.ops import ell
 from gnnbuilder_tpu_torch.ops.cuda import (
     _build,
     ell_bwd,
     mp_block,
+    mp_layer,
     pna_block,
     pna_layer,
     readout,
@@ -249,18 +251,25 @@ def _scatter_case(cuda_device, F):
     ks_t = pna_layer.scaler_blocks(p[2], F, F).t().contiguous()
     d_mid = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
     args = (d_mid, aux, agg_cat, b.in_degree, b.nbr_nodes, v, ks_t, 1.8)
-    before = scatter_bwd.fused_pna_scatter_backward.launches
+    before = (scatter_bwd.fused_pna_scatter_cstk.launches,
+              ell_bwd.fused_gather_backward_csr.launches)
     got = scatter_bwd.fused_pna_scatter_backward(*args)
+    again = scatter_bwd.fused_pna_scatter_backward(*args)
     torch.cuda.synchronize()
-    assert scatter_bwd.fused_pna_scatter_backward.launches == before + 1
+    assert (scatter_bwd.fused_pna_scatter_cstk.launches,
+            ell_bwd.fused_gather_backward_csr.launches) == (
+                before[0] + 2, before[1] + 2)
     want = scatter_bwd.pna_scatter_backward_plain(*args)
     assert torch.isfinite(got).all()
     assert _scaled_err(got, want) <= 1e-4
+    assert torch.equal(got, again)
 
 
 def test_scatter_bwd_kernel_matches_plain(cuda_device):
-    """dv on the residuals of a real forward, to 1e-4 of max |value|
-    (atomic adds in another order)."""
+    """dv on the residuals of a real forward through the route of a batch
+    without a reverse table (the coefficient stack, then the gather over
+    the reverse CSR), to 1e-4 of max |value| (sums in another order), the
+    same bits on two calls."""
     _scatter_case(cuda_device, 128)
 
 
@@ -308,11 +317,10 @@ def test_train_step_through_kernels(cuda_device):
 
 
 def _counts():
-    """Launches of the layer kernel, the scatter kernel (either mode), the
-    reverse-table gather and the readout."""
+    """Launches of the layer kernel, the scatter kernel, the reverse-table
+    gather and the readout."""
     return (pna_layer.fused_pna_layer.launches,
-            scatter_bwd.fused_pna_scatter_backward.launches
-            + scatter_bwd.fused_pna_scatter_cstk.launches,
+            scatter_bwd.fused_pna_scatter_cstk.launches,
             ell_bwd.fused_gather_backward.launches,
             readout.fused_readout.launches)
 
@@ -557,6 +565,165 @@ def test_pna_dv_and_train_step_are_bitwise_reproducible(cuda_device):
         step(b, target)
         torch.cuda.synchronize()
         assert _delta(counts) == (6, 6, 6, 1)
+        grads.append({k: q.grad.clone() for k, q in
+                      model.named_parameters()})
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k
+
+
+MP_LAYER_CONVS = ("gin", "sage", "gcn", "lg", "simple_sum", "simple_mean")
+
+
+def _mp_operands(conv, F, g, device):
+    """(v, operands) of one layer at input width F (128 out for gin and
+    sage, F for the rest)."""
+    def r(*s, sc=None):
+        sc = 1.0 / s[0] ** 0.5 if sc is None else sc
+        return (torch.randn(*s, generator=g) * sc).to(device)
+
+    if conv == "gin":
+        return dict(w0=r(F, 128), b0=r(128, sc=.1), w1=r(128, 128),
+                    b1=r(128, sc=.1), eps=0.2)
+    if conv == "sage":
+        return dict(w0=r(F, 128), b0=r(128, sc=.1), w1=r(F, 128))
+    if conv == "gcn":
+        return dict(b0=r(F, sc=.1))
+    return {}
+
+
+@pytest.mark.parametrize("conv", MP_LAYER_CONVS)
+@pytest.mark.parametrize("mode", ["ell", "block"])
+def test_mp_layer_kernel_matches_plain(cuda_device, conv, mode):
+    """Row 4 in both modes at input widths 11 and 128, with a skip and
+    relu and without them (tanh), and its saved s: 1e-4 of max |value| on
+    real rows (sums in another order); the block mode also on a batch
+    with a 70-in-degree hub (no ELL table)."""
+    batches = ([_std_batch(device=cuda_device)[1]] if mode == "ell" else
+               [_batch()[1].to(cuda_device), _hub_block_batch(cuda_device)[1]])
+    g = torch.Generator(device="cpu").manual_seed(9)
+    for b in batches:
+        for F, act, with_skip in ((11, "relu", True), (128, "tanh", False)):
+            ops = _mp_operands(conv, F, g, cuda_device)
+            x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+            Fout = 128 if conv in ("gin", "sage") else F
+            skip = (torch.randn(b.num_nodes, Fout, generator=g)
+                    .to(cuda_device) if with_skip else None)
+            kw = dict(ops, skip=skip, act=act, save_s=True,
+                      block_adj=b.block_adj if mode == "block" else None)
+            before = mp_layer.fused_mp_layer.launches
+            out, s = mp_layer.fused_mp_layer(x, b.nbr_nodes, b.in_degree,
+                                             conv, **kw)
+            torch.cuda.synchronize()
+            assert mp_layer.fused_mp_layer.launches == before + 1
+            want, want_s = mp_layer.mp_layer_plain(
+                x, b.nbr_nodes, b.in_degree, conv, **kw)
+            m = b.node_mask
+            assert torch.isfinite(out[m]).all()
+            assert _scaled_err(out[m], want[m]) <= 1e-4, (F, act)
+            assert _scaled_err(s[m], want_s[m]) <= 1e-4, (F, act)
+
+
+def test_csr_gather_is_bitwise_stable(cuda_device):
+    """The gather's CSR mode over ``reverse_csr`` of the train batch's
+    forward table, with PNA's seven coefficient blocks: within 1e-6 of
+    max |value| of the plain version and of the table mode, and the same
+    bits on two launches."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    N, F = b.num_nodes, 128
+    v = torch.randn(N, F, generator=g).to(cuda_device)
+    cstk = torch.randn(N, 7 * F, generator=g).to(cuda_device)
+    hit = torch.rand(N, F, generator=g).to(cuda_device) < 0.5
+    first = v[b.rev_nbr_nodes[:, 0].long()]
+    cstk[:, 3 * F:4 * F] = torch.where(hit, first, cstk[:, 3 * F:4 * F])
+    ptr, idx = ell.reverse_csr(b.nbr_nodes, b.in_degree)
+    args = (cstk, ptr, idx, v, True, True, 2)
+    before = ell_bwd.fused_gather_backward_csr.launches
+    one = ell_bwd.fused_gather_backward_csr(*args)
+    two = ell_bwd.fused_gather_backward_csr(*args)
+    torch.cuda.synchronize()
+    assert ell_bwd.fused_gather_backward_csr.launches == before + 2
+    assert torch.equal(one, two)
+    assert _scaled_err(one, ell_bwd.ell_gather_backward_csr_plain(
+        *args)) <= 1e-6
+    table = ell_bwd.fused_gather_backward(cstk, b.rev_nbr_nodes,
+                                          b.out_degree, v, True, True, 2)
+    assert _scaled_err(one, table) <= 1e-6
+
+
+@pytest.mark.parametrize("conv", ["gcn", "gin", "sage"])
+@pytest.mark.parametrize("rev", [True, False])
+def test_mp_train_step_through_kernels(cuda_device, conv, rev):
+    """One Adam step of canonical GCN, GIN or SAGE on the 128-graph
+    standard-packed batch, with its reverse table or without one: six mp
+    layer launches, six lin-only gathers (table or CSR mode) and one
+    readout; every gradient within 1e-4 of max |value| of the plain path
+    run in float64 (GIN: in float32, since relu decisions within float32
+    rounding of 0 go the other way in float64 and move a gradient ~1e-3
+    of its max in every float32 path), and the same bits on a second
+    step from the same state."""
+    gs, b = _std_batch(device=cuda_device)
+    if not rev:
+        b = b.replace(rev_nbr_nodes=None, out_degree=None)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    torch.manual_seed(0)
+    model = canonical_model(conv, "qm9", graphs=gs).to(cuda_device)
+    state = {k: t.clone() for k, t in model.state_dict().items()}
+    counters = (mp_layer.fused_mp_layer, ell_bwd.fused_gather_backward,
+                ell_bwd.fused_gather_backward_csr, readout.fused_readout)
+    grads = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        step = train.make_train_step(
+            model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        before = [f.launches for f in counters]
+        step(b, target)
+        torch.cuda.synchronize()
+        assert [f.launches - n for f, n in zip(counters, before)] == [
+            6, 6 if rev else 0, 0 if rev else 6, 1]
+        grads.append({k: q.grad.clone() for k, q in
+                      model.named_parameters()})
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k
+    dt = torch.float32 if conv == "gin" else torch.float64
+    ref = canonical_model(conv, "qm9", graphs=gs).to(cuda_device).to(dt)
+    ref.load_state_dict({k: v.to(dt) for k, v in state.items()})
+    dispatch.set_fused_mode("never")
+    try:
+        train.masked_mse_loss(
+            ref(b.replace(node_feat=b.node_feat.to(dt))), target.to(dt),
+            b.graph_mask).backward()
+    finally:
+        dispatch.set_fused_mode("auto")
+    want = dict(ref.named_parameters())
+    for k, q in grads[0].items():
+        assert torch.isfinite(q).all(), k
+        assert _scaled_err(q.to(dt), want[k].grad) <= 1e-4, k
+
+
+def test_pna_train_step_without_reverse_table_is_bitwise_reproducible(
+        cuda_device):
+    """The canonical PNA train step on the 128-graph batch without its
+    reverse table: dv through the coefficient stack and the CSR gather in
+    every layer, and every gradient the same bits on two steps from one
+    state."""
+    gs, b = _std_batch(device=cuda_device)
+    b = b.replace(rev_nbr_nodes=None, out_degree=None)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    torch.manual_seed(0)
+    model = canonical_model("pna", "qm9", graphs=gs).to(cuda_device)
+    state = {k: t.clone() for k, t in model.state_dict().items()}
+    grads = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        step = train.make_train_step(
+            model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        before = ell_bwd.fused_gather_backward_csr.launches
+        counts = _counts()
+        step(b, target)
+        torch.cuda.synchronize()
+        assert _delta(counts) == (6, 6, 0, 1)
+        assert ell_bwd.fused_gather_backward_csr.launches == before + 6
         grads.append({k: q.grad.clone() for k, q in
                       model.named_parameters()})
     for k in grads[0]:

@@ -39,6 +39,7 @@ from gnnbuilder_tpu.ops.pallas.pna_layer import (
     fused_pna_layer_vjp as jax_layer_vjp,
 )
 from gnnbuilder_tpu.ops.pallas.pna_layer import pna_layer_reference
+from gnnbuilder_tpu_torch.ops import ell
 from gnnbuilder_tpu_torch.ops.cuda import ell_bwd, pna_layer, scatter_bwd
 
 TOL = 2e-5
@@ -199,6 +200,20 @@ def test_cstk_gather_matches_scatter_route():
 
 @pytest.mark.parametrize("act,use_skip", [("relu", True), ("tanh", False)])
 def test_layer_gradients_through_reverse_table_match_jax(act, use_skip):
+    _layer_gradients_case(act, use_skip, rev=True)
+
+
+@pytest.mark.parametrize("act,use_skip", [("relu", True), ("tanh", False)])
+def test_layer_gradients_without_reverse_table_match_jax(act, use_skip):
+    """The batch without its reverse table: dv through
+    ``fused_pna_scatter_backward`` (on the card the coefficient stack and
+    the gather over the reverse CSR), against float64 and the JAX
+    ``fused_pna_layer_vjp`` without reverse tables (its forward-table
+    scatter kernel, interpret mode)."""
+    _layer_gradients_case(act, use_skip, rev=False)
+
+
+def _layer_gradients_case(act, use_skip, rev):
     b = _batch(F=16)
     x = np.asarray(b.node_feat)
     N, Fin = x.shape
@@ -230,16 +245,17 @@ def test_layer_gradients_through_reverse_table_match_jax(act, use_skip):
     pna_layer.fused_pna_scatter_cstk = count("cstk", orig[0])
     pna_layer.fused_gather_backward = count("gather", orig[1])
     pna_layer.fused_pna_scatter_backward = count("scatter", orig[2])
+    rev_t = (_t(b.rev_nbr_nodes), _t(b.out_degree)) if rev else (None, None)
     try:
         out = pna_layer.fused_pna_layer_vjp(
             xt, _t(b.nbr_nodes), _t(b.in_degree), *pt, delta, skip=st,
-            act=act, rev_nbr_nodes=_t(b.rev_nbr_nodes),
-            out_degree=_t(b.out_degree))
+            act=act, rev_nbr_nodes=rev_t[0], out_degree=rev_t[1])
         out.backward(_t(ct))
     finally:
         (pna_layer.fused_pna_scatter_cstk, pna_layer.fused_gather_backward,
          pna_layer.fused_pna_scatter_backward) = orig
-    assert calls == {"cstk": 1, "gather": 1, "scatter": 0}
+    assert calls == ({"cstk": 1, "gather": 1, "scatter": 0} if rev
+                     else {"cstk": 0, "gather": 0, "scatter": 1})
     ours = [xt.grad] + [q.grad for q in pt] + ([st.grad] if use_skip else [])
 
     nargs = 8 if use_skip else 7
@@ -253,7 +269,8 @@ def test_layer_gradients_through_reverse_table_match_jax(act, use_skip):
         s = pp[6] if use_skip else None
         return (jax_layer_vjp(
             xx, b.nbr_nodes, b.in_degree, *pp[:6], delta, skip=s,
-            rev_nbr_nodes=b.rev_nbr_nodes, out_degree=b.out_degree,
+            rev_nbr_nodes=b.rev_nbr_nodes if rev else None,
+            out_degree=b.out_degree if rev else None,
             tile_rows=N, window_slack=0, interpret=True,
             gather_mode="highest", mm="f32", act=act) * ct).sum()
 
@@ -276,3 +293,75 @@ def test_layer_gradients_through_reverse_table_match_jax(act, use_skip):
         grads = jax.grad(fn, argnums=tuple(range(nargs)))(*jin)
         for i, (o, w) in enumerate(zip(ours, grads)):
             _scaled_close(o.numpy(), w, (name, act, i), tol)
+
+
+def test_reverse_csr_matches_the_packers_reverse_table():
+    """``ops.ell.reverse_csr`` of the forward table holds, per sender, the
+    receivers of the packer's reverse table, as multisets (repeated edges
+    included)."""
+    b = _batch()
+    ptr, idx = ell.reverse_csr(_t(b.nbr_nodes), _t(b.in_degree))
+    rev, odeg = np.asarray(b.rev_nbr_nodes), np.asarray(b.out_degree)
+    assert ptr.dtype == idx.dtype == torch.int32
+    assert int(ptr[-1]) == len(idx) == int(np.asarray(b.in_degree).sum())
+    assert b.multigraph_static
+    for j in range(b.num_nodes):
+        got = np.sort(idx[ptr[j]:ptr[j + 1]].numpy())
+        np.testing.assert_array_equal(got, np.sort(rev[j, :odeg[j]]))
+
+
+def test_reverse_csr_of_a_hub_without_a_reverse_table():
+    """A one-way star whose hub sends to 70 leaves: every in-degree is 1,
+    so the batch has an ELL table, but the hub's out-degree is over 64, so
+    the packer builds no reverse table; ``reverse_csr`` still lists all 70
+    receivers, in row order (the stable sort)."""
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+
+    b = build_graph_batch(_hub_graphs(), device="cpu")
+    assert b.nbr_nodes is not None and b.rev_nbr_nodes is None
+    ptr, idx = ell.reverse_csr(b.nbr_nodes, b.in_degree)
+    hub = int(torch.argmax(ptr[1:] - ptr[:-1]))
+    got = idx[ptr[hub]:ptr[hub + 1]]
+    assert len(got) == 70 and bool((got[1:] > got[:-1]).all())
+    m = b.edge_mask
+    want = sorted(zip(b.senders[m].tolist(), b.receivers[m].tolist()))
+    send = torch.repeat_interleave(torch.arange(b.num_nodes),
+                                   (ptr[1:] - ptr[:-1]).long())
+    assert sorted(zip(send.tolist(), idx.tolist())) == want
+
+
+def _hub_graphs():
+    """QM9-sized random graphs around a one-way 71-node star."""
+    rng = np.random.default_rng(2)
+    gs = [_G(int(rng.integers(4, 12)), int(rng.integers(4, 20)), rng, 8,
+             False) for _ in range(4)]
+    star = _G(71, 0, rng, 8, False)
+    leaves = np.arange(1, 71)
+    star.edge_index = np.stack([0 * leaves, leaves])
+    return gs[:2] + [star] + gs[2:]
+
+
+@pytest.mark.parametrize("has_lin,has_dev,n_cmp", [
+    (True, False, 0), (True, True, 0), (True, True, 2), (False, False, 1)])
+def test_csr_gather_matches_table_gather(has_lin, has_dev, n_cmp):
+    """The plain gather over ``reverse_csr`` against the plain gather over
+    the packer's reverse table, on the same coefficient stack (extremum
+    refs that hit some v values)."""
+    b = _batch()
+    N, F = b.num_nodes, 8
+    rng = np.random.default_rng(6)
+    K = ell_bwd.n_blocks(has_lin, has_dev, n_cmp)
+    v = rng.standard_normal((N, F)).astype(np.float32)
+    cstk = rng.standard_normal((N, K * F)).astype(np.float32)
+    o = int(has_lin) + 2 * int(has_dev)
+    for k in range(n_cmp):
+        ref = cstk[:, (o + 2 * k) * F:(o + 2 * k + 1) * F]
+        take = rng.random((N, F)) < 0.5
+        ref[take] = v[np.asarray(b.rev_nbr_nodes)[:, 0]][take]
+    vt = _t(v) if has_dev or n_cmp else None
+    kw = dict(has_lin=has_lin, has_dev=has_dev, n_cmp=n_cmp)
+    ptr, idx = ell.reverse_csr(_t(b.nbr_nodes), _t(b.in_degree))
+    ours = ell_bwd.fused_gather_backward_csr(_t(cstk), ptr, idx, vt, **kw)
+    want = ell_bwd.ell_gather_backward_plain(
+        _t(cstk), _t(b.rev_nbr_nodes), _t(b.out_degree), vt, **kw)
+    _scaled_close(ours.numpy(), want.numpy())
