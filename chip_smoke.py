@@ -25,7 +25,18 @@ weights):
 * GCN, GIN and SAGE inference: ``Program.forward`` on the three
   block-packed batches (the mp stack kernel for GCN and SAGE, GIN's
   per-layer path, the readout kernel), against the per-layer plain path
-  on the card and, on a small batch, against the CPU.
+  on the card and, on a small batch, against the CPU; per-layer GCN, GIN
+  and SAGE training and LG / Simple forwards on the mp layer kernel;
+* GAT with 4 heads (layers 11 -> 4 x 128 -> ... -> 4 x 64): the block
+  attention kernel (row 9) and the windowed layer kernel (row 10)
+  against their plain versions in each layer, row 11 (the softmax
+  backward) in both of its modes; ``Program.forward`` on the three
+  block-packed batches (row 9 in every layer) and on the standard-packed
+  train batch (row 10); the train step (row 10 forward, row 11
+  backward): gradients against the float64 plain path taken on the
+  kernel path's ReLU decisions (the others logged), bitwise-equal gradients
+  on two steps with and without the reverse table, a 3-step loss curve
+  against the plain path.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -230,6 +241,7 @@ def split_device_time(prof, n_steps):
 
     parts = {"pna_layer kernel": 0.0, "pna_scatter_bwd kernel": 0.0,
              "mp_layer kernel": 0.0, "ell_gather_bwd kernel": 0.0,
+             "gat_layer kernel": 0.0, "gat_bwd kernel": 0.0,
              "readout kernel": 0.0, "Adam": 0.0, "torch matmul": 0.0,
              "other torch kernels": 0.0}
     for e in prof.key_averages():
@@ -247,6 +259,10 @@ def split_device_time(prof, n_steps):
             part = "pna_scatter_bwd kernel"
         elif "ell_gather_bwd" in name:
             part = "ell_gather_bwd kernel"
+        elif "gat_bwd" in name:
+            part = "gat_bwd kernel"
+        elif "gat_proj" in name or "gat_attn" in name:
+            part = "gat_layer kernel"
         elif "readout_kernel" in name:
             part = "readout kernel"
         elif "adam" in name or "multi_tensor" in name:
@@ -542,6 +558,439 @@ def mp_times(report, *, tb, mp_modes, g_args, sc_args, mp_models,
 
 
 
+GAT_HEADS = 4            # the JAX package's GAT A/B and hardware checks
+GAT_TRAIN_STEPS = 3
+
+
+def gat_layer_args(model, g, block):
+    """Each GAT layer's operands on batch ``g`` as the model's kernel gets
+    them, the hidden state advanced through the plain version (so each
+    kernel launch is held against its plain version on the same input):
+    ((x, table or block_adj, w, att_src, att_dst, bias, heads), kw)."""
+    from gnnbuilder_tpu_torch.ops.cuda import gat_block, gat_layer
+
+    L = model.gnn_num_layers
+    h = g.node_feat
+    layers = []
+    for i, c in enumerate(model.gnn_convs):
+        skip = h if model.gnn_skip_connection and 0 < i < L - 1 else None
+        ops = [t.detach().contiguous() for t in (
+            h, c.lin.weight.t(), c.att_src, c.att_dst, c.bias)]
+        table = (g.block_adj,) if block else (g.nbr_nodes, g.in_degree)
+        args = (ops[0], *table, *ops[1:], c.heads)
+        kw = dict(neg_slope=c.negative_slope, self_loops=c.add_self_loops,
+                  skip=skip, act=model.gnn_activation)
+        if block:
+            kw["concat"] = c.concat
+            h = gat_block.gat_block_layer_plain(*args, **kw)
+        else:
+            h = gat_layer.gat_layer_plain(*args, **kw)
+        layers.append((args, kw))
+    return layers
+
+
+def gat_work(layers, g, block):
+    """(flops, bytes) of one forward's six row-9 or row-10 launches at the
+    model's widths: the projection (2 Fin HC per row), the attention
+    terms (4 HC per row), per edge (distinct block pairs for row 9, ELL
+    slots for row 10) and per self slot 2 HC for the weighted sum and ~8
+    per head for the logit, max, exp and sum; x, the table (ELL ids or
+    one 128-float adjacency row per node), the degrees, the weights,
+    skip in and out out, each once."""
+    n = g.num_nodes
+    e = (int((g.block_adj > 0).sum()) if block
+         else int(g.in_degree.sum()))
+    flops = nbytes = 0
+    for args, kw in layers:
+        fin, hc, heads = args[0].shape[1], args[-5].shape[1], args[-1]
+        out_w = args[-2].shape[0]
+        flops += (2 * n * fin * hc + 4 * n * hc
+                  + (e + n) * (2 * hc + 8 * heads))
+        table = n * 128 if block else n * g.ell_width + n
+        nbytes += 4 * (n * fin + table + fin * hc + 2 * hc + out_w
+                       + n * out_w * (2 if kw["skip"] is not None else 1))
+    return flops, nbytes
+
+
+def gat_bwd_work(bwd_args, g):
+    """(flops, bytes) of one train step's six row-11 launches: per edge
+    and head the dot dalpha (2 C), the value term (2 C) and ~20 for the
+    logit, exp, alpha and dpre; per self slot the dot; dz, h, a_src,
+    a_dst, both tables and the degrees in, dh_val and the five [N, H]
+    outputs out, each once."""
+    n, e = g.num_nodes, int(g.in_degree.sum())
+    wr = g.rev_nbr_nodes.shape[1]
+    flops = nbytes = 0
+    for a in bwd_args:
+        hc, heads = a[0].shape[1], a[6]
+        flops += e * (4 * hc + 20 * heads) + n * 2 * hc
+        nbytes += 4 * (3 * n * hc + 7 * n * heads + n * (g.ell_width + wr)
+                       + 2 * n)
+    return flops, nbytes
+
+
+def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
+               zero_counts, counts, only, fresh_step, smi):
+    """GAT (heads 4, concat): rows 9, 10 and 11 against their plain
+    versions at the canonical model's shapes, the three GAT paths
+    (block-packed inference, standard-packed inference, training) with
+    their launch counts and outputs or gradients against the plain path,
+    bitwise-equal gradients on two steps with and without the reverse
+    table, and the times.  Fills ``report``; returns the summary for the
+    last JSON line."""
+    from gnnbuilder_tpu_torch import Program, train
+    from gnnbuilder_tpu_torch.bench.canonical import (
+        canonical_batches,
+        canonical_model,
+    )
+    from gnnbuilder_tpu_torch.bench.grad_precision import (
+        conv_output_masks,
+        grads_on_relu_pattern,
+    )
+    from gnnbuilder_tpu_torch.ops import dispatch
+    from gnnbuilder_tpu_torch.ops.cuda import gat_block, gat_bwd, gat_layer
+
+    kw_gat = dict(conv_kwargs=dict(heads=GAT_HEADS))
+    out = {}
+    torch.set_grad_enabled(False)
+    with phase(f"GAT (heads {GAT_HEADS}): models, and rows 9 and 10 against "
+               f"their plain versions in each of the 6 layers"):
+        model = canonical_model("gat", "qm9", graphs=graphs, **kw_gat)
+        prog = Program(model, max_nodes=b0.num_nodes, max_edges=b0.num_edges,
+                       max_graphs=b0.num_graphs, block_size=128,
+                       device=dev, seed=31)
+        prog.init_params()
+        log("GAT layer widths (in -> heads x channels): " + ", ".join(
+            f"{c.lin.in_features}->{c.heads}x{c.out_channels}"
+            for c in model.gnn_convs)
+            + f"; pooled width {model.mlp_head.linear_layers[0].in_features}")
+        blk_layers = gat_layer_args(model, b0, block=True)
+        std_layers = gat_layer_args(model, tb, block=False)
+        for name, layers, fn, plain, g_ in (
+                ("gat_block", blk_layers, gat_block.fused_gat_block_layer,
+                 gat_block.gat_block_layer_plain, b0),
+                ("gat_layer", std_layers, gat_layer.fused_gat_layer,
+                 gat_layer.gat_layer_plain, tb)):
+            err = 0.0
+            real = g_.node_mask
+            for i, (args, kw) in enumerate(layers):
+                got = fn(*args, **kw)
+                torch.cuda.synchronize()
+                ok, abs_err, rel_err = close_enough(
+                    got[real], plain(*args, **kw)[real])
+                err = max(err, abs_err)
+                if not ok:
+                    raise AssertionError(
+                        f"{name} layer {i}: {rel_err:.3e} of max |value| "
+                        f"against its plain version (tol {TOL})")
+            report[name] = dict(max_abs_err=err)
+            log(f"{name} [N={g_.num_nodes}]: all 6 layers within tol ({TOL}"
+                f"; node_mask rows), max abs {err:.3e}")
+
+    with phase(f"main path: Program.forward of canonical GAT on "
+               f"{N_BATCHES} x {BATCH_GRAPHS}-graph block batches"):
+        zero_counts()
+        outs = [prog.forward(b) for b in batches]
+        torch.cuda.synchronize()
+        launches = counts()
+        log(f"launches: {launches}")
+        if launches != only(gat_block=6 * N_BATCHES, readout=N_BATCHES):
+            raise AssertionError("GAT block forward: every layer did not "
+                                 "take row 9")
+        report["gat_block"]["launches"] = launches["gat_block"]
+        dispatch.set_fused_mode("never")
+        try:
+            refs = [prog.forward(b) for b in batches]
+        finally:
+            dispatch.set_fused_mode("auto")
+        for i, (b, o_, r_) in enumerate(zip(batches, outs, refs)):
+            m = b.graph_mask
+            ok, abs_err, rel_err = close_enough(o_[m], r_[m])
+            log(f"batch {i}: kernels vs per-layer plain on the card: max abs "
+                f"{abs_err:.3e}, {rel_err:.3e} of max |value| (tol {TOL})")
+            if not ok or tuple(o_.shape) != (b.num_graphs, 1):
+                raise AssertionError(f"GAT batch {i} disagrees")
+        _, (small,) = canonical_batches(
+            "qm9", n_graphs=64, batch_size=64, block_size=128,
+            node_multiple=128, device="cpu")
+        cpu_p = Program(canonical_model("gat", "qm9", **kw_gat),
+                        max_nodes=small.num_nodes, max_edges=small.num_edges,
+                        max_graphs=small.num_graphs, block_size=128,
+                        device="cpu")
+        cpu_p.set_params({k: v.cpu() for k, v in prog.params.items()})
+        dispatch.set_fused_mode("never")
+        try:
+            ref = cpu_p.forward(small)
+        finally:
+            dispatch.set_fused_mode("auto")
+        o_ = prog.forward(small.to(dev)).cpu()
+        m = small.graph_mask
+        ok, abs_err, rel_err = close_enough(o_[m], ref[m])
+        log(f"64-graph batch: card kernels vs CPU plain path: max abs "
+            f"{abs_err:.3e}, {rel_err:.3e} of max |value| (tol {TOL})")
+        if not ok:
+            raise AssertionError("GAT: card disagrees with the CPU")
+
+    with phase("standard-packed GAT inference: Program.forward on the train "
+               "batch"):
+        tprog = Program(model, max_nodes=tb.num_nodes, max_edges=tb.num_edges,
+                        max_graphs=tb.num_graphs, device=dev)
+        tprog.set_params(prog.params)
+        zero_counts()
+        o_std = tprog.forward(tb)
+        torch.cuda.synchronize()
+        launches = counts()
+        log(f"launches: {launches}")
+        if launches != only(gat_layer=6, readout=1):
+            raise AssertionError("GAT standard forward: every layer did not "
+                                 "take row 10")
+        dispatch.set_fused_mode("never")
+        try:
+            r_std = tprog.forward(tb)
+        finally:
+            dispatch.set_fused_mode("auto")
+        m = tb.graph_mask
+        ok, abs_err, rel_err = close_enough(o_std[m], r_std[m])
+        log(f"kernels vs per-layer plain: max abs {abs_err:.3e}, "
+            f"{rel_err:.3e} of max |value| (tol {TOL})")
+        if not ok:
+            raise AssertionError("GAT standard-packed forward disagrees")
+
+    with phase("row 11 against its plain version in each of the 6 layers, "
+               "over the reverse table and the reverse CSR"):
+        gen = torch.Generator(device=dev).manual_seed(37)
+        bwd_args, err = [], 0.0
+        for i, (args, kw) in enumerate(std_layers):
+            x, _, _, w, att_s, att_d, _, heads = args
+            hh = x @ w
+            hv = hh.view(x.shape[0], heads, -1)
+            a_s = (hv * att_s).sum(-1).contiguous()
+            a_d = (hv * att_d).sum(-1).contiguous()
+            dz = torch.randn(hh.shape, generator=gen, device=dev)
+            a = (dz, hh.contiguous(), a_s, a_d, tb.nbr_nodes, tb.in_degree,
+                 heads)
+            want = gat_bwd.gat_scatter_backward_plain(*a)
+            for label, rkw in (("reverse table", dict(
+                    rev_nbr_nodes=tb.rev_nbr_nodes,
+                    out_degree=tb.out_degree)), ("reverse CSR", {})):
+                one = gat_bwd.fused_gat_scatter_backward(*a, **rkw)
+                two = gat_bwd.fused_gat_scatter_backward(*a, **rkw)
+                torch.cuda.synchronize()
+                for name, g1, g2, w_ in zip(
+                        ("dh_val", "da_src", "dsum", "s", "m", "den"),
+                        one, two, want):
+                    ok, abs_err, rel_err = close_enough(g1, w_)
+                    err = max(err, abs_err)
+                    if not ok:
+                        raise AssertionError(
+                            f"gat_bwd layer {i} ({label}) {name}: "
+                            f"{rel_err:.3e} of max |value| against its "
+                            f"plain version (tol {TOL})")
+                    if not torch.equal(g1, g2):
+                        raise AssertionError(f"gat_bwd layer {i} ({label}) "
+                                             f"{name}: two launches differ")
+            bwd_args.append(a + (tb.rev_nbr_nodes, tb.out_degree))
+        report["gat_bwd"] = dict(max_abs_err=err)
+        log(f"gat_bwd: six outputs of all 6 layers within tol ({TOL}) in "
+            f"both modes, max abs {err:.3e}; bitwise equal on two launches")
+
+    torch.set_grad_enabled(True)
+    with phase("GAT training: gradients of one step against the plain path, "
+               "and two steps from one state with and without the reverse "
+               "table"):
+        tm = canonical_model("gat", "qm9", graphs=tgraphs, **kw_gat)
+        tp = Program(tm, max_nodes=tb.num_nodes, max_edges=tb.num_edges,
+                     max_graphs=tb.num_graphs, device=dev, seed=41)
+        st = {k: v.clone() for k, v in tp.init_params().items()}
+        tb_nr = tb.replace(rev_nbr_nodes=None, out_degree=None)
+        per_route = {}
+        for label, g_ in (("reverse table", tb), ("reverse CSR", tb_nr)):
+            again = []
+            for _ in range(2):
+                tm.load_state_dict(st)
+                step = fresh_step(tm)
+                zero_counts()
+                step(g_, target)
+                torch.cuda.synchronize()
+                launches = counts()
+                if launches != only(gat_layer=6, gat_bwd=6, readout=1):
+                    raise AssertionError(f"GAT step ({label}) launches "
+                                         f"{launches}")
+                again.append(grads_of(tm))
+            same = [k for k in again[0]
+                    if torch.equal(again[0][k], again[1][k])]
+            log(f"{label}: launches {launches}; bitwise-equal gradients "
+                f"{len(same)} of {len(again[0])}")
+            if len(same) != len(again[0]):
+                raise AssertionError(f"GAT ({label}): two train steps from "
+                                     f"one state gave different gradients")
+            per_route[label] = again[0]
+        ok, _, rel, k = worst_grad(per_route["reverse CSR"],
+                                   per_route["reverse table"])
+        log(f"reverse CSR vs reverse table gradients: worst {rel:.3e} of "
+            f"max |value| ({k})")
+        kern = per_route["reverse table"]
+        tm.load_state_dict(st)
+        masks = conv_output_masks(tm, tb)
+        flips = [int(((a > 0) != b)[tb.node_mask].sum()) for a, b in
+                 zip(masks, conv_output_masks(tm, tb, "never"))]
+        log(f"layer outputs whose ReLU goes the other way in the kernel "
+            f"forward than in the float32 plain forward, per layer: {flips}")
+        refs = {}
+        for name, dt in (("float64", torch.float64),
+                         ("float32", torch.float32)):
+            mr = canonical_model("gat", "qm9", graphs=tgraphs,
+                                 **kw_gat).to(dev).to(dt)
+            mr.load_state_dict({k_: v.to(dt) for k_, v in st.items()})
+            gb = tb.replace(node_feat=tb.node_feat.to(dt))
+            refs[name] = grads_on_relu_pattern(mr, gb, target.to(dt), masks)
+            dispatch.set_fused_mode("never")
+            try:
+                mr.zero_grad()
+                train.masked_mse_loss(mr(gb), target.to(dt),
+                                      tb.graph_mask).backward()
+            finally:
+                dispatch.set_fused_mode("auto")
+            refs[name + " own"] = grads_of(mr)
+            del mr
+        # the gate: the float64 plain path on the kernel path's ReLU
+        # decisions (a layer output within float32 rounding of 0 can take
+        # its ReLU another way in the kernel forward than in a plain one,
+        # which moves a gradient ~1e-3 of its max); the rest are logged
+        grads_rep = {}
+        for name in ("float64", "float32", "float64 own", "float32 own"):
+            gate = name == "float64"
+            ok, abs_err, rel, k = worst_grad(kern, refs[name])
+            grads_rep[name] = rel
+            which = ("its own ReLU decisions" if "own" in name
+                     else "the kernel path's ReLU decisions")
+            log(f"gradients vs the {name.split()[0]} plain path on {which}: "
+                f"worst {rel:.3e} of max |value| ({k}), max abs "
+                f"{abs_err:.3e}" + (f" (tol {TOL})" if gate else " (logged)"))
+            if gate and not ok:
+                raise AssertionError("GAT gradients disagree with the "
+                                     "float64 plain path on the kernel "
+                                     "path's ReLU decisions")
+        out["gradients_worst_rel"] = grads_rep
+        out["relu_flips_kernel_vs_plain"] = flips
+
+    with phase(f"main path: {GAT_TRAIN_STEPS} Adam steps of canonical GAT on "
+               f"the train batch"):
+        curves = {}
+        for mode in ("auto", "never"):
+            tm.load_state_dict(st)
+            step = fresh_step(tm)
+            dispatch.set_fused_mode(mode)
+            try:
+                if mode == "auto":
+                    zero_counts()
+                curves[mode] = [float(step(tb, target))
+                                for _ in range(GAT_TRAIN_STEPS)]
+                torch.cuda.synchronize()
+                if mode == "auto":
+                    launches = counts()
+            finally:
+                dispatch.set_fused_mode("auto")
+        log(f"launches {launches}; losses {curves['auto']}, plain "
+            f"{curves['never']}")
+        want = only(gat_layer=6 * GAT_TRAIN_STEPS,
+                    gat_bwd=6 * GAT_TRAIN_STEPS, readout=GAT_TRAIN_STEPS)
+        if launches != want:
+            raise AssertionError(f"GAT train launches {launches}, expected "
+                                 f"{want}")
+        for i, (a, b) in enumerate(zip(curves["auto"], curves["never"])):
+            if not (math.isfinite(a) and abs(a - b) <= CURVE_TOL * abs(b)):
+                raise AssertionError(f"GAT step {i}: loss {a} against plain "
+                                     f"{b}")
+        report["gat_layer"]["launches"] = launches["gat_layer"]
+        report["gat_bwd"]["launches"] = launches["gat_bwd"]
+        out["loss_curve"], out["plain_loss_curve"] = (curves["auto"],
+                                                      curves["never"])
+
+    with phase("GAT times (CUDA events; torch.profiler device times)"):
+        def run_layers(fn, layers):
+            for args, kw in layers:
+                fn(*args, **kw)
+
+        def run_bwd(fn, rev):
+            for a in bwd_args:
+                fn(*a[:7], rev_nbr_nodes=a[7] if rev else None,
+                   out_degree=a[8] if rev else None)
+
+        def run_bwd_plain():
+            for a in bwd_args:
+                gat_bwd.gat_scatter_backward_plain(*a[:7])
+
+        torch.set_grad_enabled(False)
+        for name, fn, plain, work, per in (
+                ("gat_block",
+                 lambda: run_layers(gat_block.fused_gat_block_layer,
+                                    blk_layers),
+                 lambda: run_layers(gat_block.gat_block_layer_plain,
+                                    blk_layers),
+                 gat_work(blk_layers, b0, True),
+                 f"one block-packed b{BATCH_GRAPHS} forward (6 launches)"),
+                ("gat_layer",
+                 lambda: run_layers(gat_layer.fused_gat_layer, std_layers),
+                 lambda: run_layers(gat_layer.gat_layer_plain, std_layers),
+                 gat_work(std_layers, tb, False),
+                 f"one standard-packed b{BATCH_GRAPHS} forward (6 "
+                 f"launches)"),
+                ("gat_bwd", lambda: run_bwd(
+                    gat_bwd.fused_gat_scatter_backward, True),
+                 run_bwd_plain, gat_bwd_work(bwd_args, tb),
+                 f"one b{BATCH_GRAPHS} train step (6 launches, reverse "
+                 f"table)")):
+            b_ms, b_by = bound(*work)
+            ms, ev = timed(fn, 10)
+            pms, pev = timed(plain, 3)
+            report[name].update(
+                ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev,
+                bound_ms=b_ms, bound_by=b_by, flops=work[0], bytes=work[1],
+                library_ms=None, per=per)
+            log(f"{name} per {per}: device {ms:.4f} ms (events {ev:.4f}), "
+                f"plain {pms:.4f} ({pev:.4f}); bound {b_ms:.4f} ms by {b_by}"
+                f" ({b_ms / ms:.1%} of it)")
+        ms, ev = timed(lambda: run_bwd(gat_bwd.fused_gat_scatter_backward,
+                                       False), 10)
+        report["gat_bwd"].update(csr_ms=ms, csr_event_ms=ev)
+        log(f"gat_bwd over the reverse CSR (reverse_csr included): device "
+            f"{ms:.4f} ms (events {ev:.4f}) per step")
+        fb = prog.benchmark(b0, iters=20, warmup=3)
+        out["forward_block"] = dict(ms=fb["latency_s"] * 1e3,
+                                    graphs_per_s=fb["graphs_per_s"])
+        std_ms = time_ms(lambda: tprog.forward(tb), 20, warmup=3)
+        out["forward_standard"] = dict(
+            ms=std_ms, graphs_per_s=int(tb.graph_mask.sum()) / std_ms * 1e3)
+        log(f"GAT forward b{BATCH_GRAPHS}: block-packed "
+            f"{out['forward_block']['ms']:.4f} ms "
+            f"({fb['graphs_per_s']:.1f} graphs/s), standard-packed "
+            f"{std_ms:.4f} ms on {smi}")
+        torch.set_grad_enabled(True)
+        tm.load_state_dict(st)
+        step = fresh_step(tm)
+        step_ms = time_ms(lambda: step(tb, target), 10, warmup=3)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            for _ in range(3):
+                step(tb, target)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t) * 1e3 / 3
+        split = split_device_time(prof, 3)
+        busy = sum(split.values())
+        log(f"GAT train step b{BATCH_GRAPHS}: {step_ms:.4f} ms (events); "
+            f"device ms per step by part: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v)
+            + f"; busy {busy:.4f} of {wall_ms:.4f} ms wall")
+        out.update(step_ms=step_ms, device_ms_per_step=split,
+                   profiled_wall_ms=wall_ms)
+    torch.set_grad_enabled(False)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -557,6 +1006,9 @@ def main():
     from gnnbuilder_tpu_torch.ops.cuda import (
         _build,
         ell_bwd,
+        gat_block,
+        gat_bwd,
+        gat_layer,
         mp_block,
         mp_layer,
         pna_block,
@@ -574,7 +1026,10 @@ def main():
                "ell_gather_bwd": ell_bwd.fused_gather_backward,
                "ell_gather_bwd_csr": ell_bwd.fused_gather_backward_csr,
                "mp_block_stack": mp_block.fused_mp_block_stack,
-               "mp_layer": mp_layer.fused_mp_layer}
+               "mp_layer": mp_layer.fused_mp_layer,
+               "gat_block": gat_block.fused_gat_block_layer,
+               "gat_layer": gat_layer.fused_gat_layer,
+               "gat_bwd": gat_bwd.fused_gat_scatter_backward}
 
     def only(**nonzero):
         """The launch counts of a path that launches ``nonzero``."""
@@ -1340,6 +1795,11 @@ def main():
                 f"the per-layer plain path on {len(bs_)} batch(es) of N="
                 f"{bs_[0].num_nodes}")
 
+    gat = gat_phases(report, dev=dev, graphs=graphs, batches=batches, b0=b0,
+                     tgraphs=tgraphs, tb=tb, target=target,
+                     zero_counts=zero_counts, counts=counts, only=only,
+                     fresh_step=fresh_step, smi=smi)
+
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
         log(f"forward b{BATCH_GRAPHS}: {bench['latency_s'] * 1e3:.4f} ms, "
@@ -1587,6 +2047,18 @@ def main():
              source="gnnbuilder_tpu_torch/csrc/mp_layer.cu",
              replaces="gnnbuilder_tpu/ops/pallas/mp_layer.py:341",
              **report["mp_layer"]),
+        dict(name="gat_block", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/gat_block.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/gat_block.py:164",
+             **report["gat_block"]),
+        dict(name="gat_layer", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/gat_layer.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/gat_layer.py:308",
+             **report["gat_layer"]),
+        dict(name="gat_bwd", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/gat_bwd.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/gat_bwd.py:297",
+             **report["gat_bwd"]),
     ]
     print(json.dumps({
         "kernels": kernels,
@@ -1608,6 +2080,7 @@ def main():
                          gcn_profiled_wall_ms=gcn_wall_ms),
         "mp_layer_forward": dict(batch_graphs=BATCH_GRAPHS,
                                  **mp_timed["forward"]),
+        "gat": dict(batch_graphs=BATCH_GRAPHS, heads=GAT_HEADS, **gat),
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,12 @@ plain layer (another slot holds the extremum, or a tie holds in one
 precision only), with the rows and graphs they fall in; for GIN the
 ReLU decisions of its MLP and of the layer's activation in the float32
 and float64 plain layers.  Such a decision sends a gradient elsewhere.
+
+``conv_output_masks`` and ``grads_on_relu_pattern`` give a reference
+that shares one path's ReLU decisions: the plain path's gradients with
+each layer's ReLU replaced by the other path's output mask (GAT's train
+gradients are gated so in ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``).
 """
 
 from __future__ import annotations
@@ -138,6 +144,47 @@ def relu_flips(model, b):
                         outer=int(outer.sum()) if model.gnn_activation
                         == "relu" else 0))
     return out
+
+
+@torch.no_grad()
+def conv_output_masks(model, b, mode="auto"):
+    """Each conv layer's output > 0 on one forward of fused mode ``mode``:
+    the layers' ReLU decisions on that path."""
+    masks = []
+    hooks = [c.register_forward_hook(
+        lambda mod, args, out: masks.append(out > 0))
+        for c in model.gnn_convs]
+    dispatch.set_fused_mode(mode)
+    try:
+        model(b)
+    finally:
+        dispatch.set_fused_mode("auto")
+        for h in hooks:
+            h.remove()
+    return masks
+
+
+def grads_on_relu_pattern(model, b, target, masks):
+    """The plain path's masked-MSE gradients (``"never"``) with each conv
+    layer's ReLU replaced by multiplication with ``masks`` (one per layer,
+    ``conv_output_masks`` of another path): the gradient of the same
+    piecewise-linear function that the other path took, at this model's
+    precision.  A layer output within rounding of 0 can take its ReLU
+    one way in one path and the other way in another; this reference
+    takes the other path's way.  The model's activation must be relu."""
+    if model.gnn_activation != "relu":
+        raise ValueError("the ReLU pattern needs gnn_activation='relu'")
+    hooks = []
+    for c, mk in zip(model.gnn_convs, masks):
+        hooks.append(c.register_forward_pre_hook(
+            lambda mod, args: args[:2] + (None,) + args[3:]))
+        hooks.append(c.register_forward_hook(
+            lambda mod, args, out, mk=mk: out * mk.to(out.dtype)))
+    try:
+        return _grads(model, b, target, "never")[1]
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def run(n_graphs, device, conv="pna", init_seed=None, **widths):

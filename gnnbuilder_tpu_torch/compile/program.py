@@ -65,12 +65,21 @@ class Program:
     # ------------------------------------------------------------ params
     def init_params(self, example_batch: Optional[GraphBatch] = None):
         """Seeded init, torch.nn.Linear's law U(+-1/sqrt(fan_in)) for weight
-        and bias (where the Linear has one), drawn from one
-        ``torch.Generator`` in module order; GCN's separate bias stays
-        zero, as in the JAX package.  Returns the state dict."""
+        and bias (where the Linear has one) and GAT's attention vectors
+        [1, H, C] glorot-uniform U(+-sqrt(6 / (H + C))) (the JAX package's
+        init), drawn from one ``torch.Generator`` in module order; GCN's
+        and GAT's separate biases stay zero, as in the JAX package.
+        Returns the state dict."""
+        from gnnbuilder_tpu_torch.nn.conv import GATConv
+
         gen = torch.Generator().manual_seed(self._seed)
         with torch.no_grad():
             for mod in self.model.modules():
+                if isinstance(mod, GATConv):
+                    bound = math.sqrt(6.0 / (mod.heads + mod.out_channels))
+                    for p in (mod.att_src, mod.att_dst):
+                        r = torch.rand(p.shape, generator=gen)
+                        p.copy_((2.0 * r - 1.0) * bound)
                 if isinstance(mod, torch.nn.Linear):
                     bound = 1.0 / math.sqrt(mod.in_features)
                     for p in (mod.weight, mod.bias):

@@ -1,5 +1,5 @@
-"""Message-passing convs: GCN, GIN, SAGE, LG, Simple and PNA (the JAX
-package's ``nn/conv.py``, PyG semantics).  Each takes ``(g, x, act,
+"""Message-passing convs: GCN, GIN, SAGE, LG, Simple, PNA and GAT (the
+JAX package's ``nn/conv.py``, PyG semantics).  Each takes ``(g, x, act,
 skip)`` and returns ``[N, out_channels]``; the skip is added before the
 activation.
 
@@ -36,6 +36,18 @@ allows, the layer runs through ``ops.cuda.pna_layer.fused_pna_layer_auto``
 (the CUDA kernel on the card, differentiable through its hand-written
 backward); otherwise through the plain torch ops below: over the ELL table, or over the edge list on
 a batch that ships none (an in-degree over 64, or ``ell_width=0``).
+
+GAT (PyG GATConv): per-edge logits ``leaky_relu(a_src_j + a_dst_i)``
+with ``a = (x W) . att`` per head, a softmax over each receiver's incoming
+edges and the analytic self loop, the attention-weighted sum of ``x W``,
+heads concatenated or averaged, then ``bias``.  Its routes, in the JAX
+package's order: the block attention kernel (``ops.cuda.gat_block``)
+under inference scope on a block-packed batch (``dispatch.gat_block_cfg``);
+the windowed layer kernel (``ops.cuda.gat_layer``, differentiable through
+its hand-written backward) in concat mode on a batch with an ELL table
+(``dispatch.gat_layer_cfg``); else plain: the block attention
+(``ops.block.block_gat_attention``), the ELL table
+(``ops.ell.ell_softmax_sum``) or the edge list.
 """
 
 from __future__ import annotations
@@ -47,10 +59,10 @@ import torch
 from gnnbuilder_tpu_torch.core.graph import GraphBatch
 from gnnbuilder_tpu_torch.nn.linear import BlockScaledLinear, PairLinear
 from gnnbuilder_tpu_torch.ops import block, dispatch, ell, segment
-from gnnbuilder_tpu_torch.ops.activations import get_activation
+from gnnbuilder_tpu_torch.ops.activations import get_activation, leaky_relu
 
 __all__ = ["GCNConv", "GINConv", "SAGEConv", "LGConv", "SimpleConv",
-           "PNAConv", "PNA_AGGREGATORS", "PNA_SCALERS",
+           "PNAConv", "GATConv", "PNA_AGGREGATORS", "PNA_SCALERS",
            "SUPPORTED_GNN_CONVS"]
 
 PNA_AGGREGATORS = ("max", "min", "mean", "std")
@@ -273,5 +285,106 @@ class PNAConv(torch.nn.Module):
         return _finish(self.lin(out), act, skip)
 
 
+class GATConv(torch.nn.Module):
+    """GAT with ``heads`` heads of ``out_channels`` each: the output is
+    [N, heads * out_channels] with ``concat``, else the head mean [N,
+    out_channels].  ``lin`` has no bias; ``att_src`` and ``att_dst`` are
+    [1, heads, out_channels] as in the JAX package.  ``edge_dim`` (edge
+    features in the logits) is not ported: it raises."""
+
+    def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2,
+                 add_self_loops: bool = True, edge_dim=None):
+        super().__init__()
+        if edge_dim is not None:
+            raise ValueError(
+                "GATConv edge_dim (edge features in the attention logits) "
+                "is not ported yet: ROADMAP queue 1 item 5")
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.heads = int(heads)
+        self.concat = bool(concat)
+        self.negative_slope = float(negative_slope)
+        self.add_self_loops = bool(add_self_loops)
+        H, C = self.heads, out_channels
+        self.lin = torch.nn.Linear(in_channels, H * C, bias=False)
+        self.att_src = torch.nn.Parameter(torch.empty(1, H, C))
+        self.att_dst = torch.nn.Parameter(torch.empty(1, H, C))
+        torch.nn.init.xavier_uniform_(self.att_src.view(H, C))
+        torch.nn.init.xavier_uniform_(self.att_dst.view(H, C))
+        self.bias = torch.nn.Parameter(
+            torch.zeros(H * C if self.concat else C))
+
+    @property
+    def out_width(self) -> int:
+        return self.heads * self.out_channels if self.concat \
+            else self.out_channels
+
+    def forward(self, g: GraphBatch, x, act=None, skip=None):
+        H, C, n = self.heads, self.out_channels, g.num_nodes
+        ns, loops = self.negative_slope, self.add_self_loops
+        w = self.lin.weight.t()
+        if dispatch.gat_block_cfg(g, act) is not None:
+            from gnnbuilder_tpu_torch.ops.cuda.gat_block import (
+                fused_gat_block_layer,
+            )
+
+            return fused_gat_block_layer(
+                x, g.block_adj, w, self.att_src, self.att_dst, self.bias, H,
+                neg_slope=ns, self_loops=loops, skip=skip, act=act,
+                concat=self.concat)
+        if self.concat and dispatch.gat_layer_cfg(g, act) is not None:
+            from gnnbuilder_tpu_torch.ops.cuda.gat_layer import (
+                fused_gat_layer_auto,
+            )
+
+            return fused_gat_layer_auto(
+                x, g.nbr_nodes, g.in_degree, w, self.att_src, self.att_dst,
+                self.bias, H, neg_slope=ns, self_loops=loops, skip=skip,
+                act=act, rev_nbr_nodes=g.rev_nbr_nodes,
+                out_degree=g.out_degree)
+        h = self.lin(x).reshape(n, H, C)
+        a_src = (h * self.att_src).sum(-1)                     # [N, H]
+        a_dst = (h * self.att_dst).sum(-1)
+        if dispatch.block_cfg(g) is not None:
+            out = block.block_gat_attention(g.block_adj, h, a_src, a_dst,
+                                            neg_slope=ns, self_loops=loops)
+        elif g.nbr_nodes is not None:
+            # separable logits per ELL slot; the self loop is an analytic
+            # extra slot
+            lt = leaky_relu(ell.ell_gather(a_src, g.nbr_nodes)
+                       + a_dst[:, None, :], ns)                 # [N, W, H]
+            vt = ell.ell_gather(h, g.nbr_nodes)                 # [N, W, H, C]
+            mask = ell.ell_mask(g.nbr_nodes, g.in_degree)
+            if loops:
+                out = ell.ell_softmax_sum(lt, vt, mask,
+                                          leaky_relu(a_src + a_dst, ns), h)
+            else:
+                out = ell.ell_softmax_sum(lt, vt, mask)
+        else:
+            send, recv = g.senders.long(), g.receivers.long()
+            logits = leaky_relu(a_src[send] + a_dst[recv], ns)       # [E, H]
+            if loops:
+                self_logit = leaky_relu(a_src + a_dst, ns)
+                m = logits.new_full((n, H), float("-inf")).scatter_reduce(
+                    0, recv[:, None].expand_as(logits), logits,
+                    reduce="amax", include_self=True)
+                m = torch.maximum(m, self_logit)
+                exp_e = torch.exp(logits - m[recv])
+                exp_self = torch.exp(self_logit - m)
+                denom = segment.segment_sum(exp_e, recv, n) + exp_self
+                num = (segment.segment_sum(exp_e[:, :, None] * h[send], recv,
+                                           n)
+                       + exp_self[:, :, None] * h)
+                out = num / denom[:, :, None]
+            else:
+                alpha = segment.segment_softmax(logits, recv, n)
+                out = segment.segment_sum(alpha[:, :, None] * h[send], recv,
+                                          n)
+        out = out.reshape(n, H * C) if self.concat else out.mean(dim=1)
+        return _finish(out + self.bias, act, skip)
+
+
 SUPPORTED_GNN_CONVS = {"gcn": GCNConv, "gin": GINConv, "sage": SAGEConv,
-                       "lg": LGConv, "simple": SimpleConv, "pna": PNAConv}
+                       "lg": LGConv, "simple": SimpleConv, "pna": PNAConv,
+                       "gat": GATConv}

@@ -15,7 +15,12 @@ inference and in training; GCN, GIN, SAGE, LG and Simple layers run
 through ``ops.cuda.mp_layer`` where ``dispatch.mp_layer_cfg`` allows
 (every standard-packed batch with an ELL table; block-packed GCN, LG and
 Simple), else their plain per-layer paths.  LG and Simple have no
-parameters and no stack kernel.  The readout runs through
+parameters and no stack kernel.  GAT layers run through
+``ops.cuda.gat_block`` under inference scope on a block-packed batch and
+through ``ops.cuda.gat_layer`` elsewhere on a batch with an ELL table
+(concat heads), else their plain paths; with concat heads a GAT layer's
+output is heads * channels wide, and the next layer and the MLP head take
+that width, as the JAX package's layers infer it.  The readout runs through
 ``ops.cuda.readout``.  With ``set_fused_mode("never")`` the model runs the
 per-layer plain path.  The paths compute the same function.  In training
 (grad mode on) the kernels get the live parameters, so gradients reach
@@ -122,7 +127,7 @@ class GNNModel(torch.nn.Module):
         )
         self.global_pooling = GlobalPooling(self.pooling_aggrs)
         self.mlp_head = MLP(
-            in_dim=gnn_output_dim * len(self.pooling_aggrs),
+            in_dim=self._width(gnn_output_dim) * len(self.pooling_aggrs),
             out_dim=mlp_out_dim,
             hidden_dim=mlp_hidden_dim,
             hidden_layers=mlp_hidden_layers,
@@ -130,15 +135,25 @@ class GNNModel(torch.nn.Module):
         )
         self._kernel_cache = None   # (key, _kernel_params result)
 
+    def _width(self, channels: int) -> int:
+        """The width of a conv output of ``channels`` channels: GAT with
+        concatenated heads (the default) gives heads * channels, which the
+        JAX package's layers infer as their input width."""
+        kw = self.conv_kwargs
+        if self.gnn_conv == "gat" and kw.get("concat", True):
+            return int(kw.get("heads", 1)) * channels
+        return channels
+
     def _layer_dims(self):
-        """(in_dim, out_dim) per conv layer — models.py:509-549."""
+        """(in_dim, out_dim) per conv layer — models.py:509-549; in_dim
+        is the width the layer takes (``_width`` of the layer before)."""
         L = self.gnn_num_layers
         if L == 1:
             return [(self.graph_input_feature_dim, self.gnn_output_dim)]
         dims = []
         for i in range(L):
             in_dim = (self.graph_input_feature_dim if i == 0
-                      else self.gnn_hidden_dim)
+                      else self._width(self.gnn_hidden_dim))
             out_dim = self.gnn_output_dim if i == L - 1 else self.gnn_hidden_dim
             dims.append((in_dim, out_dim))
         return dims

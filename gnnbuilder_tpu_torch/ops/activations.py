@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ACTIVATIONS", "OUTPUT_ACTIVATIONS",
-           "SUPPORTED_MODEL_ACTIVATIONS", "get_activation"]
+           "SUPPORTED_MODEL_ACTIVATIONS", "get_activation", "leaky_relu"]
 
 
 def identity(x):
@@ -42,6 +42,15 @@ OUTPUT_ACTIVATIONS = {
     "softmax": lambda x: torch.softmax(x, dim=-1),
     "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
 }
+
+
+def leaky_relu(z, negative_slope: float):
+    """``jax.nn.leaky_relu``: z where z >= 0, else negative_slope * z.  Its
+    derivative at 0 is 1 (``F.leaky_relu``'s is the slope), as in the JAX
+    package's GAT and its kernels: GAT logits are exactly 0 where a row's
+    features are all 0 (after a relu), so the convention shows in the
+    gradients."""
+    return torch.where(z >= 0, z, negative_slope * z)
 
 
 def get_activation(name):

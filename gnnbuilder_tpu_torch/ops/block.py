@@ -13,7 +13,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["block_spmm", "block_sum", "block_mean"]
+from gnnbuilder_tpu_torch.ops.activations import leaky_relu
+
+__all__ = ["block_spmm", "block_sum", "block_mean", "block_gat_attention",
+           "BIG"]
+
+BIG = 3e38  # the finite -inf of the JAX package's block attention
 
 
 def block_spmm(block_adj, v, transpose: bool = False):
@@ -37,3 +42,41 @@ def block_sum(x, block_adj):
 def block_mean(x, block_adj, in_degree):
     d = in_degree.to(x.dtype).clamp(min=1.0)
     return block_spmm(block_adj, x) / d[:, None]
+
+
+def block_gat_attention(block_adj, h, a_src, a_dst, neg_slope: float = 0.2,
+                        self_loops: bool = True):
+    """GAT attention as dense masked attention per block (PyG semantics):
+    logits leaky_relu(a_src_j + a_dst_i) over each receiver's incoming
+    edges (and the analytic self loop), softmax, weighted sum of h.
+
+    ``block_adj`` [T, B, B] holds edge counts, so k parallel edges give k
+    identical softmax terms: the weights are A * exp(raw - m).  Non-edges
+    mask with -BIG before the row max.  ``h`` [N, H, C], ``a_src`` and
+    ``a_dst`` [N, H]; returns [N, H, C]."""
+    T, B, _ = block_adj.shape
+    N, H, C = h.shape
+    if N != T * B:
+        raise ValueError(f"h has {N} rows; block_adj covers {T} x {B}")
+    A = block_adj.to(h.dtype).reshape(T, 1, B, B)
+    mask = A > 0
+    asrc = a_src.reshape(T, B, H).transpose(1, 2)             # [T, H, B] j
+    adst = a_dst.reshape(T, B, H).transpose(1, 2)             # [T, H, B] i
+    raw = leaky_relu(
+        adst[..., :, None] + asrc[..., None, :], neg_slope)    # [T,H,Bi,Bj]
+    m = torch.where(mask, raw, -BIG).amax(dim=-1)             # [T, H, Bi]
+    if self_loops:
+        self_logit = leaky_relu(
+            (a_src + a_dst).reshape(T, B, H).transpose(1, 2), neg_slope)
+        m = torch.maximum(m, self_logit)
+    # exp only where an edge is, so no masked entry overflows
+    w = A * torch.exp(torch.where(mask, raw - m[..., None], -float("inf")))
+    denom = w.sum(dim=-1)                                     # [T, H, Bi]
+    hb = h.reshape(T, B, H, C).transpose(1, 2)                # [T, H, B, C]
+    num = torch.matmul(w, hb)
+    if self_loops:
+        es = torch.exp(self_logit - m)
+        denom = denom + es
+        num = num + es[..., None] * hb
+    out = num / denom.clamp(min=1e-16)[..., None]
+    return out.transpose(1, 2).reshape(N, H, C)

@@ -1,6 +1,6 @@
 """Kernel dispatch policy: when the model takes the whole-stack, the
-per-layer PNA and mp and the readout kernels instead of the plain path,
-and which plain aggregation a conv runs on a block-packed batch.
+per-layer PNA, mp and GAT and the readout kernels instead of the plain
+path, and which plain aggregation a conv runs on a block-packed batch.
 
 The gates decide on the batch and the model alone; which implementation a
 kernel function then runs is decided by the tensors' device inside it (a
@@ -20,7 +20,8 @@ from typing import Optional
 
 __all__ = ["set_fused_mode", "inference_mode",
            "inference_on", "block_cfg", "pna_stack_cfg", "mp_stack_cfg",
-           "mp_layer_cfg", "pna_layer_cfg", "readout_config"]
+           "mp_layer_cfg", "pna_layer_cfg", "gat_block_cfg", "gat_layer_cfg",
+           "readout_config"]
 
 # convs whose whole stack runs in the mp stack kernel under "auto": the JAX
 # package's A/B on its TPU kept GIN on the per-layer path
@@ -149,6 +150,41 @@ def pna_layer_cfg(g, act) -> Optional[dict]:
     if act not in LAYER_ACTS:
         return None
     return {}
+
+
+def gat_block_cfg(g, act) -> Optional[dict]:
+    """{} when GAT's block attention kernel (``ops.cuda.gat_block``)
+    applies to batch ``g`` with epilogue activation ``act``, else None
+    (GATConv tries the layer kernel, then its plain paths).  The JAX
+    package's ``gat_block_cfg``: inference scope (the kernel has no
+    backward) and a block-packed batch at a block size that is a multiple
+    of 128; here also an activation the kernel has.  The block size
+    beyond that is the kernel's to check: the CUDA wrapper raises on what
+    it does not take."""
+    from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
+
+    if _MODE == "never" or not inference_on():
+        return None
+    if g.block_adj is None or g.block_size_static % 128:
+        return None
+    return {} if act in GAT_ACTS else None
+
+
+def gat_layer_cfg(g, act) -> Optional[dict]:
+    """{} when the windowed GAT layer kernel (``ops.cuda.gat_layer``)
+    applies to batch ``g`` with epilogue activation ``act``, else None
+    (GATConv's plain paths).  The caller checks concat mode.  Needs the
+    batch's ELL table and an activation the kernel has; in or out of
+    inference scope, since the layer has a backward, and on block-packed
+    batches too outside inference scope (training keeps this kernel
+    there, as in the JAX package).  The JAX package's alignment and
+    batch-size gates are left out: they weighed the TPU's 128-lane
+    padding, which this kernel does not have."""
+    from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
+
+    if _MODE == "never" or g.nbr_nodes is None:
+        return None
+    return {} if act in GAT_ACTS else None
 
 
 def readout_config(g, aggrs, act, out_act) -> Optional[dict]:

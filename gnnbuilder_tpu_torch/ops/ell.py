@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_gather", "ell_mask", "ell_sum", "ell_mean", "ell_max",
-           "ell_min", "ell_multi_table", "reverse_csr", "_STD_EPS"]
+           "ell_min", "ell_multi_table", "ell_softmax_sum", "reverse_csr",
+           "_STD_EPS"]
 
 _STD_EPS = 1e-5  # PyG StdAggregation epsilon
 
@@ -113,3 +114,33 @@ def ell_multi_table(g, in_degree, aggregators, mask):
         r = torch.where(m, g, float("inf")).amin(dim=1)
         out["min"] = torch.where(nonempty, r, zero)
     return out
+
+
+def ell_softmax_sum(logits_table, values_table, valid_mask, extra_logit=None,
+                    extra_value=None):
+    """Masked softmax over each row's W slots (and an optional extra slot),
+    then the softmax-weighted sum of the values: the GAT attention reduce.
+
+    ``logits_table`` [N, W, H], ``values_table`` [N, W, H, C],
+    ``valid_mask`` [N, W]; ``extra_logit`` [N, H] and ``extra_value`` [N,
+    H, C] are the analytic self-loop slot.  Invalid slots mask with -inf;
+    a row max that is not finite (an empty row without the extra slot)
+    counts as 0, and the denominator is clamped at 1e-16, so an empty row
+    gives 0.  Returns [N, H, C]."""
+    m = valid_mask[..., None]
+    z = torch.where(m, logits_table, float("-inf"))
+    row_max = z.amax(dim=1)                                   # [N, H]
+    if extra_logit is not None:
+        row_max = torch.maximum(row_max, extra_logit)
+    row_max = torch.where(torch.isfinite(row_max), row_max,
+                          torch.zeros_like(row_max))
+    zero = logits_table.new_zeros(())
+    e = torch.where(m, torch.exp(torch.where(
+        m, logits_table - row_max[:, None, :], zero)), zero)
+    denom = e.sum(dim=1)                                      # [N, H]
+    num = (e[..., None] * values_table).sum(dim=1)            # [N, H, C]
+    if extra_logit is not None:
+        e_self = torch.exp(extra_logit - row_max)
+        denom = denom + e_self
+        num = num + e_self[..., None] * extra_value
+    return num / denom.clamp(min=1e-16)[..., None]

@@ -17,7 +17,7 @@ import torch
 
 __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
            "segment_min", "segment_std", "segment_multi",
-           "contiguous_segment_max"]
+           "segment_softmax", "contiguous_segment_max"]
 
 _STD_EPS = 1e-5  # PyG StdAggregation epsilon
 
@@ -98,6 +98,22 @@ def segment_multi(data, segment_ids, num_segments, aggregators, count=None):
     if "min" in aggregators:
         out["min"] = segment_min(data, segment_ids, num_segments, count)
     return out
+
+
+def segment_softmax(logits, segment_ids, num_segments):
+    """Numerically stable softmax over each receiver's incoming edges (GAT
+    attention without self loops); ``logits`` is [E] or [E, H].  The max
+    of an empty segment counts as 0, and the denominator is clamped at
+    1e-16, as in the JAX package."""
+    ids = segment_ids.long()
+    m = logits.new_full((num_segments,) + tuple(logits.shape[1:]),
+                        float("-inf"))
+    idx = ids.view(-1, *([1] * (logits.dim() - 1))).expand_as(logits)
+    m = m.scatter_reduce(0, idx, logits, reduce="amax", include_self=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(logits - m[ids])
+    denom = segment_sum(e, segment_ids, num_segments)
+    return e / denom[ids].clamp(min=1e-16)
 
 
 def contiguous_segment_max(data, starts, counts, max_rows: int):

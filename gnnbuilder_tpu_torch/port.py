@@ -5,8 +5,9 @@
 package's ``GNNModel`` state dict.  The conv leaves per conv (the JAX
 package's ``verify/port.py`` ``port_conv`` names): PNA ``pre_nn``,
 ``post_nn``, ``lin``; GCN ``lin`` (no bias) and ``bias``; GIN ``lin0``,
-``lin1``; SAGE ``lin_l`` and ``lin_r`` (no bias); LG and Simple none
-(flax leaves their layers out of the tree).  A flax kernel is
+``lin1``; SAGE ``lin_l`` and ``lin_r`` (no bias); GAT ``lin`` (no bias),
+``att_src`` and ``att_dst`` ([1, H, C], carried as they are) and
+``bias``; LG and Simple none (flax leaves their layers out of the tree).  A flax kernel is
 [in, out]; a torch Linear weight is [out, in], so kernels are transposed
 on the way over.  Only numpy crosses the boundary: this module imports
 nothing of JAX.
@@ -26,6 +27,7 @@ _CONV_PARAMS = {
     "gcn": {"lin": False, "bias": None},
     "gin": {"lin0": True, "lin1": True},
     "sage": {"lin_l": True, "lin_r": False},
+    "gat": {"lin": False, "att_src": None, "att_dst": None, "bias": None},
 }
 
 
@@ -40,7 +42,7 @@ def _conv_of(key, node) -> str:
     raise ValueError(
         f"{key}: got {sorted(node)}, which matches no conv this port "
         f"takes: expected PNA params {tuple(_CONV_PARAMS['pna'])}, or "
-        f"those of gcn, gin or sage ({_CONV_PARAMS})")
+        f"those of gcn, gin, sage or gat ({_CONV_PARAMS})")
 
 
 def params_from_jax(flax_params) -> dict:

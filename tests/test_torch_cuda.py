@@ -21,6 +21,9 @@ from gnnbuilder_tpu_torch.ops import ell
 from gnnbuilder_tpu_torch.ops.cuda import (
     _build,
     ell_bwd,
+    gat_block,
+    gat_bwd,
+    gat_layer,
     mp_block,
     mp_layer,
     pna_block,
@@ -728,3 +731,178 @@ def test_pna_train_step_without_reverse_table_is_bitwise_reproducible(
                       model.named_parameters()})
     for k in grads[0]:
         assert torch.equal(grads[0][k], grads[1][k]), k
+
+
+def _gat_operands(Fin, H, C, g, device, concat=True):
+    def r(*s, sc):
+        return (torch.randn(*s, generator=g) * sc).to(device)
+
+    return dict(w=r(Fin, H * C, sc=Fin ** -0.5), att_src=r(1, H, C, sc=.3),
+                att_dst=r(1, H, C, sc=.3),
+                bias=r(H * C if concat else C, sc=.1))
+
+
+@pytest.mark.parametrize("Fin,H,C,act,skip", [
+    (11, 4, 128, "relu", False), (512, 4, 128, "relu", True),
+    (512, 4, 64, None, False), (24, 3, 20, "tanh", True)])
+@pytest.mark.parametrize("self_loops", [True, False])
+def test_gat_layer_kernel_matches_plain(cuda_device, Fin, H, C, act, skip,
+                                        self_loops):
+    """Row 10 on the standard-packed batch at the canonical widths and an
+    odd one: 1e-4 of max |value| on real rows (sums in another order)."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(21)
+    ops = _gat_operands(Fin, H, C, g, cuda_device)
+    x = torch.randn(b.num_nodes, Fin, generator=g).to(cuda_device)
+    sk = (torch.randn(b.num_nodes, H * C, generator=g).to(cuda_device)
+          if skip else None)
+    args = (x, b.nbr_nodes, b.in_degree, *ops.values(), H)
+    kw = dict(self_loops=self_loops, skip=sk, act=act)
+    before = gat_layer.fused_gat_layer.launches
+    out = gat_layer.fused_gat_layer(*args, **kw)
+    torch.cuda.synchronize()
+    assert gat_layer.fused_gat_layer.launches == before + 1
+    want = gat_layer.gat_layer_plain(*args, **kw)
+    m = b.node_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out[m], want[m]) <= 1e-4
+
+
+@pytest.mark.parametrize("concat", [True, False])
+@pytest.mark.parametrize("Fin,self_loops,act,skip", [
+    (11, True, "relu", False), (512, True, "relu", True),
+    (40, False, None, True)])
+def test_gat_block_kernel_matches_plain(cuda_device, concat, Fin,
+                                        self_loops, act, skip):
+    """Row 9 on the block-packed batch (parallel edges: counts above 1)
+    and on a block batch with a 70-in-degree hub, heads 4: 1e-4 of max
+    |value| on real rows."""
+    H, C = 4, 128 if concat else 64
+    g = torch.Generator(device="cpu").manual_seed(22)
+    for b in (_batch()[1].to(cuda_device), _hub_block_batch(cuda_device)[1]):
+        ops = _gat_operands(Fin, H, C, g, cuda_device, concat)
+        out_w = H * C if concat else C
+        x = torch.randn(b.num_nodes, Fin, generator=g).to(cuda_device)
+        sk = (torch.randn(b.num_nodes, out_w, generator=g).to(cuda_device)
+              if skip else None)
+        args = (x, b.block_adj, *ops.values(), H)
+        kw = dict(self_loops=self_loops, skip=sk, act=act, concat=concat)
+        before = gat_block.fused_gat_block_layer.launches
+        out = gat_block.fused_gat_block_layer(*args, **kw)
+        torch.cuda.synchronize()
+        assert gat_block.fused_gat_block_layer.launches == before + 1
+        want = gat_block.gat_block_layer_plain(*args, **kw)
+        m = b.node_mask
+        assert torch.isfinite(out[m]).all()
+        assert _scaled_err(out[m], want[m]) <= 1e-4
+
+
+@pytest.mark.parametrize("rev", [True, False])
+@pytest.mark.parametrize("H,C", [(4, 128), (3, 20)])
+def test_gat_bwd_kernel_matches_plain(cuda_device, rev, H, C):
+    """Row 11's six outputs on the standard-packed batch, over the
+    reverse table or the reverse CSR: 1e-4 of max |value|, and the same
+    bits on two launches."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(23)
+    N = b.num_nodes
+    dz, h = [torch.randn(N, H * C, generator=g).to(cuda_device)
+             for _ in range(2)]
+    a_src, a_dst = [torch.randn(N, H, generator=g).to(cuda_device)
+                    for _ in range(2)]
+    args = (dz, h, a_src, a_dst, b.nbr_nodes, b.in_degree, H)
+    kw = dict(rev_nbr_nodes=b.rev_nbr_nodes if rev else None,
+              out_degree=b.out_degree if rev else None)
+    before = gat_bwd.fused_gat_scatter_backward.launches
+    one = gat_bwd.fused_gat_scatter_backward(*args, **kw)
+    two = gat_bwd.fused_gat_scatter_backward(*args, **kw)
+    torch.cuda.synchronize()
+    assert gat_bwd.fused_gat_scatter_backward.launches == before + 2
+    want = gat_bwd.gat_scatter_backward_plain(*args)
+    for name, a, c, w in zip(("dh_val", "da_src", "dsum", "s", "m", "den"),
+                             one, two, want):
+        assert torch.equal(a, c), name
+        assert _scaled_err(a, w) <= 1e-4, name
+
+
+@pytest.mark.parametrize("rev", [True, False])
+def test_gat_train_step_through_kernels(cuda_device, rev):
+    """One Adam step of the canonical heads-4 GAT model on the 128-graph
+    standard-packed batch, with its reverse table or without one: six
+    row-10 and six row-11 launches and one readout; every gradient within
+    1e-4 of max |value| of the plain path in float64 taken on the kernel
+    path's ReLU decisions (``bench.grad_precision.grads_on_relu_pattern``:
+    one layer output within float32 rounding of 0 on this batch takes its
+    ReLU the other way in the kernel forward than in the plain paths,
+    which moves att_dst's small gradient ~3e-3 of its max), and the same
+    bits on a second step from the same state."""
+    from gnnbuilder_tpu_torch.bench.grad_precision import (
+        conv_output_masks,
+        grads_on_relu_pattern,
+    )
+
+    gs, b = _std_batch(device=cuda_device)
+    if not rev:
+        b = b.replace(rev_nbr_nodes=None, out_degree=None)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    model = canonical_model("gat", "qm9", graphs=gs,
+                            conv_kwargs=dict(heads=4))
+    Program(model, device="cuda", seed=3).init_params()
+    state = {k: t.clone() for k, t in model.state_dict().items()}
+    counters = (gat_layer.fused_gat_layer,
+                gat_bwd.fused_gat_scatter_backward, readout.fused_readout)
+    grads = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        step = train.make_train_step(
+            model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        before = [f.launches for f in counters]
+        step(b, target)
+        torch.cuda.synchronize()
+        assert [f.launches - n for f, n in zip(counters, before)] == [
+            6, 6, 1]
+        grads.append({k: q.grad.clone() for k, q in
+                      model.named_parameters()})
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k
+    model.load_state_dict(state)
+    masks = conv_output_masks(model, b)
+    ref = canonical_model("gat", "qm9", graphs=gs, conv_kwargs=dict(
+        heads=4)).to(cuda_device).double()
+    ref.load_state_dict({k: v.double() for k, v in state.items()})
+    want = grads_on_relu_pattern(
+        ref, b.replace(node_feat=b.node_feat.double()), target.double(),
+        masks)
+    for k, q in grads[0].items():
+        assert torch.isfinite(q).all(), k
+        assert _scaled_err(q.double(), want[k]) <= 1e-4, k
+
+
+def test_program_forward_gat_through_kernels(cuda_device):
+    """Canonical heads-4 GAT through ``Program.forward``: on the block
+    batch every layer takes row 9, on the standard-packed batch row 10;
+    outputs within 1e-4 of max |value| of the plain path on real
+    graphs."""
+    for gs, b, bs in ((*_batch(), 128), (*_std_batch(), 0)):
+        model = canonical_model("gat", "qm9", graphs=gs,
+                                conv_kwargs=dict(heads=4))
+        prog = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                       max_graphs=b.num_graphs, block_size=bs,
+                       device="cuda", seed=4)
+        prog.init_params()
+        bc = b.to(cuda_device)
+        counters = (gat_block.fused_gat_block_layer,
+                    gat_layer.fused_gat_layer)
+        before = [f.launches for f in counters]
+        out = prog.forward(bc)
+        torch.cuda.synchronize()
+        assert [f.launches - n for f, n in zip(counters, before)] == (
+            [6, 0] if bs else [0, 6])
+        dispatch.set_fused_mode("never")
+        try:
+            ref = prog.forward(bc)
+        finally:
+            dispatch.set_fused_mode("auto")
+        m = bc.graph_mask
+        assert torch.isfinite(out[m]).all()
+        assert _scaled_err(out[m], ref[m]) <= 1e-4

@@ -96,3 +96,38 @@ def test_rejects_mixed_convs():
         "lin1": params["params"]["gnn_convs_0"]["lin"]}
     with pytest.raises(ValueError, match="mix convs"):
         params_from_jax(bad)
+
+
+@pytest.mark.parametrize("concat", [True, False])
+def test_gat_round_trip_every_leaf(concat):
+    """GAT (lin without bias, att_src and att_dst [1, H, C] carried as they
+    are, bias): every flax leaf of the canonical heads-4 model lands in
+    the state dict, kernels transposed, exactly; with concat heads the
+    layers take heads * hidden and the MLP heads * output * 3."""
+    gs, (b,) = jax_canonical_batches("qm9", n_graphs=8, batch_size=8,
+                                     block_size=128, node_multiple=128)
+    kw = dict(conv_kwargs=dict(heads=4, concat=concat))
+    params = jax.tree.map(np.asarray, jax_canonical_model(
+        "gat", "qm9", graphs=gs, **kw).init(jax.random.PRNGKey(2), b))
+    sd = params_from_jax(params)
+    model = canonical_model("gat", "qm9", graphs=gs, **kw)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    flat = jax.tree_util.tree_flatten_with_path(params["params"])[0]
+    assert len(flat) == len(sd) == 6 * 4 + 5 * 2
+    for path, leaf in flat:
+        keys = [p.key for p in path]
+        if keys[0] == "mlp_head":
+            name = (f"mlp_head.linear_layers.{keys[1].rsplit('_', 1)[1]}."
+                    + ("weight" if keys[-1] == "kernel" else "bias"))
+        else:
+            name = ".".join(["gnn_convs", keys[0].rsplit("_", 1)[1]]
+                            + keys[1:])
+            name = name.replace(".kernel", ".weight")
+        got = model.state_dict()[name].numpy()
+        want = leaf.T if keys[-1] == "kernel" else leaf
+        assert got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    k = 4 if concat else 1
+    assert model.gnn_convs[1].lin.in_features == 128 * k
+    assert model.mlp_head.linear_layers[0].in_features == 64 * k * 3
