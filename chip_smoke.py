@@ -36,7 +36,17 @@ weights):
   backward): gradients against the float64 plain path taken on the
   kernel path's ReLU decisions (the others logged), bitwise-equal gradients
   on two steps with and without the reverse table, a 3-step loss curve
-  against the plain path.
+  against the plain path;
+* GINE (edge features, row 12), EdgeConv (max, row 13) and the
+  multi-aggregate (row 8) under Simple max / min (128 wide) and PNA with
+  all five aggregators: each kernel against its plain version in every
+  layer, row 8's backward on both u-free routes against float64 and
+  bitwise on two runs; ``Program.forward`` of GINE (block-packed and
+  standard-packed), EdgeConv (block-packed), Simple max and min
+  (standard-packed) and five-aggregator PNA (both packings) against the
+  per-layer plain path; the GINE train step: gradients against the
+  float64 plain path, bitwise-equal gradients on two steps with and
+  without the reverse table, a 3-step loss curve against the plain path.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -77,6 +87,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # scale-relative bound keeps the check as tight for the small outputs of
 # a randomly initialised model as for large ones.
 TOL = 1e-4
+# rows 8, 12 and 13 against their plain versions, layer by layer: each
+# kernel sums the same terms as its plain version in slot order, so they
+# agree to a few roundings of the largest value; row 8's backward to
+# 2e-5 (its coefficients divide by a std that can be sqrt(1e-5))
+KERNEL_TOL = 1e-5
+BWD_TOL = 2e-5
 
 BATCH_GRAPHS = 1024
 N_BATCHES = 3
@@ -103,11 +119,11 @@ class phase:
         return False
 
 
-def close_enough(got, want):
+def close_enough(got, want, tol=TOL):
     """(ok, max abs error, max abs error / max |want|)."""
     err = float((got - want).abs().max())
     rel = err / max(float(want.abs().max()), 1e-30)
-    ok = bool(torch.isfinite(got).all()) and rel <= TOL
+    ok = bool(torch.isfinite(got).all()) and rel <= tol
     return ok, err, rel
 
 
@@ -242,6 +258,8 @@ def split_device_time(prof, n_steps):
     parts = {"pna_layer kernel": 0.0, "pna_scatter_bwd kernel": 0.0,
              "mp_layer kernel": 0.0, "ell_gather_bwd kernel": 0.0,
              "gat_layer kernel": 0.0, "gat_bwd kernel": 0.0,
+             "gine_layer kernel": 0.0, "edge_block kernel": 0.0,
+             "ell_agg kernel": 0.0,
              "readout kernel": 0.0, "Adam": 0.0, "torch matmul": 0.0,
              "other torch kernels": 0.0}
     for e in prof.key_averages():
@@ -251,7 +269,13 @@ def split_device_time(prof, n_steps):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        if "pna_layer" in name:
+        if "gine_layer" in name:
+            part = "gine_layer kernel"
+        elif "edge_proj" in name or "edge_slot" in name:
+            part = "edge_block kernel"
+        elif "ell_agg" in name:
+            part = "ell_agg kernel"
+        elif "pna_layer" in name:
             part = "pna_layer kernel"
         elif "mp_layer" in name:
             part = "mp_layer kernel"
@@ -991,6 +1015,549 @@ def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
     return out
 
 
+# this slice: GINE (row 12), EdgeConv (row 13) and the multi-aggregate
+# (row 8) under Simple max / min and five-aggregator PNA
+PNA_ALL5 = ("sum", "mean", "min", "max", "std")
+GINE_TRAIN_STEPS = 3
+
+
+def plain_layer_inputs(model, g):
+    """(conv, h, skip) of each conv layer on batch ``g``, h advanced
+    through the per-layer plain path, so each kernel launch below is held
+    against its plain version on the same input."""
+    from gnnbuilder_tpu_torch.ops import dispatch
+
+    L = model.gnn_num_layers
+    h = g.node_feat
+    out = []
+    dispatch.set_fused_mode("never")
+    try:
+        for i, c in enumerate(model.gnn_convs):
+            skip = h if model.gnn_skip_connection and 0 < i < L - 1 else None
+            out.append((c, h, skip))
+            h = c(g, h, model.gnn_activation, skip)
+    finally:
+        dispatch.set_fused_mode("auto")
+    return out
+
+
+def gine_args(model, g):
+    """Row 12's ((x, pe, nbr_nodes, nbr_edges, in_degree), kw) per layer."""
+    t = lambda w: w.t().contiguous()
+    return [((h, c.lin_edge(g.edge_feat).contiguous(), g.nbr_nodes,
+              g.nbr_edges, g.in_degree),
+             dict(w0=t(c.lin0.weight), b0=c.lin0.bias, w1=t(c.lin1.weight),
+                  b1=c.lin1.bias, eps=c.eps, skip=sk,
+                  act=model.gnn_activation))
+            for c, h, sk in plain_layer_inputs(model, g)]
+
+
+def edge_args(model, g):
+    """Row 13's ((x, nbr_nodes, in_degree), kw) per layer."""
+    t = lambda w: w.t().contiguous()
+    return [((h, g.nbr_nodes, g.in_degree),
+             dict(w_pair=t(c.lin0.weight), b0=c.lin0.bias,
+                  w1=t(c.lin1.weight), b1=c.lin1.bias,
+                  aggregation=c.aggregation, skip=sk,
+                  act=model.gnn_activation))
+            for c, h, sk in plain_layer_inputs(model, g)]
+
+
+def agg_args(model, g, block=False):
+    """Row 8's ((v, nbr_nodes, in_degree, aggregators), kw) per layer as
+    the model's convs launch it: Simple's max or min of h; PNA's
+    aggregators of u + v on a standard batch, its max and min of v
+    alone on a block batch."""
+    out = []
+    for c, h, _ in plain_layer_inputs(model, g):
+        if not hasattr(c, "pre_nn"):
+            out.append(((h, g.nbr_nodes, g.in_degree, (c.aggregation,)), {}))
+            continue
+        u, v = c.pre_nn(h, h)
+        if block:
+            cmp = tuple(a for a in c.aggregators if a in ("max", "min"))
+            out.append(((v.contiguous(), g.nbr_nodes, g.in_degree, cmp), {}))
+        else:
+            out.append(((v.contiguous(), g.nbr_nodes, g.in_degree,
+                         c.aggregators), dict(u=u.contiguous())))
+    return out
+
+
+def hold_layers(name, fn, plain, layers, g):
+    """Each layer's launch of ``fn`` against ``plain`` on node_mask rows
+    (KERNEL_TOL); returns the largest absolute error."""
+    err = 0.0
+    real = g.node_mask
+    for i, (args, kw) in enumerate(layers):
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ok, abs_err, rel_err = close_enough(
+            got[real], plain(*args, **kw)[real], KERNEL_TOL)
+        err = max(err, abs_err)
+        if not ok:
+            raise AssertionError(
+                f"{name} layer {i}: {rel_err:.3e} of max |value| against "
+                f"its plain version (tol {KERNEL_TOL})")
+    log(f"{name} [N={g.num_nodes}]: all {len(layers)} layers within tol "
+        f"({KERNEL_TOL}; node_mask rows), max abs {err:.3e}")
+    return err
+
+
+def gine_work(layers, g):
+    """(flops, bytes) of one forward's row-12 launches at the model's
+    widths: per real edge and feature an add, a max and an add; the two
+    products; x, pe, both tables, the degrees, the weights and skip in,
+    out out, each once."""
+    n, e, w = g.num_nodes, int(g.in_degree.sum()), g.ell_width
+    flops = nbytes = 0
+    for args, kw in layers:
+        f, pe_rows = args[0].shape[1], args[1].shape[0]
+        hdim, fo = kw["w0"].shape[1], kw["w1"].shape[1]
+        flops += 3 * e * f + 2 * n * (f * hdim + hdim * fo)
+        nbytes += 4 * (n * f + pe_rows * f + 2 * n * w + n + f * hdim + hdim
+                       + hdim * fo + fo + n * fo
+                       * (2 if kw["skip"] is not None else 1))
+    return flops, nbytes
+
+
+def edge_work(layers, g):
+    """(flops, bytes) of one forward's row-13 launches (max): lin0's two
+    products per row; per real edge the add and relu of t and lin1 (2 F
+    Fout); x, the table, the degrees, the weights and skip in, out out."""
+    n, e, w = g.num_nodes, int(g.in_degree.sum()), g.ell_width
+    flops = nbytes = 0
+    for args, kw in layers:
+        fin = args[0].shape[1]
+        f, fo = kw["w_pair"].shape[1], kw["w1"].shape[1]
+        flops += 4 * n * fin * f + e * (2 * f + 2 * f * fo)
+        nbytes += 4 * (n * fin + n * w + n + 2 * fin * f + f + f * fo + fo
+                       + n * fo * (2 if kw["skip"] is not None else 1))
+    return flops, nbytes
+
+
+def agg_work(layers, g):
+    """(flops, bytes) of row-8 launches: per real edge and feature the
+    shift add (with u), one add for sum / mean / std, two more for std's
+    square, one compare each for max and min, and ~4 per output element;
+    v (and u), the table and the degrees in, the output out, each once."""
+    n, e, w = g.num_nodes, int(g.in_degree.sum()), g.ell_width
+    flops = nbytes = 0
+    for args, kw in layers:
+        f, aggs = args[0].shape[1], args[3]
+        has_u = kw.get("u") is not None
+        lin = any(a in aggs for a in ("sum", "mean", "std"))
+        ops = (int(has_u) + int(lin) + (2 if "std" in aggs else 0)
+               + int("max" in aggs) + int("min" in aggs))
+        flops += e * f * ops + 4 * n * len(aggs) * f
+        nbytes += 4 * (n * f * (2 if has_u else 1) + n * w + n
+                       + n * len(aggs) * f)
+    return flops, nbytes
+
+
+def edge_agg_phases(report, *, dev, graphs, batches, b0, tgraphs, tb,
+                    target, zero_counts, counts, only, fresh_step, smi):
+    """GINE (row 12), EdgeConv (row 13) and the multi-aggregate (row 8)
+    under Simple max / min and five-aggregator PNA: each kernel against
+    its plain version in every layer, row 8's backward on both u-free
+    routes, the paths' forwards with their launch counts against the
+    per-layer plain path, GINE's train step (gradients, bitwise on two
+    steps with and without the reverse table, a loss curve) and the
+    times.  Fills ``report``; returns the summary for the last JSON
+    line."""
+    from gnnbuilder_tpu_torch import Program, train
+    from gnnbuilder_tpu_torch.bench.canonical import (
+        canonical_batches,
+        canonical_model,
+    )
+    from gnnbuilder_tpu_torch.bench.grad_precision import (
+        conv_output_masks,
+        grads_on_relu_pattern,
+    )
+    from gnnbuilder_tpu_torch.ops import dispatch
+    from gnnbuilder_tpu_torch.ops.cuda import edge_block, ell_agg, gine_layer
+
+    out = {}
+    torch.set_grad_enabled(False)
+
+    def program(conv, g, seed, block, **kw):
+        m = canonical_model(conv, "qm9", graphs=graphs, **kw)
+        p = Program(m, max_nodes=g.num_nodes, max_edges=g.num_edges,
+                    max_graphs=g.num_graphs, block_size=128 if block else 0,
+                    device=dev, seed=seed)
+        p.init_params()
+        return m, p
+
+    with phase("GINE, EdgeConv, Simple max / min and five-aggregator PNA: "
+               "models, and rows 12, 13 and 8 against their plain versions "
+               "in each of the 6 layers"):
+        _, (tb128,) = canonical_batches(
+            "qm9", n_graphs=TRAIN_GRAPHS, batch_size=BATCH_GRAPHS,
+            node_multiple=256, node_dim=128, device=dev)
+        gine_m, gine_p = program("gine", b0, 51, True)
+        edge_m, edge_p = program("edge", b0, 53, True)
+        smax_m, smax_p = program("simple", tb128, 0, False,
+                                 conv_kwargs=dict(aggregation="max"))
+        smin_m, smin_p = program("simple", tb128, 0, False,
+                                 conv_kwargs=dict(aggregation="min"))
+        pna_kw = dict(conv_kwargs=dict(aggregators=PNA_ALL5))
+        pna5_m, pna5_p = program("pna", b0, 57, True, **pna_kw)
+        log(f"GINE lin_edge {gine_m.gnn_convs[0].lin_edge.in_features} -> "
+            f"{gine_m.gnn_convs[0].lin_edge.out_features}; EdgeConv "
+            f"aggregation {edge_m.gnn_convs[0].aggregation}; PNA "
+            f"aggregators {PNA_ALL5}; Simple at 128 (N={tb128.num_nodes})")
+        layers = {
+            "gine_std": gine_args(gine_m, tb),
+            "gine_block": gine_args(gine_m, b0),
+            "edge_block": edge_args(edge_m, b0),
+            "simple_max": agg_args(smax_m, tb128),
+            "simple_min": agg_args(smin_m, tb128),
+            "pna5_std": agg_args(pna5_m, tb),
+            "pna5_block": agg_args(pna5_m, b0, block=True),
+        }
+        err_g = max(hold_layers(f"gine_layer ({k})",
+                                gine_layer.fused_gine_layer,
+                                gine_layer.gine_layer_plain, layers[k], g_)
+                    for k, g_ in (("gine_std", tb), ("gine_block", b0)))
+        err_e = hold_layers("edge_block", edge_block.fused_edge_block_layer,
+                            edge_block.edge_block_layer_plain,
+                            layers["edge_block"], b0)
+        err_a = max(hold_layers(f"ell_agg ({k})",
+                                ell_agg.fused_ell_aggregate,
+                                ell_agg.ell_aggregate_plain, layers[k], g_)
+                    for k, g_ in (("simple_max", tb128),
+                                  ("simple_min", tb128), ("pna5_std", tb),
+                                  ("pna5_block", b0)))
+        report["gine_layer"] = dict(max_abs_err=err_g)
+        report["edge_block"] = dict(max_abs_err=err_e)
+        report["ell_agg"] = dict(max_abs_err=err_a)
+
+    with phase("row 8's backward (tie counts and row 7's gather) over the "
+               "reverse table and the reverse CSR against float64, twice"):
+        gen = torch.Generator(device=dev).manual_seed(59)
+        cases = {"PNA layer 1 v, all five":
+                 (layers["pna5_std"][1][0][0], PNA_ALL5, tb),
+                 "Simple max layer 1 input (ties at 0)":
+                 (layers["simple_max"][1][0][0], ("max", "min"), tb128)}
+        bwd_err = 0.0
+        for label, (v, aggs, g_) in cases.items():
+            ct = torch.randn(v.shape[0], len(aggs) * v.shape[1],
+                             generator=gen, device=dev)
+            ct[~g_.node_mask] = 0.0
+            torch.set_grad_enabled(True)
+            v64 = v.double().requires_grad_()
+            ell_agg.ell_aggregate_plain(v64, g_.nbr_nodes, g_.in_degree,
+                                        aggs).backward(ct.double())
+            for route, gb in (("reverse table", g_), (
+                    "reverse CSR", g_.replace(rev_nbr_nodes=None,
+                                              out_degree=None))):
+                got = []
+                for _ in range(2):
+                    vv = v.clone().requires_grad_()
+                    ell_agg.fused_ell_aggregate_vjp(
+                        vv, gb.nbr_nodes, gb.in_degree, aggs,
+                        rev_nbr_nodes=gb.rev_nbr_nodes,
+                        out_degree=gb.out_degree).backward(ct)
+                    got.append(vv.grad)
+                torch.cuda.synchronize()
+                ok, abs_err, rel = close_enough(got[0].double(), v64.grad,
+                                                BWD_TOL)
+                bwd_err = max(bwd_err, abs_err)
+                log(f"{label} ({route}): dv {rel:.3e} of max |value| off "
+                    f"float64 (tol {BWD_TOL}), max abs {abs_err:.3e}; "
+                    f"bitwise equal on two runs: "
+                    f"{torch.equal(got[0], got[1])}")
+                if not ok or not torch.equal(got[0], got[1]):
+                    raise AssertionError(f"row 8 backward ({label}, {route})")
+            torch.set_grad_enabled(False)
+        report["ell_agg"]["backward_max_abs_err"] = bwd_err
+
+    paths = {
+        "gine_block": (gine_p, batches, dict(gine_layer=6)),
+        "gine_std": (None, [tb], dict(gine_layer=6)),
+        "edge_block": (edge_p, batches, dict(edge_block=6)),
+        "simple_max": (smax_p, [tb128], dict(ell_agg=6)),
+        "simple_min": (smin_p, [tb128], dict(ell_agg=6)),
+        "pna5_std": (None, [tb], dict(ell_agg=6)),
+        "pna5_block": (pna5_p, batches, dict(ell_agg=6)),
+    }
+    gine_tp = Program(gine_m, max_nodes=tb.num_nodes, max_edges=tb.num_edges,
+                      max_graphs=tb.num_graphs, device=dev)
+    gine_tp.set_params(gine_p.params)
+    pna5_tp = Program(pna5_m, max_nodes=tb.num_nodes, max_edges=tb.num_edges,
+                      max_graphs=tb.num_graphs, device=dev)
+    pna5_tp.set_params(pna5_p.params)
+    paths["gine_std"] = (gine_tp,) + paths["gine_std"][1:]
+    paths["pna5_std"] = (pna5_tp,) + paths["pna5_std"][1:]
+    launched = {"gine_layer": 0, "edge_block": 0, "ell_agg": 0}
+    for name, (p_, bs_, per) in paths.items():
+        with phase(f"main path: Program.forward of {name} on {len(bs_)} x "
+                   f"{BATCH_GRAPHS}-graph batch(es)"):
+            zero_counts()
+            outs_ = [p_.forward(b) for b in bs_]
+            torch.cuda.synchronize()
+            launches = counts()
+            want = only(readout=len(bs_),
+                        **{k: v * len(bs_) for k, v in per.items()})
+            if launches != want:
+                raise AssertionError(f"{name} forward launches {launches}, "
+                                     f"expected {want}")
+            for k in per:
+                launched[k] += launches[k]
+            dispatch.set_fused_mode("never")
+            try:
+                refs_ = [p_.forward(b) for b in bs_]
+            finally:
+                dispatch.set_fused_mode("auto")
+            worst = 0.0
+            for i, (b, o_, r_) in enumerate(zip(bs_, outs_, refs_)):
+                m = b.graph_mask
+                ok, _, rel_err = close_enough(o_[m], r_[m])
+                worst = max(worst, rel_err)
+                if not ok or tuple(o_.shape) != (b.num_graphs, 1):
+                    raise AssertionError(f"{name} forward {i} disagrees "
+                                         f"({rel_err:.3e} of max |value|)")
+            log(f"{name}: launches {launches}; outputs within "
+                f"{worst:.3e} of max |value| of the per-layer plain path "
+                f"(tol {TOL}) on {len(bs_)} batch(es) of N="
+                f"{bs_[0].num_nodes}")
+
+    torch.set_grad_enabled(True)
+    with phase("GINE training: gradients of one step against the plain path, "
+               "and two steps from one state with and without the reverse "
+               "table"):
+        tm = canonical_model("gine", "qm9", graphs=tgraphs)
+        tp = Program(tm, max_nodes=tb.num_nodes, max_edges=tb.num_edges,
+                     max_graphs=tb.num_graphs, device=dev, seed=61)
+        st = {k: v.clone() for k, v in tp.init_params().items()}
+        per_route = {}
+        for label, g_ in (("reverse table", tb), (
+                "no reverse table", tb.replace(rev_nbr_nodes=None,
+                                               out_degree=None))):
+            again = []
+            for _ in range(2):
+                tm.load_state_dict(st)
+                step = fresh_step(tm)
+                zero_counts()
+                step(g_, target)
+                torch.cuda.synchronize()
+                launches = counts()
+                if launches != only(gine_layer=6, readout=1):
+                    raise AssertionError(f"GINE step ({label}) launches "
+                                         f"{launches}")
+                again.append(grads_of(tm))
+            same = [k for k in again[0]
+                    if torch.equal(again[0][k], again[1][k])]
+            log(f"{label}: launches {launches}; bitwise-equal gradients "
+                f"{len(same)} of {len(again[0])}")
+            if len(same) != len(again[0]):
+                raise AssertionError(f"GINE ({label}): two train steps from "
+                                     f"one state gave different gradients")
+            per_route[label] = again[0]
+        kern = per_route["reverse table"]
+        tm.load_state_dict(st)
+        masks = conv_output_masks(tm, tb)
+        flips = [int(((a > 0) != b)[tb.node_mask].sum()) for a, b in
+                 zip(masks, conv_output_masks(tm, tb, "never"))]
+        log(f"layer outputs whose ReLU goes the other way in the kernel "
+            f"forward than in the float32 plain forward, per layer: {flips}")
+        refs = {}
+        for name, dt in (("float64", torch.float64),
+                         ("float32", torch.float32)):
+            mr = canonical_model("gine", "qm9", graphs=tgraphs).to(dev).to(dt)
+            mr.load_state_dict({k_: v.to(dt) for k_, v in st.items()})
+            gb = tb.replace(node_feat=tb.node_feat.to(dt),
+                            edge_feat=tb.edge_feat.to(dt))
+            dispatch.set_fused_mode("never")
+            try:
+                mr.zero_grad()
+                train.masked_mse_loss(mr(gb), target.to(dt),
+                                      tb.graph_mask).backward()
+            finally:
+                dispatch.set_fused_mode("auto")
+            refs[name] = grads_of(mr)
+            refs[name + " on the kernel path's ReLU decisions"] = \
+                grads_on_relu_pattern(mr, gb, target.to(dt), masks)
+            del mr
+        grads_rep = {}
+        for name, ref_ in refs.items():
+            ok, abs_err, rel, k = worst_grad(kern, ref_)
+            grads_rep[name] = rel
+            log(f"gradients vs the {name} plain path: worst {rel:.3e} of "
+                f"max |value| ({k}), max abs {abs_err:.3e}")
+        # the gate: the float64 plain path, on its own ReLU decisions or,
+        # where a layer output within float32 rounding of 0 took its ReLU
+        # the other way in the kernel forward, on the kernel path's
+        gate = ("float64" if grads_rep["float64"] <= TOL else
+                "float64 on the kernel path's ReLU decisions")
+        log(f"gate: the {gate} plain path, {grads_rep[gate]:.3e} of max "
+            f"(tol {TOL})")
+        if grads_rep[gate] > TOL:
+            raise AssertionError("GINE gradients disagree with the float64 "
+                                 "plain path")
+        out["gradients_worst_rel"] = grads_rep
+        out["gradient_gate"] = gate
+        out["relu_flips_kernel_vs_plain"] = flips
+
+    with phase(f"main path: {GINE_TRAIN_STEPS} Adam steps of canonical GINE "
+               f"on the train batch"):
+        curves = {}
+        for mode in ("auto", "never"):
+            tm.load_state_dict(st)
+            step = fresh_step(tm)
+            dispatch.set_fused_mode(mode)
+            try:
+                if mode == "auto":
+                    zero_counts()
+                curves[mode] = [float(step(tb, target))
+                                for _ in range(GINE_TRAIN_STEPS)]
+                torch.cuda.synchronize()
+                if mode == "auto":
+                    launches = counts()
+            finally:
+                dispatch.set_fused_mode("auto")
+        log(f"launches {launches}; losses {curves['auto']}, plain "
+            f"{curves['never']}")
+        want = only(gine_layer=6 * GINE_TRAIN_STEPS,
+                    readout=GINE_TRAIN_STEPS)
+        if launches != want:
+            raise AssertionError(f"GINE train launches {launches}, expected "
+                                 f"{want}")
+        for i, (a, b) in enumerate(zip(curves["auto"], curves["never"])):
+            if not (math.isfinite(a) and abs(a - b) <= CURVE_TOL * abs(b)):
+                raise AssertionError(f"GINE step {i}: loss {a} against "
+                                     f"plain {b}")
+        launched["gine_layer"] += launches["gine_layer"]
+        out["loss_curve"], out["plain_loss_curve"] = (curves["auto"],
+                                                      curves["never"])
+    for k, n in launched.items():
+        report[k]["launches"] = n
+
+    with phase("GINE, EdgeConv and row 8 times (CUDA events; "
+               "torch.profiler device times)"):
+        torch.set_grad_enabled(False)
+
+        def run(fn, ls):
+            def go():
+                for args, kw in ls:
+                    fn(*args, **kw)
+            return go
+
+        def entry(name, key, fn, plain, ls, g_, work, per, lib=None):
+            b_ms, b_by = bound(*work)
+            ms, ev = timed(run(fn, ls), 10)
+            pms, pev = timed(run(plain, ls), 3)
+            lms, lev = timed(lib, 10) if lib is not None else (None, None)
+            ent = dict(ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev,
+                       bound_ms=b_ms, bound_by=b_by, flops=work[0],
+                       bytes=work[1], library_ms=lms, library_event_ms=lev,
+                       per=per)
+            libs = "" if lms is None else f", library {lms:.4f} ({lev:.4f})"
+            log(f"{name} {key} per {per}: device {ms:.4f} ms (events "
+                f"{ev:.4f}), plain {pms:.4f} ({pev:.4f}){libs}; bound "
+                f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it)")
+            return ent
+
+        report["gine_layer"].update(entry(
+            "gine_layer", "standard", gine_layer.fused_gine_layer,
+            gine_layer.gine_layer_plain, layers["gine_std"], tb,
+            gine_work(layers["gine_std"], tb),
+            f"one standard-packed b{BATCH_GRAPHS} forward (6 launches)"))
+        report["gine_layer"]["block"] = entry(
+            "gine_layer", "block", gine_layer.fused_gine_layer,
+            gine_layer.gine_layer_plain, layers["gine_block"], b0,
+            gine_work(layers["gine_block"], b0),
+            f"one block-packed b{BATCH_GRAPHS} forward (6 launches)")
+        report["edge_block"].update(entry(
+            "edge_block", "block", edge_block.fused_edge_block_layer,
+            edge_block.edge_block_layer_plain, layers["edge_block"], b0,
+            edge_work(layers["edge_block"], b0),
+            f"one block-packed b{BATCH_GRAPHS} forward (6 launches)"))
+        # row 8's library yardsticks: the max of the neighbour rows as one
+        # scatter_reduce over the edge list (sources gathered outside the
+        # timing; include_self=False on zeros keeps 0 on an empty row), and
+        # the sum as one torch.sparse.mm on the CSR of the edge counts
+        m_ = tb128.edge_mask
+        recv = tb128.receivers[m_].long()
+        send = tb128.senders[m_].long()
+        h1 = layers["simple_max"][1][0][0]
+        src = h1[send]
+        idx = recv[:, None].expand_as(src)
+        z = torch.zeros_like(h1)
+        lib_max = z.scatter_reduce(0, idx, src, "amax", include_self=False)
+        ok, _, _ = close_enough(lib_max, ell_agg.ell_aggregate_plain(
+            h1, tb128.nbr_nodes, tb128.in_degree, ("max",)))
+        if not ok:
+            raise AssertionError("the scatter_reduce yardstick computes "
+                                 "another function")
+        one_max = [((h1, tb128.nbr_nodes, tb128.in_degree, ("max",)), {})]
+        by = {"simple_max layer 1": entry(
+            "ell_agg", "max", ell_agg.fused_ell_aggregate,
+            ell_agg.ell_aggregate_plain, one_max, tb128,
+            agg_work(one_max, tb128), "one launch: max of a 128-wide "
+            "layer input over the train batch", lambda: z.scatter_reduce(
+                0, idx, src, "amax", include_self=False))}
+        a_csr = adjacency_csr(tb128)
+        one_sum = [((h1, tb128.nbr_nodes, tb128.in_degree, ("sum",)), {})]
+        by["sum layer 1"] = entry(
+            "ell_agg", "sum", ell_agg.fused_ell_aggregate,
+            ell_agg.ell_aggregate_plain, one_sum, tb128,
+            agg_work(one_sum, tb128), "one launch: sum of a 128-wide "
+            "layer input over the train batch",
+            lambda: torch.sparse.mm(a_csr, h1))
+        by["pna5_std"] = entry(
+            "ell_agg", "pna5 u", ell_agg.fused_ell_aggregate,
+            ell_agg.ell_aggregate_plain, layers["pna5_std"], tb,
+            agg_work(layers["pna5_std"], tb), "one standard-packed "
+            f"b{BATCH_GRAPHS} five-aggregator PNA forward (6 launches, u)")
+        by["pna5_block"] = entry(
+            "ell_agg", "pna5 block", ell_agg.fused_ell_aggregate,
+            ell_agg.ell_aggregate_plain, layers["pna5_block"], b0,
+            agg_work(layers["pna5_block"], b0), "one block-packed "
+            f"b{BATCH_GRAPHS} five-aggregator PNA forward (6 launches, "
+            f"max and min)")
+        by["simple_max"] = entry(
+            "ell_agg", "simple max", ell_agg.fused_ell_aggregate,
+            ell_agg.ell_aggregate_plain, layers["simple_max"], tb128,
+            agg_work(layers["simple_max"], tb128),
+            f"one standard-packed b{BATCH_GRAPHS} Simple-max forward (6 "
+            f"launches, 128 wide)")
+        # the headline: one max launch, whose function one library call
+        # (scatter_reduce) computes
+        report["ell_agg"].update(by["simple_max layer 1"], by_config=by,
+                                 library="scatter_reduce amax over the "
+                                 "edge list, include_self=False on zeros")
+
+        fwd = {}
+        for name, (p_, bs_, _) in paths.items():
+            fwd[name] = time_ms(lambda: p_.forward(bs_[0]), 20, warmup=3)
+        log(f"forwards b{BATCH_GRAPHS} (ms, events): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in fwd.items()) + f" on {smi}")
+        out["forward_ms"] = fwd
+        torch.set_grad_enabled(True)
+        tm.load_state_dict(st)
+        step = fresh_step(tm)
+        step_ms = time_ms(lambda: step(tb, target), 10, warmup=3)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            for _ in range(3):
+                step(tb, target)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t) * 1e3 / 3
+        split = split_device_time(prof, 3)
+        busy = sum(split.values())
+        log(f"GINE train step b{BATCH_GRAPHS}: {step_ms:.4f} ms (events); "
+            f"device ms per step by part: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v)
+            + f"; busy {busy:.4f} of {wall_ms:.4f} ms wall")
+        out.update(step_ms=step_ms, device_ms_per_step=split,
+                   profiled_wall_ms=wall_ms)
+    torch.set_grad_enabled(False)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1005,10 +1572,13 @@ def main():
     from gnnbuilder_tpu_torch.ops import dispatch, ell, segment
     from gnnbuilder_tpu_torch.ops.cuda import (
         _build,
+        edge_block,
+        ell_agg,
         ell_bwd,
         gat_block,
         gat_bwd,
         gat_layer,
+        gine_layer,
         mp_block,
         mp_layer,
         pna_block,
@@ -1029,7 +1599,10 @@ def main():
                "mp_layer": mp_layer.fused_mp_layer,
                "gat_block": gat_block.fused_gat_block_layer,
                "gat_layer": gat_layer.fused_gat_layer,
-               "gat_bwd": gat_bwd.fused_gat_scatter_backward}
+               "gat_bwd": gat_bwd.fused_gat_scatter_backward,
+               "ell_agg": ell_agg.fused_ell_aggregate,
+               "gine_layer": gine_layer.fused_gine_layer,
+               "edge_block": edge_block.fused_edge_block_layer}
 
     def only(**nonzero):
         """The launch counts of a path that launches ``nonzero``."""
@@ -1799,6 +2372,10 @@ def main():
                      tgraphs=tgraphs, tb=tb, target=target,
                      zero_counts=zero_counts, counts=counts, only=only,
                      fresh_step=fresh_step, smi=smi)
+    edge_agg = edge_agg_phases(
+        report, dev=dev, graphs=graphs, batches=batches, b0=b0,
+        tgraphs=tgraphs, tb=tb, target=target, zero_counts=zero_counts,
+        counts=counts, only=only, fresh_step=fresh_step, smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -2059,6 +2636,18 @@ def main():
              source="gnnbuilder_tpu_torch/csrc/gat_bwd.cu",
              replaces="gnnbuilder_tpu/ops/pallas/gat_bwd.py:297",
              **report["gat_bwd"]),
+        dict(name="ell_agg", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/ell_agg.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/ell_agg.py:205",
+             **report["ell_agg"]),
+        dict(name="gine_layer", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/gine_layer.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/gine_layer.py:253",
+             **report["gine_layer"]),
+        dict(name="edge_block", route="cuda",
+             source="gnnbuilder_tpu_torch/csrc/edge_block.cu",
+             replaces="gnnbuilder_tpu/ops/pallas/edge_block.py:151",
+             **report["edge_block"]),
     ]
     print(json.dumps({
         "kernels": kernels,
@@ -2081,6 +2670,7 @@ def main():
         "mp_layer_forward": dict(batch_graphs=BATCH_GRAPHS,
                                  **mp_timed["forward"]),
         "gat": dict(batch_graphs=BATCH_GRAPHS, heads=GAT_HEADS, **gat),
+        "gine_edge_agg": dict(batch_graphs=BATCH_GRAPHS, **edge_agg),
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

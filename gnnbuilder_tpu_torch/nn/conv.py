@@ -1,7 +1,7 @@
-"""Message-passing convs: GCN, GIN, SAGE, LG, Simple, PNA and GAT (the
-JAX package's ``nn/conv.py``, PyG semantics).  Each takes ``(g, x, act,
-skip)`` and returns ``[N, out_channels]``; the skip is added before the
-activation.
+"""Message-passing convs: GCN, GIN, GINE, SAGE, LG, Simple, PNA, GAT and
+EdgeConv (the JAX package's ``nn/conv.py``, PyG semantics).  Each takes
+``(g, x, act, skip)`` and returns ``[N, out_channels]``; the skip is
+added before the activation.
 
 GCN, GIN, SAGE, LG and Simple (sum, mean) run their layer through
 ``ops.cuda.mp_layer.fused_mp_layer_auto`` (the CUDA kernel on the card,
@@ -22,14 +22,32 @@ GIN: ``lin1(relu(lin0((1 + eps) x + sum_j x_j)))``.  SAGE:
 ``lin_l(mean_j x_j) + lin_r(x)``, the mean over max(deg, 1); ``lin_l``
 has a bias, ``lin_r`` none.  LG (LightGCN): ``sum_j x_j / sqrt(d_i d_j)``,
 no self loops, 0 on an empty row.  Simple: the sum, mean, max or min of
-the neighbour rows (max and min plain: their kernel is not ported).  LG
-and Simple have no parameters and need in_channels == out_channels.
+the neighbour rows.  LG and Simple have no parameters and need
+in_channels == out_channels.
+
+Simple's max and min and PNA's aggregation outside its layer kernel take
+the multi-aggregate kernel (``ops.cuda.ell_agg``, differentiable through
+its hand-written backward) through ``_fused_multi`` where
+``dispatch.agg_cfg`` allows and the batch takes no block product; on a
+block-packed batch PNA takes the block product for sum, mean and std
+(``ops.block.block_multi``) and the kernel for max and min, with the
+receiver term u added after the reduction (it commutes with each).
+
+GINE (edge features): ``lin1(relu(lin0((1 + eps) x + sum_j relu(x_j +
+lin_edge(e_ij)))))``, through ``ops.cuda.gine_layer`` where
+``dispatch.gine_layer_cfg`` allows, else over the ELL table (its edge
+slots ``nbr_edges``) or the edge list.  EdgeConv: ``aggr_j lin1(relu(
+lin0([x_i || x_j - x_i])))`` for aggr max, sum or mean, lin0 a PairLinear
+(u - v at the receiver, v at the sender), through ``ops.cuda.edge_block``
+under inference scope on a block-packed batch
+(``dispatch.edge_block_cfg``), else over the ELL table or the edge list.
 
 PNA with towers=1, divide_input=False, one pre and one post layer (PyG
 semantics, the JAX package's ``nn/conv.py`` PNAConv): message
-``pre_nn([x_i || x_j])``; aggregate with max/min/mean/std over the ELL
-table; scale the concat by identity, log(d+1)/delta and delta/log(d+1)
-with d clamped to >= 1; ``post_nn([x_i || scaled])``; then ``lin``.
+``pre_nn([x_i || x_j])``; aggregate with max/min/mean/std (or any of
+sum, mean, max, min, std) over the ELL table; scale the concat by
+identity, log(d+1)/delta and delta/log(d+1) with d clamped to >= 1;
+``post_nn([x_i || scaled])``; then ``lin``.
 
 With the default aggregators and scalers, and when ``dispatch.pna_layer_cfg``
 allows, the layer runs through ``ops.cuda.pna_layer.fused_pna_layer_auto``
@@ -61,9 +79,9 @@ from gnnbuilder_tpu_torch.nn.linear import BlockScaledLinear, PairLinear
 from gnnbuilder_tpu_torch.ops import block, dispatch, ell, segment
 from gnnbuilder_tpu_torch.ops.activations import get_activation, leaky_relu
 
-__all__ = ["GCNConv", "GINConv", "SAGEConv", "LGConv", "SimpleConv",
-           "PNAConv", "GATConv", "PNA_AGGREGATORS", "PNA_SCALERS",
-           "SUPPORTED_GNN_CONVS"]
+__all__ = ["GCNConv", "GINConv", "GINEConv", "SAGEConv", "LGConv",
+           "SimpleConv", "PNAConv", "GATConv", "EdgeConv",
+           "PNA_AGGREGATORS", "PNA_SCALERS", "SUPPORTED_GNN_CONVS"]
 
 PNA_AGGREGATORS = ("max", "min", "mean", "std")
 PNA_SCALERS = ("identity", "amplification", "attenuation")
@@ -90,6 +108,20 @@ def _mp_layer(g: GraphBatch, conv: str, v, act, skip, **operands):
         v, g.nbr_nodes, g.in_degree, conv, skip=skip, act=act,
         rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree,
         block_adj=g.block_adj if cfg.get("block") else None, **operands)
+
+
+def _fused_multi(g: GraphBatch, aggregators, v, u=None):
+    """The multi-aggregate kernel's [N, A*F] concat of ``aggregators`` of
+    ``(u_i +) v_j`` (differentiable) when ``dispatch.agg_cfg`` allows and
+    the batch takes no block product, else None (the caller's plain
+    path), as the JAX package's ``_fused_multi``."""
+    if dispatch.block_cfg(g) is not None or dispatch.agg_cfg(g) is None:
+        return None
+    from gnnbuilder_tpu_torch.ops.cuda.ell_agg import fused_ell_aggregate_vjp
+
+    return fused_ell_aggregate_vjp(
+        v, g.nbr_nodes, g.in_degree, aggregators, u=u,
+        rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree)
 
 
 def _sum(g: GraphBatch, x):
@@ -207,6 +239,10 @@ class SimpleConv(_SameWidth):
                 if name == "mean":
                     s = s / g.in_degree.to(x.dtype).clamp(min=1.0)[:, None]
                 return _finish(s, act, skip)
+        else:
+            out = _fused_multi(g, (name,), x)
+            if out is not None:
+                return _finish(out, act, skip)
         if g.nbr_nodes is not None:
             fn = {"sum": ell.ell_sum, "mean": ell.ell_mean,
                   "max": ell.ell_max, "min": ell.ell_min}[name]
@@ -260,17 +296,23 @@ class PNAConv(torch.nn.Module):
                     self.delta, skip=skip, act=act,
                     rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree)
         u, v = self.pre_nn(x, x)
-        if g.nbr_nodes is not None:
-            table = u[:, None, :] + ell.ell_gather(v, g.nbr_nodes)
-            mask = ell.ell_mask(g.nbr_nodes, g.in_degree)
-            aggs = ell.ell_multi_table(table, g.in_degree, self.aggregators,
-                                       mask)
+        if dispatch.block_cfg(g) is not None \
+                and dispatch.agg_cfg(g) is not None:
+            agg_cat = self._block_aggregate(g, u, v)
         else:
-            h_edge = u[g.receivers.long()] + v[g.senders.long()]
-            aggs = segment.segment_multi(
-                h_edge, g.receivers, g.num_nodes, self.aggregators,
-                count=g.in_degree.to(x.dtype)[:, None])
-        agg_cat = torch.cat([aggs[a] for a in self.aggregators], dim=-1)
+            agg_cat = _fused_multi(g, self.aggregators, v, u=u)
+        if agg_cat is None:
+            if g.nbr_nodes is not None:
+                table = u[:, None, :] + ell.ell_gather(v, g.nbr_nodes)
+                mask = ell.ell_mask(g.nbr_nodes, g.in_degree)
+                aggs = ell.ell_multi_table(table, g.in_degree,
+                                           self.aggregators, mask)
+            else:
+                h_edge = u[g.receivers.long()] + v[g.senders.long()]
+                aggs = segment.segment_multi(
+                    h_edge, g.receivers, g.num_nodes, self.aggregators,
+                    count=g.in_degree.to(x.dtype)[:, None])
+            agg_cat = torch.cat([aggs[a] for a in self.aggregators], dim=-1)
         deg = g.in_degree.to(x.dtype).clamp(min=1.0)[:, None]
         log_deg = torch.log(deg + 1.0)
         scales = []
@@ -283,6 +325,40 @@ class PNAConv(torch.nn.Module):
                 scales.append(self.delta / log_deg)
         out = self.post_nn(x, agg_cat, scales)
         return _finish(self.lin(out), act, skip)
+
+    def _block_aggregate(self, g: GraphBatch, u, v):
+        """The aggregation on a block-packed batch: the message u_i + v_j's
+        shift u commutes with every aggregator (mean = u + mean v, std =
+        std v, sum = deg u + sum v, max = u + max v), so sum, mean and std
+        ride one block product over [v | v^2] and only max and min take
+        the multi-aggregate kernel, without u."""
+        from gnnbuilder_tpu_torch.ops.cuda.ell_agg import (
+            fused_ell_aggregate_vjp,
+        )
+
+        aggs = self.aggregators
+        linear = tuple(a for a in aggs if a in ("sum", "mean", "std"))
+        out = block.block_multi(v, g.block_adj, g.in_degree,
+                                linear) if linear else {}
+        cmp = tuple(a for a in aggs if a in ("max", "min"))
+        if cmp:
+            cat = fused_ell_aggregate_vjp(
+                v, g.nbr_nodes, g.in_degree, cmp,
+                rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree)
+            F = v.shape[1]
+            out.update({a: cat[:, i * F:(i + 1) * F]
+                        for i, a in enumerate(cmp)})
+        count = g.in_degree.to(v.dtype)[:, None]
+        zero = v.new_zeros(())
+        parts = []
+        for a in aggs:
+            if a == "std":
+                parts.append(out[a])
+            elif a == "sum":
+                parts.append(count * u + out[a])
+            else:
+                parts.append(torch.where(count > 0, u + out[a], zero))
+        return torch.cat(parts, dim=-1)
 
 
 class GATConv(torch.nn.Module):
@@ -385,6 +461,99 @@ class GATConv(torch.nn.Module):
         return _finish(out + self.bias, act, skip)
 
 
-SUPPORTED_GNN_CONVS = {"gcn": GCNConv, "gin": GINConv, "sage": SAGEConv,
-                       "lg": LGConv, "simple": SimpleConv, "pna": PNAConv,
-                       "gat": GATConv}
+class GINEConv(torch.nn.Module):
+    """GINE: GIN with edge features in the message, ``relu(x_j +
+    lin_edge(e_ij))``.  ``edge_dim`` is the width of the batch's edge
+    features; ``lin_edge`` maps them to ``in_channels``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 edge_dim=None, eps: float = 0.0):
+        super().__init__()
+        if edge_dim is None:
+            raise ValueError("GINEConv needs edge_dim, the width of the "
+                             "edge features")
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.edge_dim = int(edge_dim)
+        self.eps = float(eps)
+        self.lin_edge = torch.nn.Linear(self.edge_dim, in_channels)
+        self.lin0 = torch.nn.Linear(in_channels, out_channels)
+        self.lin1 = torch.nn.Linear(out_channels, out_channels)
+
+    def forward(self, g: GraphBatch, x, act=None, skip=None):
+        if g.edge_feat is None:
+            raise ValueError("GINEConv requires edge features")
+        e = self.lin_edge(g.edge_feat)
+        if dispatch.gine_layer_cfg(g, act) is not None:
+            from gnnbuilder_tpu_torch.ops.cuda.gine_layer import (
+                fused_gine_layer_auto,
+            )
+
+            return fused_gine_layer_auto(
+                x, e, g.nbr_nodes, g.nbr_edges, g.in_degree,
+                self.lin0.weight.t(), self.lin0.bias, self.lin1.weight.t(),
+                self.lin1.bias, eps=self.eps, skip=skip, act=act)
+        if g.nbr_nodes is not None:
+            table = torch.relu(ell.ell_gather(x, g.nbr_nodes)
+                               + ell.ell_gather(e, g.nbr_edges))
+            mask = ell.ell_mask(g.nbr_nodes, g.in_degree)[..., None]
+            agg = torch.where(mask, table, x.new_zeros(())).sum(1)
+        else:
+            msg = torch.relu(x[g.senders.long()] + e)
+            agg = segment.segment_sum(msg, g.receivers, g.num_nodes)
+        h = (1.0 + self.eps) * x + agg
+        return _finish(self.lin1(torch.relu(self.lin0(h))), act, skip)
+
+
+class EdgeConv(torch.nn.Module):
+    """EdgeConv (Dynamic Graph CNN): ``aggr_j lin1(relu(lin0([x_i || x_j -
+    x_i])))`` for ``aggregation`` max (the default), sum ("add") or mean;
+    an empty row gives 0.  ``lin0`` is a PairLinear over the virtual
+    concat, so the message is ``(u - v)_i + v_j``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 aggregation: str = "max"):
+        super().__init__()
+        if aggregation not in ("sum", "add", "mean", "max"):
+            raise ValueError(f"unknown aggregation {aggregation}")
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.aggregation = aggregation
+        self.lin0 = PairLinear(2 * in_channels, out_channels)
+        self.lin1 = torch.nn.Linear(out_channels, out_channels)
+
+    def forward(self, g: GraphBatch, x, act=None, skip=None):
+        name = "sum" if self.aggregation == "add" else self.aggregation
+        if dispatch.edge_block_cfg(g, act) is not None:
+            from gnnbuilder_tpu_torch.ops.cuda.edge_block import (
+                fused_edge_block_layer_auto,
+            )
+
+            return fused_edge_block_layer_auto(
+                x, g.nbr_nodes, g.in_degree, self.lin0.weight.t(),
+                self.lin0.bias, self.lin1.weight.t(), self.lin1.bias,
+                aggregation=name, skip=skip, act=act)
+        u, v = self.lin0(x, x)
+        w = u - v
+        if g.nbr_nodes is not None:
+            table = torch.relu(w[:, None, :]
+                               + ell.ell_gather(v, g.nbr_nodes))
+            mask = ell.ell_mask(g.nbr_nodes, g.in_degree)
+            out = ell.ell_multi_table(self.lin1(table), g.in_degree, (name,),
+                                      mask)[name]
+        else:
+            recv = g.receivers.long()
+            y = self.lin1(torch.relu(w[recv] + v[g.senders.long()]))
+            if name == "sum":
+                out = segment.segment_sum(y, recv, g.num_nodes)
+            else:
+                fn = {"mean": segment.segment_mean,
+                      "max": segment.segment_max}[name]
+                out = fn(y, recv, g.num_nodes,
+                         count=g.in_degree.to(x.dtype)[:, None])
+        return _finish(out, act, skip)
+
+
+SUPPORTED_GNN_CONVS = {"gcn": GCNConv, "gin": GINConv, "gine": GINEConv,
+                       "sage": SAGEConv, "lg": LGConv, "simple": SimpleConv,
+                       "pna": PNAConv, "gat": GATConv, "edge": EdgeConv}

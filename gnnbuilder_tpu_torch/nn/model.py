@@ -20,7 +20,13 @@ parameters and no stack kernel.  GAT layers run through
 through ``ops.cuda.gat_layer`` elsewhere on a batch with an ELL table
 (concat heads), else their plain paths; with concat heads a GAT layer's
 output is heads * channels wide, and the next layer and the MLP head take
-that width, as the JAX package's layers infer it.  The readout runs through
+that width, as the JAX package's layers infer it.  GINE layers (which
+read the batch's edge features, ``edge_dim=graph_input_edge_dim``) run
+through ``ops.cuda.gine_layer`` on any batch with an ELL table, in
+inference and in training; EdgeConv layers through ``ops.cuda.edge_block``
+under inference scope on a block-packed batch; Simple's max and min and
+PNA with other aggregators than the default take the multi-aggregate
+kernel ``ops.cuda.ell_agg`` (``nn/conv.py``).  The readout runs through
 ``ops.cuda.readout``.  With ``set_fused_mode("never")`` the model runs the
 per-layer plain path.  The paths compute the same function.  In training
 (grad mode on) the kernels get the live parameters, so gradients reach
@@ -54,6 +60,10 @@ __all__ = ["GNNModel"]
 
 # convs with a whole-stack kernel (LG and Simple have none)
 _STACK_CONVS = ("pna", "gcn", "gin", "sage")
+
+# convs that read the batch's edge features: they take
+# ``edge_dim=graph_input_edge_dim``
+_EDGE_CONVS = ("gine",)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -93,6 +103,9 @@ class GNNModel(torch.nn.Module):
             raise ValueError(
                 f"output_activation must be one of {sorted(OUTPUT_ACTIVATIONS)}"
             )
+        if gnn_conv in _EDGE_CONVS and graph_input_edge_dim is None:
+            raise ValueError(f"gnn_conv={gnn_conv!r} reads edge features: "
+                             f"it needs graph_input_edge_dim")
         if gnn_num_layers == 0 and graph_input_feature_dim != gnn_output_dim:
             raise ValueError(
                 "gnn_num_layers=0 requires graph_input_feature_dim =="
@@ -121,8 +134,11 @@ class GNNModel(torch.nn.Module):
         self.conv_kwargs = dict(conv_kwargs or {})
 
         conv_cls = SUPPORTED_GNN_CONVS[gnn_conv]
+        conv_kw = dict(self.conv_kwargs)
+        if gnn_conv in _EDGE_CONVS:
+            conv_kw["edge_dim"] = graph_input_edge_dim
         self.gnn_convs = torch.nn.ModuleList(
-            conv_cls(in_dim, out_dim, **self.conv_kwargs)
+            conv_cls(in_dim, out_dim, **conv_kw)
             for in_dim, out_dim in self._layer_dims()
         )
         self.global_pooling = GlobalPooling(self.pooling_aggrs)

@@ -14,9 +14,10 @@ from __future__ import annotations
 import torch
 
 from gnnbuilder_tpu_torch.ops.activations import leaky_relu
+from gnnbuilder_tpu_torch.ops.ell import _STD_EPS
 
-__all__ = ["block_spmm", "block_sum", "block_mean", "block_gat_attention",
-           "BIG"]
+__all__ = ["block_spmm", "block_sum", "block_mean", "block_std",
+           "block_multi", "block_gat_attention", "BIG"]
 
 BIG = 3e38  # the finite -inf of the JAX package's block attention
 
@@ -42,6 +43,35 @@ def block_sum(x, block_adj):
 def block_mean(x, block_adj, in_degree):
     d = in_degree.to(x.dtype).clamp(min=1.0)
     return block_spmm(block_adj, x) / d[:, None]
+
+
+def block_std(x, block_adj, in_degree):
+    return block_multi(x, block_adj, in_degree, ("std",))["std"]
+
+
+def block_multi(x, block_adj, in_degree, aggregators):
+    """sum, mean and std in one batched product over ``[x | x^2]``; max
+    and min have no product form and come from the ELL table.  Returns
+    {name: [N, F]}; std = sqrt(relu(E[x^2] - E[x]^2) + 1e-5)."""
+    bad = set(aggregators) - {"sum", "mean", "std"}
+    if bad:
+        raise ValueError(f"no block form for aggregators {sorted(bad)}")
+    F = x.shape[1]
+    need_sq = "std" in aggregators
+    both = block_spmm(block_adj, torch.cat([x, x * x], dim=-1)
+                      if need_sq else x)
+    s = both[:, :F]
+    d = in_degree.to(x.dtype).clamp(min=1.0)[:, None]
+    out = {}
+    if "sum" in aggregators:
+        out["sum"] = s
+    mean = s / d
+    if "mean" in aggregators:
+        out["mean"] = mean
+    if need_sq:
+        var = torch.relu(both[:, F:] / d - mean * mean)
+        out["std"] = torch.sqrt(var + _STD_EPS)
+    return out
 
 
 def block_gat_attention(block_adj, h, a_src, a_dst, neg_slope: float = 0.2,

@@ -32,7 +32,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "gnnbuilder_tpu_torch"
 SOURCES = ("pna_block", "readout", "pna_layer", "scatter_bwd", "mp_block",
-           "ell_bwd", "mp_layer", "gat_layer", "gat_block", "gat_bwd")
+           "ell_bwd", "mp_layer", "gat_layer", "gat_block", "gat_bwd",
+           "ell_agg", "gine_layer", "edge_block")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,0 +1,225 @@
+"""The multi-aggregate of an ELL table: sum, mean, max, min and std of
+``(u_i +) v_j`` over each receiver's valid slots, concatenated ``[N,
+A*F]`` in the caller's order (``fused_ell_aggregate``), its backward
+(``ELLAggregateFunction``) and the entry the convs call
+(``fused_ell_aggregate_vjp``).
+
+``fused_ell_aggregate`` launches ``csrc/ell_agg.cu`` for CUDA tensors and
+runs ``ell_aggregate_plain``, the same function in plain torch, for CPU
+tensors.  It replaces the TPU kernel ``gnnbuilder_tpu/ops/pallas/
+ell_agg.py`` ``fused_ell_aggregate``; the plain version is that file's
+``_reference``: the receiver shift u is added per slot before any
+reduction, so max gives max(u_i + v_j).  Empty rows give 0 for every
+aggregator but std, which gives sqrt(1e-5); mean divides by max(deg, 1).
+
+The backward follows that file's ``_make_vjp_fn``.  Without u, dv is a
+gather of per-receiver coefficients (``ell_aggregate_cstk``: the JAX
+``_pallas_bwd`` assembly) through ``ops.cuda.ell_bwd``: over the batch's
+reverse table when it has one, else over ``ops.ell.reverse_csr`` of the
+forward table (where the JAX package runs XLA's VJP of its reference);
+each extremum coefficient is divided by its receiver's tie count, which
+the same gather counts over the forward table.  With u the backward is
+torch autograd of the plain version (over ``ops.ell.ell_own_pads`` of
+the table), as the JAX package's is of its reference.  Every route
+gives the same bits on every run.
+
+What bounds the kernel on the H100: bytes; see the source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import (
+    fused_gather_backward,
+    fused_gather_backward_csr,
+)
+from gnnbuilder_tpu_torch.ops.ell import (
+    ell_gather,
+    ell_mask,
+    ell_multi_table,
+    ell_own_pads,
+    reverse_csr,
+)
+
+__all__ = ["fused_ell_aggregate", "ell_aggregate_plain",
+           "ell_aggregate_cstk", "ELLAggregateFunction",
+           "fused_ell_aggregate_vjp", "AGGREGATORS"]
+
+# the aggregators the kernel takes, with their codes in the source
+AGGREGATORS = {"sum": 0, "mean": 1, "max": 2, "min": 3, "std": 4}
+
+
+def ell_aggregate_plain(v, nbr_nodes, in_degree, aggregators, u=None):
+    """The multi-aggregate in plain torch (``_reference``)."""
+    table = ell_gather(v, nbr_nodes)
+    if u is not None:
+        table = u[:, None, :] + table
+    d = ell_multi_table(table, in_degree, aggregators,
+                        ell_mask(nbr_nodes, in_degree))
+    return torch.cat([d[a] for a in aggregators], dim=-1)
+
+
+def _check(v, nbr_nodes, in_degree, aggregators, u):
+    bad = [a for a in aggregators if a not in AGGREGATORS]
+    if not aggregators or bad or len(set(aggregators)) != len(aggregators):
+        raise ValueError(f"aggregators must be distinct names of "
+                         f"{sorted(AGGREGATORS)}, got {aggregators}")
+    if v.dim() != 2 or v.dtype != torch.float32:
+        raise ValueError(f"v must be [N, F] float32, got {tuple(v.shape)} "
+                         f"{v.dtype}")
+    N = v.shape[0]
+    if u is not None and (u.shape != v.shape or u.dtype != torch.float32):
+        raise ValueError(f"u must be {tuple(v.shape)} float32")
+    if nbr_nodes.dim() != 2 or nbr_nodes.shape[0] != N:
+        raise ValueError(f"nbr_nodes must be [{N}, W]")
+    if tuple(in_degree.shape) != (N,):
+        raise ValueError(f"in_degree must be [{N}]")
+    devs = {t.device for t in (v, u, nbr_nodes, in_degree) if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+
+
+def _launch(v, nbr_nodes, in_degree, aggregators, u):
+    from gnnbuilder_tpu_torch.ops.cuda._build import load
+
+    lib = load()
+    N, F = v.shape
+    A = len(aggregators)
+    if nbr_nodes.dtype != torch.int32 or in_degree.dtype != torch.int32:
+        raise ValueError("nbr_nodes and in_degree must be int32")
+    if N * A * F >= 2 ** 31:
+        raise ValueError(f"the CUDA multi-aggregate takes outputs under 2^31 "
+                         f"elements; got N={N} x {A} x F={F}")
+    ops = [t for t in (v, u, nbr_nodes, in_degree) if t is not None]
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("all inputs must be contiguous")
+    fn = lib.gnnb_ell_agg
+    fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 4 + [I] * 3 + [P, I, P, P, I]
+    codes = (ctypes.c_int * A)(*(AGGREGATORS[a] for a in aggregators))
+    out = torch.empty((N, A * F), dtype=torch.float32, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    err = fn(v.data_ptr(), None if u is None else u.data_ptr(),
+             nbr_nodes.data_ptr(), in_degree.data_ptr(), N,
+             nbr_nodes.shape[1], F, codes, A, out.data_ptr(), stream,
+             v.device.index or 0)
+    if err != 0:
+        raise RuntimeError(f"ell_agg launch failed: cudaError {err}")
+    fused_ell_aggregate.launches += 1
+    return out
+
+
+def fused_ell_aggregate(v, nbr_nodes, in_degree, aggregators, u=None):
+    """Every aggregator of ``aggregators`` (names of ``AGGREGATORS``) of
+    ``(u_i +) v_j`` over the ELL table ``nbr_nodes`` [N, W] /
+    ``in_degree`` [N] (int32), v and u [N, F] float32: [N, A*F] in
+    aggregator order.  A CUDA ``v`` launches the kernel; a CPU one runs
+    the plain version."""
+    aggregators = tuple(aggregators)
+    _check(v, nbr_nodes, in_degree, aggregators, u)
+    if v.device.type == "cuda":
+        return _launch(v, nbr_nodes, in_degree, aggregators, u)
+    if v.device.type != "cpu":
+        raise ValueError(f"no multi-aggregate for device {v.device}")
+    return ell_aggregate_plain(v, nbr_nodes, in_degree, aggregators, u)
+
+
+fused_ell_aggregate.launches = 0
+
+
+def ell_aggregate_cstk(v, nbr_nodes, in_degree, aggregators, out, ct):
+    """The u-free backward's coefficient stack (the JAX ``_pallas_bwd``):
+    (cstk, has_lin, has_dev, n_cmp) for ``ops.cuda.ell_bwd``, from the
+    forward's output ``out`` and its cotangent ``ct`` [N, A*F].  sum and
+    mean give the linear block, std the pair c/(deg std), c mean/(deg
+    std), max and min each (extremum, c / ties), 0 on an empty row; the
+    tie counts and, without a mean output, the mean come from the
+    forward table through the same kernels."""
+    F = v.shape[1]
+    col = {a: slice(i * F, (i + 1) * F) for i, a in enumerate(aggregators)}
+    deg = in_degree.to(v.dtype)[:, None]
+    denom = deg.clamp(min=1.0)
+    c_lin = None
+    if "sum" in col:
+        c_lin = ct[:, col["sum"]]
+    if "mean" in col:
+        m = ct[:, col["mean"]] / denom
+        c_lin = m if c_lin is None else c_lin + m
+    blocks = [] if c_lin is None else [c_lin]
+    if "std" in col:
+        mean = (out[:, col["mean"]] if "mean" in col else
+                fused_ell_aggregate(v, nbr_nodes, in_degree, ("mean",)))
+        c_a = ct[:, col["std"]] / (denom * out[:, col["std"]])
+        blocks += [c_a, c_a * mean]
+    n_cmp = 0
+    ones = None
+    for name in ("max", "min"):
+        if name not in col:
+            continue
+        if ones is None:
+            ones = torch.cat([v, torch.ones_like(v)], dim=-1)
+        ext = out[:, col[name]].contiguous()
+        ties = fused_gather_backward(ones, nbr_nodes, in_degree, v=ext,
+                                     has_lin=False, n_cmp=1)
+        coef = torch.where(deg > 0, ct[:, col[name]],
+                           v.new_zeros(())) / ties.clamp(min=1.0)
+        blocks += [ext, coef]
+        n_cmp += 1
+    cstk = torch.cat(blocks, dim=-1).contiguous()
+    return cstk, c_lin is not None, "std" in col, n_cmp
+
+
+class ELLAggregateFunction(torch.autograd.Function):
+    """``fused_ell_aggregate`` with the JAX package's backward (module
+    docstring): the coefficient gather without u, over the reverse table
+    when ``rev_nbr_nodes`` is given, else over the reverse CSR; autograd
+    of the plain version with u."""
+
+    @staticmethod
+    def forward(ctx, v, u, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
+                aggregators):
+        out = fused_ell_aggregate(v, nbr_nodes, in_degree, aggregators, u)
+        ctx.save_for_backward(v, u, nbr_nodes, in_degree, rev_nbr_nodes,
+                              out_degree, out)
+        ctx.aggregators = aggregators
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        v, u, nbr, deg, rev, odeg, out = ctx.saved_tensors
+        aggs = ctx.aggregators
+        ct = ct.contiguous()
+        if u is not None:
+            with torch.enable_grad():
+                vv = v.detach().requires_grad_()
+                uu = u.detach().requires_grad_()
+                o = ell_aggregate_plain(vv, ell_own_pads(nbr, deg), deg,
+                                        aggs, uu)
+                dv, du = torch.autograd.grad(o, (vv, uu), ct)
+            return dv, du, None, None, None, None, None
+        cstk, has_lin, has_dev, n_cmp = ell_aggregate_cstk(
+            v, nbr, deg, aggs, out, ct)
+        terms = dict(v=v, has_lin=has_lin, has_dev=has_dev, n_cmp=n_cmp)
+        if rev is not None:
+            dv = fused_gather_backward(cstk, rev, odeg, **terms)
+        else:
+            rev_ptr, rev_idx = reverse_csr(nbr, deg)
+            dv = fused_gather_backward_csr(cstk, rev_ptr, rev_idx, **terms)
+        return dv, None, None, None, None, None, None
+
+
+def fused_ell_aggregate_vjp(v, nbr_nodes, in_degree, aggregators, u=None,
+                            rev_nbr_nodes=None, out_degree=None):
+    """Differentiable ``fused_ell_aggregate``: the kernel forward and the
+    backward of ``ELLAggregateFunction``, whose u-free dv runs over the
+    reverse table when both ``rev_nbr_nodes`` and ``out_degree`` are
+    given, else over the reverse CSR of ``nbr_nodes``."""
+    if rev_nbr_nodes is None or out_degree is None:
+        rev_nbr_nodes = out_degree = None
+    return ELLAggregateFunction.apply(
+        v.contiguous(), None if u is None else u.contiguous(), nbr_nodes,
+        in_degree, rev_nbr_nodes, out_degree, tuple(aggregators))

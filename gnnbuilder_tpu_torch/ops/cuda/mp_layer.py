@@ -53,6 +53,7 @@ __all__ = ["fused_mp_layer", "mp_layer_plain", "MPLayerFunction",
 MP_CONVS = {"gin": 0, "sage": 1, "gcn": 2, "lg": 3, "simple_sum": 4,
             "simple_mean": 5}
 # epilogue activations the kernel takes, with their codes in the source
+# (also the GINE and EdgeConv kernels' codes: dense_rows.cuh act_fn)
 LAYER_ACTS = {None: 0, "relu": 1, "gelu": 2, "sigmoid": 3, "tanh": 4}
 # the operands each conv takes, in the order (w0, b0, w1, b1)
 _OPERANDS = {"gin": (True, True, True, True),

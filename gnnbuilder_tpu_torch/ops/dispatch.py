@@ -1,6 +1,7 @@
 """Kernel dispatch policy: when the model takes the whole-stack, the
-per-layer PNA, mp and GAT and the readout kernels instead of the plain
-path, and which plain aggregation a conv runs on a block-packed batch.
+per-layer PNA, mp, GAT, GINE and EdgeConv, the multi-aggregate and the
+readout kernels instead of the plain path, and which plain aggregation a
+conv runs on a block-packed batch.
 
 The gates decide on the batch and the model alone; which implementation a
 kernel function then runs is decided by the tensors' device inside it (a
@@ -21,7 +22,7 @@ from typing import Optional
 __all__ = ["set_fused_mode", "inference_mode",
            "inference_on", "block_cfg", "pna_stack_cfg", "mp_stack_cfg",
            "mp_layer_cfg", "pna_layer_cfg", "gat_block_cfg", "gat_layer_cfg",
-           "readout_config"]
+           "agg_cfg", "gine_layer_cfg", "edge_block_cfg", "readout_config"]
 
 # convs whose whole stack runs in the mp stack kernel under "auto": the JAX
 # package's A/B on its TPU kept GIN on the per-layer path
@@ -185,6 +186,57 @@ def gat_layer_cfg(g, act) -> Optional[dict]:
     if _MODE == "never" or g.nbr_nodes is None:
         return None
     return {} if act in GAT_ACTS else None
+
+
+def agg_cfg(g) -> Optional[dict]:
+    """{} when the multi-aggregate kernel (``ops.cuda.ell_agg``) applies to
+    batch ``g``, else None (the caller's plain path).  The JAX package's
+    ``fused_config(kind="agg")``: the batch's ELL table and
+    graph-contiguous packing with a known largest graph.  Like that gate
+    it does not weigh block packing: ``nn.conv._fused_multi`` gives way to
+    the block product on a block-packed batch, while PNA's block path
+    takes the kernel for max and min.  The TPU's lane, VMEM and tile
+    gates are left out: this kernel takes any width and row count."""
+    if _MODE == "never" or g.nbr_nodes is None:
+        return None
+    if g.max_graph_nodes_static <= 0:
+        return None
+    return {}
+
+
+def gine_layer_cfg(g, act) -> Optional[dict]:
+    """{} when the GINE layer kernel (``ops.cuda.gine_layer``) applies to
+    batch ``g`` with epilogue activation ``act``, else None (GINEConv's
+    plain paths).  Needs the batch's ELL table with its edge slots
+    (``nbr_edges``) and an activation the kernel has; in or out of
+    inference scope, since the layer has a backward, and on block-packed
+    batches too (GINE has no block kernel, so the windowed one outranks
+    the block product, as in the JAX package).  The JAX package's
+    staging, alignment and batch-size gates are left out: they weighed
+    the TPU's hardware verification and 128-lane padding."""
+    from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
+
+    if _MODE == "never" or g.nbr_nodes is None or g.nbr_edges is None:
+        return None
+    return {} if act in LAYER_ACTS else None
+
+
+def edge_block_cfg(g, act) -> Optional[dict]:
+    """{} when the EdgeConv block kernel (``ops.cuda.edge_block``) applies
+    to batch ``g`` with epilogue activation ``act``, else None (EdgeConv's
+    plain paths).  The JAX package's ``edge_block_cfg``: inference scope
+    (the JAX kernel's backward is a recompute and training keeps the ELL
+    path), a block-packed batch at a block size that is a multiple of
+    128, and its ELL table; here also an activation the kernel has."""
+    from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
+
+    if _MODE == "never" or not inference_on():
+        return None
+    if g.block_adj is None or g.block_size_static % 128:
+        return None
+    if g.nbr_nodes is None:
+        return None
+    return {} if act in LAYER_ACTS else None
 
 
 def readout_config(g, aggrs, act, out_act) -> Optional[dict]:

@@ -14,8 +14,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ell_gather", "ell_mask", "ell_sum", "ell_mean", "ell_max",
-           "ell_min", "ell_multi_table", "ell_softmax_sum", "reverse_csr",
-           "_STD_EPS"]
+           "ell_min", "ell_std", "ell_multi", "ell_multi_table",
+           "ell_softmax_sum", "ell_own_pads", "reverse_csr", "_STD_EPS"]
 
 _STD_EPS = 1e-5  # PyG StdAggregation epsilon
 
@@ -30,6 +30,18 @@ def ell_mask(nbr_nodes, in_degree):
 def ell_gather(values, table):
     """Gather rows of ``values`` [M, F] by an ELL id table [N, W] -> [N, W, F]."""
     return values[table.long()]
+
+
+def ell_own_pads(nbr_nodes, in_degree):
+    """The table with each pad slot pointing at its own row in place of
+    the ghost.  The masked reductions above give the same values over
+    either table; through this one, autograd of a gather accumulates each
+    row's pad slots into that row, where all of them would otherwise
+    accumulate into the ghost row one after another (hundreds of ms on
+    the card at b1024)."""
+    rows = torch.arange(nbr_nodes.shape[0], device=nbr_nodes.device,
+                        dtype=nbr_nodes.dtype)[:, None]
+    return torch.where(ell_mask(nbr_nodes, in_degree), nbr_nodes, rows)
 
 
 def ell_sum(x, nbr_nodes, in_degree, mask=None):
@@ -64,6 +76,20 @@ def ell_min(x, nbr_nodes, in_degree, mask=None):
     """Min over each node's incoming neighbour rows (0 on an empty row)."""
     return _ell_extremum(x, nbr_nodes, in_degree, mask, float("inf"),
                          torch.amin)
+
+
+def ell_std(x, nbr_nodes, in_degree, mask=None):
+    """sqrt(relu(E[x^2] - E[x]^2) + 1e-5) over each node's incoming
+    neighbour rows, the means over max(in_degree, 1)."""
+    return ell_multi(x, nbr_nodes, in_degree, ("std",), mask)["std"]
+
+
+def ell_multi(x, nbr_nodes, in_degree, aggregators, mask=None):
+    """Every aggregator of ``aggregators`` (sum, mean, max, min, std) from
+    one gather of the neighbour rows.  Returns {name: [N, F]}."""
+    m = ell_mask(nbr_nodes, in_degree) if mask is None else mask
+    return ell_multi_table(ell_gather(x, nbr_nodes), in_degree, aggregators,
+                           m)
 
 
 def reverse_csr(nbr_nodes, in_degree):

@@ -4,10 +4,14 @@
 (``gnn_convs_{i}/...``, ``mlp_head/linear_{i}/{kernel,bias}``), onto this
 package's ``GNNModel`` state dict.  The conv leaves per conv (the JAX
 package's ``verify/port.py`` ``port_conv`` names): PNA ``pre_nn``,
-``post_nn``, ``lin``; GCN ``lin`` (no bias) and ``bias``; GIN ``lin0``,
-``lin1``; SAGE ``lin_l`` and ``lin_r`` (no bias); GAT ``lin`` (no bias),
-``att_src`` and ``att_dst`` ([1, H, C], carried as they are) and
-``bias``; LG and Simple none (flax leaves their layers out of the tree).  A flax kernel is
+``post_nn``, ``lin``; GCN ``lin`` (no bias) and ``bias``; GIN and
+EdgeConv ``lin0``, ``lin1`` (EdgeConv's lin0 a PairLinear, [2 Fin, F] in
+flax); GINE ``lin_edge``, ``lin0``, ``lin1``; SAGE ``lin_l`` and
+``lin_r`` (no bias); GAT ``lin`` (no bias), ``att_src`` and ``att_dst``
+([1, H, C], carried as they are) and ``bias``; LG and Simple none (flax
+leaves their layers out of the tree).  The mapping goes by the leaves
+alone: GIN's and EdgeConv's trees are alike and map the same way.  A
+flax kernel is
 [in, out]; a torch Linear weight is [out, in], so kernels are transposed
 on the way over.  Only numpy crosses the boundary: this module imports
 nothing of JAX.
@@ -21,11 +25,12 @@ import torch
 __all__ = ["params_from_jax"]
 
 # the flax leaves of each conv: {Linear name: has a bias}, plus GCN's
-# separate bias (an array, not a Linear)
+# separate bias (an array, not a Linear); GIN's leaves are EdgeConv's too
 _CONV_PARAMS = {
     "pna": {"pre_nn": True, "post_nn": True, "lin": True},
     "gcn": {"lin": False, "bias": None},
-    "gin": {"lin0": True, "lin1": True},
+    "gin or edge": {"lin0": True, "lin1": True},
+    "gine": {"lin_edge": True, "lin0": True, "lin1": True},
     "sage": {"lin_l": True, "lin_r": False},
     "gat": {"lin": False, "att_src": None, "att_dst": None, "bias": None},
 }
@@ -42,7 +47,7 @@ def _conv_of(key, node) -> str:
     raise ValueError(
         f"{key}: got {sorted(node)}, which matches no conv this port "
         f"takes: expected PNA params {tuple(_CONV_PARAMS['pna'])}, or "
-        f"those of gcn, gin, sage or gat ({_CONV_PARAMS})")
+        f"those of gcn, gin, gine, sage, gat or edge ({_CONV_PARAMS})")
 
 
 def params_from_jax(flax_params) -> dict:

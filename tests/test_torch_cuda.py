@@ -20,10 +20,13 @@ from gnnbuilder_tpu_torch import train
 from gnnbuilder_tpu_torch.ops import ell
 from gnnbuilder_tpu_torch.ops.cuda import (
     _build,
+    edge_block,
+    ell_agg,
     ell_bwd,
     gat_block,
     gat_bwd,
     gat_layer,
+    gine_layer,
     mp_block,
     mp_layer,
     pna_block,
@@ -906,3 +909,232 @@ def test_program_forward_gat_through_kernels(cuda_device):
         m = bc.graph_mask
         assert torch.isfinite(out[m]).all()
         assert _scaled_err(out[m], ref[m]) <= 1e-4
+
+
+AGG_SETS = [("sum",), ("mean",), ("max",), ("min",), ("std",),
+            ("max", "min", "mean", "std"),
+            ("sum", "mean", "min", "max", "std")]
+
+
+@pytest.mark.parametrize("with_u", [False, True])
+def test_ell_agg_kernel_matches_plain(cuda_device, with_u):
+    """Row 8 for each aggregator alone, PNA's four and all five, with and
+    without u, at F = 11, 128 and 384, on the 128-graph standard batch with
+    values rounded to halves (ties): within 1e-5 of max |value| per
+    aggregator (std's E[t^2] - E[t]^2 formed as the plain version forms
+    it), empty rows exactly."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for F in (11, 128, 384):
+        v = (torch.randn(b.num_nodes, F, generator=g) * 2).round().div(2)
+        v = v.to(cuda_device)
+        u = (torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+             if with_u else None)
+        for aggs in AGG_SETS:
+            before = ell_agg.fused_ell_aggregate.launches
+            got = ell_agg.fused_ell_aggregate(v, b.nbr_nodes, b.in_degree,
+                                              aggs, u=u)
+            torch.cuda.synchronize()
+            assert ell_agg.fused_ell_aggregate.launches == before + 1
+            want = ell_agg.ell_aggregate_plain(v, b.nbr_nodes, b.in_degree,
+                                               aggs, u)
+            m = b.node_mask
+            empty = b.in_degree == 0
+            assert torch.equal(got[empty], want[empty])
+            for i, a in enumerate(aggs):
+                sl = slice(i * F, (i + 1) * F)
+                assert _scaled_err(got[m, sl], want[m, sl]) <= 1e-5, (F, a)
+
+
+@pytest.mark.parametrize("rev", [True, False])
+def test_ell_agg_backward_is_bitwise_stable(cuda_device, rev):
+    """Row 8's u-free backward (tie counts and the coefficient gather of
+    row 7, over the reverse table or the reverse CSR) for all five
+    aggregators with ties: within 2e-5 of max |value| of the same
+    backward on the CPU (plain versions) and of float64 autograd of the
+    plain forward, and the same bits on two launches."""
+    _, b = _std_batch(device=cuda_device)
+    if not rev:
+        b = b.replace(rev_nbr_nodes=None, out_degree=None)
+    aggs = ("sum", "mean", "min", "max", "std")
+    g = torch.Generator(device="cpu").manual_seed(7)
+    F = 128
+    v = (torch.randn(b.num_nodes, F, generator=g) * 2).round().div(2)
+    ct = torch.randn(b.num_nodes, len(aggs) * F, generator=g)
+    ct[~b.node_mask.cpu()] = 0.0
+
+    def grad(dev, dt=torch.float32):
+        bb = b.to(dev)
+        vv = v.to(dev, dt).clone().requires_grad_()
+        if dt == torch.float64:
+            out = ell_agg.ell_aggregate_plain(vv, bb.nbr_nodes,
+                                              bb.in_degree, aggs)
+        else:
+            out = ell_agg.fused_ell_aggregate_vjp(
+                vv, bb.nbr_nodes, bb.in_degree, aggs,
+                rev_nbr_nodes=bb.rev_nbr_nodes, out_degree=bb.out_degree)
+        out.backward(ct.to(dev, dt))
+        return vv.grad
+
+    counter = (ell_bwd.fused_gather_backward if rev
+               else ell_bwd.fused_gather_backward_csr)
+    before = counter.launches
+    one, two = grad(cuda_device), grad(cuda_device)
+    torch.cuda.synchronize()
+    assert counter.launches >= before + 2
+    assert torch.equal(one, two)
+    assert _scaled_err(one.cpu(), grad("cpu")) <= 2e-5
+    assert _scaled_err(one.double().cpu(),
+                       grad("cpu", torch.float64)) <= 2e-5
+
+
+def _gine_operands(F, g, device, H=128, Fout=128):
+    def r(*s, sc=None):
+        sc = 1.0 / s[0] ** 0.5 if sc is None else sc
+        return (torch.randn(*s, generator=g) * sc).to(device)
+
+    return dict(w0=r(F, H), b0=r(H, sc=.1), w1=r(H, Fout),
+                b1=r(Fout, sc=.1))
+
+
+@pytest.mark.parametrize("block", [False, True])
+def test_gine_layer_kernel_matches_plain(cuda_device, block):
+    """Row 12 at F = 11, 128 and 384 (hidden 384: 16 rows per CTA where
+    32 do not fit shared memory), pe nonzero on pad edges, as lin_edge's
+    bias puts it there, with skip and relu, without them (tanh), and
+    gelu, on a standard and a block batch: within 1e-5 of max |value| on
+    real rows."""
+    b = (_batch()[1] if block else _std_batch()[1]).to(cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    for F, H, act, with_skip in ((11, 128, "relu", True),
+                                 (128, 128, "tanh", False),
+                                 (384, 384, "gelu", True)):
+        x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+        pe = torch.randn(b.num_edges, F, generator=g).to(cuda_device)
+        ops = _gine_operands(F, g, cuda_device, H=H, Fout=H)
+        skip = (torch.randn(b.num_nodes, H, generator=g).to(cuda_device)
+                if with_skip else None)
+        args = (x, pe, b.nbr_nodes, b.nbr_edges, b.in_degree)
+        kw = dict(ops, eps=0.1, skip=skip, act=act)
+        before = gine_layer.fused_gine_layer.launches
+        got = gine_layer.fused_gine_layer(*args, **kw)
+        torch.cuda.synchronize()
+        assert gine_layer.fused_gine_layer.launches == before + 1
+        want = gine_layer.gine_layer_plain(*args, **kw)
+        m = b.node_mask
+        assert _scaled_err(got[m], want[m]) <= 1e-5, (F, act)
+
+
+@pytest.mark.parametrize("rev", [True, False])
+def test_gine_train_step_is_bitwise_reproducible(cuda_device, rev):
+    """One Adam step of canonical GINE on the 128-graph standard batch,
+    with its reverse table or without: six row-12 launches and one
+    readout, every gradient the same bits on a second step from the same
+    state, and within 1e-4 of max |value| of the float32 plain path."""
+    gs, b = _std_batch(device=cuda_device)
+    if not rev:
+        b = b.replace(rev_nbr_nodes=None, out_degree=None)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    torch.manual_seed(0)
+    model = canonical_model("gine", "qm9", graphs=gs).to(cuda_device)
+    state = {k: t.clone() for k, t in model.state_dict().items()}
+    grads = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        step = train.make_train_step(
+            model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        before = (gine_layer.fused_gine_layer.launches,
+                  readout.fused_readout.launches)
+        step(b, target)
+        torch.cuda.synchronize()
+        assert (gine_layer.fused_gine_layer.launches - before[0],
+                readout.fused_readout.launches - before[1]) == (6, 1)
+        grads.append({k: q.grad.clone() for k, q in
+                      model.named_parameters()})
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k
+    model.load_state_dict(state)
+    model.zero_grad()
+    dispatch.set_fused_mode("never")
+    try:
+        train.masked_mse_loss(model(b), target, b.graph_mask).backward()
+    finally:
+        dispatch.set_fused_mode("auto")
+    for k, q in model.named_parameters():
+        assert torch.isfinite(grads[0][k]).all(), k
+        assert _scaled_err(grads[0][k], q.grad) <= 1e-4, k
+
+
+@pytest.mark.parametrize("aggr", ["max", "sum", "mean"])
+def test_edge_block_kernel_matches_plain(cuda_device, aggr):
+    """Row 13 at Fin = 11 and 128 (F = Fout = 128) and at 384 throughout,
+    with skip and relu, without them (tanh), and gelu, on the 128-graph
+    block batch: within 1e-5 of max |value| on real rows."""
+    b = _batch()[1].to(cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(13)
+    for Fin, F, act, with_skip in ((11, 128, "relu", True),
+                                   (128, 128, "tanh", False),
+                                   (384, 384, "gelu", True)):
+        x = torch.randn(b.num_nodes, Fin, generator=g).to(cuda_device)
+        sc = 1.0 / (2 * Fin) ** 0.5
+        ops = dict(w_pair=(torch.randn(2 * Fin, F, generator=g) * sc),
+                   b0=torch.randn(F, generator=g) * .1,
+                   w1=torch.randn(F, F, generator=g) / F ** 0.5,
+                   b1=torch.randn(F, generator=g) * .1)
+        ops = {k: t.to(cuda_device) for k, t in ops.items()}
+        skip = (torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+                if with_skip else None)
+        kw = dict(ops, aggregation=aggr, skip=skip, act=act)
+        before = edge_block.fused_edge_block_layer.launches
+        got = edge_block.fused_edge_block_layer(x, b.nbr_nodes, b.in_degree,
+                                                **kw)
+        torch.cuda.synchronize()
+        assert edge_block.fused_edge_block_layer.launches == before + 1
+        want = edge_block.edge_block_layer_plain(x, b.nbr_nodes,
+                                                 b.in_degree, **kw)
+        m = b.node_mask
+        assert _scaled_err(got[m], want[m]) <= 1e-5, (Fin, act)
+
+
+@pytest.mark.parametrize("conv,kw,block", [
+    ("gine", {}, True), ("gine", {}, False), ("edge", {}, True),
+    ("simple", {"aggregation": "max"}, False),
+    ("simple", {"aggregation": "min"}, False),
+    ("pna", {"aggregators": ("sum", "mean", "min", "max", "std")}, True),
+    ("pna", {"aggregators": ("sum", "mean", "min", "max", "std")}, False)])
+def test_program_forward_edge_and_agg_paths(cuda_device, conv, kw, block):
+    """``Program.forward`` of canonical GINE (block and standard), EdgeConv
+    (block), Simple max and min (standard, 128 wide) and five-aggregator
+    PNA (block and standard): each layer through its kernel (rows 12, 13
+    or 8), within 1e-4 of max |value| of the per-layer plain path on
+    graph_mask rows."""
+    same = conv == "simple"
+    nd = 128 if same else None
+    if block:
+        gs, (b,) = canonical_batches("qm9", n_graphs=128, batch_size=128,
+                                     block_size=128, node_multiple=128,
+                                     node_dim=nd, device=cuda_device)
+    else:
+        gs, (b,) = canonical_batches("qm9", n_graphs=128, batch_size=128,
+                                     node_multiple=256, node_dim=nd,
+                                     device=cuda_device)
+    model = canonical_model(conv, "qm9", graphs=gs, conv_kwargs=dict(kw))
+    prog = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                   max_graphs=b.num_graphs, block_size=128 if block else 0,
+                   device=cuda_device, seed=5)
+    prog.init_params()
+    fn = {"gine": gine_layer.fused_gine_layer,
+          "edge": edge_block.fused_edge_block_layer}.get(
+              conv, ell_agg.fused_ell_aggregate)
+    before = fn.launches
+    out = prog.forward(b)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 6
+    dispatch.set_fused_mode("never")
+    try:
+        ref = prog.forward(b)
+    finally:
+        dispatch.set_fused_mode("auto")
+    m = b.graph_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out[m], ref[m]) <= 1e-4

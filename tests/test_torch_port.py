@@ -131,3 +131,40 @@ def test_gat_round_trip_every_leaf(concat):
     k = 4 if concat else 1
     assert model.gnn_convs[1].lin.in_features == 128 * k
     assert model.mlp_head.linear_layers[0].in_features == 64 * k * 3
+
+
+@pytest.mark.parametrize("conv,leaves", [("gine", 6), ("edge", 4)])
+def test_gine_and_edge_round_trip_every_leaf(conv, leaves):
+    """GINE (lin_edge, lin0, lin1) and EdgeConv (lin0 a PairLinear
+    [2 Fin, F], lin1): every flax leaf of the canonical model lands in
+    the state dict, kernels transposed, exactly.  EdgeConv's leaves are
+    GIN's; the mapping goes by them and not by the conv's name."""
+    gs, (b,) = jax_canonical_batches("qm9", n_graphs=8, batch_size=8,
+                                     block_size=128, node_multiple=128)
+    params = jax.tree.map(np.asarray, jax_canonical_model(
+        conv, "qm9", graphs=gs).init(jax.random.PRNGKey(3), b))
+    sd = params_from_jax(params)
+    model = canonical_model(conv, "qm9", graphs=gs)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    flat = jax.tree_util.tree_flatten_with_path(params["params"])[0]
+    assert len(flat) == len(sd) == 6 * leaves + 5 * 2
+    for path, leaf in flat:
+        keys = [p.key for p in path]
+        if keys[0] == "mlp_head":
+            name = (f"mlp_head.linear_layers.{keys[1].rsplit('_', 1)[1]}."
+                    + ("weight" if keys[-1] == "kernel" else "bias"))
+        else:
+            name = ".".join(["gnn_convs", keys[0].rsplit("_", 1)[1]]
+                            + keys[1:])
+            name = name.replace(".kernel", ".weight")
+        got = model.state_dict()[name].numpy()
+        want = leaf.T if keys[-1] == "kernel" else leaf
+        assert got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    first = model.gnn_convs[0]
+    if conv == "gine":
+        assert (first.lin_edge.in_features, first.lin_edge.out_features) \
+            == (4, 11)
+    else:
+        assert tuple(first.lin0.weight.shape) == (128, 22)
