@@ -46,7 +46,16 @@ weights):
   (standard-packed) and five-aggregator PNA (both packings) against the
   per-layer plain path; the GINE train step: gradients against the
   float64 plain path, bitwise-equal gradients on two steps with and
-  without the reverse table, a 3-step loss curve against the plain path.
+  without the reverse table, a 3-step loss curve against the plain path;
+* the bf16 and int8 policies of ``Program`` on canonical PNA inference:
+  the bf16 and int8 modes of rows 1, 2 and 5 against their plain versions
+  in every layer; ``Program(precision=...).forward`` on the three
+  block-packed batches (rows 1 and 2 in the policy's mode) and on the
+  standard-packed train batch (row 5 in all six layers and row 2), each
+  policy's error against f32 and, on a small batch, against the CPU in the
+  same policy; ``calibrate_int8`` on two batches and a forward with static
+  scales (the plain path); the modes' times and bounds (bf16 and int8
+  products at the tensor cores' dense peaks).
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -1558,6 +1567,395 @@ def edge_agg_phases(report, *, dev, graphs, batches, b0, tgraphs, tb,
     return out
 
 
+# ---------------------------------------------------------------------------
+# this slice: the bf16 and int8 policies of Program on canonical PNA
+# inference, through the bf16 and int8 modes of rows 1, 2 and 5
+
+PEAK_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
+PEAK_INT8_OPS = 1979e12      # dense int8 on the tensor cores
+PREC_MODES = ("bf16", "int8")
+# each mode against its plain version in the same mode, layer by layer
+# on the same input: the sums run in another order, which can move a
+# bf16 rounding or an int8 level at its boundary (one int8 level of a
+# 128-wide row moves an output by ~1e-3 of max)
+MODE_TOL = {"bf16": 2e-3, "int8": 5e-3}
+# a whole model on the card against the same Program on the CPU: the
+# moved roundings and levels compound through 6 layers and the head
+CHAIN_TOL = {"bf16": 5e-3, "int8": 5e-2}
+# the value each product family of a mode runs at, per operation
+MODE_PEAK = {"bf16": PEAK_BF16_FLOPS, "int8": PEAK_INT8_OPS}
+WEIGHT_BYTES = {"bf16": 2, "int8": 1}
+
+
+def bound_mixed(terms, nbytes):
+    """The least time for ``terms`` [(operations, peak rate)] and
+    ``nbytes``: the larger of the summed operation times and the bytes
+    over the memory rate."""
+    t_ops = sum(ops / peak for ops, peak in terms)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def precision_phases(report, *, dev, graphs, batches, b0, tb, prog,
+                     counted, zero_counts, smi):
+    """Program(precision="bf16" | "int8") of canonical PNA: the bf16 and
+    int8 modes of rows 1, 2 and 5 against their plain versions in every
+    layer, the block-packed main path (3 x b1024, rows 1 and 2) and the
+    standard-packed one (the train batch, row 5 x 6 and row 2) under both
+    policies with their launch counts, calibrate_int8 and a forward with
+    static scales, each policy's error against f32 and against the CPU,
+    and the times.  Fills ``report``; returns the summary for the last
+    JSON line."""
+    from gnnbuilder_tpu_torch import Program
+    from gnnbuilder_tpu_torch.bench.canonical import (
+        canonical_batches,
+        canonical_model,
+    )
+    from gnnbuilder_tpu_torch.ops import segment
+    from gnnbuilder_tpu_torch.ops.cuda import pna_block, pna_layer, readout
+
+    kernels = {"pna_block_stack": pna_block.fused_pna_block_stack,
+               "readout": readout.fused_readout,
+               "pna_layer": pna_layer.fused_pna_layer}
+    out = {}
+    model = prog.model
+    L = model.gnn_num_layers
+    deltas = [c.delta for c in model.gnn_convs]
+    skips = [0 < i < L - 1 for i in range(L)]
+    aggrs = model.pooling_aggrs
+    size = dict(max_nodes=b0.num_nodes, max_edges=b0.num_edges,
+                max_graphs=b0.num_graphs, block_size=128)
+
+    def program(precision, device=dev, **kw):
+        p = Program(canonical_model("pna", "qm9", graphs=graphs),
+                    precision=precision, device=device, **(kw or size))
+        p.set_params({k: v.to(device) for k, v in prog.params.items()})
+        return p
+
+    def mode_counts(mode):
+        return {k: fn.mode_launches[mode] for k, fn in kernels.items()}
+
+    def totals():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    torch.set_grad_enabled(False)
+    stacked, head = model._kernel_params(128)
+    x = torch.nn.functional.pad(b0.node_feat,
+                                (0, 128 - b0.feature_dim)).contiguous()
+    with phase("precision: rows 1, 2 and 5 in bf16 and int8 against their "
+               "plain versions in each of the 6 layers"):
+        ops = {}
+        for mode in PREC_MODES:
+            st, sc = pna_block.prepare_stack(stacked, mode)
+            h, errs = x, []
+            for l in range(L):
+                one = ([t[l:l + 1] for t in st],
+                       None if sc is None else [s[l:l + 1] for s in sc])
+                args = (h, b0.nbr_nodes, b0.in_degree, *one[0])
+                kw = dict(deltas=deltas[l:l + 1], skips=skips[l:l + 1],
+                          act=model.gnn_activation, mode=mode,
+                          scales=one[1])
+                got = pna_block.fused_pna_block_stack(*args, **kw)
+                torch.cuda.synchronize()
+                want = pna_block.pna_block_stack_plain(*args, **kw)
+                e = rel_err(got, want)
+                errs.append(float((got - want).abs().max()))
+                if not bool(torch.isfinite(got).all()) or e > MODE_TOL[mode]:
+                    raise AssertionError(f"pna_block_stack {mode} layer "
+                                         f"{l}: {e:.3e} of max |value|")
+                h = want.contiguous()
+            log(f"pna_block_stack {mode}: per layer max abs "
+                f"{[f'{v:.2e}' for v in errs]} (tol {MODE_TOL[mode]} of "
+                f"max |value|)")
+            hs = h[:, :model.gnn_output_dim].contiguous()
+            mx = segment.contiguous_segment_max(
+                hs, b0.graph_starts, b0.n_node, b0.max_graph_nodes_static)
+            hd, hsc = readout.prepare_head(head, mode)
+            rkw = dict(aggrs=aggrs, mx=mx, act=model.mlp_activation,
+                       out_act=model.output_activation,
+                       starts=b0.graph_starts, mode=mode, scales=hsc)
+            got_r = readout.fused_readout(hs, b0.n_node, hd, **rkw)
+            torch.cuda.synchronize()
+            want_r = readout.readout_plain(
+                hs, b0.n_node, b0.graph_starts, hd, aggrs, mx,
+                model.mlp_activation, model.output_activation, mode, hsc)
+            m = b0.graph_mask
+            e = rel_err(got_r[m], want_r[m])
+            log(f"readout {mode}: {e:.3e} of max |value| (tol "
+                f"{MODE_TOL[mode]}; graph_mask rows)")
+            if not bool(torch.isfinite(got_r[m]).all()) or e > MODE_TOL[mode]:
+                raise AssertionError(f"readout {mode} disagrees")
+            report[f"pna_block_stack_{mode}"] = dict(max_abs_err=max(errs))
+            report[f"readout_{mode}"] = dict(
+                max_abs_err=float((got_r[m] - want_r[m]).abs().max()))
+
+            hl, errs, largs = tb.node_feat, [], []
+            for i, c in enumerate(model.gnn_convs):
+                skip = hl if skips[i] else None
+                o = pna_layer.pad_operands(
+                    hl, c.pre_nn.weight.t(), c.pre_nn.bias,
+                    c.post_nn.weight.t(), c.post_nn.bias, c.lin.weight.t(),
+                    c.lin.bias, skip)
+                o = [None if t is None else t.contiguous() for t in o]
+                w_pre, k_post, w_lin, s_lin = pna_layer.prepare_layer(
+                    o[1], o[3], o[5], mode)
+                args = (o[0], tb.nbr_nodes, tb.in_degree, w_pre, o[2],
+                        k_post, o[4], w_lin, o[6], c.delta)
+                kw = dict(skip=o[7], act=model.gnn_activation, mode=mode,
+                          s_lin=s_lin)
+                got = pna_layer.fused_pna_layer(*args, **kw)
+                torch.cuda.synchronize()
+                want = pna_layer.pna_layer_plain(*args, **kw)
+                e = rel_err(got, want)
+                errs.append(float((got - want).abs().max()))
+                if not bool(torch.isfinite(got).all()) or e > MODE_TOL[mode]:
+                    raise AssertionError(f"pna_layer {mode} layer {i}: "
+                                         f"{e:.3e} of max |value|")
+                largs.append((args, kw))
+                hl = want[:, :c.out_channels]
+            log(f"pna_layer {mode}: per layer max abs "
+                f"{[f'{v:.2e}' for v in errs]} (tol {MODE_TOL[mode]})")
+            report[f"pna_layer_{mode}"] = dict(max_abs_err=max(errs))
+            ops[mode] = dict(stack=(st, sc), head=(hd, hsc, hs, mx),
+                             layers=largs)
+
+    progs = {p: program(p) for p in ("f32",) + PREC_MODES}
+    with phase(f"main path: Program.forward under bf16 and under int8 on "
+               f"{N_BATCHES} x {BATCH_GRAPHS}-graph block-packed batches"):
+        f32_outs = [progs["f32"].forward(b) for b in batches]
+        out["error_vs_f32"] = {}
+        for prec in PREC_MODES:
+            zero_counts()
+            outs = [progs[prec].forward(b) for b in batches]
+            torch.cuda.synchronize()
+            got = mode_counts(prec)
+            tot = totals()
+            log(f"{prec}: launches in mode {got}; all counts {tot}")
+            if (got != {"pna_block_stack": N_BATCHES, "readout": N_BATCHES,
+                        "pna_layer": 0}
+                    or sum(tot.values()) != 2 * N_BATCHES):
+                raise AssertionError(f"{prec}: a kernel did not launch in "
+                                     f"its {prec} mode once per forward")
+            report[f"pna_block_stack_{prec}"]["launches"] = got[
+                "pna_block_stack"]
+            report[f"readout_{prec}"]["launches"] = got["readout"]
+            errs = []
+            for b, o, r in zip(batches, outs, f32_outs):
+                m = b.graph_mask
+                if (tuple(o.shape) != (b.num_graphs, model.mlp_out_dim)
+                        or o.dtype != torch.float32
+                        or not bool(torch.isfinite(o[m]).all())):
+                    raise AssertionError(f"{prec}: bad output")
+                errs.append(rel_err(o[m], r[m]))
+            out["error_vs_f32"][prec] = errs
+            log(f"{prec} against f32 (graph_mask rows, share of max "
+                f"|value|): {[f'{e:.3e}' for e in errs]}")
+        # a small input: the card's kernels against the CPU's plain
+        # versions of the same modes, same weights
+        _, (small,) = canonical_batches(
+            "qm9", n_graphs=64, batch_size=64, block_size=128,
+            node_multiple=128, device="cpu")
+        ssize = dict(max_nodes=small.num_nodes, max_edges=small.num_edges,
+                     max_graphs=small.num_graphs, block_size=128)
+        for prec in PREC_MODES:
+            o = program(prec, **ssize).forward(small.to(dev)).cpu()
+            r = program(prec, device="cpu", **ssize).forward(small)
+            m = small.graph_mask
+            e = rel_err(o[m], r[m])
+            log(f"{prec}, 64-graph batch: card kernels vs CPU plain "
+                f"versions: {e:.3e} of max |value| (tol {CHAIN_TOL[prec]})")
+            if e > CHAIN_TOL[prec]:
+                raise AssertionError(f"{prec}: card disagrees with the CPU")
+
+    with phase("main path: Program.forward under bf16 and under int8 on "
+               "the standard-packed train batch"):
+        tsize = dict(max_nodes=tb.num_nodes, max_edges=tb.num_edges,
+                     max_graphs=tb.num_graphs, block_size=0)
+        tprogs = {p: program(p, **tsize) for p in ("f32",) + PREC_MODES}
+        ref = tprogs["f32"].forward(tb)
+        m = tb.graph_mask
+        out["standard_error_vs_f32"] = {}
+        for prec in PREC_MODES:
+            zero_counts()
+            o = tprogs[prec].forward(tb)
+            torch.cuda.synchronize()
+            got = mode_counts(prec)
+            log(f"{prec}: launches in mode {got}; all counts {totals()}")
+            if (got != {"pna_block_stack": 0, "readout": 1, "pna_layer": L}
+                    or sum(totals().values()) != L + 1):
+                raise AssertionError(f"{prec}: the layer kernel did not run "
+                                     f"in its {prec} mode in every layer")
+            report[f"pna_layer_{prec}"]["launches"] = got["pna_layer"]
+            if not bool(torch.isfinite(o[m]).all()):
+                raise AssertionError(f"{prec}: non-finite output")
+            e = rel_err(o[m], ref[m])
+            out["standard_error_vs_f32"][prec] = e
+            log(f"{prec} against f32: {e:.3e} of max |value|")
+
+    with phase("calibrate_int8 on two batches, then a forward with static "
+               "scales"):
+        p8 = program("int8")
+        t = time.time()
+        scales = p8.calibrate_int8(batches[:2])
+        torch.cuda.synchronize()
+        log(f"{len(scales)} sites calibrated in {time.time() - t:.2f}s: "
+            f"{ {k: round(v, 6) for k, v in scales.items()} }")
+        zero_counts()
+        o = p8.forward(batches[2])
+        torch.cuda.synchronize()
+        got = mode_counts("int8")
+        log(f"static forward: launches in int8 mode {got} (the gates of "
+            f"rows 1, 2 and 5 decline under a calibration); all counts "
+            f"{totals()}")
+        if any(got.values()):
+            raise AssertionError("a kernel ran its int8 mode under static "
+                                 "scales")
+        m = batches[2].graph_mask
+        if not bool(torch.isfinite(o[m]).all()):
+            raise AssertionError("static int8 forward: non-finite output")
+        e32 = rel_err(o[m], f32_outs[2][m])
+        log(f"static int8 against f32: {e32:.3e} of max |value|")
+        cpu = program("int8", device="cpu", **ssize)
+        cpu.int8_scales = scales
+        p8s = program("int8", **ssize)
+        p8s.int8_scales = scales
+        r = cpu.forward(small)
+        o = p8s.forward(small.to(dev)).cpu()
+        ms = small.graph_mask
+        e = rel_err(o[ms], r[ms])
+        log(f"static int8, 64-graph batch: card vs CPU {e:.3e} of max "
+            f"|value| (tol {CHAIN_TOL['int8']})")
+        if e > CHAIN_TOL["int8"]:
+            raise AssertionError("static int8: card disagrees with the CPU")
+        out["static_int8"] = dict(sites=len(scales), error_vs_f32=e32,
+                                  card_vs_cpu=e)
+
+    with phase("precision times (CUDA events; torch.profiler device "
+               "times)"):
+        widths = pna_widths(model)
+        N, W = b0.num_nodes, b0.ell_width
+        E = int(b0.in_degree.sum())
+        Nt, Wt = tb.num_nodes, tb.ell_width
+        Et = int(tb.in_degree.sum())
+        G, Fh = b0.num_graphs, model.gnn_output_dim
+        pooled_rows = int(b0.n_node[b0.graph_mask].sum())
+
+        def products(n, fin, f, fo):
+            return 2 * n * (2 * fin * f + 12 * f * fo + fin * fo + fo * fo)
+
+        for mode in PREC_MODES:
+            pk, wb = MODE_PEAK[mode], WEIGHT_BYTES[mode]
+            st, sc = ops[mode]["stack"]
+            sargs = (x, b0.nbr_nodes, b0.in_degree, *st)
+            skw = dict(deltas=deltas, skips=skips, act=model.gnn_activation,
+                       mode=mode, scales=sc)
+            prod = sum(products(N, *w) for w in widths)
+            agg = sum(5 * E * w[1] for w in widths)
+            nw = sum(layer_weights(*w) for w in widths)
+            nb = sum(w[1] + 2 * w[2] for w in widths)      # the biases
+            # int8: ~4 operations per quantized value (|.|-max, divide,
+            # round and clamp) and 2 per dequantized output
+            quant = (sum(N * (w[0] + 4 * w[1] + w[2]) * 4
+                         + N * (2 * w[1] + 3 * w[2] + 2 * w[2]) * 2
+                         for w in widths) if mode == "int8" else 0)
+            by = (4 * (N * widths[0][0] + N * widths[-1][2] + N * W + N
+                       + nb) + wb * (nw - nb)
+                  + (4 * sum(2 * w[1] + 5 * w[2] for w in widths)
+                     if mode == "int8" else 0))
+            b_ms, b_by = bound_mixed(
+                [(prod, pk), (agg + quant, PEAK_F32_FLOPS)], by)
+            fn = lambda: pna_block.fused_pna_block_stack(*sargs, **skw)
+            dms, ems = timed(fn, 10)
+            report[f"pna_block_stack_{mode}"].update(
+                ms=ems, device_ms=dms,
+                plain_ms=time_ms(lambda: pna_block.pna_block_stack_plain(
+                    *sargs, **skw), 3),
+                bound_ms=b_ms, bound_by=b_by, flops=prod + agg + quant,
+                bytes=by)
+
+            hd, hsc, hs, mx = ops[mode]["head"]
+            rkw = dict(aggrs=aggrs, mx=mx, act=model.mlp_activation,
+                       out_act=model.output_activation,
+                       starts=b0.graph_starts, mode=mode, scales=hsc)
+            mlp = G * 2 * sum(w.numel() for w, _ in hd)
+            pool = pooled_rows * Fh + 2 * G * Fh
+            rq = (G * sum(w.shape[0] * 4 + w.shape[1] * 2 for w, _ in hd)
+                  if mode == "int8" else 0)
+            r_by = (4 * (hs.numel() + mx.numel() + 2 * G
+                         + sum(c.numel() for _, c in hd)
+                         + G * model.mlp_out_dim)
+                    + wb * sum(w.numel() for w, _ in hd)
+                    + (4 * sum(s.numel() for s in hsc) if hsc else 0))
+            b_ms, b_by = bound_mixed(
+                [(mlp, pk), (pool + rq, PEAK_F32_FLOPS)], r_by)
+            fn = lambda: readout.fused_readout(hs, b0.n_node, hd, **rkw)
+            dms, ems = timed(fn, 50)
+            report[f"readout_{mode}"].update(
+                ms=ems, device_ms=dms,
+                plain_ms=time_ms(lambda: readout.readout_plain(
+                    hs, b0.n_node, b0.graph_starts, hd, aggrs, mx,
+                    model.mlp_activation, model.output_activation, mode,
+                    hsc), 20),
+                bound_ms=b_ms, bound_by=b_by, flops=mlp + pool + rq,
+                bytes=r_by)
+
+            largs = ops[mode]["layers"]
+
+            def run(fn, _largs=largs):
+                for a, k in _largs:
+                    fn(*a, **k)
+
+            lprod = sum(products(Nt, *w) for w in widths)
+            # int8 quantizes the final Linear only: the rest at f32
+            lin = sum(2 * Nt * w[2] * w[2] for w in widths)
+            terms = ([(lprod, pk)] if mode == "bf16"
+                     else [(lin, pk), (lprod - lin, PEAK_F32_FLOPS)])
+            lagg = sum(5 * Et * w[1] for w in widths)
+            lq = (sum(Nt * w[2] * 4 + Nt * w[2] * 2 for w in widths)
+                  if mode == "int8" else 0)
+            terms.append((lagg + lq, PEAK_F32_FLOPS))
+            fw = (lambda fi, f, fo: 2 * fi * f + (fi + 12 * f) * fo) \
+                if mode == "int8" else (lambda fi, f, fo: 0)
+            l_by = sum(
+                4 * (Nt * fi + Nt * Wt + Nt + f + 2 * fo + Nt * fo
+                     + (Nt * fo if skips[i] else 0))
+                + (4 * fw(fi, f, fo) + wb * fo * fo + 4 * fo
+                   if mode == "int8" else
+                   wb * (2 * fi * f + (fi + 12 * f) * fo + fo * fo))
+                for i, (fi, f, fo) in enumerate(widths))
+            b_ms, b_by = bound_mixed(terms, l_by)
+            dms, ems = timed(lambda: run(pna_layer.fused_pna_layer), 10)
+            report[f"pna_layer_{mode}"].update(
+                ms=ems, device_ms=dms,
+                plain_ms=time_ms(lambda: run(pna_layer.pna_layer_plain), 3),
+                bound_ms=b_ms, bound_by=b_by,
+                flops=sum(t for t, _ in terms), bytes=l_by,
+                per="6 layers, inference (no residuals)")
+            for k in ("pna_block_stack", "readout", "pna_layer"):
+                v = report[f"{k}_{mode}"]
+                log(f"{k} {mode}: {v['ms']:.4f} ms (device "
+                    f"{v['device_ms']:.4f} ms; plain {v['plain_ms']:.4f} ms; "
+                    f"bound {v['bound_ms']:.4f} ms by {v['bound_by']})")
+        fwd = {}
+        for prec in ("f32",) + PREC_MODES:
+            bb = progs[prec].benchmark(b0, iters=20, warmup=3)
+            bt = tprogs[prec].benchmark(tb, iters=10, warmup=2)
+            fwd[prec] = dict(block_ms=bb["latency_s"] * 1e3,
+                             block_graphs_per_s=bb["graphs_per_s"],
+                             standard_ms=bt["latency_s"] * 1e3,
+                             standard_graphs_per_s=bt["graphs_per_s"])
+            log(f"Program.forward {prec}: block b{BATCH_GRAPHS} "
+                f"{fwd[prec]['block_ms']:.4f} ms, standard "
+                f"{fwd[prec]['standard_ms']:.4f} ms on {smi}")
+        out["forward"] = fwd
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1611,6 +2009,8 @@ def main():
     def zero_counts():
         for fn in counted.values():
             fn.launches = 0
+            if hasattr(fn, "mode_launches"):
+                fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
 
     def counts():
         return {k: fn.launches for k, fn in counted.items()}
@@ -2376,6 +2776,9 @@ def main():
         report, dev=dev, graphs=graphs, batches=batches, b0=b0,
         tgraphs=tgraphs, tb=tb, target=target, zero_counts=zero_counts,
         counts=counts, only=only, fresh_step=fresh_step, smi=smi)
+    precision = precision_phases(
+        report, dev=dev, graphs=graphs, batches=batches, b0=b0, tb=tb,
+        prog=prog, counted=counted, zero_counts=zero_counts, smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -2648,6 +3051,15 @@ def main():
              source="gnnbuilder_tpu_torch/csrc/edge_block.cu",
              replaces="gnnbuilder_tpu/ops/pallas/edge_block.py:151",
              **report["edge_block"]),
+    ] + [
+        dict(name=f"{k}_{mode}", route="cuda",
+             source=f"gnnbuilder_tpu_torch/csrc/{src}.cu",
+             replaces=f"gnnbuilder_tpu/ops/pallas/{src}.py:{line}",
+             library_ms=None, **report[f"{k}_{mode}"])
+        for mode in PREC_MODES
+        for k, src, line in (("pna_block_stack", "pna_block", 392),
+                             ("readout", "readout", 186),
+                             ("pna_layer", "pna_layer", 458))
     ]
     print(json.dumps({
         "kernels": kernels,
@@ -2671,6 +3083,7 @@ def main():
                                  **mp_timed["forward"]),
         "gat": dict(batch_graphs=BATCH_GRAPHS, heads=GAT_HEADS, **gat),
         "gine_edge_agg": dict(batch_graphs=BATCH_GRAPHS, **edge_agg),
+        "precision": dict(batch_graphs=BATCH_GRAPHS, **precision),
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,20 @@ The JAX package's ``Program`` compiles one XLA executable per bucket; here
 PyTorch runs eagerly and the bucket only fixes the padded shapes.  The
 device is explicit: ``device=None`` means the CUDA card and raises when
 there is none; the CPU runs only when the caller asks for it.
+
+``precision`` ("f32", "bf16" or "int8", ``compile.precision``) is the
+forward's policy, as in the JAX package: ``params`` stays the float32
+master; under bf16 the forward runs a copy of the model whose parameters
+are the master rounded to bf16 (``Precision.cast_params``, held as
+float32 values) on node features rounded to bf16; under int8 it runs the
+master with every ``Linear`` quantized, with the static activation scales
+of ``calibrate_int8`` when it has them.  The output is float32.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import math
 from typing import Optional, Sequence
@@ -61,6 +71,8 @@ class Program:
         )
         self._seed = seed
         self._initialized = False
+        self.int8_scales: Optional[dict] = None
+        self._cast = None      # (master key, bf16-rounded model copy)
 
     # ------------------------------------------------------------ params
     def init_params(self, example_batch: Optional[GraphBatch] = None):
@@ -113,19 +125,67 @@ class Program:
         )
 
     # ------------------------------------------------------------ forward
+    def _policy_model(self) -> GNNModel:
+        """The model the forward runs: under bf16 a copy whose parameters
+        are the master's rounded to bf16, rebuilt when a master parameter
+        is replaced or changed in place; else the model itself."""
+        if self.precision.name != "bf16":
+            return self.model
+        key = tuple((id(p), p._version) for p in self.model.parameters())
+        if self._cast is None or self._cast[0] != key:
+            cast = self.precision.cast_params(self.model.state_dict())
+            cache, self.model._kernel_cache = self.model._kernel_cache, {}
+            try:    # the copy starts with an empty kernel cache
+                model = copy.deepcopy(self.model)
+            finally:
+                self.model._kernel_cache = cache
+            model.load_state_dict({k: v.float() for k, v in cast.items()})
+            self._cast = (key, model)
+        return self._cast[1]
+
     def forward(self, batch: GraphBatch) -> torch.Tensor:
         """[G, out] float32 predictions, ghost row included (mask with
-        ``batch.graph_mask``).  Runs under inference scope, so a
-        block-packed batch goes through the stack and readout kernels."""
+        ``batch.graph_mask``).  Runs under inference scope and the
+        precision policy, so a block-packed batch goes through the stack
+        and readout kernels in the policy's mode."""
         from gnnbuilder_tpu_torch.ops.dispatch import inference_mode
+        from gnnbuilder_tpu_torch.ops.quant import calibration, to_bf16
 
         if not self._initialized:
             self.init_params(batch)
         if batch.device != self.device:
             raise ValueError(f"batch on {batch.device}, program on "
                              f"{self.device}")
-        with torch.no_grad(), inference_mode():
-            return self.model(batch).float()
+        prec = self.precision
+        if prec.name == "bf16":
+            batch = batch.replace(node_feat=to_bf16(batch.node_feat))
+        static = (calibration(scales=self.int8_scales) if self.int8_scales
+                  else contextlib.nullcontext())
+        with torch.no_grad(), inference_mode(), prec.activate(), static:
+            return self._policy_model()(batch).float()
+
+    def calibrate_int8(self, batches: Sequence[GraphBatch]) -> dict:
+        """Record static int8 activation scales from representative
+        batches (``ops.quant.calibration``): one eager pass per batch
+        through the plain path, each quantized site's max |activation|,
+        then ``scale = max / 127`` for every later forward.  Returns
+        {site: scale}, sites named as the model's modules."""
+        from gnnbuilder_tpu_torch.ops.quant import (
+            calibration,
+            scales_from_record,
+        )
+
+        if self.precision.name != "int8":
+            raise ValueError("calibrate_int8 requires precision='int8'")
+        if not self._initialized:
+            self.init_params(batches[0])
+        record: dict = {}
+        with torch.no_grad(), self.precision.activate(), \
+                calibration(record=record):
+            for b in batches:
+                self.model(b)
+        self.int8_scales = scales_from_record(record)
+        return self.int8_scales
 
     def benchmark(self, batch: GraphBatch, iters: int = 25,
                   warmup: int = 3) -> dict:

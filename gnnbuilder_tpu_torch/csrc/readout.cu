@@ -22,7 +22,20 @@
 // block, reads them from device memory (L2 resident across CTAs); pooling reads are coalesced along the feature axis; the
 // hidden activations ping-pong between two shared [8, width] buffers and
 // never reach device memory.
+//
+// Modes (the JAX kernel's mm and quant; the pooling stays exact in all):
+//   F32  (0): as above.
+//   BF16 (1): each Linear's input rows are rounded to bf16 in place before
+//        the product, the weights arrive rounded to bf16 (held as f32 in
+//        the packed buffer), and the sums stay f32 (mm="bf16").
+//   INT8 (2): each Linear's input rows are quantized in place with one
+//        symmetric scale each (s = max(max|h| / 127, 1e-12), q =
+//        clip(rint(h / s), -127, 127)); the weights arrive as int8
+//        values (held as f32 integers in the packed buffer, exact) with
+//        one scale per column at s_off; the sum is int32 and y =
+//        float(sum) * s_row * s_col + b: the JAX package's _qdot.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -33,11 +46,14 @@ constexpr int THREADS = 256;
 constexpr int MAX_LIN = 8;
 constexpr int MAX_AGGR = 3;
 
+enum Mode { F32 = 0, BF16 = 1, INT8 = 2 };
+
 struct Head {
   int n_lin;
   int dims[MAX_LIN + 1];  // dims[0] = pooled width, dims[n_lin] = out
   int w_off[MAX_LIN];     // offsets into the packed parameter buffer
   int b_off[MAX_LIN];
+  int s_off[MAX_LIN];     // int8: the weights' column scales
   int n_aggr;
   int aggr[MAX_AGGR];     // 0 add, 1 mean, 2 max
 };
@@ -52,14 +68,39 @@ __device__ __forceinline__ float act_fn(float x, int act) {
   }
 }
 
+// Rows [0, TG) of the [TG, din] tile A (row stride width) as the next
+// product's operand, in place: rounded to bf16, or quantized to int8
+// levels (f32 integers) with the row's scale in s[t]; one warp per row.
+// The divisions are IEEE (no fast math), rintf rounds half to even.
+__device__ void operand_rows(float* A, int width, int din, int mode,
+                             float* s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int t = warp; t < TG; t += THREADS / 32) {
+    float* a = A + t * width;
+    if (mode == BF16) {
+      for (int k = lane; k < din; k += 32)
+        a[k] = __bfloat162float(__float2bfloat16_rn(a[k]));
+      continue;
+    }
+    float m = 0.f;
+    for (int k = lane; k < din; k += 32) m = fmaxf(m, fabsf(a[k]));
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float sc = fmaxf(m / 127.f, 1e-12f);
+    for (int k = lane; k < din; k += 32)
+      a[k] = fminf(fmaxf(rintf(a[k] / sc), -127.f), 127.f);
+    if (lane == 0) s[t] = sc;
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 readout_kernel(const float* __restrict__ x, int N, int F,
                const int* __restrict__ starts,
                const int* __restrict__ n_node, int G,
                const float* __restrict__ mx,
                const float* __restrict__ params, int n_params, Head hd,
-               int width, int act, int out_act, bool params_in_smem,
-               float* __restrict__ out) {
+               int width, int act, int out_act, int mode,
+               bool params_in_smem, float* __restrict__ out) {
   extern __shared__ float sm[];
   float* B0 = sm;                                   // [TG, width]
   float* B1 = B0 + TG * width;                      // [TG, width]
@@ -90,17 +131,31 @@ readout_kernel(const float* __restrict__ x, int N, int F,
   }
   __syncthreads();
 
+  __shared__ float s_row[TG];   // int8: the input rows' scales
   float* in = B0;
   float* nxt = B1;
   for (int l = 0; l < hd.n_lin; ++l) {
     const int din = hd.dims[l], dout = hd.dims[l + 1];
     const float* Wm = P + hd.w_off[l];
     const float* b = P + hd.b_off[l];
+    if (mode != F32) {
+      operand_rows(in, width, din, mode, s_row);
+      __syncthreads();
+    }
     for (int p = tid; p < TG * dout; p += THREADS) {
       const int t = p / dout, o = p % dout;
       const float* h = in + t * width;
-      float acc = b[o];
-      for (int k = 0; k < din; ++k) acc = fmaf(h[k], Wm[k * dout + o], acc);
+      float acc;
+      if (mode == INT8) {
+        int q = 0;
+        for (int k = 0; k < din; ++k)
+          q += __float2int_rn(h[k]) * __float2int_rn(Wm[k * dout + o]);
+        acc = (float)q * s_row[t] * P[hd.s_off[l] + o] + b[o];
+      } else {
+        acc = b[o];
+        for (int k = 0; k < din; ++k)
+          acc = fmaf(h[k], Wm[k * dout + o], acc);
+      }
       nxt[t * width + o] = l + 1 < hd.n_lin ? act_fn(acc, act) : acc;
     }
     __syncthreads();
@@ -151,18 +206,21 @@ int gnnb_smem_per_block_optin(int device) {
   return v;
 }
 
-// dims[0..n_lin], w_off/b_off[0..n_lin-1] and aggr[0..n_aggr-1] are host
-// arrays; everything else lives on `device`.  mx may be null when no
-// aggregator is max.  Returns the cudaError_t of the launch (0 = success).
+// dims[0..n_lin], w_off/b_off/s_off[0..n_lin-1] and aggr[0..n_aggr-1]
+// are host arrays (s_off read in mode 2 only); everything else lives on
+// `device`.  mx may be null when no aggregator is max.  Returns the
+// cudaError_t of the launch (0 = success).
 int gnnb_readout(const void* x, int n_rows, int feat, const void* starts,
                  const void* n_node, int n_graphs, const void* mx,
                  const void* params, int n_params, int n_lin,
                  const int* dims, const int* w_off, const int* b_off,
-                 int n_aggr, const int* aggr, int width, int act,
-                 int out_act, void* out, void* stream, int device) {
+                 const int* s_off, int n_aggr, const int* aggr, int width,
+                 int act, int out_act, int mode, void* out, void* stream,
+                 int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n_lin < 1 || n_lin > MAX_LIN || n_aggr < 1 || n_aggr > MAX_AGGR)
+  if (n_lin < 1 || n_lin > MAX_LIN || n_aggr < 1 || n_aggr > MAX_AGGR ||
+      mode < F32 || mode > INT8)
     return (int)cudaErrorInvalidValue;
   Head hd;
   hd.n_lin = n_lin;
@@ -170,6 +228,7 @@ int gnnb_readout(const void* x, int n_rows, int feat, const void* starts,
   for (int i = 0; i < n_lin; ++i) {
     hd.w_off[i] = w_off[i];
     hd.b_off[i] = b_off[i];
+    hd.s_off[i] = mode == INT8 ? s_off[i] : 0;
   }
   hd.n_aggr = n_aggr;
   for (int a = 0; a < n_aggr; ++a) hd.aggr[a] = aggr[a];
@@ -191,7 +250,7 @@ int gnnb_readout(const void* x, int n_rows, int feat, const void* starts,
   readout_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)x, n_rows, feat, (const int*)starts,
       (const int*)n_node, n_graphs, (const float*)mx,
-      (const float*)params, n_params, hd, width, act, out_act,
+      (const float*)params, n_params, hd, width, act, out_act, mode,
       params_in_smem, (float*)out);
   return (int)cudaGetLastError();
 }

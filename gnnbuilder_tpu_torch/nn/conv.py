@@ -75,9 +75,14 @@ from typing import Sequence
 import torch
 
 from gnnbuilder_tpu_torch.core.graph import GraphBatch
-from gnnbuilder_tpu_torch.nn.linear import BlockScaledLinear, PairLinear
+from gnnbuilder_tpu_torch.nn.linear import (
+    BlockScaledLinear,
+    Linear,
+    PairLinear,
+)
 from gnnbuilder_tpu_torch.ops import block, dispatch, ell, segment
 from gnnbuilder_tpu_torch.ops.activations import get_activation, leaky_relu
+from gnnbuilder_tpu_torch.ops.quant import true_div
 
 __all__ = ["GCNConv", "GINConv", "GINEConv", "SAGEConv", "LGConv",
            "SimpleConv", "PNAConv", "GATConv", "EdgeConv",
@@ -127,8 +132,9 @@ def _fused_multi(g: GraphBatch, aggregators, v, u=None):
 def _sum(g: GraphBatch, x):
     """Sum of each node's incoming neighbour rows: block product, ELL
     table or edge list, in that order of preference."""
-    if dispatch.block_cfg(g) is not None:
-        return block.block_sum(x, g.block_adj)
+    cfg = dispatch.block_cfg(g)
+    if cfg is not None:
+        return block.block_sum(x, g.block_adj, mm=cfg.get("mm"))
     if g.nbr_nodes is not None:
         return ell.ell_sum(x, g.nbr_nodes, g.in_degree)
     return segment.segment_sum(x[g.senders.long()], g.receivers,
@@ -140,7 +146,7 @@ class GCNConv(torch.nn.Module):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
-        self.lin = torch.nn.Linear(in_channels, out_channels, bias=False)
+        self.lin = Linear(in_channels, out_channels, bias=False)
         self.bias = torch.nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
@@ -166,8 +172,8 @@ class GINConv(torch.nn.Module):
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.eps = float(eps)
-        self.lin0 = torch.nn.Linear(in_channels, out_channels)
-        self.lin1 = torch.nn.Linear(out_channels, out_channels)
+        self.lin0 = Linear(in_channels, out_channels)
+        self.lin1 = Linear(out_channels, out_channels)
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
         out = _mp_layer(g, "gin", x, act, skip, w0=self.lin0.weight.t(),
@@ -184,8 +190,8 @@ class SAGEConv(torch.nn.Module):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
-        self.lin_l = torch.nn.Linear(in_channels, out_channels)
-        self.lin_r = torch.nn.Linear(in_channels, out_channels, bias=False)
+        self.lin_l = Linear(in_channels, out_channels)
+        self.lin_r = Linear(in_channels, out_channels, bias=False)
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
         out = _mp_layer(g, "sage", x, act, skip, w0=self.lin_l.weight.t(),
@@ -234,8 +240,9 @@ class SimpleConv(_SameWidth):
             out = _mp_layer(g, f"simple_{name}", x, act, skip)
             if out is not None:
                 return out
-            if dispatch.block_cfg(g) is not None:
-                s = block.block_sum(x, g.block_adj)
+            bcfg = dispatch.block_cfg(g)
+            if bcfg is not None:
+                s = block.block_sum(x, g.block_adj, mm=bcfg.get("mm"))
                 if name == "mean":
                     s = s / g.in_degree.to(x.dtype).clamp(min=1.0)[:, None]
                 return _finish(s, act, skip)
@@ -279,12 +286,13 @@ class PNAConv(torch.nn.Module):
         self.pre_nn = PairLinear(2 * F, F)
         self.post_nn = BlockScaledLinear(
             F + len(self.aggregators) * len(self.scalers) * F, out_channels)
-        self.lin = torch.nn.Linear(out_channels, out_channels)
+        self.lin = Linear(out_channels, out_channels)
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
         if (self.aggregators == PNA_AGGREGATORS
                 and self.scalers == PNA_SCALERS):
-            if dispatch.pna_layer_cfg(g, act) is not None:
+            cfg = dispatch.pna_layer_cfg(g, act)
+            if cfg is not None:
                 from gnnbuilder_tpu_torch.ops.cuda.pna_layer import (
                     fused_pna_layer_auto,
                 )
@@ -294,7 +302,8 @@ class PNAConv(torch.nn.Module):
                     self.pre_nn.bias, self.post_nn.weight.t(),
                     self.post_nn.bias, self.lin.weight.t(), self.lin.bias,
                     self.delta, skip=skip, act=act,
-                    rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree)
+                    rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree,
+                    mode=cfg.get("mode", "f32"))
         u, v = self.pre_nn(x, x)
         if dispatch.block_cfg(g) is not None \
                 and dispatch.agg_cfg(g) is not None:
@@ -320,9 +329,9 @@ class PNAConv(torch.nn.Module):
             if s == "identity":
                 scales.append(None)
             elif s == "amplification":
-                scales.append(log_deg / self.delta)
+                scales.append(true_div(log_deg, self.delta))
             else:
-                scales.append(self.delta / log_deg)
+                scales.append(true_div(self.delta, log_deg))
         out = self.post_nn(x, agg_cat, scales)
         return _finish(self.lin(out), act, skip)
 
@@ -338,8 +347,9 @@ class PNAConv(torch.nn.Module):
 
         aggs = self.aggregators
         linear = tuple(a for a in aggs if a in ("sum", "mean", "std"))
-        out = block.block_multi(v, g.block_adj, g.in_degree,
-                                linear) if linear else {}
+        mm = dispatch.block_cfg(g).get("mm")
+        out = block.block_multi(v, g.block_adj, g.in_degree, linear,
+                                mm=mm) if linear else {}
         cmp = tuple(a for a in aggs if a in ("max", "min"))
         if cmp:
             cat = fused_ell_aggregate_vjp(
@@ -383,7 +393,7 @@ class GATConv(torch.nn.Module):
         self.negative_slope = float(negative_slope)
         self.add_self_loops = bool(add_self_loops)
         H, C = self.heads, out_channels
-        self.lin = torch.nn.Linear(in_channels, H * C, bias=False)
+        self.lin = Linear(in_channels, H * C, bias=False)
         self.att_src = torch.nn.Parameter(torch.empty(1, H, C))
         self.att_dst = torch.nn.Parameter(torch.empty(1, H, C))
         torch.nn.init.xavier_uniform_(self.att_src.view(H, C))
@@ -476,9 +486,9 @@ class GINEConv(torch.nn.Module):
         self.out_channels = out_channels
         self.edge_dim = int(edge_dim)
         self.eps = float(eps)
-        self.lin_edge = torch.nn.Linear(self.edge_dim, in_channels)
-        self.lin0 = torch.nn.Linear(in_channels, out_channels)
-        self.lin1 = torch.nn.Linear(out_channels, out_channels)
+        self.lin_edge = Linear(self.edge_dim, in_channels)
+        self.lin0 = Linear(in_channels, out_channels)
+        self.lin1 = Linear(out_channels, out_channels)
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
         if g.edge_feat is None:
@@ -520,7 +530,7 @@ class EdgeConv(torch.nn.Module):
         self.out_channels = out_channels
         self.aggregation = aggregation
         self.lin0 = PairLinear(2 * in_channels, out_channels)
-        self.lin1 = torch.nn.Linear(out_channels, out_channels)
+        self.lin1 = Linear(out_channels, out_channels)
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
         name = "sum" if self.aggregation == "add" else self.aggregation

@@ -1,16 +1,43 @@
-"""Linear layers over a virtual concat, for PNA.
+"""Linear layers (the JAX package's ``nn/linear.py``).
 
-Both are ``torch.nn.Linear`` over the full concat (weight [out, in], the
-default torch init U(+-1/sqrt(fan_in))), evaluated blockwise so the concat
-never exists in memory.  Parameter shapes match the JAX package's
-``PairLinear`` / ``BlockScaledLinear`` transposed, so weights port 1:1.
+``Linear`` is ``torch.nn.Linear`` (same state-dict keys) whose product
+follows the precision policy: under int8 it takes the JAX package's
+dynamic, static or recording route (``ops.quant.int8_linear``), keyed by
+``site``, the module's name in the model (``GNNModel`` sets it).
+
+``PairLinear`` and ``BlockScaledLinear`` are ``torch.nn.Linear`` over the
+full concat (weight [out, in], the default torch init
+U(+-1/sqrt(fan_in))), evaluated blockwise so the concat never exists in
+memory.  Parameter shapes match the JAX package's ``PairLinear`` /
+``BlockScaledLinear`` transposed, so weights port 1:1.  As in the JAX
+package, the int8 policy leaves them unquantized.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-__all__ = ["PairLinear", "BlockScaledLinear"]
+from gnnbuilder_tpu_torch.compile.precision import active_precision
+from gnnbuilder_tpu_torch.ops.quant import int8_linear
+
+__all__ = ["Linear", "PairLinear", "BlockScaledLinear"]
+
+
+class Linear(torch.nn.Linear):
+    """``torch.nn.Linear`` whose product is quantized under the int8
+    policy (per-row or static activation scales, per-column weight
+    scales, an exact int8 sum); float32 otherwise.  ``site`` names the
+    calibration entry."""
+
+    site: Optional[str] = None
+
+    def forward(self, x):
+        prec = active_precision()
+        if prec is None or prec.name != "int8":
+            return super().forward(x)
+        return int8_linear(x, self.weight.t(), self.bias, self.site)
 
 
 class PairLinear(torch.nn.Linear):

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from gnnbuilder_tpu_torch.nn.linear import Linear
 from gnnbuilder_tpu_torch.ops.activations import get_activation
 
 __all__ = ["MLP"]
@@ -19,7 +20,7 @@ class MLP(torch.nn.Module):
             raise ValueError("hidden_layers must be >= 0")
         dims = [in_dim] + [hidden_dim] * hidden_layers + [out_dim]
         self.linear_layers = torch.nn.ModuleList(
-            torch.nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+            Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
         self.activation = activation
         self.act = get_activation(activation)
 

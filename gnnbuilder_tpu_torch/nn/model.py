@@ -31,6 +31,13 @@ kernel ``ops.cuda.ell_agg`` (``nn/conv.py``).  The readout runs through
 per-layer plain path.  The paths compute the same function.  In training
 (grad mode on) the kernels get the live parameters, so gradients reach
 them; in inference the readout weights come from a cache.
+
+Under a precision policy (``compile.precision``, entered by
+``Program.forward``) the PNA stack, PNA layer and readout kernels run in
+the policy's mode (``dispatch``'s ``cfg["mode"]``); the cache then also
+holds, per mode, the stacked weights as bfloat16 or as int8 with their
+scales, rebuilt when a parameter changes.  Every ``Linear`` learns its
+``site``, its name in the model, the key of its int8 calibration.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from gnnbuilder_tpu_torch.nn.conv import (
     PNA_SCALERS,
     SUPPORTED_GNN_CONVS,
 )
+from gnnbuilder_tpu_torch.nn.linear import Linear
 from gnnbuilder_tpu_torch.nn.mlp import MLP
 from gnnbuilder_tpu_torch.nn.pool import (
     SUPPORTED_GLOBAL_POOLING_AGGRS,
@@ -149,7 +157,11 @@ class GNNModel(torch.nn.Module):
             hidden_layers=mlp_hidden_layers,
             activation=mlp_activation,
         )
-        self._kernel_cache = None   # (key, _kernel_params result)
+        # mode -> (key, cached kernel operands); see _kernel_params
+        self._kernel_cache = {}
+        for name, mod in self.named_modules():
+            if isinstance(mod, Linear):
+                mod.site = name
 
     def _width(self, channels: int) -> int:
         """The width of a conv output of ``channels`` channels: GAT with
@@ -222,28 +234,53 @@ class GNNModel(torch.nn.Module):
         return [(t(c.lin_l), c.lin_l.bias, t(c.lin_r), None)
                 for c in self.gnn_convs]
 
+    def _cached(self, mode: str, width: int, build):
+        """``build()``'s result for (mode, width), kept until a parameter
+        is replaced or changed in place."""
+        key = (width,) + tuple((id(p), p._version, p.device)
+                               for p in self.parameters())
+        hit = self._kernel_cache.get(mode)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, build())
+            self._kernel_cache[mode] = hit
+        return hit[1]
+
     def _kernel_params(self, width: int):
         """(stacked conv operands, readout weights): the conv weights
         padded and stacked for the stack kernel and the MLP weights in
         [in, out] layout, kept until a parameter is replaced or changed in
         place."""
-        key = (width,) + tuple((id(p), p._version, p.device)
-                               for p in self.parameters())
-        if self._kernel_cache is None or self._kernel_cache[0] != key:
+        def build():
             from gnnbuilder_tpu_torch.ops.cuda.mp_block import stack_mp_params
             from gnnbuilder_tpu_torch.ops.cuda.pna_block import stack_params
 
-            with torch.no_grad():
-                stacked = None
-                if (self.gnn_num_layers > 0
-                        and self.gnn_conv in _STACK_CONVS):
-                    stack = (stack_params if self.gnn_conv == "pna"
-                             else stack_mp_params)
-                    stacked = stack(self._conv_operands(), width)
-                readout = [(lin.weight.t().contiguous(), lin.bias.detach())
-                           for lin in self.mlp_head.linear_layers]
-            self._kernel_cache = (key, (stacked, readout))
-        return self._kernel_cache[1]
+            stacked = None
+            if self.gnn_num_layers > 0 and self.gnn_conv in _STACK_CONVS:
+                stack = (stack_params if self.gnn_conv == "pna"
+                         else stack_mp_params)
+                stacked = stack(self._conv_operands(), width)
+            readout = [(lin.weight.t().contiguous(), lin.bias.detach())
+                       for lin in self.mlp_head.linear_layers]
+            return stacked, readout
+
+        return self._cached("f32", width, build)
+
+    def _mode_params(self, width: int, mode: str):
+        """((PNA stack operands, their scales), (readout weights, their
+        scales)) as the kernels take them in ``mode`` ("bf16": bfloat16
+        weights; "int8": int8 weights with per-column scales; scales None
+        otherwise), from ``_kernel_params`` and cached the same way."""
+        def build():
+            from gnnbuilder_tpu_torch.ops.cuda.pna_block import prepare_stack
+            from gnnbuilder_tpu_torch.ops.cuda.readout import prepare_head
+
+            stacked, readout = self._kernel_params(width)
+            stack = (prepare_stack(stacked, mode) if self.gnn_conv == "pna"
+                     and stacked is not None else (None, None))
+            return stack, prepare_head(readout, mode)
+
+        return self._cached(mode, width, build)
 
     def _fused_gnn_stack(self, g: GraphBatch, h):
         """The whole conv stack in one kernel call when the gate allows:
@@ -270,13 +307,18 @@ class GNNModel(torch.nn.Module):
             return None
         width = self._stack_width()
         L = self.gnn_num_layers
+        mode = cfg.get("mode", "f32")
+        if mode == "f32":
+            stacked, scales = self._kernel_params(width)[0], None
+        else:
+            stacked, scales = self._mode_params(width, mode)[0]
         return pna_block_stack_auto(
-            h, g.nbr_nodes, g.in_degree, self._kernel_params(width)[0],
+            h, g.nbr_nodes, g.in_degree, stacked,
             deltas=[c.delta for c in self.gnn_convs],
             skips=[self.gnn_skip_connection and 0 < i < L - 1
                    for i in range(L)],
             act=self.gnn_activation, out_dim=self.gnn_output_dim,
-            block_size=cfg["block_size"],
+            block_size=cfg["block_size"], mode=mode, scales=scales,
         )
 
     def _fused_mp_stack(self, g: GraphBatch, h):
@@ -311,25 +353,31 @@ class GNNModel(torch.nn.Module):
         backward recomputes the plain readout.  None = run GlobalPooling +
         MLP."""
         from gnnbuilder_tpu_torch.ops import dispatch, segment
-        from gnnbuilder_tpu_torch.ops.cuda.readout import fused_readout_vjp
+        from gnnbuilder_tpu_torch.ops.cuda.readout import (
+            fused_readout,
+            fused_readout_vjp,
+        )
 
         cfg = dispatch.readout_config(
             g, self.pooling_aggrs, self.mlp_activation,
             self.output_activation)
         if cfg is None:
             return None
-        if torch.is_grad_enabled():
-            weights = [(lin.weight.t(), lin.bias)
-                       for lin in self.mlp_head.linear_layers]
-        else:
-            weights = self._kernel_params(self._stack_width())[1]
         h = h.contiguous()
         mx = None
         if "max" in self.pooling_aggrs:
             mx = segment.contiguous_segment_max(
                 h, g.graph_starts, g.n_node, g.max_graph_nodes_static)
-        return fused_readout_vjp(
-            h, g.n_node, weights, aggrs=self.pooling_aggrs, mx=mx,
-            act=self.mlp_activation, out_act=self.output_activation,
-            starts=cfg["starts"],
-        )
+        kw = dict(aggrs=self.pooling_aggrs, mx=mx, act=self.mlp_activation,
+                  out_act=self.output_activation, starts=cfg["starts"])
+        mode = cfg.get("mode", "f32")
+        if mode != "f32":    # inference modes: no backward
+            weights, scales = self._mode_params(self._stack_width(), mode)[1]
+            return fused_readout(h, g.n_node, weights, mode=mode,
+                                 scales=scales, **kw)
+        if torch.is_grad_enabled():
+            weights = [(lin.weight.t(), lin.bias)
+                       for lin in self.mlp_head.linear_layers]
+        else:
+            weights = self._kernel_params(self._stack_width())[1]
+        return fused_readout_vjp(h, g.n_node, weights, **kw)

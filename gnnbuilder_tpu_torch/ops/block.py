@@ -5,8 +5,10 @@ A block-packed batch ships ``block_adj [T, B, B]`` with ``A[t, i, j]`` the
 number of edges (t*B + j) -> (t*B + i), so a neighbour sum is one batched
 product ``A @ v.reshape(T, B, F)``.  The counts are small integers, exact
 in float32, so one float32 product gives the sums the JAX package's
-precision modes approximate with bf16 passes on the TPU; there is no
-``mm`` argument.  Empty rows give 0 (mean divides by max(deg, 1)).
+precision modes approximate with bf16 passes on the TPU.  ``mm="bf16"``
+(the bf16 policy, ``dispatch.block_cfg``) rounds the dense operand to
+bf16 first, as the JAX package's bf16 mode does; the sums stay float32.
+Empty rows give 0 (mean divides by max(deg, 1)).
 """
 
 from __future__ import annotations
@@ -22,34 +24,39 @@ __all__ = ["block_spmm", "block_sum", "block_mean", "block_std",
 BIG = 3e38  # the finite -inf of the JAX package's block attention
 
 
-def block_spmm(block_adj, v, transpose: bool = False):
+def block_spmm(block_adj, v, transpose: bool = False, mm=None):
     """out[i] = sum_j A[i, j] v[j] over each row's block; with
     ``transpose`` the receiver index is contracted instead:
-    out[j] = sum_i A[i, j] v[i].  ``v`` is [N, F] with N = T * B."""
+    out[j] = sum_i A[i, j] v[i].  ``v`` is [N, F] with N = T * B;
+    ``mm="bf16"`` rounds it to bf16 first."""
     T, B, _ = block_adj.shape
     N, F = v.shape
     if N != T * B:
         raise ValueError(f"v has {N} rows; block_adj covers {T} x {B}")
+    if mm == "bf16":
+        v = v.to(torch.bfloat16).to(v.dtype)
+    elif mm is not None:
+        raise ValueError(f"unknown mm {mm!r}")
     a = block_adj.to(v.dtype)
     if transpose:
         a = a.transpose(1, 2)
     return torch.bmm(a, v.reshape(T, B, F)).reshape(N, F)
 
 
-def block_sum(x, block_adj):
-    return block_spmm(block_adj, x)
+def block_sum(x, block_adj, mm=None):
+    return block_spmm(block_adj, x, mm=mm)
 
 
-def block_mean(x, block_adj, in_degree):
+def block_mean(x, block_adj, in_degree, mm=None):
     d = in_degree.to(x.dtype).clamp(min=1.0)
-    return block_spmm(block_adj, x) / d[:, None]
+    return block_spmm(block_adj, x, mm=mm) / d[:, None]
 
 
-def block_std(x, block_adj, in_degree):
-    return block_multi(x, block_adj, in_degree, ("std",))["std"]
+def block_std(x, block_adj, in_degree, mm=None):
+    return block_multi(x, block_adj, in_degree, ("std",), mm=mm)["std"]
 
 
-def block_multi(x, block_adj, in_degree, aggregators):
+def block_multi(x, block_adj, in_degree, aggregators, mm=None):
     """sum, mean and std in one batched product over ``[x | x^2]``; max
     and min have no product form and come from the ELL table.  Returns
     {name: [N, F]}; std = sqrt(relu(E[x^2] - E[x]^2) + 1e-5)."""
@@ -59,7 +66,7 @@ def block_multi(x, block_adj, in_degree, aggregators):
     F = x.shape[1]
     need_sq = "std" in aggregators
     both = block_spmm(block_adj, torch.cat([x, x * x], dim=-1)
-                      if need_sq else x)
+                      if need_sq else x, mm=mm)
     s = both[:, :F]
     d = in_degree.to(x.dtype).clamp(min=1.0)[:, None]
     out = {}

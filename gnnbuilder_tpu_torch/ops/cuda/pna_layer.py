@@ -24,6 +24,13 @@ Weights use the JAX package's [in, out] layout: ``w_pre`` [2Fin, F]
 (receiver rows first), ``k_post`` [Fin + 12F, Fout] (self rows, then the
 identity, amplification and attenuation groups of max|min|mean|std
 blocks), ``w_lin`` [Fout, Fout].
+
+Inference modes (``mode``; the JAX kernel's ``mm``, ``gather_mode`` and
+``quant``; no residuals, no backward): "bf16", whose three weights are
+bfloat16 and whose products round their operands (and the gathered v)
+to bf16 and sum in float32; "int8", which quantizes the final Linear
+only (``w_lin`` int8 with per-column scales ``s_lin``, mid's rows
+quantized, an exact sum), as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -40,13 +47,45 @@ from gnnbuilder_tpu_torch.ops.cuda.scatter_bwd import (
     fused_pna_scatter_cstk,
 )
 from gnnbuilder_tpu_torch.ops.ell import _STD_EPS, ell_mask
+from gnnbuilder_tpu_torch.ops.quant import (
+    qdot,
+    quantize_weight,
+    to_bf16,
+    true_div,
+)
 
 __all__ = ["fused_pna_layer", "pna_layer_plain", "PNALayerFunction",
            "fused_pna_layer_vjp", "fused_pna_layer_auto", "pad_operands",
-           "scaler_blocks", "LAYER_ACTS"]
+           "prepare_layer", "scaler_blocks", "LAYER_ACTS", "MODES"]
 
 # epilogue activations the kernel takes, with their codes in the source
 LAYER_ACTS = {None: 0, "relu": 1, "gelu": 2, "sigmoid": 3, "tanh": 4}
+# kernel modes, with their codes in the source
+MODES = {"f32": 0, "bf16": 1, "int8": 2}
+
+
+def _weight_dtypes(mode):
+    """The dtypes of (w_pre, k_post, w_lin) in ``mode``."""
+    if mode == "bf16":
+        return (torch.bfloat16,) * 3
+    if mode == "int8":
+        return torch.float32, torch.float32, torch.int8
+    return (torch.float32,) * 3
+
+
+def prepare_layer(w_pre, k_post, w_lin, mode: str):
+    """(w_pre, k_post, w_lin, s_lin) as ``mode`` takes them: "bf16"
+    rounds the three to bfloat16; "int8" quantizes w_lin with per-column
+    scales s_lin (None in the other modes)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
+    if mode == "bf16":
+        return (w_pre.to(torch.bfloat16), k_post.to(torch.bfloat16),
+                w_lin.to(torch.bfloat16), None)
+    if mode == "int8":
+        q, sc = quantize_weight(w_lin)
+        return w_pre, k_post, q, sc
+    return w_pre, k_post, w_lin, None
 # the TPU kernel's finite -inf: the extrema of an empty row in aux
 _BIG = 3e38
 
@@ -63,14 +102,23 @@ def scaler_blocks(k_post, Fin, F):
 
 def pna_layer_plain(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post,
                     w_lin, b_lin, delta, skip=None, act=None,
-                    save_res=False):
+                    save_res=False, mode: str = "f32", s_lin=None):
     """The layer in plain torch, with the kernel's arithmetic: u comes
-    outside the reduce and the extrema start from -+3e38."""
+    outside the reduce and the extrema start from -+3e38.  ``mode`` and
+    ``s_lin`` as for ``fused_pna_layer``."""
     Fin = x.shape[1]
     F = w_pre.shape[1]
     Fout = w_lin.shape[1]
-    u = x @ w_pre[:Fin] + b_pre
-    v = x @ w_pre[Fin:]
+
+    def dot(a, w):
+        if mode == "bf16":
+            return to_bf16(a) @ w.float()
+        return a @ w
+
+    u = dot(x, w_pre[:Fin]) + b_pre
+    v = dot(x, w_pre[Fin:])
+    if mode == "bf16":
+        v = to_bf16(v)
     m = ell_mask(nbr_nodes, in_degree)[..., None]
     g = v[nbr_nodes.long()]                               # [N, W, F]
     zero = x.new_zeros(())
@@ -89,12 +137,13 @@ def pna_layer_plain(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post,
         torch.where(nonempty, u + mean, zero),
         torch.sqrt(var + _STD_EPS),
     ], dim=1)
-    y = agg_cat @ scaler_blocks(k_post, Fin, F)
+    y = dot(agg_cat, scaler_blocks(k_post, Fin, F))
     log_deg = torch.log(denom + 1.0)
-    mid = (x @ k_post[:Fin] + b_post + y[:, :Fout]
-           + (log_deg / delta) * y[:, Fout:2 * Fout]
-           + (delta / log_deg) * y[:, 2 * Fout:])
-    o = mid @ w_lin + b_lin
+    mid = (dot(x, k_post[:Fin]) + b_post + y[:, :Fout]
+           + true_div(log_deg, delta) * y[:, Fout:2 * Fout]
+           + true_div(delta, log_deg) * y[:, 2 * Fout:])
+    o = (qdot(mid, w_lin, s_lin) if mode == "int8" else dot(mid, w_lin)) \
+        + b_lin
     if skip is not None:
         o = o + skip
     out = _act(act)(o)
@@ -107,37 +156,51 @@ def pna_layer_plain(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post,
 
 
 def _check(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
-           b_lin, skip, act):
+           b_lin, skip, act, mode, s_lin, save_res):
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"x must be [N, Fin] float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
+    if mode != "f32" and save_res:
+        raise ValueError(f"mode {mode!r} is an inference mode: no residuals")
     N, Fin = x.shape
     F = w_pre.shape[1]
     Fout = w_lin.shape[1]
-    shapes = {"w_pre": (w_pre, (2 * Fin, F)), "b_pre": (b_pre, (F,)),
-              "k_post": (k_post, (Fin + 12 * F, Fout)),
-              "b_post": (b_post, (Fout,)), "w_lin": (w_lin, (Fout, Fout)),
-              "b_lin": (b_lin, (Fout,))}
+    f32 = torch.float32
+    dt_pre, dt_post, dt_lin = _weight_dtypes(mode)
+    shapes = {"w_pre": (w_pre, (2 * Fin, F), dt_pre),
+              "b_pre": (b_pre, (F,), f32),
+              "k_post": (k_post, (Fin + 12 * F, Fout), dt_post),
+              "b_post": (b_post, (Fout,), f32),
+              "w_lin": (w_lin, (Fout, Fout), dt_lin),
+              "b_lin": (b_lin, (Fout,), f32)}
     if skip is not None:
-        shapes["skip"] = (skip, (N, Fout))
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be {shape} float32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+        shapes["skip"] = (skip, (N, Fout), f32)
+    if mode == "int8":
+        shapes["s_lin"] = (s_lin, (Fout,), f32)
+    elif s_lin is not None:
+        raise ValueError(f"mode {mode!r} takes no s_lin")
+    for name, (t, shape, dt) in shapes.items():
+        if t is None or tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{name} must be {shape} {dt} in mode "
+                             f"{mode!r}, got "
+                             f"{None if t is None else tuple(t.shape)} "
+                             f"{None if t is None else t.dtype}")
     if nbr_nodes.dim() != 2 or nbr_nodes.shape[0] != N:
         raise ValueError("nbr_nodes must be [N, W]")
     if tuple(in_degree.shape) != (N,):
         raise ValueError("in_degree must be [N]")
     if act not in LAYER_ACTS:
         raise ValueError(f"unsupported layer activation {act!r}")
-    tensors = [x, nbr_nodes, in_degree] + [t for t, _ in shapes.values()]
+    tensors = [x, nbr_nodes, in_degree] + [t for t, _, _ in shapes.values()]
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
 
 
 def _launch(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
-            b_lin, delta, skip, act, save_res):
+            b_lin, delta, skip, act, save_res, mode, s_lin):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -145,7 +208,7 @@ def _launch(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
     F = w_pre.shape[1]
     Fout = w_lin.shape[1]
     mult = lib.gnnb_pna_layer_width_multiple()
-    smem = lib.gnnb_pna_layer_smem_bytes(Fin, F, Fout)
+    smem = lib.gnnb_pna_layer_smem_bytes(Fin, F, Fout, MODES[mode])
     smem_max = lib.gnnb_smem_per_block_optin(x.device.index or 0)
     if any(d % mult or d < mult for d in (Fin, F, Fout)) or smem > smem_max:
         raise ValueError(
@@ -155,7 +218,7 @@ def _launch(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
     if nbr_nodes.dtype != torch.int32 or in_degree.dtype != torch.int32:
         raise ValueError("nbr_nodes and in_degree must be int32")
     tensors = [x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
-               b_lin] + ([skip] if skip is not None else [])
+               b_lin] + [t for t in (skip, s_lin) if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -164,7 +227,7 @@ def _launch(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([P] * 3 + [I] * 5 + [P] * 7
-                   + [ctypes.c_float, I] + [P] * 5 + [P, I])
+                   + [ctypes.c_float, I, I, P] + [P] * 5 + [P, I])
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty((N, Fout), **f32)
     v = torch.empty((N, F), **f32)
@@ -179,35 +242,41 @@ def _launch(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
              nbr_nodes.shape[1], Fin, F, Fout, w_pre.data_ptr(),
              b_pre.data_ptr(), k_post.data_ptr(), b_post.data_ptr(),
              w_lin.data_ptr(), b_lin.data_ptr(), ptr(skip), float(delta),
-             LAYER_ACTS[act], out.data_ptr(), v.data_ptr(),
-             *[ptr(t) for t in res], stream, x.device.index or 0)
+             LAYER_ACTS[act], MODES[mode], ptr(s_lin), out.data_ptr(),
+             v.data_ptr(), *[ptr(t) for t in res], stream,
+             x.device.index or 0)
     if err != 0:
         raise RuntimeError(f"pna_layer launch failed: cudaError {err}")
     fused_pna_layer.launches += 1
+    fused_pna_layer.mode_launches[mode] += 1
     return (out, v, *res) if save_res else out
 
 
 def fused_pna_layer(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post,
                     w_lin, b_lin, delta: float, skip=None,
-                    act: Optional[str] = None, save_res: bool = False):
+                    act: Optional[str] = None, save_res: bool = False,
+                    mode: str = "f32", s_lin=None):
     """One PNA layer.  x [N, Fin] float32; nbr_nodes [N, W] and in_degree
-    [N] int32; weights as in the module docstring; skip [N, Fout] or None,
-    added before ``act``.  Returns out [N, Fout], or with ``save_res`` the
+    [N] int32; weights as in the module docstring, typed by ``mode``
+    (``prepare_layer``); skip [N, Fout] or None, added before ``act``.
+    Returns out [N, Fout], or with ``save_res`` (mode "f32" only) the
     tuple (out, v [N, F], agg_cat [N, 4F], aux [N, 5F], mid [N, Fout]).  A
     CUDA ``x`` launches the kernel, which takes widths that are multiples
     of 128 and raises on others; a CPU ``x`` runs the plain version."""
     _check(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
-           b_lin, skip, act)
+           b_lin, skip, act, mode, s_lin, save_res)
     if x.device.type == "cuda":
         return _launch(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post,
-                       w_lin, b_lin, delta, skip, act, save_res)
+                       w_lin, b_lin, delta, skip, act, save_res, mode, s_lin)
     if x.device.type != "cpu":
         raise ValueError(f"no PNA layer for device {x.device}")
     return pna_layer_plain(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
-                           b_post, w_lin, b_lin, delta, skip, act, save_res)
+                           b_post, w_lin, b_lin, delta, skip, act, save_res,
+                           mode, s_lin)
 
 
 fused_pna_layer.launches = 0
+fused_pna_layer.mode_launches = dict.fromkeys(MODES, 0)
 
 
 class PNALayerFunction(torch.autograd.Function):
@@ -357,13 +426,22 @@ def pad_operands(x, w_pre, b_pre, k_post, b_post, w_lin, b_lin, skip=None):
 def fused_pna_layer_auto(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
                          b_post, w_lin, b_lin, delta: float, skip=None,
                          act: Optional[str] = None, rev_nbr_nodes=None,
-                         out_degree=None):
+                         out_degree=None, mode: str = "f32"):
     """The layer at any widths: ``pad_operands`` outside the autograd
     Function, then the first Fout columns of the result.  Takes the
     differentiable path when grad mode is on and an input needs a
-    gradient, else the kernel without residuals."""
+    gradient (mode "f32" only), else the kernel without residuals; float32
+    weights are brought to ``mode`` after padding (``prepare_layer``)."""
     Fout = w_lin.shape[1]
     ops = pad_operands(x, w_pre, b_pre, k_post, b_post, w_lin, b_lin, skip)
+    if mode != "f32":
+        c = [None if t is None else t.contiguous() for t in ops]
+        w_pre_m, k_post_m, w_lin_m, s_lin = prepare_layer(c[1], c[3], c[5],
+                                                          mode)
+        out = fused_pna_layer(c[0], nbr_nodes, in_degree, w_pre_m, c[2],
+                              k_post_m, c[4], w_lin_m, c[6], delta,
+                              skip=c[7], act=act, mode=mode, s_lin=s_lin)
+        return out if out.shape[1] == Fout else out[:, :Fout]
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in ops):
         out = fused_pna_layer_vjp(ops[0], nbr_nodes, in_degree, *ops[1:7],

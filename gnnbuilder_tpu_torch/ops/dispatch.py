@@ -11,6 +11,23 @@ Modes (``set_fused_mode``):
 * "auto"  — the kernel functions whenever their preconditions hold
 * "never" — the per-layer plain path only (conv loop over the ELL table
             or the edge list, GlobalPooling, MLP), so a test can pin it
+
+Precision policies (``compile.precision``, activated by ``Program``):
+the PNA stack, PNA layer and readout gates return the kernel mode of the
+active policy in ``cfg["mode"]`` ("bf16" or "int8"; absent under f32),
+as the JAX package's ``pna_stack_cfg``, ``fused_config`` and
+``readout_config`` set ``quant`` / ``int8`` and the bf16 gather and
+products.  Every other gate
+copies the JAX package's decision where this package has the kernel
+mode: GCN's, LG's and Simple's mp layer and the multi-aggregate keep
+their float32 kernels under int8 (the JAX convs drop int8 there as
+numerics-neutral: no Linear runs inside those kernels), and GAT's block
+attention and EdgeConv's block layer decline under int8, as in the JAX
+package.  Where the JAX package has a kernel mode that this package does
+not have yet (``UNPORTED_MODES``), the gate declines and the plain path
+runs with the policy's numerics (``nn.linear.Linear``, the bf16 block
+product).  Under an active int8 calibration every gate of a kernel with
+an int8 mode declines: the plain path owns the per-site state.
 """
 
 from __future__ import annotations
@@ -19,7 +36,7 @@ import contextlib
 import contextvars
 from typing import Optional
 
-__all__ = ["set_fused_mode", "inference_mode",
+__all__ = ["set_fused_mode", "inference_mode", "policy", "UNPORTED_MODES",
            "inference_on", "block_cfg", "pna_stack_cfg", "mp_stack_cfg",
            "mp_layer_cfg", "pna_layer_cfg", "gat_block_cfg", "gat_layer_cfg",
            "agg_cfg", "gine_layer_cfg", "edge_block_cfg", "readout_config"]
@@ -36,6 +53,24 @@ MP_STACK_CONVS = ("gcn", "sage")
 BLOCK_LAYER_CONVS = ("gcn", "lg", "simple")
 
 _MODE = "auto"
+
+# the JAX package's kernel modes under a precision policy that this
+# package has not ported yet, (kernel, policy), with the TPU kernel's row
+# in PERF.md: their gates decline under that policy (ROADMAP queue 2)
+UNPORTED_MODES = frozenset({
+    ("mp_block_stack", "bf16"), ("mp_block_stack", "int8"),     # row 3
+    ("mp_layer", "bf16"), ("mp_layer", "int8"),                 # row 4
+    ("ell_agg", "bf16"),                                        # row 8
+    ("gat_block", "bf16"),                                      # row 9
+    ("gat_layer", "bf16"), ("gat_layer", "int8"),               # row 10
+    ("gine_layer", "bf16"), ("gine_layer", "int8"),             # row 12
+    ("edge_block", "bf16"),                                     # row 13
+})
+# kernels whose gate declines under int8 in the JAX package itself (its
+# ``_r4_block_cfg`` without ``int8_ok``): the plain path quantizes
+INT8_DECLINED = ("gat_block", "edge_block")
+# convs whose mp layer kernel runs no Linear: int8 leaves it as it is
+INT8_NEUTRAL_CONVS = ("gcn", "lg", "simple")
 
 # inference scope: the stack kernel has no backward, so the model takes it
 # only here; Program.forward enters it
@@ -57,6 +92,40 @@ def inference_on() -> bool:
     return _INFERENCE.get()
 
 
+def policy() -> str:
+    """The active precision policy's name ("f32" when none is active)."""
+    from gnnbuilder_tpu_torch.compile.precision import active_precision
+
+    prec = active_precision()
+    return "f32" if prec is None else prec.name
+
+
+def _calibrating() -> bool:
+    from gnnbuilder_tpu_torch.ops.quant import active_calibration
+
+    return active_calibration() is not None
+
+
+def _with_mode(cfg: dict) -> Optional[dict]:
+    """``cfg`` for a kernel with all three modes (rows 1, 2 and 5): with
+    "mode" set to the active policy's when that is not "f32"; None under
+    an active int8 calibration."""
+    name = policy()
+    if name == "int8" and _calibrating():
+        return None
+    if name != "f32":
+        cfg["mode"] = name
+    return cfg
+
+
+def _unported(kernel: str) -> bool:
+    """Whether ``kernel`` declines under the active policy: a mode this
+    package lacks, or the JAX package's own int8 decline."""
+    name = policy()
+    return ((kernel, name) in UNPORTED_MODES
+            or (name == "int8" and kernel in INT8_DECLINED))
+
+
 def set_fused_mode(mode: str) -> None:
     global _MODE
     if mode not in ("auto", "never"):
@@ -67,11 +136,13 @@ def set_fused_mode(mode: str) -> None:
 def block_cfg(g) -> Optional[dict]:
     """{} when a conv's plain aggregation takes the block-diagonal product
     (``ops.block``) on batch ``g``, else None (the ELL table or the edge
-    list).  Needs a block-packed batch; "never" pins the ELL / edge-list
-    paths, as in the JAX package."""
+    list); {"mm": "bf16"} under the bf16 policy, whose product rounds its
+    dense operand to bf16 (the JAX package's ``block_cfg``).  Needs a
+    block-packed batch; "never" pins the ELL / edge-list paths, as in the
+    JAX package."""
     if _MODE == "never" or g.block_adj is None:
         return None
-    return {}
+    return {"mm": "bf16"} if policy() == "bf16" else {}
 
 
 def mp_stack_cfg(g, conv: str) -> Optional[dict]:
@@ -83,7 +154,7 @@ def mp_stack_cfg(g, conv: str) -> Optional[dict]:
     size that is a multiple of 128.  Unlike the PNA stack it needs no ELL
     table: the kernel aggregates from ``block_adj``.  Elsewhere each layer
     takes ``mp_layer_cfg``'s route."""
-    if conv not in MP_STACK_CONVS:
+    if conv not in MP_STACK_CONVS or _unported("mp_block_stack"):
         return None
     if _MODE == "never" or not inference_on():
         return None
@@ -100,11 +171,15 @@ def mp_layer_cfg(g, conv: str) -> Optional[dict]:
     mode) on a standard-packed batch with an ELL table; else None (the
     conv's plain path: the block product for GIN and SAGE and other block
     sizes on block batches, the edge list without a table).  In or
-    out of inference scope, since the layer has a backward.  The JAX
-    package's alignment and batch-size gates are left out: they weighed
-    the TPU's 128-lane padding and grid steps, which this kernel does
-    not have."""
+    out of inference scope, since the layer has a backward.  Under int8
+    only gcn, lg and simple keep the kernel (no Linear inside it); under
+    bf16 none does (``UNPORTED_MODES``).  The JAX package's alignment and
+    batch-size gates are left out: they weighed the TPU's 128-lane
+    padding and grid steps, which this kernel does not have."""
     if _MODE == "never":
+        return None
+    if _unported("mp_layer") and not (policy() == "int8"
+                                      and conv in INT8_NEUTRAL_CONVS):
         return None
     if g.block_adj is not None:
         if conv not in BLOCK_LAYER_CONVS or g.block_size_static % 128:
@@ -114,27 +189,34 @@ def mp_layer_cfg(g, conv: str) -> Optional[dict]:
 
 
 def pna_stack_cfg(g) -> Optional[dict]:
-    """{"block_size": ...} when the whole-stack PNA kernel applies to batch
-    ``g``, else None (the model runs the per-layer loop).
+    """{"block_size": ...[, "mode": ...]} when the whole-stack PNA kernel
+    applies to batch ``g``, else None (the model runs the per-layer loop).
 
     Preconditions: inference scope and a block-packed batch (every
     neighbour id inside its row's block) with its ELL table, at a block
-    size that is a multiple of 128.  Width and block size beyond that are
-    the kernel's to check: the CUDA wrapper raises on what it does not
-    take rather than giving way to the plain version."""
+    size that is a multiple of 128, and no active int8 calibration.  The
+    mode is the policy's: "int8" quantizes every Linear product of the
+    stack, "bf16" rounds the products' operands and the gathered rows (the
+    JAX package's ``quant=True`` and ``gather_mode="bf16"``).  Width and
+    block size beyond that are the kernel's to check: the CUDA wrapper
+    raises on what it does not take rather than giving way to the plain
+    version."""
     if _MODE == "never" or not inference_on():
         return None
     if g.nbr_nodes is None or g.block_adj is None:
         return None
     if g.block_size_static % 128:
         return None
-    return {"block_size": g.block_size_static}
+    return _with_mode({"block_size": g.block_size_static})
 
 
 def pna_layer_cfg(g, act) -> Optional[dict]:
-    """{} when the per-layer PNA kernel (``ops.cuda.pna_layer``) applies to
-    batch ``g`` with epilogue activation ``act``, else None (PNAConv runs
-    its plain path).  The caller checks the default aggregators and
+    """{} ({"mode": ...} under a policy) when the per-layer PNA kernel
+    (``ops.cuda.pna_layer``) applies to batch ``g`` with epilogue
+    activation ``act``, else None (PNAConv runs its plain path).  The
+    mode is the policy's: "int8" quantizes the final Linear only, "bf16"
+    rounds the products' operands and the gathered rows; an active int8
+    calibration declines.  The caller checks the default aggregators and
     scalers.  Needs the batch's ELL table, graph-contiguous packing with
     a known largest graph, and an activation the kernel has; in or out of
     inference scope, since the layer has a backward.  A batch with no ELL
@@ -150,7 +232,7 @@ def pna_layer_cfg(g, act) -> Optional[dict]:
         return None
     if act not in LAYER_ACTS:
         return None
-    return {}
+    return _with_mode({})
 
 
 def gat_block_cfg(g, act) -> Optional[dict]:
@@ -164,7 +246,7 @@ def gat_block_cfg(g, act) -> Optional[dict]:
     it does not take."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
-    if _MODE == "never" or not inference_on():
+    if _MODE == "never" or not inference_on() or _unported("gat_block"):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -183,7 +265,7 @@ def gat_layer_cfg(g, act) -> Optional[dict]:
     padding, which this kernel does not have."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
-    if _MODE == "never" or g.nbr_nodes is None:
+    if _MODE == "never" or g.nbr_nodes is None or _unported("gat_layer"):
         return None
     return {} if act in GAT_ACTS else None
 
@@ -197,7 +279,7 @@ def agg_cfg(g) -> Optional[dict]:
     the block product on a block-packed batch, while PNA's block path
     takes the kernel for max and min.  The TPU's lane, VMEM and tile
     gates are left out: this kernel takes any width and row count."""
-    if _MODE == "never" or g.nbr_nodes is None:
+    if _MODE == "never" or g.nbr_nodes is None or _unported("ell_agg"):
         return None
     if g.max_graph_nodes_static <= 0:
         return None
@@ -218,6 +300,8 @@ def gine_layer_cfg(g, act) -> Optional[dict]:
 
     if _MODE == "never" or g.nbr_nodes is None or g.nbr_edges is None:
         return None
+    if _unported("gine_layer"):
+        return None
     return {} if act in LAYER_ACTS else None
 
 
@@ -230,7 +314,7 @@ def edge_block_cfg(g, act) -> Optional[dict]:
     128, and its ELL table; here also an activation the kernel has."""
     from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
 
-    if _MODE == "never" or not inference_on():
+    if _MODE == "never" or not inference_on() or _unported("edge_block"):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -240,8 +324,11 @@ def edge_block_cfg(g, act) -> Optional[dict]:
 
 
 def readout_config(g, aggrs, act, out_act) -> Optional[dict]:
-    """{"starts": ...} when the fused readout kernel applies, else None
-    (the model runs GlobalPooling + MLP).  Needs an add or mean
+    """{"starts": ...[, "mode": ...]} when the fused readout kernel
+    applies, else None (the model runs GlobalPooling + MLP).  The mode is the
+    policy's: "int8" quantizes every MLP Linear, "bf16" rounds their
+    operands; the pooling stays exact; an active int8 calibration
+    declines.  Needs an add or mean
     aggregator (pure max pooling would make the kernel dead
     work), activations the kernel has, and the per-graph row starts and
     largest graph of the max window.  Whether the head fits the kernel is
@@ -259,4 +346,4 @@ def readout_config(g, aggrs, act, out_act) -> Optional[dict]:
         return None
     if g.max_graph_nodes_static <= 0 or g.graph_starts is None:
         return None
-    return {"starts": g.graph_starts}
+    return _with_mode({"starts": g.graph_starts})

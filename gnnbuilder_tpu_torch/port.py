@@ -15,6 +15,11 @@ flax kernel is
 [in, out]; a torch Linear weight is [out, in], so kernels are transposed
 on the way over.  Only numpy crosses the boundary: this module imports
 nothing of JAX.
+
+``site_to_jax`` maps an int8 calibration site, a ``Linear``'s name in
+this package's model (``gnn_convs.0.lin``, ``mlp_head.linear_layers.2``),
+to the JAX package's flax module path (``gnn_convs_0/lin``,
+``mlp_head/linear_2``).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "site_to_jax"]
 
 # the flax leaves of each conv: {Linear name: has a bias}, plus GCN's
 # separate bias (an array, not a Linear); GIN's leaves are EdgeConv's too
@@ -85,3 +90,15 @@ def params_from_jax(flax_params) -> dict:
         i = int(key.rsplit("_", 1)[1])
         linear(f"mlp_head.linear_layers.{i}", head[key])
     return sd
+
+
+def site_to_jax(site: str) -> str:
+    """``gnn_convs.{i}.{name}`` -> ``gnn_convs_{i}/{name}``;
+    ``mlp_head.linear_layers.{i}`` -> ``mlp_head/linear_{i}``."""
+    parts = site.split(".")
+    if len(parts) == 3 and parts[0] == "gnn_convs":
+        return f"gnn_convs_{parts[1]}/{parts[2]}"
+    if len(parts) == 3 and parts[:2] == ["mlp_head", "linear_layers"]:
+        return f"mlp_head/linear_{parts[2]}"
+    raise ValueError(f"not a Linear site of GNNModel: {site!r}")
+

@@ -1138,3 +1138,150 @@ def test_program_forward_edge_and_agg_paths(cuda_device, conv, kw, block):
     m = b.graph_mask
     assert torch.isfinite(out[m]).all()
     assert _scaled_err(out[m], ref[m]) <= 1e-4
+
+
+# ------------------------------------------------ bf16 and int8 modes
+# Each mode against its plain version in the same mode, layer by layer on
+# the same input: bf16 within 2e-3 and int8 within 5e-3 of max |value|
+# (the sums run in another order, which can move a bf16 rounding or an
+# int8 level at its boundary); chained through a whole model, int8 within
+# 5e-2 (each moved level moves the next layer's output).
+MODE_TOL = {"bf16": 2e-3, "int8": 5e-3}
+CHAIN_TOL = {"bf16": 5e-3, "int8": 5e-2}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_pna_block_modes_match_plain_per_layer(cuda_device, mode):
+    gs, b = _batch(256)
+    b = b.to(cuda_device)
+    model = canonical_model("pna", "qm9", graphs=gs).to(cuda_device)
+    stacked, _ = model._kernel_params(128)
+    L = model.gnn_num_layers
+    kw = dict(act="relu")
+    h = torch.nn.functional.pad(b.node_feat, (0, 128 - b.feature_dim))
+    before = pna_block.fused_pna_block_stack.mode_launches[mode]
+    for l, c in enumerate(model.gnn_convs):
+        st, sc = pna_block.prepare_stack([t[l:l + 1] for t in stacked], mode)
+        args = (h.contiguous(), b.nbr_nodes, b.in_degree, *st)
+        lkw = dict(kw, deltas=[c.delta], skips=[0 < l < L - 1], mode=mode,
+                   scales=sc)
+        got = pna_block.fused_pna_block_stack(*args, **lkw)
+        torch.cuda.synchronize()
+        want = pna_block.pna_block_stack_plain(*args, **lkw)
+        assert torch.isfinite(got).all()
+        assert _scaled_err(got, want) <= MODE_TOL[mode], l
+        h = want
+    assert pna_block.fused_pna_block_stack.mode_launches[mode] == before + L
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_readout_modes_match_plain(cuda_device, mode):
+    gs, b = _batch(256)
+    b = b.to(cuda_device)
+    model = canonical_model("pna", "qm9", graphs=gs).to(cuda_device)
+    head, scales = readout.prepare_head(model._kernel_params(128)[1], mode)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    h = torch.randn((b.num_nodes, 64), generator=g, device=cuda_device)
+    mx = segment.contiguous_segment_max(h, b.graph_starts, b.n_node,
+                                        b.max_graph_nodes_static)
+    aggrs = ("add", "mean", "max")
+    got = readout.fused_readout(h, b.n_node, head, aggrs=aggrs, mx=mx,
+                                starts=b.graph_starts, mode=mode,
+                                scales=scales)
+    torch.cuda.synchronize()
+    want = readout.readout_plain(h, b.n_node, b.graph_starts, head, aggrs,
+                                 mx, "relu", None, mode, scales)
+    m = b.graph_mask
+    assert _scaled_err(got[m], want[m]) <= MODE_TOL[mode]
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_pna_layer_modes_match_plain_per_layer(cuda_device, mode):
+    """The canonical model's 6 layers (11 -> 128 ... 128 -> 64, zero-padded
+    to 128) on a standard-packed batch."""
+    gs, b = _std_batch(256, device=cuda_device)
+    model = canonical_model("pna", "qm9", graphs=gs).to(cuda_device)
+    L = model.gnn_num_layers
+    h = b.node_feat
+    before = pna_layer.fused_pna_layer.mode_launches[mode]
+    for i, c in enumerate(model.gnn_convs):
+        skip = h if 0 < i < L - 1 else None
+        ops = pna_layer.pad_operands(
+            h, c.pre_nn.weight.t(), c.pre_nn.bias, c.post_nn.weight.t(),
+            c.post_nn.bias, c.lin.weight.t(), c.lin.bias, skip)
+        ops = [None if t is None else t.detach().contiguous() for t in ops]
+        w_pre, k_post, w_lin, s_lin = pna_layer.prepare_layer(
+            ops[1], ops[3], ops[5], mode)
+        args = (ops[0], b.nbr_nodes, b.in_degree, w_pre, ops[2], k_post,
+                ops[4], w_lin, ops[6], c.delta)
+        lkw = dict(skip=ops[7], act="relu", mode=mode, s_lin=s_lin)
+        got = pna_layer.fused_pna_layer(*args, **lkw)
+        torch.cuda.synchronize()
+        want = pna_layer.pna_layer_plain(*args, **lkw)
+        assert torch.isfinite(got).all()
+        assert _scaled_err(got, want) <= MODE_TOL[mode], i
+        h = want[:, :c.out_channels]
+    assert pna_layer.fused_pna_layer.mode_launches[mode] == before + L
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("block", [True, False])
+def test_program_forward_policies_through_kernels(cuda_device, precision,
+                                                  block):
+    """``Program(precision=...)`` of canonical PNA on the card: the stack
+    (block-packed) or the layer kernel (standard-packed, every layer) and
+    the readout launch in the policy's mode, and the output agrees with
+    the same Program on the CPU (the modes' plain versions)."""
+    gs, b = _batch(256) if block else _std_batch(256)
+    size = dict(max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, block_size=128 if block else 0)
+    progs = [Program(canonical_model("pna", "qm9", graphs=gs),
+                     precision=precision, device=d, seed=7, **size)
+             for d in (cuda_device, "cpu")]
+    progs[0].init_params()
+    progs[1].set_params({k: v.cpu() for k, v in progs[0].params.items()})
+    stack = pna_block.fused_pna_block_stack.mode_launches
+    layer = pna_layer.fused_pna_layer.mode_launches
+    head = readout.fused_readout.mode_launches
+    before = (stack[precision], layer[precision], head[precision])
+    out = progs[0].forward(b.to(cuda_device))
+    torch.cuda.synchronize()
+    n_stack, n_layer = (1, 0) if block else (0, 6)
+    assert (stack[precision], layer[precision], head[precision]) == (
+        before[0] + n_stack, before[1] + n_layer, before[2] + 1)
+    ref = progs[1].forward(b)
+    m = b.graph_mask
+    assert out.dtype == torch.float32
+    assert _scaled_err(out.cpu()[m], ref[m]) <= CHAIN_TOL[precision]
+
+
+def test_calibrated_int8_forward_on_the_card(cuda_device):
+    """calibrate_int8 on two batches, then a forward with static scales:
+    the rows 1, 2 and 5 gates decline (the plain path owns the per-site
+    state), and the output matches the CPU's static forward."""
+    gs, (b1, b2) = canonical_batches("qm9", n_graphs=256, batch_size=128,
+                                     block_size=128, node_multiple=128,
+                                     device="cpu")
+    size = dict(max_nodes=b1.num_nodes, max_edges=b1.num_edges,
+                max_graphs=b1.num_graphs, block_size=128)
+    progs = [Program(canonical_model("pna", "qm9", graphs=gs),
+                     precision="int8", device=d, seed=9, **size)
+             for d in (cuda_device, "cpu")]
+    progs[0].init_params()
+    progs[1].set_params({k: v.cpu() for k, v in progs[0].params.items()})
+    sc = progs[0].calibrate_int8([b1.to(cuda_device), b2.to(cuda_device)])
+    sc_cpu = progs[1].calibrate_int8([b1, b2])
+    assert set(sc) == set(sc_cpu)
+    for k in sc:
+        assert abs(sc[k] - sc_cpu[k]) <= 1e-5 * sc_cpu[k]
+    before = [f.mode_launches["int8"] for f in (
+        pna_block.fused_pna_block_stack, readout.fused_readout,
+        pna_layer.fused_pna_layer)]
+    out = progs[0].forward(b1.to(cuda_device))
+    torch.cuda.synchronize()
+    assert [f.mode_launches["int8"] for f in (
+        pna_block.fused_pna_block_stack, readout.fused_readout,
+        pna_layer.fused_pna_layer)] == before
+    ref = progs[1].forward(b1)
+    m = b1.graph_mask
+    assert _scaled_err(out.cpu()[m], ref[m]) <= CHAIN_TOL["int8"]
