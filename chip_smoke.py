@@ -55,7 +55,16 @@ weights):
   policy's error against f32 and, on a small batch, against the CPU in the
   same policy; ``calibrate_int8`` on two batches and a forward with static
   scales (the plain path); the modes' times and bounds (bf16 and int8
-  products at the tensor cores' dense peaks).
+  products at the tensor cores' dense peaks);
+* the bf16 and int8 modes of rows 3 (mp stack), 4 (mp layer), 8
+  (multi-aggregate, bf16), 12 (GINE) and 13 (EdgeConv, bf16) against
+  their plain versions in every layer of their paths at b1024;
+  ``Program(precision=...).forward`` of GCN, GIN, SAGE, LG, Simple, GINE,
+  EdgeConv, Simple max and five-aggregator PNA under both policies on
+  the packings the gates send to those kernels, each with its launch
+  counts per mode, its error against f32 and a 64-graph batch against
+  the CPU in the same policy; row 6's generic entry (reverse CSR, then
+  row 7's CSR gather) against its plain version; the times and bounds.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -1956,6 +1965,568 @@ def precision_phases(report, *, dev, graphs, batches, b0, tb, prog,
     return out
 
 
+# ---------------------------------------------------------------------------
+# this slice: the bf16 and int8 modes of rows 3, 4, 8, 12 and 13, so that
+# every conv but GAT runs its kernels under Program's policies, and row
+# 6's generic entry
+
+# kernel: (TPU source, line of the TPU function, the modes it has)
+SLICE_KERNELS = {
+    "mp_block_stack": ("mp_block", 157, PREC_MODES),
+    "mp_layer": ("mp_layer", 341, PREC_MODES),
+    "ell_agg": ("ell_agg", 205, ("bf16",)),
+    "gine_layer": ("gine_layer", 253, PREC_MODES),
+    "edge_block": ("edge_block", 151, ("bf16",)),
+}
+# model: (conv, conv_kwargs, node width, the packings the JAX gates send
+# to one of the slice's kernels)
+SLICE_MODELS = {
+    "gcn": ("gcn", {}, None, ("block", "standard")),
+    "gin": ("gin", {}, None, ("standard",)),
+    "sage": ("sage", {}, None, ("block", "standard")),
+    "lg": ("lg", {}, 128, ("block", "standard")),
+    "simple": ("simple", {}, 128, ("block", "standard")),
+    "gine": ("gine", {}, None, ("block", "standard")),
+    "edge": ("edge", {}, None, ("block",)),
+    "simple_max": ("simple", {"aggregation": "max"}, 128, ("standard",)),
+    "pna5": ("pna", {"aggregators": PNA_ALL5}, None, ("block", "standard")),
+}
+
+
+# the slice's forwards on the card against the same Program on the CPU:
+# the card's and the CPU's matrix products round their sums in other
+# orders, and an ulp before one of a mode's roundings moves a bf16 value
+# by 2^-8 (or an int8 level); through six layers the moved values
+# compound, and PNA's std amplifies them on near-constant rows (measured,
+# five-aggregator PNA block-packed under bf16: 1e-7 of max after layer 0,
+# 1.3e-3 after layer 5, 2.1e-3 to 6.5e-3 at the head)
+SLICE_CPU_TOL = {"bf16": 1e-2, "int8": 5e-2}
+
+
+def slice_expected(name, packing, prec, L):
+    """{kernel: {mode: launches}} of one forward of ``name`` under
+    ``prec``: the JAX gates' choices (a kernel with a bf16 mode only keeps
+    float32 under int8; EdgeConv's gate declines under int8)."""
+    keep = "bf16" if prec == "bf16" else "f32"
+    if name in ("gcn", "sage") and packing == "block":
+        return {"mp_block_stack": {prec: 1}}
+    if name in ("gcn", "lg", "simple"):
+        return {"mp_layer": {keep: L}}
+    if name in ("gin", "sage"):
+        return {"mp_layer": {prec: L}}
+    if name == "gine":
+        return {"gine_layer": {prec: L}}
+    if name == "edge":
+        return {"edge_block": {"bf16": L}} if prec == "bf16" else {}
+    return {"ell_agg": {keep: L}}
+
+
+def mp_args(model, g, block):
+    """Row 4's ((v, nbr_nodes, in_degree, conv), kw) per layer as the
+    model's convs launch it, the hidden state advanced through the plain
+    path."""
+    t = lambda w: w.t().contiguous()
+    deg = g.in_degree.to(torch.float32)[:, None]
+    out = []
+    for c, h, sk in plain_layer_inputs(model, g):
+        kw = dict(skip=sk, act=model.gnn_activation,
+                  block_adj=g.block_adj if block else None)
+        name = type(c).__name__
+        if name == "GCNConv":
+            v = c.lin(h) * torch.rsqrt(deg + 1.0)
+            conv, kw["b0"] = "gcn", c.bias
+        elif name == "GINConv":
+            v, conv = h, "gin"
+            kw.update(w0=t(c.lin0.weight), b0=c.lin0.bias,
+                      w1=t(c.lin1.weight), b1=c.lin1.bias, eps=c.eps)
+        elif name == "SAGEConv":
+            v, conv = h, "sage"
+            kw.update(w0=t(c.lin_l.weight), b0=c.lin_l.bias,
+                      w1=t(c.lin_r.weight))
+        elif name == "LGConv":
+            dis = torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1.0)),
+                              torch.zeros_like(deg))
+            v, conv = h * dis, "lg"
+        else:
+            v, conv = h, "simple_sum"
+        out.append(((v.contiguous(), g.nbr_nodes, g.in_degree, conv), kw))
+    return out
+
+
+def in_mode(layers, key, mode):
+    """The (args, kw) of ``layers`` with their float32 weights brought to
+    ``mode`` as the call sites bring them."""
+    from gnnbuilder_tpu_torch.ops.cuda.mp_layer import prepare_layer
+
+    out = []
+    for args, kw in layers:
+        kw = dict(kw, mode=mode)
+        if key in ("mp_layer", "gine_layer") and "w0" in kw:
+            w0, w1, s0, s1 = prepare_layer(kw["w0"], kw["w1"], mode)
+            kw.update(w0=w0, w1=w1, s0=s0, s1=s1)
+        if key == "edge_block":
+            kw.update(w_pair=kw["w_pair"].to(torch.bfloat16),
+                      w1=kw["w1"].to(torch.bfloat16))
+        out.append((args, kw))
+    return out
+
+
+def mode_work(key, layers, g, mode):
+    """([(operations, peak)], bytes) of the launches ``layers`` of
+    ``key`` in ``mode``: the products at the mode's tensor-core peak (in
+    int8 only the quantized ones), everything else (aggregation,
+    elementwise work, ~4 operations per quantized value and 2 per
+    dequantized output) at the float32 peak; weights at the mode's width,
+    every other input and output once in float32."""
+    pk, wb = MODE_PEAK[mode], WEIGHT_BYTES[mode]
+    n, e = g.num_nodes, int(g.in_degree.sum())
+    prod = rest = nbytes = 0
+    for args, kw in layers:
+        if key == "mp_layer":
+            conv, F = args[3], args[0].shape[1]
+            H = kw["w0"].shape[1] if conv == "gin" else 0
+            Fout = (kw["w1"].shape[1] if conv == "gin" else
+                    kw["w0"].shape[1] if conv == "sage" else F)
+            words = n * (128 if kw.get("block_adj") is not None
+                         else g.ell_width)
+            fl, by = mp_layer_work(conv, n, e, words, F, H, Fout,
+                                   kw["skip"] is not None, True, False)
+            p = (2 * n * (F * H + H * Fout) if conv == "gin" else
+                 4 * n * F * Fout if conv == "sage" else 0)
+            w = F * H + H * Fout if conv == "gin" else (
+                2 * F * Fout if conv == "sage" else 0)
+            q = (n * (F + H) * 4 + n * (H + Fout) * 2 if conv == "gin" else
+                 2 * n * F * 4 + 2 * n * Fout * 2) if mode == "int8" else 0
+        elif key == "gine_layer":
+            fl, by = gine_work([(args, kw)], g)
+            F, H = args[0].shape[1], kw["w0"].shape[1]
+            Fout = kw["w1"].shape[1]
+            p, w = 2 * n * (F * H + H * Fout), F * H + H * Fout
+            q = (n * (F + H) * 4 + n * (H + Fout) * 2
+                 if mode == "int8" else 0)
+        elif key == "edge_block":
+            fl, by = edge_work([(args, kw)], g)
+            fin, F = args[0].shape[1], kw["w_pair"].shape[1]
+            Fout = kw["w1"].shape[1]
+            p = 4 * n * fin * F + 2 * e * F * Fout
+            w, q = 2 * fin * F + F * Fout, 0
+        else:
+            fl, by = agg_work([(args, kw)], g)
+            p = w = q = 0
+        prod += p
+        rest += fl - p + q
+        nbytes += by - (4 - wb) * w
+    return [(prod, pk), (rest, PEAK_F32_FLOPS)], nbytes
+
+
+def slice_phases(report, *, dev, graphs, b0, tb, counted, zero_counts, smi):
+    """The bf16 and int8 modes of rows 3, 4, 8, 12 and 13: each against
+    its plain version in every layer of its path at b1024;
+    ``Program(precision=...).forward`` of GCN, GIN, SAGE, LG, Simple,
+    GINE, EdgeConv, Simple max and five-aggregator PNA under both
+    policies on the packings the gates send to the kernels, each with its
+    per-mode launch counts, its error against f32 and a small batch
+    against the CPU in the same policy; row 6's generic entry against its
+    plain version; the times.  Fills ``report``; returns the summary for
+    the last JSON line."""
+    from gnnbuilder_tpu_torch import Program
+    from gnnbuilder_tpu_torch.bench.canonical import (
+        canonical_batches,
+        canonical_model,
+    )
+    from gnnbuilder_tpu_torch.ops.cuda import (
+        edge_block,
+        ell_agg,
+        ell_bwd,
+        gine_layer,
+        mp_block,
+        mp_layer,
+        scatter_bwd,
+    )
+
+    fns = {"mp_block_stack": (mp_block.fused_mp_block_stack,
+                              mp_block.mp_stack_plain),
+           "mp_layer": (mp_layer.fused_mp_layer, mp_layer.mp_layer_plain),
+           "ell_agg": (ell_agg.fused_ell_aggregate,
+                       ell_agg.ell_aggregate_plain),
+           "gine_layer": (gine_layer.fused_gine_layer,
+                          gine_layer.gine_layer_plain),
+           "edge_block": (edge_block.fused_edge_block_layer,
+                          edge_block.edge_block_layer_plain)}
+    out = {}
+    torch.set_grad_enabled(False)
+    with phase("slice models: GCN, GIN, SAGE, LG, Simple, GINE, EdgeConv, "
+               "Simple max and five-aggregator PNA, block- and "
+               "standard-packed b1024"):
+        _, (b128,) = canonical_batches(
+            "qm9", n_graphs=BATCH_GRAPHS, batch_size=BATCH_GRAPHS,
+            block_size=128, node_multiple=1024, node_dim=128, device=dev)
+        _, (tb128,) = canonical_batches(
+            "qm9", n_graphs=TRAIN_GRAPHS, batch_size=BATCH_GRAPHS,
+            node_multiple=256, node_dim=128, device=dev)
+        _, (small,) = canonical_batches(
+            "qm9", n_graphs=64, batch_size=64, block_size=128,
+            node_multiple=128, device="cpu")
+        _, (small128,) = canonical_batches(
+            "qm9", n_graphs=64, batch_size=64, block_size=128,
+            node_multiple=128, node_dim=128, device="cpu")
+        bats = {("block", None): b0, ("standard", None): tb,
+                ("block", 128): b128, ("standard", 128): tb128}
+        smalls = {None: small, 128: small128}
+        models = {}
+        for i, (name, (conv, kw, nd, packs)) in enumerate(
+                SLICE_MODELS.items()):
+            m = canonical_model(conv, "qm9", graphs=graphs,
+                                conv_kwargs=dict(kw))
+            p = Program(m, max_nodes=b0.num_nodes, max_edges=b0.num_edges,
+                        max_graphs=b0.num_graphs, block_size=128,
+                        device=dev, seed=70 + i)
+            p.init_params()
+            models[name] = (m, p.params)
+        log(f"{len(models)} models; batches N = block {b0.num_nodes} / "
+            f"{b128.num_nodes} (128 wide), standard {tb.num_nodes} / "
+            f"{tb128.num_nodes}")
+
+    def layer_sets(name, packing):
+        """{kernel: [(args, kw)] per layer} of ``name`` on ``packing``."""
+        conv, _, nd, _ = SLICE_MODELS[name]
+        m = models[name][0]
+        g = bats[packing, nd]
+        block = packing == "block"
+        if conv == "gine":
+            return g, {"gine_layer": gine_args(m, g)}
+        if conv == "edge":
+            return g, {"edge_block": edge_args(m, g)}
+        if name in ("simple_max", "pna5"):
+            return g, {"ell_agg": agg_args(m, g, block=block)}
+        return g, {"mp_layer": mp_args(m, g, block)}
+
+    layer_cache = {}
+    with phase("slice: rows 4, 8, 12 and 13 in their modes against their "
+               "plain versions in each of the 6 layers of every model and "
+               "packing; row 3 in both modes per layer"):
+        errs = {}
+        for name, (conv, _, _, packs) in SLICE_MODELS.items():
+            for packing in packs:
+                if name in ("gcn", "sage") and packing == "block":
+                    continue          # the stack, below
+                g, sets = layer_sets(name, packing)
+                for key, layers in sets.items():
+                    layer_cache[name, packing, key, "f32"] = (g, layers)
+                    for mode in SLICE_KERNELS[key][2]:
+                        if key == "mp_layer" and mode == "int8" and (
+                                layers[0][0][3] not in mp_layer.QUANT_CONVS):
+                            continue
+                        ls = in_mode(layers, key, mode)
+                        layer_cache[name, packing, key, mode] = (g, ls)
+                        fn, plain = fns[key]
+                        # no rounding follows a sum inside row 8 or the
+                        # elementwise convs of row 4: they agree with their
+                        # plain versions to float32 rounding
+                        exact = key == "ell_agg" or (
+                            key == "mp_layer" and layers[0][0][3]
+                            not in mp_layer.QUANT_CONVS)
+                        tol = KERNEL_TOL if exact else MODE_TOL[mode]
+                        worst = 0.0
+                        for i, (args, kw) in enumerate(ls):
+                            got = fn(*args, **kw)
+                            torch.cuda.synchronize()
+                            want = plain(*args, **kw)
+                            m_ = g.node_mask
+                            e_ = rel_err(got[m_], want[m_])
+                            worst = max(worst, float(
+                                (got[m_] - want[m_]).abs().max()))
+                            if (not bool(torch.isfinite(got[m_]).all())
+                                    or e_ > tol):
+                                raise AssertionError(
+                                    f"{key} {mode} ({name}, {packing}) "
+                                    f"layer {i}: {e_:.3e} of max |value|")
+                        errs.setdefault(f"{key}_{mode}", {})[
+                            f"{name} {packing}"] = worst
+                        log(f"{key} {mode} ({name}, {packing}, N="
+                            f"{g.num_nodes}): 6 layers within {tol} of max "
+                            f"|value|, max abs {worst:.2e}")
+        for conv in ("gcn", "gin", "sage"):
+            m = canonical_model(conv, "qm9", graphs=graphs).to(dev)
+            p_ = models.get(conv)
+            if p_ is not None:
+                m.load_state_dict(p_[1])
+            stacked, _ = m._kernel_params(128)
+            L = m.gnn_num_layers
+            for mode in PREC_MODES:
+                h = torch.nn.functional.pad(
+                    b0.node_feat, (0, 128 - b0.feature_dim)).contiguous()
+                worst = 0.0
+                for l, c in enumerate(m.gnn_convs):
+                    st, sc = mp_block.prepare_mp_stack(
+                        [t[l:l + 1] for t in stacked], mode)
+                    args = (h, b0.block_adj, b0.in_degree, *st)
+                    ekw = dict(epss=[getattr(c, "eps", 0.0)],
+                               skips=[0 < l < L - 1], act=m.gnn_activation)
+                    got = mp_block.fused_mp_block_stack(
+                        *args, conv=conv, mode=mode, scales=sc, **ekw)
+                    torch.cuda.synchronize()
+                    want = mp_block.mp_stack_plain(
+                        *args, conv, ekw["epss"], ekw["skips"], ekw["act"],
+                        mode, sc)
+                    e_ = rel_err(got, want)
+                    worst = max(worst, float((got - want).abs().max()))
+                    if not bool(torch.isfinite(got).all()) or \
+                            e_ > MODE_TOL[mode]:
+                        raise AssertionError(f"mp_block_stack {mode} {conv} "
+                                             f"layer {l}: {e_:.3e}")
+                    h = want.contiguous()
+                errs.setdefault(f"mp_block_stack_{mode}", {})[conv] = worst
+                log(f"mp_block_stack {mode} ({conv}, N={b0.num_nodes}): 6 "
+                    f"layers within {MODE_TOL[mode]}, max abs {worst:.2e}")
+        for k, v in errs.items():
+            report[k] = dict(max_abs_err=max(v.values()), by_config=dict(
+                max_abs_err=v), launches=0)
+
+    with phase("slice: row 6's generic entry (reverse CSR, then row 7's "
+               "CSR gather) against its plain version on the train batch"):
+        gen = torch.Generator(device=dev).manual_seed(61)
+        n_, F_ = tb.num_nodes, 128
+        v_ = torch.randn(n_, F_, generator=gen, device=dev)
+        nb_ = tb.nbr_nodes.long()
+        cstk = torch.cat([torch.randn(n_, 3 * F_, generator=gen, device=dev),
+                          v_[nb_[:, 0]], torch.randn(n_, F_, generator=gen,
+                                                     device=dev)], dim=1)
+        terms = dict(has_lin=True, has_dev=True, n_cmp=1)
+        before = ell_bwd.fused_gather_backward_csr.launches
+        got = scatter_bwd.fused_scatter_backward(
+            cstk, tb.nbr_nodes, tb.in_degree, v_, **terms)
+        torch.cuda.synchronize()
+        launched = ell_bwd.fused_gather_backward_csr.launches - before
+        want = scatter_bwd.scatter_backward_plain(
+            cstk.double(), tb.nbr_nodes, tb.in_degree, v_.double(), **terms)
+        ok, a_err, r_err = close_enough(got, want.float(), BWD_TOL)
+        again = scatter_bwd.fused_scatter_backward(
+            cstk, tb.nbr_nodes, tb.in_degree, v_, **terms)
+        log(f"fused_scatter_backward (lin, dev, 1 cmp; N={n_}, F={F_}): "
+            f"{r_err:.3e} of max |value| against float64 plain (tol "
+            f"{BWD_TOL}); {launched} CSR gather launch; bitwise on a second "
+            f"run: {bool(torch.equal(got, again))}")
+        if not ok or launched != 1 or not torch.equal(got, again):
+            raise AssertionError("row 6's generic entry disagrees")
+        out["scatter_generic"] = dict(max_abs_err=a_err, rel_err=r_err)
+
+    progs, fwd_err, launches = {}, {}, {}
+    with phase("slice main path: Program.forward under bf16 and int8 of "
+               "every model on its kernel packings, launch counts per mode"):
+        for name, (conv, kw, nd, packs) in SLICE_MODELS.items():
+            m0, params = models[name]
+            L = m0.gnn_num_layers
+            for packing in packs:
+                g = bats[packing, nd]
+                size = dict(max_nodes=g.num_nodes, max_edges=g.num_edges,
+                            max_graphs=g.num_graphs,
+                            block_size=128 if packing == "block" else 0)
+
+                def program(prec, device=dev, **sz):
+                    p_ = Program(canonical_model(conv, "qm9", graphs=graphs,
+                                                 conv_kwargs=dict(kw)),
+                                 precision=prec, device=device,
+                                 **(sz or size))
+                    p_.set_params({k: v.to(device) for k, v in
+                                   params.items()})
+                    return p_
+
+                ps = {p: program(p) for p in ("f32",) + PREC_MODES}
+                progs[name, packing] = ps
+                ref = ps["f32"].forward(g)
+                for prec in PREC_MODES:
+                    zero_counts()
+                    o = ps[prec].forward(g)
+                    torch.cuda.synchronize()
+                    want = slice_expected(name, packing, prec, L)
+                    got = {k: {md: n for md, n in
+                               counted[k].mode_launches.items() if n}
+                           for k in SLICE_KERNELS}
+                    got = {k: v for k, v in got.items() if v}
+                    head = {md: n for md, n in counted[
+                        "readout"].mode_launches.items() if n}
+                    total = sum(fn.launches for fn in counted.values())
+                    n_want = sum(sum(v.values()) for v in want.values())
+                    log(f"{name} {packing} {prec}: launches {got}, readout "
+                        f"{head}; all counts {total}")
+                    if (got != want or head != {prec: 1}
+                            or total != n_want + 1):
+                        raise AssertionError(
+                            f"{name} {packing} {prec}: launches {got} "
+                            f"(readout {head}, total {total}); want {want}")
+                    for k, v in got.items():
+                        for md, n in v.items():
+                            launches[k, md] = launches.get((k, md), 0) + n
+                    m_ = g.graph_mask
+                    if (tuple(o.shape) != (g.num_graphs, 1)
+                            or not bool(torch.isfinite(o[m_]).all())):
+                        raise AssertionError(f"{name} {prec}: bad output")
+                    e32 = rel_err(o[m_], ref[m_])
+                    sm = smalls[nd]
+                    ssize = dict(max_nodes=sm.num_nodes,
+                                 max_edges=sm.num_edges,
+                                 max_graphs=sm.num_graphs,
+                                 block_size=size["block_size"] and 128)
+                    sb = sm if packing == "block" else sm.replace(
+                        block_adj=None)
+                    oc = program(prec, **ssize).forward(sb.to(dev)).cpu()
+                    rc = program(prec, device="cpu", **ssize).forward(sb)
+                    ms_ = sb.graph_mask
+                    ecpu = rel_err(oc[ms_], rc[ms_])
+                    fwd_err[f"{name} {packing} {prec}"] = dict(
+                        vs_f32=e32, card_vs_cpu=ecpu)
+                    log(f"{name} {packing} {prec}: against f32 {e32:.3e} "
+                        f"of max |value| (graph_mask rows); 64 graphs, card "
+                        f"vs CPU {ecpu:.3e} (tol {SLICE_CPU_TOL[prec]})")
+                    if ecpu > SLICE_CPU_TOL[prec]:
+                        raise AssertionError(f"{name} {packing} {prec}: "
+                                             f"card disagrees with the CPU")
+        for key, (_, _, modes) in SLICE_KERNELS.items():
+            for mode in modes:
+                n = launches.get((key, mode), 0)
+                report[f"{key}_{mode}"]["launches"] = n
+                if n == 0:
+                    raise AssertionError(f"{key} never ran its {mode} mode "
+                                         f"on the main path")
+        out["error"] = fwd_err
+
+    with phase("slice times (torch.profiler device times; CUDA events)"):
+        def run(fn, ls):
+            def go():
+                for args, kw in ls:
+                    fn(*args, **kw)
+            return go
+
+        def entry(key, mode, g, ls, per, lib=None, f32=None):
+            """The launches ``ls`` in ``mode`` timed beside their plain
+            version, the same launches in float32 (``f32``) and ``lib``."""
+            fn, plain = fns[key]
+            terms, nbytes = mode_work(key, ls, g, mode)
+            b_ms, b_by = bound_mixed(terms, nbytes)
+            ms, ev = timed(run(fn, ls), 10)
+            if not ms:      # the profiler caught no device time: events
+                ms = ev
+            pms, pev = timed(run(plain, ls), 3)
+            fms = timed(run(fn, f32), 10)[0] if f32 is not None else None
+            lms, lev = timed(lib, 10) if lib is not None else (None, None)
+            log(f"{key} {mode} per {per}: device {ms:.4f} ms (events "
+                f"{ev:.4f}), plain {pms:.4f} ({pev:.4f})"
+                + ("" if fms is None else f", f32 kernel {fms:.4f}")
+                + ("" if lms is None else f", library {lms:.4f} ({lev:.4f})")
+                + f"; bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.2%} of it)"
+                f" on {smi}")
+            return dict(ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev,
+                        f32_kernel_ms=fms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lms, library_event_ms=lev,
+                        flops=sum(t for t, _ in terms), bytes=nbytes,
+                        per=per)
+
+        heads = {("mp_layer", "bf16"): ("gin", "standard"),
+                 ("mp_layer", "int8"): ("gin", "standard"),
+                 ("gine_layer", "bf16"): ("gine", "standard"),
+                 ("gine_layer", "int8"): ("gine", "standard"),
+                 ("edge_block", "bf16"): ("edge", "block"),
+                 ("ell_agg", "bf16"): ("simple_max", "standard")}
+        for (key, mode), (name, packing) in heads.items():
+            g, ls = layer_cache[name, packing, key, mode]
+            by = {}
+            for (n2, p2, k2, m2), (g2, ls2) in layer_cache.items():
+                if (k2, m2) == (key, mode):
+                    by[f"{n2} {p2}"] = entry(
+                        key, mode, g2, ls2, f"one {p2}-packed "
+                        f"b{BATCH_GRAPHS} {n2} forward (6 launches)",
+                        f32=layer_cache[n2, p2, k2, "f32"][1])
+            head = by[f"{name} {packing}"]
+            if key == "ell_agg":
+                # one max launch of a 128-wide layer input, whose function
+                # one library call computes (f32 row 8's yardstick)
+                h1 = ls[1][0][0]
+                m_ = g.edge_mask
+                src = h1[g.senders[m_].long()]
+                idx = g.receivers[m_].long()[:, None].expand_as(src)
+                z = torch.zeros_like(h1)
+                one = [((h1, g.nbr_nodes, g.in_degree, ("max",)),
+                        dict(mode="bf16"))]
+                head = entry(key, mode, g, one, "one launch: max of a "
+                             "128-wide layer input over the train batch",
+                             lambda: z.scatter_reduce(0, idx, src, "amax",
+                                                      include_self=False),
+                             f32=[(one[0][0], {})])
+            report[f"{key}_{mode}"].update(head, by_config=dict(
+                report[f"{key}_{mode}"]["by_config"], times=by))
+        for mode in PREC_MODES:
+            by = {}
+            for conv in ("gcn", "gin", "sage"):
+                m = canonical_model(conv, "qm9", graphs=graphs).to(dev)
+                if conv in models:
+                    m.load_state_dict(models[conv][1])
+                st, sc = mp_block.prepare_mp_stack(m._kernel_params(128)[0],
+                                                   mode)
+                L = m.gnn_num_layers
+                x = torch.nn.functional.pad(
+                    b0.node_feat, (0, 128 - b0.feature_dim)).contiguous()
+                skw = dict(conv=conv, epss=[getattr(c, "eps", 0.0)
+                                            for c in m.gnn_convs],
+                           skips=[0 < i < L - 1 for i in range(L)],
+                           act=m.gnn_activation, mode=mode, scales=sc)
+                n, e = b0.num_nodes, int(b0.in_degree.sum())
+                widths = mp_widths(m)
+                fl = mp_flops(conv, n, e, widths)
+                prod = sum(2 * n * i * o * (1 if conv == "gcn" else 2)
+                           if conv != "gin" else 2 * n * (i * o + o * o)
+                           for i, o in widths)
+                quant = (sum(n * (i + o) * 4 + n * 2 * o * 2
+                             for i, o in widths) if mode == "int8" else 0)
+                nw = mp_weights(conv, widths)
+                nbias = sum(o * (2 if conv == "gin" else 1)
+                            for _, o in widths)
+                nbytes = (4 * (n * widths[0][0] + n * widths[-1][1]
+                               + n * 128 + n + nbias)
+                          + WEIGHT_BYTES[mode] * (nw - nbias))
+                b_ms, b_by = bound_mixed(
+                    [(prod, MODE_PEAK[mode]),
+                     (fl - prod + quant, PEAK_F32_FLOPS)], nbytes)
+                ms, ev = timed(lambda: mp_block.fused_mp_block_stack(
+                    x, b0.block_adj, b0.in_degree, *st, **skw), 10)
+                ms = ms or ev   # events where the profiler caught nothing
+                pms, pev = timed(lambda: mp_block.mp_stack_plain(
+                    x, b0.block_adj, b0.in_degree, *st, conv, skw["epss"],
+                    skw["skips"], skw["act"], mode, sc), 3)
+                f32kw = dict(skw, mode="f32", scales=None)
+                fms = timed(lambda: mp_block.fused_mp_block_stack(
+                    x, b0.block_adj, b0.in_degree, *m._kernel_params(128)[0],
+                    **f32kw), 10)[0]
+                by[conv] = dict(ms=ms, event_ms=ev, plain_ms=pms,
+                                plain_event_ms=pev, f32_kernel_ms=fms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                flops=fl + quant, bytes=nbytes)
+                log(f"mp_block_stack {mode} {conv} (one launch, 6 layers, "
+                    f"N={n}): device {ms:.4f} ms (events {ev:.4f}), plain "
+                    f"{pms:.4f} ({pev:.4f}), f32 kernel {fms:.4f}; bound "
+                    f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.2%} of it) on "
+                    f"{smi}")
+            report[f"mp_block_stack_{mode}"].update(
+                by["gcn"], library_ms=None, conv="gcn",
+                per=f"one block-packed b{BATCH_GRAPHS} GCN stack (6 "
+                    f"layers)", by_config=dict(
+                        report[f"mp_block_stack_{mode}"]["by_config"],
+                        times=by))
+        fwd = {}
+        for (name, packing), ps in progs.items():
+            g = bats[packing, SLICE_MODELS[name][2]]
+            row = {}
+            for prec, p_ in ps.items():
+                bt = p_.benchmark(g, iters=10, warmup=2)
+                row[prec] = bt["latency_s"] * 1e3
+            fwd[f"{name} {packing}"] = row
+            log(f"Program.forward {name} {packing} b{BATCH_GRAPHS}: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items())
+                + f" on {smi}")
+        out["forward_ms"] = fwd
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -2779,6 +3350,9 @@ def main():
     precision = precision_phases(
         report, dev=dev, graphs=graphs, batches=batches, b0=b0, tb=tb,
         prog=prog, counted=counted, zero_counts=zero_counts, smi=smi)
+    slice_modes = slice_phases(
+        report, dev=dev, graphs=graphs, b0=b0, tb=tb, counted=counted,
+        zero_counts=zero_counts, smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -3060,6 +3634,13 @@ def main():
         for k, src, line in (("pna_block_stack", "pna_block", 392),
                              ("readout", "readout", 186),
                              ("pna_layer", "pna_layer", 458))
+    ] + [
+        dict(name=f"{k}_{mode}", route="cuda",
+             source=f"gnnbuilder_tpu_torch/csrc/{src}.cu",
+             replaces=f"gnnbuilder_tpu/ops/pallas/{src}.py:{line}",
+             **report[f"{k}_{mode}"])
+        for k, (src, line, modes) in SLICE_KERNELS.items()
+        for mode in modes
     ]
     print(json.dumps({
         "kernels": kernels,
@@ -3084,6 +3665,7 @@ def main():
         "gat": dict(batch_graphs=BATCH_GRAPHS, heads=GAT_HEADS, **gat),
         "gine_edge_agg": dict(batch_graphs=BATCH_GRAPHS, **edge_agg),
         "precision": dict(batch_graphs=BATCH_GRAPHS, **precision),
+        "slice_modes": dict(batch_graphs=BATCH_GRAPHS, **slice_modes),
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,24 @@ from gnnbuilder_tpu_torch.core.graph import (
 )
 from gnnbuilder_tpu_torch.nn.model import GNNModel
 
-__all__ = ["Program", "BucketSpec", "resolve_device"]
+__all__ = ["Program", "BucketSpec", "resolve_device",
+           "enable_persistent_cache"]
+
+
+def enable_persistent_cache(path: Optional[str] = None) -> str:
+    """Keep compiled kernels across processes (serving cold start).  The
+    JAX package's persistent cache of compiled executables maps onto the
+    hashed nvcc build directory (``ops/cuda/_build.py``): a process loads
+    the library an earlier one built for the same sources, headers, flags
+    and compiler, and builds only when there is none.  That directory
+    persists already, under ``build/gnnbuilder_tpu_torch`` of the
+    checkout; ``path`` moves it (a library this process has loaded stays
+    loaded).  Returns the directory."""
+    from gnnbuilder_tpu_torch.ops.cuda import _build
+
+    if path is not None:
+        _build.set_build_root(path)
+    return str(_build.build_root())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,6 +12,8 @@
 
 #include <cuda_runtime.h>
 
+#include "quant.cuh"
+
 namespace gnnb {
 
 constexpr int LIST_COLS = 128;   // columns of an adjacency row
@@ -58,13 +60,17 @@ __device__ __forceinline__ void compact_rows(const float* A, int nrows,
 }
 
 // sum_j A[r, j] S[j, c] over one row's list ent[e0 .. e1), S row-major with
-// leading dimension ld and rows local to the block, in column order.
+// leading dimension ld and rows local to the block, in column order; with
+// BF16, each S value rounded to bf16 first (the bf16 mode's gather).
+template <bool BF16 = false>
 __device__ __forceinline__ float agg_row(const int* ent, int e0, int e1,
                                          const float* S, int ld, int c) {
   float s = 0.f;
   for (int e = e0; e < e1; ++e) {
     const int p = ent[e];
-    s = fmaf((float)(p >> 8), S[(size_t)(p & 0xFF) * ld + c], s);
+    float x = S[(size_t)(p & 0xFF) * ld + c];
+    if (BF16) x = gnnb_quant::bf16r(x);
+    s = fmaf((float)(p >> 8), x, s);
   }
   return s;
 }

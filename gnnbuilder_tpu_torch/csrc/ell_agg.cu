@@ -18,6 +18,13 @@
 // fused multiply-add), as the plain version forms them, so the
 // cancellation in std's E[t^2] - E[t]^2 is the plain version's.
 //
+// The bf16 mode (a template argument; the JAX kernel's gather_mode
+// "bf16", inference only) rounds each gathered v to bf16, reduces the
+// rounded g = v_j alone in float32, and applies u after the reduction, as
+// the TPU kernel does (it commutes with sum, mean, max and min; std is
+// shift-free): sum + deg u, u + mean, u + max, u + min (0 on an empty
+// row), std of g.
+//
 // What bounds it on the H100: bytes.  It reads v once per slot (L2
 // resident), u, the table and the degrees once, and writes A*F floats per
 // row: a few operations per byte moved, far below the f32 ridge.
@@ -31,6 +38,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "quant.cuh"
 
 namespace {
 
@@ -52,6 +61,7 @@ struct AggArgs {
 
 // Index arithmetic is 32-bit: the launcher takes N * A * F < 2^31, and the
 // element counter is unsigned, so its last stride cannot overflow.
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS) ell_agg_kernel(AggArgs a) {
   const unsigned total = (unsigned)a.n_rows * a.F;
   const int ld = a.A * a.F;
@@ -61,11 +71,15 @@ __global__ void __launch_bounds__(THREADS) ell_agg_kernel(AggArgs a) {
     const int c = (int)(e - (unsigned)r * a.F);
     const int d = a.deg[r];
     const int* nb = a.nbr + r * a.W;
-    const float ur = a.u != nullptr ? a.u[e] : 0.f;
+    const bool has_u = a.u != nullptr;
+    const float ur = has_u ? a.u[e] : 0.f;
     float s = 0.f, q = 0.f, mx = -INFINITY, mn = INFINITY;
     for (int w = 0; w < d; ++w) {
       float t = a.v[nb[w] * a.F + c];
-      if (a.u != nullptr) t = __fadd_rn(ur, t);
+      if (BF16)
+        t = gnnb_quant::bf16r(t);   // u comes after the reduction
+      else if (has_u)
+        t = __fadd_rn(ur, t);
       s = __fadd_rn(s, t);
       q = __fadd_rn(q, __fmul_rn(t, t));
       mx = fmaxf(mx, t);
@@ -73,14 +87,23 @@ __global__ void __launch_bounds__(THREADS) ell_agg_kernel(AggArgs a) {
     }
     const float denom = fmaxf((float)d, 1.f);
     const float mean = s / denom;
+    const bool shift = BF16 && has_u;   // u after the reduction
     float* o = a.out + r * ld + c;
     for (int k = 0; k < a.A; ++k) {
       float val;
       switch ((a.codes >> (3 * k)) & 7) {
-        case SUM: val = s; break;
-        case MEAN: val = mean; break;
-        case MAX: val = d > 0 ? mx : 0.f; break;
-        case MIN: val = d > 0 ? mn : 0.f; break;
+        case SUM:
+          val = shift ? __fadd_rn(s, __fmul_rn((float)d, ur)) : s;
+          break;
+        case MEAN:
+          val = shift ? (d > 0 ? __fadd_rn(ur, mean) : 0.f) : mean;
+          break;
+        case MAX:
+          val = d > 0 ? (shift ? __fadd_rn(ur, mx) : mx) : 0.f;
+          break;
+        case MIN:
+          val = d > 0 ? (shift ? __fadd_rn(ur, mn) : mn) : 0.f;
+          break;
         default: {
           const float var =
               fmaxf(__fsub_rn(q / denom, __fmul_rn(mean, mean)), 0.f);
@@ -98,17 +121,18 @@ extern "C" {
 
 // Launches the multi-aggregate on `stream` of `device`.  aggs holds A
 // codes (0 sum, 1 mean, 2 max, 3 min, 4 std), in output order; u may be
-// null.  All arrays contiguous f32 / i32 as documented in
-// ops/cuda/ell_agg.py.  Returns the cudaError_t of the launch (0 =
-// success).
+// null; mode 0 f32, 1 bf16.  All arrays contiguous f32 / i32 as
+// documented in ops/cuda/ell_agg.py.  Returns the cudaError_t of the
+// launch (0 = success).
 int gnnb_ell_agg(const void* v, const void* u, const void* nbr,
                  const void* deg, int n_rows, int W, int F, const int* aggs,
-                 int A, void* out, void* stream, int device) {
+                 int A, int mode, void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_rows < 0 || W < 1 || F < 1 || A < 1 || A > MAX_AGGS ||
       (long long)n_rows * A * F >= (1ll << 31) || v == nullptr ||
-      nbr == nullptr || deg == nullptr || out == nullptr)
+      nbr == nullptr || deg == nullptr || out == nullptr ||
+      (mode != gnnb_quant::F32 && mode != gnnb_quant::BF16))
     return (int)cudaErrorInvalidValue;
   AggArgs a;
   a.codes = 0;
@@ -128,7 +152,10 @@ int gnnb_ell_agg(const void* v, const void* u, const void* nbr,
   a.A = A;
   const int want = (n_rows * F + THREADS - 1) / THREADS;
   const int blocks = want < (1 << 20) ? want : (1 << 20);
-  ell_agg_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+  if (mode == gnnb_quant::BF16)
+    ell_agg_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+  else
+    ell_agg_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

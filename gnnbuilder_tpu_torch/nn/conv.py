@@ -25,6 +25,10 @@ no self loops, 0 on an empty row.  Simple: the sum, mean, max or min of
 the neighbour rows.  LG and Simple have no parameters and need
 in_channels == out_channels.
 
+Under a precision policy each kernel route above runs in the mode its
+gate gives (``cfg["mode"]``, ``ops/dispatch.py``), with the conv's
+float32 weights brought to that mode per call.
+
 Simple's max and min and PNA's aggregation outside its layer kernel take
 the multi-aggregate kernel (``ops.cuda.ell_agg``, differentiable through
 its hand-written backward) through ``_fused_multi`` where
@@ -112,7 +116,8 @@ def _mp_layer(g: GraphBatch, conv: str, v, act, skip, **operands):
     return fused_mp_layer_auto(
         v, g.nbr_nodes, g.in_degree, conv, skip=skip, act=act,
         rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree,
-        block_adj=g.block_adj if cfg.get("block") else None, **operands)
+        block_adj=g.block_adj if cfg.get("block") else None,
+        mode=cfg.get("mode", "f32"), **operands)
 
 
 def _fused_multi(g: GraphBatch, aggregators, v, u=None):
@@ -120,13 +125,15 @@ def _fused_multi(g: GraphBatch, aggregators, v, u=None):
     ``(u_i +) v_j`` (differentiable) when ``dispatch.agg_cfg`` allows and
     the batch takes no block product, else None (the caller's plain
     path), as the JAX package's ``_fused_multi``."""
-    if dispatch.block_cfg(g) is not None or dispatch.agg_cfg(g) is None:
+    cfg = dispatch.agg_cfg(g)
+    if dispatch.block_cfg(g) is not None or cfg is None:
         return None
     from gnnbuilder_tpu_torch.ops.cuda.ell_agg import fused_ell_aggregate_vjp
 
     return fused_ell_aggregate_vjp(
         v, g.nbr_nodes, g.in_degree, aggregators, u=u,
-        rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree)
+        rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree,
+        mode=cfg.get("mode", "f32"))
 
 
 def _sum(g: GraphBatch, x):
@@ -354,7 +361,8 @@ class PNAConv(torch.nn.Module):
         if cmp:
             cat = fused_ell_aggregate_vjp(
                 v, g.nbr_nodes, g.in_degree, cmp,
-                rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree)
+                rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree,
+                mode=dispatch.agg_cfg(g).get("mode", "f32"))
             F = v.shape[1]
             out.update({a: cat[:, i * F:(i + 1) * F]
                         for i, a in enumerate(cmp)})
@@ -494,7 +502,8 @@ class GINEConv(torch.nn.Module):
         if g.edge_feat is None:
             raise ValueError("GINEConv requires edge features")
         e = self.lin_edge(g.edge_feat)
-        if dispatch.gine_layer_cfg(g, act) is not None:
+        cfg = dispatch.gine_layer_cfg(g, act)
+        if cfg is not None:
             from gnnbuilder_tpu_torch.ops.cuda.gine_layer import (
                 fused_gine_layer_auto,
             )
@@ -502,7 +511,8 @@ class GINEConv(torch.nn.Module):
             return fused_gine_layer_auto(
                 x, e, g.nbr_nodes, g.nbr_edges, g.in_degree,
                 self.lin0.weight.t(), self.lin0.bias, self.lin1.weight.t(),
-                self.lin1.bias, eps=self.eps, skip=skip, act=act)
+                self.lin1.bias, eps=self.eps, skip=skip, act=act,
+                mode=cfg.get("mode", "f32"))
         if g.nbr_nodes is not None:
             table = torch.relu(ell.ell_gather(x, g.nbr_nodes)
                                + ell.ell_gather(e, g.nbr_edges))
@@ -534,7 +544,8 @@ class EdgeConv(torch.nn.Module):
 
     def forward(self, g: GraphBatch, x, act=None, skip=None):
         name = "sum" if self.aggregation == "add" else self.aggregation
-        if dispatch.edge_block_cfg(g, act) is not None:
+        cfg = dispatch.edge_block_cfg(g, act)
+        if cfg is not None:
             from gnnbuilder_tpu_torch.ops.cuda.edge_block import (
                 fused_edge_block_layer_auto,
             )
@@ -542,7 +553,8 @@ class EdgeConv(torch.nn.Module):
             return fused_edge_block_layer_auto(
                 x, g.nbr_nodes, g.in_degree, self.lin0.weight.t(),
                 self.lin0.bias, self.lin1.weight.t(), self.lin1.bias,
-                aggregation=name, skip=skip, act=act)
+                aggregation=name, skip=skip, act=act,
+                mode=cfg.get("mode", "f32"))
         u, v = self.lin0(x, x)
         w = u - v
         if g.nbr_nodes is not None:

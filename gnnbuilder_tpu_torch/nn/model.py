@@ -33,10 +33,12 @@ per-layer plain path.  The paths compute the same function.  In training
 them; in inference the readout weights come from a cache.
 
 Under a precision policy (``compile.precision``, entered by
-``Program.forward``) the PNA stack, PNA layer and readout kernels run in
-the policy's mode (``dispatch``'s ``cfg["mode"]``); the cache then also
-holds, per mode, the stacked weights as bfloat16 or as int8 with their
-scales, rebuilt when a parameter changes.  Every ``Linear`` learns its
+``Program.forward``) every kernel whose gate gives a mode runs in it
+(``dispatch``'s ``cfg["mode"]``): the PNA and mp stacks, the per-layer
+kernels and the readout; the cache then also holds, per mode, the
+stacked weights as bfloat16 or as int8 with their scales, rebuilt when a
+parameter changes (the per-layer kernels bring their weights to the mode
+per call).  Every ``Linear`` learns its
 ``site``, its name in the model, the key of its int8 calibration.
 """
 
@@ -267,17 +269,22 @@ class GNNModel(torch.nn.Module):
         return self._cached("f32", width, build)
 
     def _mode_params(self, width: int, mode: str):
-        """((PNA stack operands, their scales), (readout weights, their
+        """((stack operands, their scales), (readout weights, their
         scales)) as the kernels take them in ``mode`` ("bf16": bfloat16
         weights; "int8": int8 weights with per-column scales; scales None
         otherwise), from ``_kernel_params`` and cached the same way."""
         def build():
+            from gnnbuilder_tpu_torch.ops.cuda.mp_block import (
+                prepare_mp_stack,
+            )
             from gnnbuilder_tpu_torch.ops.cuda.pna_block import prepare_stack
             from gnnbuilder_tpu_torch.ops.cuda.readout import prepare_head
 
             stacked, readout = self._kernel_params(width)
-            stack = (prepare_stack(stacked, mode) if self.gnn_conv == "pna"
-                     and stacked is not None else (None, None))
+            prepare = (prepare_stack if self.gnn_conv == "pna"
+                       else prepare_mp_stack)
+            stack = ((None, None) if stacked is None
+                     else prepare(stacked, mode))
             return stack, prepare_head(readout, mode)
 
         return self._cached(mode, width, build)
@@ -322,9 +329,10 @@ class GNNModel(torch.nn.Module):
         )
 
     def _fused_mp_stack(self, g: GraphBatch, h):
-        """The whole GCN or SAGE stack in one ``ops.cuda.mp_block`` call
-        when ``dispatch.mp_stack_cfg`` allows (GIN only when called with
-        the kernel directly); None = run the per-layer loop."""
+        """The whole GCN or SAGE stack in one ``ops.cuda.mp_block`` call,
+        in the gate's mode, when ``dispatch.mp_stack_cfg`` allows (GIN only
+        when called with the kernel directly); None = run the per-layer
+        loop."""
         from gnnbuilder_tpu_torch.ops import dispatch
         from gnnbuilder_tpu_torch.ops.cuda.mp_block import (
             STACK_ACTS,
@@ -337,14 +345,19 @@ class GNNModel(torch.nn.Module):
         if cfg is None:
             return None
         L = self.gnn_num_layers
+        width = self._stack_width()
+        mode = cfg.get("mode", "f32")
+        if mode == "f32":
+            stacked, scales = self._kernel_params(width)[0], None
+        else:
+            stacked, scales = self._mode_params(width, mode)[0]
         return mp_block_stack_auto(
-            h, g.block_adj, g.in_degree, self.gnn_conv,
-            self._kernel_params(self._stack_width())[0],
+            h, g.block_adj, g.in_degree, self.gnn_conv, stacked,
             epss=[getattr(c, "eps", 0.0) for c in self.gnn_convs],
             skips=[self.gnn_skip_connection and 0 < i < L - 1
                    for i in range(L)],
             act=self.gnn_activation, out_dim=self.gnn_output_dim,
-            block_size=cfg["block_size"],
+            block_size=cfg["block_size"], mode=mode, scales=scales,
         )
 
     def _fused_readout(self, g: GraphBatch, h):

@@ -26,7 +26,8 @@ import shutil
 import subprocess
 from typing import Optional
 
-__all__ = ["load", "build", "build_log", "nvcc", "SOURCES"]
+__all__ = ["load", "build", "build_log", "nvcc", "build_root",
+           "set_build_root", "SOURCES"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
@@ -56,6 +57,20 @@ def nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
                        "/usr/local/cuda/bin and PATH)")
+
+
+def build_root() -> pathlib.Path:
+    """The directory under which each build's hashed directory lies."""
+    return _BUILD_ROOT
+
+
+def set_build_root(path) -> pathlib.Path:
+    """Put later builds (and the lookup of earlier ones) under ``path``;
+    a library this process has loaded stays loaded."""
+    global _BUILD_ROOT
+    _BUILD_ROOT = pathlib.Path(path).expanduser()
+    _BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    return _BUILD_ROOT
 
 
 def _build_dir(nvcc_path: str) -> pathlib.Path:

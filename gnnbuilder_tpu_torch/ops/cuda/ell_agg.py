@@ -24,6 +24,13 @@ the table), as the JAX package's is of its reference.  Every route
 gives the same bits on every run.
 
 What bounds the kernel on the H100: bytes; see the source.
+
+The bf16 mode (``mode="bf16"``; the JAX kernel's ``gather_mode="bf16"``,
+inference only: no backward) rounds each gathered v to bf16, reduces
+the rounded rows alone in float32 and applies u after the reduction, as
+the TPU kernel does: sum + deg u, u + mean, u + max, u + min (0 on an
+empty row), std of v alone.  There is no int8 mode: the JAX package
+keeps this kernel in float32 under the int8 policy.
 """
 
 from __future__ import annotations
@@ -43,30 +50,50 @@ from gnnbuilder_tpu_torch.ops.ell import (
     ell_own_pads,
     reverse_csr,
 )
+from gnnbuilder_tpu_torch.ops.quant import to_bf16
 
 __all__ = ["fused_ell_aggregate", "ell_aggregate_plain",
            "ell_aggregate_cstk", "ELLAggregateFunction",
-           "fused_ell_aggregate_vjp", "AGGREGATORS"]
+           "fused_ell_aggregate_vjp", "AGGREGATORS", "MODES"]
 
 # the aggregators the kernel takes, with their codes in the source
 AGGREGATORS = {"sum": 0, "mean": 1, "max": 2, "min": 3, "std": 4}
+# kernel modes, with their codes in the source
+MODES = {"f32": 0, "bf16": 1}
 
 
-def ell_aggregate_plain(v, nbr_nodes, in_degree, aggregators, u=None):
-    """The multi-aggregate in plain torch (``_reference``)."""
+def ell_aggregate_plain(v, nbr_nodes, in_degree, aggregators, u=None,
+                        mode: str = "f32"):
+    """The multi-aggregate in plain torch (``_reference``; in the bf16
+    mode the TPU kernel's order: rounded v reduced alone, then u)."""
+    mask = ell_mask(nbr_nodes, in_degree)
+    if mode == "bf16":
+        d = ell_multi_table(ell_gather(to_bf16(v), nbr_nodes), in_degree,
+                            aggregators, mask)
+        if u is not None:
+            deg = in_degree.to(v.dtype)[:, None]
+            zero = v.new_zeros(())
+            for a in aggregators:
+                if a == "sum":
+                    d[a] = d[a] + deg * u
+                elif a != "std":
+                    d[a] = torch.where(deg > 0, u + d[a], zero)
+        return torch.cat([d[a] for a in aggregators], dim=-1)
     table = ell_gather(v, nbr_nodes)
     if u is not None:
         table = u[:, None, :] + table
-    d = ell_multi_table(table, in_degree, aggregators,
-                        ell_mask(nbr_nodes, in_degree))
+    d = ell_multi_table(table, in_degree, aggregators, mask)
     return torch.cat([d[a] for a in aggregators], dim=-1)
 
 
-def _check(v, nbr_nodes, in_degree, aggregators, u):
+def _check(v, nbr_nodes, in_degree, aggregators, u, mode):
     bad = [a for a in aggregators if a not in AGGREGATORS]
     if not aggregators or bad or len(set(aggregators)) != len(aggregators):
         raise ValueError(f"aggregators must be distinct names of "
                          f"{sorted(AGGREGATORS)}, got {aggregators}")
+    if mode not in MODES:
+        raise ValueError(f"the multi-aggregate has modes {tuple(MODES)}, "
+                         f"got {mode!r}")
     if v.dim() != 2 or v.dtype != torch.float32:
         raise ValueError(f"v must be [N, F] float32, got {tuple(v.shape)} "
                          f"{v.dtype}")
@@ -82,7 +109,7 @@ def _check(v, nbr_nodes, in_degree, aggregators, u):
         raise ValueError(f"tensors on several devices: {devs}")
 
 
-def _launch(v, nbr_nodes, in_degree, aggregators, u):
+def _launch(v, nbr_nodes, in_degree, aggregators, u, mode):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -99,36 +126,41 @@ def _launch(v, nbr_nodes, in_degree, aggregators, u):
     fn = lib.gnnb_ell_agg
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 4 + [I] * 3 + [P, I, P, P, I]
+    fn.argtypes = [P] * 4 + [I] * 3 + [P, I, I, P, P, I]
     codes = (ctypes.c_int * A)(*(AGGREGATORS[a] for a in aggregators))
     out = torch.empty((N, A * F), dtype=torch.float32, device=v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     err = fn(v.data_ptr(), None if u is None else u.data_ptr(),
              nbr_nodes.data_ptr(), in_degree.data_ptr(), N,
-             nbr_nodes.shape[1], F, codes, A, out.data_ptr(), stream,
-             v.device.index or 0)
+             nbr_nodes.shape[1], F, codes, A, MODES[mode], out.data_ptr(),
+             stream, v.device.index or 0)
     if err != 0:
         raise RuntimeError(f"ell_agg launch failed: cudaError {err}")
     fused_ell_aggregate.launches += 1
+    fused_ell_aggregate.mode_launches[mode] += 1
     return out
 
 
-def fused_ell_aggregate(v, nbr_nodes, in_degree, aggregators, u=None):
+def fused_ell_aggregate(v, nbr_nodes, in_degree, aggregators, u=None,
+                        mode: str = "f32"):
     """Every aggregator of ``aggregators`` (names of ``AGGREGATORS``) of
     ``(u_i +) v_j`` over the ELL table ``nbr_nodes`` [N, W] /
     ``in_degree`` [N] (int32), v and u [N, F] float32: [N, A*F] in
-    aggregator order.  A CUDA ``v`` launches the kernel; a CPU one runs
-    the plain version."""
+    aggregator order, in ``mode`` ("f32" or "bf16", module docstring).
+    A CUDA ``v`` launches the kernel; a CPU one runs the plain
+    version."""
     aggregators = tuple(aggregators)
-    _check(v, nbr_nodes, in_degree, aggregators, u)
+    _check(v, nbr_nodes, in_degree, aggregators, u, mode)
     if v.device.type == "cuda":
-        return _launch(v, nbr_nodes, in_degree, aggregators, u)
+        return _launch(v, nbr_nodes, in_degree, aggregators, u, mode)
     if v.device.type != "cpu":
         raise ValueError(f"no multi-aggregate for device {v.device}")
-    return ell_aggregate_plain(v, nbr_nodes, in_degree, aggregators, u)
+    return ell_aggregate_plain(v, nbr_nodes, in_degree, aggregators, u,
+                               mode)
 
 
 fused_ell_aggregate.launches = 0
+fused_ell_aggregate.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def ell_aggregate_cstk(v, nbr_nodes, in_degree, aggregators, out, ct):
@@ -213,11 +245,22 @@ class ELLAggregateFunction(torch.autograd.Function):
 
 
 def fused_ell_aggregate_vjp(v, nbr_nodes, in_degree, aggregators, u=None,
-                            rev_nbr_nodes=None, out_degree=None):
+                            rev_nbr_nodes=None, out_degree=None,
+                            mode: str = "f32"):
     """Differentiable ``fused_ell_aggregate``: the kernel forward and the
     backward of ``ELLAggregateFunction``, whose u-free dv runs over the
     reverse table when both ``rev_nbr_nodes`` and ``out_degree`` are
-    given, else over the reverse CSR of ``nbr_nodes``."""
+    given, else over the reverse CSR of ``nbr_nodes``.  In the bf16 mode
+    (inference) the kernel alone, which raises when grad mode is on and
+    v or u needs a gradient."""
+    if mode != "f32":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (v, u)):
+            raise ValueError(f"mode {mode!r} is an inference mode: no "
+                             f"backward")
+        return fused_ell_aggregate(
+            v.contiguous(), nbr_nodes, in_degree, aggregators,
+            None if u is None else u.contiguous(), mode=mode)
     if rev_nbr_nodes is None or out_degree is None:
         rev_nbr_nodes = out_degree = None
     return ELLAggregateFunction.apply(

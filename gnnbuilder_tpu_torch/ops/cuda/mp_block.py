@@ -16,6 +16,14 @@ Weights use the JAX package's [in, out] layout, stacked over layers and
 zero-padded to one width F (``stack_mp_params``): per conv ``(w0, b0, w1,
 b1)`` = gcn ``(lin, bias, 0, 0)``, gin ``(lin0, lin0.b, lin1, lin1.b)``,
 sage ``(lin_l, lin_l.b, lin_r, 0)``.  Biases are [L, F].
+
+Inference modes (``mode``; the JAX kernel's ``gather_mode="bf16"`` with
+``mm="bf16"``, and ``quant``): "bf16" takes bfloat16 weights, rounds each
+layer's aggregation source to bf16 as it is gathered (the sum float32)
+and rounds every product's operands; "int8" quantizes every product
+(gcn's ``h w0``, both of gin's and of sage's: ``ops.quant.qdot``, int8
+weights with per-column scales) and keeps the adjacency sum exact.
+``prepare_mp_stack`` brings ``stack_mp_params``' operands to a mode.
 """
 
 from __future__ import annotations
@@ -27,15 +35,20 @@ import torch
 
 from gnnbuilder_tpu_torch.ops.activations import ACTIVATIONS
 from gnnbuilder_tpu_torch.ops.block import block_spmm
+from gnnbuilder_tpu_torch.ops.cuda.mp_layer import weight_dtype
 from gnnbuilder_tpu_torch.ops.cuda.pna_block import _pad2
+from gnnbuilder_tpu_torch.ops.quant import qdot, quantize_weight, to_bf16
 
 __all__ = ["fused_mp_block_stack", "mp_stack_plain", "mp_block_stack_auto",
-           "stack_mp_params", "CONV_CODES", "STACK_ACTS"]
+           "stack_mp_params", "prepare_mp_stack", "CONV_CODES",
+           "STACK_ACTS", "MODES"]
 
 # the convs the kernel takes, with their codes in the source
 CONV_CODES = {"gcn": 0, "gin": 1, "sage": 2}
 # epilogue activations the kernel takes, with their codes in the source
 STACK_ACTS = {None: 0, "relu": 1, "gelu": 2, "sigmoid": 3, "tanh": 4}
+# kernel modes, with their codes in the source
+MODES = {"f32": 0, "bf16": 1, "int8": 2}
 
 
 def _act(name):
@@ -43,23 +56,33 @@ def _act(name):
 
 
 def mp_stack_plain(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss,
-                   skips, act=None):
+                   skips, act=None, mode: str = "f32", scales=None):
     """The stack in plain torch: the per-layer math of the convs'
-    block-aggregation paths, iterated (the JAX ``mp_stack_reference``)."""
+    block-aggregation paths, iterated (the JAX ``mp_stack_reference``), in
+    ``mode`` (``scales`` = (s0, s1) [L, F] in "int8")."""
     degf = in_degree.to(x.dtype)[:, None]
     f = _act(act)
+    rnd = to_bf16 if mode == "bf16" else (lambda t: t)
+
+    def dot(a, w, sw):
+        if mode == "int8":
+            return qdot(a, w, sw)
+        return rnd(a) @ w.float()
+
+    s0, s1 = scales if mode == "int8" else ([None] * w0.shape[0],) * 2
     h = x
     for l in range(w0.shape[0]):
         if conv == "gcn":
             dis = torch.rsqrt(degf + 1.0)
-            p = (h @ w0[l]) * dis
-            o = dis * (block_spmm(block_adj, p) + p) + b0[l]
+            p = dot(h, w0[l], s0[l]) * dis
+            o = dis * (block_spmm(block_adj, rnd(p)) + p) + b0[l]
         elif conv == "gin":
-            hh = (1.0 + epss[l]) * h + block_spmm(block_adj, h)
-            o = torch.relu(hh @ w0[l] + b0[l]) @ w1[l] + b1[l]
+            hh = (1.0 + epss[l]) * h + block_spmm(block_adj, rnd(h))
+            o = dot(torch.relu(dot(hh, w0[l], s0[l]) + b0[l]), w1[l],
+                    s1[l]) + b1[l]
         else:
-            mean = block_spmm(block_adj, h) / degf.clamp(min=1.0)
-            o = mean @ w0[l] + b0[l] + h @ w1[l]
+            mean = block_spmm(block_adj, rnd(h)) / degf.clamp(min=1.0)
+            o = dot(mean, w0[l], s0[l]) + b0[l] + dot(h, w1[l], s1[l])
         if skips[l]:
             o = o + h
         h = f(o)
@@ -67,17 +90,30 @@ def mp_stack_plain(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss,
 
 
 def _check(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss, skips, act,
-           block_size):
+           block_size, mode, scales):
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"x must be [N, F] float32, got {tuple(x.shape)} "
                          f"{x.dtype}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
     N, F = x.shape
     L = w0.shape[0]
-    for name, t, shape in (("w0", w0, (L, F, F)), ("b0", b0, (L, F)),
-                           ("w1", w1, (L, F, F)), ("b1", b1, (L, F))):
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be {shape} float32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+    wdt = weight_dtype(mode)
+    for name, t, shape, dt in (("w0", w0, (L, F, F), wdt),
+                               ("b0", b0, (L, F), torch.float32),
+                               ("w1", w1, (L, F, F), wdt),
+                               ("b1", b1, (L, F), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{name} must be {shape} {dt} in mode "
+                             f"{mode!r}, got {tuple(t.shape)} {t.dtype}")
+    if mode != "int8":
+        if scales is not None:
+            raise ValueError(f"mode {mode!r} takes no scales")
+    elif (scales is None or len(scales) != 2 or any(
+            tuple(t.shape) != (L, F) or t.dtype != torch.float32
+            for t in scales)):
+        raise ValueError(f"mode 'int8' takes scales (s0, s1), each ({L}, "
+                         f"{F}) float32")
     if block_size < 1 or N % block_size:
         raise ValueError(f"N={N} is not a multiple of block_size="
                          f"{block_size}")
@@ -93,13 +129,14 @@ def _check(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss, skips, act,
         raise ValueError("need one eps and one skip flag per layer")
     if act not in STACK_ACTS:
         raise ValueError(f"unsupported stack activation {act!r}")
-    devs = {t.device for t in (x, block_adj, in_degree, w0, b0, w1, b1)}
+    devs = {t.device for t in (x, block_adj, in_degree, w0, b0, w1, b1,
+                               *(scales or ()))}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
 
 
 def _launch(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss, skips, act,
-            block_size):
+            block_size, mode, scales):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -109,7 +146,7 @@ def _launch(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss, skips, act,
     N, F = x.shape
     L = w0.shape[0]
     dev = x.device.index or 0
-    smem = lib.gnnb_mp_block_smem_bytes(F)
+    smem = lib.gnnb_mp_block_smem_bytes(F, MODES[mode])
     smem_max = lib.gnnb_smem_per_block_optin(dev)
     if (block_size != rows or F % mult or L > max_layers
             or smem > smem_max):
@@ -120,7 +157,7 @@ def _launch(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss, skips, act,
             f"F={F} ({smem} bytes) L={L}")
     if in_degree.dtype != torch.int32 or block_adj.dtype != torch.float32:
         raise ValueError("in_degree must be int32 and block_adj float32")
-    tensors = (x, block_adj, in_degree, w0, b0, w1, b1)
+    tensors = (x, block_adj, in_degree, w0, b0, w1, b1, *(scales or ()))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -130,48 +167,55 @@ def _launch(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss, skips, act,
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([P] * 3 + [I] * 2 + [P] * 4 + [I] * 2
                    + [ctypes.POINTER(ctypes.c_float),
-                      ctypes.POINTER(ctypes.c_int), I, P, P, P, I])
+                      ctypes.POINTER(ctypes.c_int), I, I, P, P, P, P, P, I])
     out = torch.empty_like(x)
     # T of the wider widths lives in device memory, one row per node
-    scratch = (None if lib.gnnb_mp_block_ht_in_smem(F, dev) == 1
+    scratch = (None if lib.gnnb_mp_block_ht_in_smem(F, MODES[mode], dev) == 1
                else torch.empty_like(x))
+    s0, s1 = scales if mode == "int8" else (None, None)
     c_eps = (ctypes.c_float * L)(*[float(e) for e in epss])
     c_skips = (ctypes.c_int * L)(*[int(bool(s)) for s in skips])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), block_adj.data_ptr(), in_degree.data_ptr(), N, F,
              w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), L,
-             CONV_CODES[conv], c_eps, c_skips, STACK_ACTS[act],
+             CONV_CODES[conv], c_eps, c_skips, STACK_ACTS[act], MODES[mode],
+             None if s0 is None else s0.data_ptr(),
+             None if s1 is None else s1.data_ptr(),
              out.data_ptr(), None if scratch is None else scratch.data_ptr(),
              stream, dev)
     if err != 0:
         raise RuntimeError(f"mp_block_stack launch failed: cudaError {err}")
     fused_mp_block_stack.launches += 1
+    fused_mp_block_stack.mode_launches[mode] += 1
     return out
 
 
 def fused_mp_block_stack(x, block_adj, in_degree, w0, b0, w1, b1, conv: str,
                          epss: Sequence[float], skips: Sequence[bool],
-                         act: Optional[str] = None, block_size: int = 128):
+                         act: Optional[str] = None, block_size: int = 128,
+                         mode: str = "f32", scales=None):
     """Run the whole L-layer GCN, GIN or SAGE stack.
 
     x [N, F] float32; block_adj [N / block_size, block_size, block_size]
-    float32 edge counts; in_degree [N] int32; w0, w1 [L, F, F]; b0, b1
-    [L, F]; one eps (GIN) and one skip flag per layer.  A CUDA ``x``
-    launches the kernel, which takes 128-row blocks and F a multiple of
-    128 and raises on anything else; a CPU ``x`` runs the plain version.
-    Returns h [N, F]."""
+    float32 edge counts; in_degree [N] int32; w0, w1 [L, F, F] (float32,
+    or as ``prepare_mp_stack`` gives them for ``mode``, with ``scales``
+    in "int8"); b0, b1 [L, F]; one eps (GIN) and one skip flag per layer.
+    A CUDA ``x`` launches the kernel, which takes 128-row blocks and F a
+    multiple of 128 and raises on anything else; a CPU ``x`` runs the
+    plain version.  Returns h [N, F]."""
     _check(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss, skips, act,
-           block_size)
+           block_size, mode, scales)
     if x.device.type == "cuda":
         return _launch(x, block_adj, in_degree, w0, b0, w1, b1, conv, epss,
-                       skips, act, block_size)
+                       skips, act, block_size, mode, scales)
     if x.device.type != "cpu":
         raise ValueError(f"no mp stack for device {x.device}")
     return mp_stack_plain(x, block_adj, in_degree, w0, b0, w1, b1, conv,
-                          epss, skips, act)
+                          epss, skips, act, mode, scales)
 
 
 fused_mp_block_stack.launches = 0
+fused_mp_block_stack.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def stack_mp_params(layers, F_p: int):
@@ -195,14 +239,38 @@ def stack_mp_params(layers, F_p: int):
     return tuple(torch.stack(xs).contiguous() for xs in out)
 
 
+def prepare_mp_stack(stacked, mode: str):
+    """``stack_mp_params``' operands as ``mode`` takes them: (the four
+    operands, the scales (s0, s1) or None).  "bf16" rounds w0 and w1 to
+    bfloat16; "int8" quantizes each layer of each with per-column scales
+    (``ops.quant.quantize_weight``) on the padded matrices, as the JAX
+    wrapper does (a zero w1 quantizes to zeros).  Biases stay float32."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
+    w0, b0, w1, b1 = stacked
+    if mode == "f32":
+        return stacked, None
+    if mode == "bf16":
+        return (w0.to(torch.bfloat16), b0, w1.to(torch.bfloat16), b1), None
+    qs = [[quantize_weight(m[l]) for l in range(m.shape[0])]
+          for m in (w0, w1)]
+    (q0, q1), scales = zip(*[(torch.stack([q for q, _ in ql]),
+                              torch.stack([s for _, s in ql])) for ql in qs])
+    return (q0, b0, q1, b1), tuple(scales)
+
+
 def mp_block_stack_auto(x, block_adj, in_degree, conv, stacked, epss, skips,
                         act=None, out_dim: Optional[int] = None,
-                        block_size: int = 128):
+                        block_size: int = 128, mode: str = "f32",
+                        scales=None):
     """``fused_mp_block_stack`` on ``x`` of any width <= F: zero-pads x to
-    the stacked width F and returns the first ``out_dim`` columns."""
+    the stacked width F and returns the first ``out_dim`` columns.
+    ``stacked`` and ``scales`` as ``prepare_mp_stack`` gives them for
+    ``mode``."""
     F_p = stacked[0].shape[2]
     xp = torch.nn.functional.pad(x, (0, F_p - x.shape[1])).contiguous()
     out = fused_mp_block_stack(xp, block_adj, in_degree, *stacked, conv=conv,
                                epss=epss, skips=skips, act=act,
-                               block_size=block_size)
+                               block_size=block_size, mode=mode,
+                               scales=scales)
     return out if out_dim is None else out[:, :out_dim]

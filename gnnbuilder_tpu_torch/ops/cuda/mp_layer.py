@@ -28,6 +28,15 @@ Operands per conv (the JAX package's [in, out] layout): gin ``w0`` [F, H],
 ``b0`` [Fout], ``w1`` [F, Fout] (lin_r); gcn ``b0`` [F] with v = lin(x) *
 rsqrt(deg + 1) formed by the caller; lg (v pre-scaled by the caller) and
 simple none.  gcn, lg and simple keep the width: Fout = F.
+
+Inference modes (``mode``; the JAX kernel's ``gather_mode="bf16"`` with
+``mm="bf16"``, and ``quant``; no s output, no backward): "bf16" rounds
+each gathered v to bf16 (the sum stays float32) and, for gin and sage,
+the products' operands, with bfloat16 ``w0`` / ``w1``; "int8" (gin and
+sage only, as in the JAX kernel) quantizes every epilogue product
+(``ops.quant.qdot``: per-row scales, int8 ``w0`` / ``w1`` with column
+scales ``s0`` / ``s1``, an exact sum) and keeps the aggregation exact.
+``prepare_layer`` brings float32 weights to a mode.
 """
 
 from __future__ import annotations
@@ -44,10 +53,11 @@ from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import (
     fused_gather_backward_csr,
 )
 from gnnbuilder_tpu_torch.ops.ell import ell_sum, reverse_csr
+from gnnbuilder_tpu_torch.ops.quant import qdot, quantize_weight, to_bf16
 
 __all__ = ["fused_mp_layer", "mp_layer_plain", "MPLayerFunction",
-           "fused_mp_layer_vjp", "fused_mp_layer_auto", "MP_CONVS",
-           "LAYER_ACTS"]
+           "fused_mp_layer_vjp", "fused_mp_layer_auto", "prepare_layer",
+           "weight_dtype", "MP_CONVS", "LAYER_ACTS", "MODES", "QUANT_CONVS"]
 
 # the convs the kernel takes, with their codes in the source
 MP_CONVS = {"gin": 0, "sage": 1, "gcn": 2, "lg": 3, "simple_sum": 4,
@@ -55,6 +65,10 @@ MP_CONVS = {"gin": 0, "sage": 1, "gcn": 2, "lg": 3, "simple_sum": 4,
 # epilogue activations the kernel takes, with their codes in the source
 # (also the GINE and EdgeConv kernels' codes: dense_rows.cuh act_fn)
 LAYER_ACTS = {None: 0, "relu": 1, "gelu": 2, "sigmoid": 3, "tanh": 4}
+# kernel modes, with their codes in the source
+MODES = {"f32": 0, "bf16": 1, "int8": 2}
+# the convs with an int8 mode: the others run no product to quantize
+QUANT_CONVS = ("gin", "sage")
 # the operands each conv takes, in the order (w0, b0, w1, b1)
 _OPERANDS = {"gin": (True, True, True, True),
              "sage": (True, True, True, False),
@@ -63,14 +77,46 @@ _OPERANDS = {"gin": (True, True, True, True),
              "simple_mean": (False,) * 4}
 
 
-def _epilogue(conv, s, v, in_degree, w0, b0, w1, b1, eps, skip, act):
+def weight_dtype(mode):
+    """The dtype of the product weights a kernel takes in ``mode``."""
+    return {"f32": torch.float32, "bf16": torch.bfloat16,
+            "int8": torch.int8}[mode]
+
+
+def prepare_layer(w0, w1, mode: str):
+    """(w0, w1, s0, s1) as ``mode`` takes them: "bf16" rounds w0 and w1
+    to bfloat16; "int8" quantizes each with per-column scales s0, s1
+    (``ops.quant.quantize_weight``, the JAX wrapper's); the scales are
+    None in the other modes, and so is a weight the conv lacks."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
+    if mode == "f32":
+        return w0, w1, None, None
+    if mode == "bf16":
+        return tuple(None if w is None else w.to(torch.bfloat16)
+                     for w in (w0, w1)) + (None, None)
+    (q0, s0), (q1, s1) = (quantize_weight(w.contiguous()) for w in (w0, w1))
+    return q0, q1, s0, s1
+
+
+def _epilogue(conv, s, v, in_degree, w0, b0, w1, b1, eps, skip, act,
+              mode="f32", s0=None, s1=None):
     """The conv's epilogue on the aggregate s (``_mp_epilogue``), then the
-    skip and the activation."""
+    skip and the activation; gin's and sage's products in ``mode``."""
     degf = in_degree.to(v.dtype)[:, None]
+
+    def dot(a, w, sw):
+        if mode == "int8":
+            return qdot(a, w, sw)
+        if mode == "bf16":
+            return to_bf16(a) @ w.float()
+        return a @ w
+
     if conv == "gin":
-        o = torch.relu(((1.0 + eps) * v + s) @ w0 + b0) @ w1 + b1
+        o = dot(torch.relu(dot((1.0 + eps) * v + s, w0, s0) + b0), w1,
+                s1) + b1
     elif conv == "sage":
-        o = (s / degf.clamp(min=1.0)) @ w0 + b0 + v @ w1
+        o = dot(s / degf.clamp(min=1.0), w0, s0) + b0 + dot(v, w1, s1)
     elif conv == "gcn":
         o = torch.rsqrt(degf + 1.0) * (s + v) + b0
     elif conv == "lg":
@@ -88,15 +134,17 @@ def _epilogue(conv, s, v, in_degree, w0, b0, w1, b1, eps, skip, act):
 
 def mp_layer_plain(v, nbr_nodes, in_degree, conv, w0=None, b0=None, w1=None,
                    b1=None, eps=0.0, skip=None, act=None, save_s=False,
-                   block_adj=None):
+                   block_adj=None, mode: str = "f32", s0=None, s1=None):
     """The layer in plain torch: s over the ELL table (``block_adj`` None)
-    or the block product, then the epilogue.  Returns out, or (out, s)
-    with ``save_s``."""
+    or the block product, then the epilogue, in ``mode`` (the bf16 mode
+    sums bf16-rounded v).  Returns out, or (out, s) with ``save_s``."""
+    src = to_bf16(v) if mode == "bf16" else v
     if block_adj is not None:
-        s = block_spmm(block_adj, v)
+        s = block_spmm(block_adj, src)
     else:
-        s = ell_sum(v, nbr_nodes, in_degree)
-    out = _epilogue(conv, s, v, in_degree, w0, b0, w1, b1, eps, skip, act)
+        s = ell_sum(src, nbr_nodes, in_degree)
+    out = _epilogue(conv, s, v, in_degree, w0, b0, w1, b1, eps, skip, act,
+                    mode, s0, s1)
     return (out, s) if save_s else out
 
 
@@ -109,10 +157,18 @@ def _out_width(conv, v, w0, w1):
 
 
 def _check(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, skip, act,
-           block_adj):
+           block_adj, mode, s0, s1, save_s):
     if conv not in MP_CONVS:
         raise ValueError(f"unsupported mp layer conv {conv!r}; options: "
                          f"{sorted(MP_CONVS)}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
+    if mode == "int8" and conv not in QUANT_CONVS:
+        raise ValueError(f"the int8 mode exists for {QUANT_CONVS} only; "
+                         f"{conv} runs no product to quantize: run it in "
+                         f"f32")
+    if mode != "f32" and save_s:
+        raise ValueError(f"mode {mode!r} is an inference mode: no s")
     if act not in LAYER_ACTS:
         raise ValueError(f"unsupported mp layer activation {act!r}")
     if v.dim() != 2 or v.dtype != torch.float32:
@@ -128,12 +184,21 @@ def _check(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, skip, act,
     shapes = {"gin": ((F, H), (H,), (H, Fout), (Fout,)),
               "sage": ((F, Fout), (Fout,), (F, Fout), None),
               "gcn": (None, (F,), None, None)}.get(conv, (None,) * 4)
+    wdt = weight_dtype(mode)
     for name, t, shape in zip(("w0", "b0", "w1", "b1"), (w0, b0, w1, b1),
                               shapes):
-        if t is not None and (tuple(t.shape) != shape
-                              or t.dtype != torch.float32):
-            raise ValueError(f"{name} must be {shape} float32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+        dt = wdt if name[0] == "w" else torch.float32
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dt):
+            raise ValueError(f"{name} must be {shape} {dt} in mode "
+                             f"{mode!r}, got {tuple(t.shape)} {t.dtype}")
+    for name, t, w in (("s0", s0, w0), ("s1", s1, w1)):
+        if mode != "int8":
+            if t is not None:
+                raise ValueError(f"mode {mode!r} takes no {name}")
+        elif t is None or tuple(t.shape) != (w.shape[1],) \
+                or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({w.shape[1]},) float32 in "
+                             f"mode 'int8'")
     if skip is not None and (tuple(skip.shape) != (N, Fout)
                              or skip.dtype != torch.float32):
         raise ValueError(f"skip must be ({N}, {Fout}) float32")
@@ -147,13 +212,13 @@ def _check(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, skip, act,
             or nbr_nodes.shape[0] != N:
         raise ValueError("nbr_nodes must be [N, W] (or pass block_adj)")
     devs = {t.device for t in (v, nbr_nodes, in_degree, w0, b0, w1, b1,
-                               skip, block_adj) if t is not None}
+                               skip, block_adj, s0, s1) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
 
 
 def _launch(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, eps, skip, act,
-            save_s, block_adj):
+            save_s, block_adj, mode, s0, s1):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -169,7 +234,7 @@ def _launch(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, eps, skip, act,
                          f"rows; got {tuple(block_adj.shape)} "
                          f"{block_adj.dtype}")
     if conv in ("gin", "sage"):
-        smem = lib.gnnb_mp_layer_smem_bytes(F, H, int(block))
+        smem = lib.gnnb_mp_layer_smem_bytes(F, H, int(block), MODES[mode])
         smem_max = lib.gnnb_smem_per_block_optin(dev.index or 0)
         if smem > smem_max:
             raise ValueError(
@@ -181,7 +246,7 @@ def _launch(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, eps, skip, act,
             table is not None and table.dtype != torch.int32):
         raise ValueError("nbr_nodes and in_degree must be int32")
     tensors = [t for t in (v, table, block_adj, in_degree, w0, b0, w1, b1,
-                           skip) if t is not None]
+                           skip, s0, s1) if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
     if block and block_adj.data_ptr() % 16:
@@ -189,8 +254,8 @@ def _launch(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, eps, skip, act,
     fn = lib.gnnb_mp_layer
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 4 + [I] * 5 + [P] * 5 + [I, ctypes.c_float, I, P, P,
-                                                   P, I]
+    fn.argtypes = ([P] * 4 + [I] * 5 + [P] * 5 + [I, ctypes.c_float, I, I]
+                   + [P] * 5 + [I])
     out = torch.empty((N, Fout), dtype=torch.float32, device=dev)
     s = torch.empty_like(v) if save_s else None
 
@@ -201,38 +266,42 @@ def _launch(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, eps, skip, act,
     err = fn(v.data_ptr(), ptr(table), ptr(block_adj), in_degree.data_ptr(),
              N, 0 if block else table.shape[1], F, H, Fout, ptr(w0), ptr(b0),
              ptr(w1), ptr(b1), ptr(skip), MP_CONVS[conv], float(eps),
-             LAYER_ACTS[act], out.data_ptr(), ptr(s), stream, dev.index or 0)
+             LAYER_ACTS[act], MODES[mode], ptr(s0), ptr(s1), out.data_ptr(),
+             ptr(s), stream, dev.index or 0)
     if err != 0:
         raise RuntimeError(f"mp_layer launch failed: cudaError {err}")
     fused_mp_layer.launches += 1
+    fused_mp_layer.mode_launches[mode] += 1
     return (out, s) if save_s else out
 
 
 def fused_mp_layer(v, nbr_nodes, in_degree, conv: str, w0=None, b0=None,
                    w1=None, b1=None, eps: float = 0.0, skip=None,
                    act: Optional[str] = None, save_s: bool = False,
-                   block_adj=None):
+                   block_adj=None, mode: str = "f32", s0=None, s1=None):
     """One conv layer ``conv`` (``MP_CONVS``) on v [N, F] float32 over the
     ELL table ``nbr_nodes`` [N, W] / ``in_degree`` [N] int32, or over
     ``block_adj`` [N / 128, 128, 128] float32 counts when it is given,
-    with the conv's operands (module docstring), an optional skip [N,
-    Fout] added before the activation ``act``.  Returns out [N, Fout], or
-    (out, s) with ``save_s``, s [N, F] the neighbour sum.  A CUDA ``v``
-    launches the kernel, which takes any width within shared memory and
-    raises on what it does not take; a CPU ``v`` runs the plain
+    with the conv's operands (module docstring, typed by ``mode``:
+    ``prepare_layer``), an optional skip [N, Fout] added before the
+    activation ``act``.  Returns out [N, Fout], or (out, s) with
+    ``save_s`` (mode "f32" only), s [N, F] the neighbour sum.  A CUDA
+    ``v`` launches the kernel, which takes any width within shared memory
+    and raises on what it does not take; a CPU ``v`` runs the plain
     version."""
     _check(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, skip, act,
-           block_adj)
+           block_adj, mode, s0, s1, save_s)
     if v.device.type == "cuda":
         return _launch(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, eps,
-                       skip, act, save_s, block_adj)
+                       skip, act, save_s, block_adj, mode, s0, s1)
     if v.device.type != "cpu":
         raise ValueError(f"no mp layer for device {v.device}")
     return mp_layer_plain(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, eps,
-                          skip, act, save_s, block_adj)
+                          skip, act, save_s, block_adj, mode, s0, s1)
 
 
 fused_mp_layer.launches = 0
+fused_mp_layer.mode_launches = dict.fromkeys(MODES, 0)
 
 
 class MPLayerFunction(torch.autograd.Function):
@@ -286,12 +355,16 @@ class MPLayerFunction(torch.autograd.Function):
 def fused_mp_layer_vjp(v, nbr_nodes, in_degree, conv: str, w0=None, b0=None,
                        w1=None, b1=None, eps: float = 0.0, skip=None,
                        rev_nbr_nodes=None, out_degree=None,
-                       act: Optional[str] = None, block_adj=None):
+                       act: Optional[str] = None, block_adj=None,
+                       mode: str = "f32"):
     """Differentiable ``fused_mp_layer``: the kernel forward with s saved
     and the hand-written backward, whose dv runs over ``block_adj`` when
     given, else over the reverse table when both ``rev_nbr_nodes`` and
     ``out_degree`` are given, else over the reverse CSR of
-    ``nbr_nodes``."""
+    ``nbr_nodes``.  Mode "f32" only: the bf16 and int8 modes are
+    inference modes and raise here."""
+    if mode != "f32":
+        raise ValueError(f"mode {mode!r} is an inference mode: no backward")
     if block_adj is not None or rev_nbr_nodes is None or out_degree is None:
         rev_nbr_nodes = out_degree = None
     return MPLayerFunction.apply(v, nbr_nodes, in_degree, rev_nbr_nodes,
@@ -302,10 +375,13 @@ def fused_mp_layer_vjp(v, nbr_nodes, in_degree, conv: str, w0=None, b0=None,
 def fused_mp_layer_auto(v, nbr_nodes, in_degree, conv: str, w0=None,
                         b0=None, w1=None, b1=None, eps: float = 0.0,
                         skip=None, rev_nbr_nodes=None, out_degree=None,
-                        act: Optional[str] = None, block_adj=None):
+                        act: Optional[str] = None, block_adj=None,
+                        mode: str = "f32"):
     """The layer as a conv calls it: the differentiable path when grad
-    mode is on and an input needs a gradient, else the kernel without
-    s.  The kernel takes any width, so nothing is padded."""
+    mode is on and an input needs a gradient (mode "f32" only: an
+    inference mode raises there), else the kernel without s; float32
+    weights are brought to ``mode`` here (``prepare_layer``).  The kernel
+    takes any width, so nothing is padded."""
     ops = [None if t is None else t.contiguous()
            for t in (v, skip, w0, b0, w1, b1)]
     if torch.is_grad_enabled() and any(
@@ -314,6 +390,13 @@ def fused_mp_layer_auto(v, nbr_nodes, in_degree, conv: str, w0=None,
                                   *ops[2:], eps=eps, skip=ops[1],
                                   rev_nbr_nodes=rev_nbr_nodes,
                                   out_degree=out_degree, act=act,
-                                  block_adj=block_adj)
-    return fused_mp_layer(ops[0], nbr_nodes, in_degree, conv, *ops[2:],
-                          eps=eps, skip=ops[1], act=act, block_adj=block_adj)
+                                  block_adj=block_adj, mode=mode)
+    if mode == "f32":
+        return fused_mp_layer(ops[0], nbr_nodes, in_degree, conv, *ops[2:],
+                              eps=eps, skip=ops[1], act=act,
+                              block_adj=block_adj)
+    w0, w1, s0, s1 = prepare_layer(ops[2], ops[4], mode) if conv in (
+        "gin", "sage") else (None, None, None, None)
+    return fused_mp_layer(ops[0], nbr_nodes, in_degree, conv, w0, ops[3],
+                          w1, ops[5], eps=eps, skip=ops[1], act=act,
+                          block_adj=block_adj, mode=mode, s0=s0, s1=s1)

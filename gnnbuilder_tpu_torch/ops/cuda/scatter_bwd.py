@@ -16,6 +16,12 @@ it forms d_agg = dy ks_t and the per-receiver coefficients.
   the senders) gives dv on a batch without a reverse table: on the card
   the cstk kernel, then ``ops.ell.reverse_csr`` of the forward table and
   the gather's CSR mode, so dv is the same bits on every run there too.
+* ``fused_scatter_backward`` (plain: ``scatter_backward_plain``) is the
+  TPU file's generic entry of the same name: any coefficient stack over
+  the forward table, in ``ops.cuda.ell_bwd``'s column layout, as dv.  It
+  has no kernel of its own: it builds ``ops.ell.reverse_csr`` of the
+  forward table and runs the gather's CSR mode (row 7), so no float is
+  added atomically and dv is the same bits on every run.
 
 What bounds the kernel on the H100: operations (d_agg, 2 * 3Fout * 4F
 flops per row, run as f32 FMAs).
@@ -27,11 +33,47 @@ import ctypes
 
 import torch
 
-from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import fused_gather_backward_csr
+from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import (
+    _terms,
+    fused_gather_backward_csr,
+    n_blocks,
+)
 from gnnbuilder_tpu_torch.ops.ell import ell_mask, reverse_csr
 
 __all__ = ["fused_pna_scatter_backward", "pna_scatter_backward_plain",
-           "fused_pna_scatter_cstk", "pna_scatter_cstk_plain"]
+           "fused_pna_scatter_cstk", "pna_scatter_cstk_plain",
+           "fused_scatter_backward", "scatter_backward_plain"]
+
+
+def scatter_backward_plain(cstk, nbr_nodes, in_degree, v, has_lin=True,
+                           has_dev=False, n_cmp=0):
+    """The generic scatter in plain torch: every valid slot of receiver i
+    (sender j) forms the terms of i's coefficient row against v_j and
+    ``index_add_`` adds them into dv_j."""
+    F = cstk.shape[1] // n_blocks(has_lin, has_dev, n_cmp)
+    idx = nbr_nodes.long()
+    g = cstk[:, None, :].expand(-1, idx.shape[1], -1)     # [N, W, K*F]
+    t = _terms(g, v[idx], F, has_lin, has_dev, n_cmp)
+    m = ell_mask(nbr_nodes, in_degree)
+    return torch.zeros_like(v).index_add_(0, idx[m], t[m])
+
+
+def fused_scatter_backward(cstk, nbr_nodes, in_degree, v,
+                           has_lin: bool = True, has_dev: bool = False,
+                           n_cmp: int = 0):
+    """dv [N, F] from the stacked receiver coefficients ``cstk`` [N, K*F]
+    (``ops.cuda.ell_bwd`` layout: [c_lin? | c_a, c_a*mean? | (ref, coef)
+    x n_cmp]) over the FORWARD table ``nbr_nodes`` [N, W] / ``in_degree``
+    [N] (int32), with the sender rows ``v`` [N, F]: the JAX package's
+    ``fused_scatter_backward``.  The reverse CSR of the table, then
+    ``fused_gather_backward_csr`` (the kernel for CUDA tensors, its plain
+    version for CPU ones)."""
+    if n_blocks(has_lin, has_dev, n_cmp) == 0:
+        raise ValueError("no terms requested")
+    rev_ptr, rev_idx = reverse_csr(nbr_nodes, in_degree)
+    return fused_gather_backward_csr(cstk, rev_ptr, rev_idx, v=v,
+                                     has_lin=has_lin, has_dev=has_dev,
+                                     n_cmp=n_cmp)
 
 
 def _coefficients(d_mid, aux, agg_cat, in_degree, ks_t, delta):

@@ -13,21 +13,22 @@ Modes (``set_fused_mode``):
             or the edge list, GlobalPooling, MLP), so a test can pin it
 
 Precision policies (``compile.precision``, activated by ``Program``):
-the PNA stack, PNA layer and readout gates return the kernel mode of the
-active policy in ``cfg["mode"]`` ("bf16" or "int8"; absent under f32),
-as the JAX package's ``pna_stack_cfg``, ``fused_config`` and
-``readout_config`` set ``quant`` / ``int8`` and the bf16 gather and
-products.  Every other gate
-copies the JAX package's decision where this package has the kernel
-mode: GCN's, LG's and Simple's mp layer and the multi-aggregate keep
-their float32 kernels under int8 (the JAX convs drop int8 there as
-numerics-neutral: no Linear runs inside those kernels), and GAT's block
-attention and EdgeConv's block layer decline under int8, as in the JAX
-package.  Where the JAX package has a kernel mode that this package does
-not have yet (``UNPORTED_MODES``), the gate declines and the plain path
-runs with the policy's numerics (``nn.linear.Linear``, the bf16 block
-product).  Under an active int8 calibration every gate of a kernel with
-an int8 mode declines: the plain path owns the per-site state.
+a gate whose kernel has the JAX package's mode under the active policy
+returns it in ``cfg["mode"]`` ("bf16" or "int8"; absent under f32), as
+the JAX gates set ``quant`` / ``int8`` and the bf16 gather and products:
+the PNA stack and layer, the readout, the mp stack and the GINE layer in
+both policies; the mp layer in bf16 for every conv and in int8 for GIN
+and SAGE; the multi-aggregate and EdgeConv's block layer in bf16.  The
+rest copies the JAX package's decisions: GCN's, LG's and Simple's mp
+layer and the multi-aggregate keep their float32 kernels under int8
+(the JAX convs drop int8 there as numerics-neutral: no Linear runs
+inside those kernels), even under an int8 calibration, and GAT's block
+attention and EdgeConv's block layer decline under int8.  Where the JAX
+package has a kernel mode that this package does not have yet
+(``UNPORTED_MODES``), the gate declines and the plain path runs with the
+policy's numerics (``nn.linear.Linear``, the bf16 block product).
+Under an active int8 calibration every gate that would give a kernel
+the int8 mode declines: the plain path owns the per-site state.
 """
 
 from __future__ import annotations
@@ -58,18 +59,13 @@ _MODE = "auto"
 # package has not ported yet, (kernel, policy), with the TPU kernel's row
 # in PERF.md: their gates decline under that policy (ROADMAP queue 2)
 UNPORTED_MODES = frozenset({
-    ("mp_block_stack", "bf16"), ("mp_block_stack", "int8"),     # row 3
-    ("mp_layer", "bf16"), ("mp_layer", "int8"),                 # row 4
-    ("ell_agg", "bf16"),                                        # row 8
     ("gat_block", "bf16"),                                      # row 9
     ("gat_layer", "bf16"), ("gat_layer", "int8"),               # row 10
-    ("gine_layer", "bf16"), ("gine_layer", "int8"),             # row 12
-    ("edge_block", "bf16"),                                     # row 13
 })
 # kernels whose gate declines under int8 in the JAX package itself (its
 # ``_r4_block_cfg`` without ``int8_ok``): the plain path quantizes
 INT8_DECLINED = ("gat_block", "edge_block")
-# convs whose mp layer kernel runs no Linear: int8 leaves it as it is
+# convs whose mp layer kernel runs no Linear: int8 leaves it in float32
 INT8_NEUTRAL_CONVS = ("gcn", "lg", "simple")
 
 # inference scope: the stack kernel has no backward, so the model takes it
@@ -107,9 +103,9 @@ def _calibrating() -> bool:
 
 
 def _with_mode(cfg: dict) -> Optional[dict]:
-    """``cfg`` for a kernel with all three modes (rows 1, 2 and 5): with
-    "mode" set to the active policy's when that is not "f32"; None under
-    an active int8 calibration."""
+    """``cfg`` for a kernel with all three modes (rows 1, 2, 3, 5, 12; row
+    4 for GIN and SAGE): with "mode" set to the active policy's when that
+    is not "f32"; None under an active int8 calibration."""
     name = policy()
     if name == "int8" and _calibrating():
         return None
@@ -146,21 +142,24 @@ def block_cfg(g) -> Optional[dict]:
 
 
 def mp_stack_cfg(g, conv: str) -> Optional[dict]:
-    """{"block_size": ...} when the whole-stack GCN / SAGE kernel
-    (``ops.cuda.mp_block``) applies to batch ``g``, else None (the model
-    runs the per-layer loop; GIN always does under "auto").
+    """{"block_size": ...[, "mode": ...]} when the whole-stack GCN / SAGE
+    kernel (``ops.cuda.mp_block``) applies to batch ``g``, else None (the
+    model runs the per-layer loop; GIN always does under "auto").
 
     Preconditions: inference scope and a block-packed batch at a block
-    size that is a multiple of 128.  Unlike the PNA stack it needs no ELL
-    table: the kernel aggregates from ``block_adj``.  Elsewhere each layer
+    size that is a multiple of 128, and no active int8 calibration.
+    Unlike the PNA stack it needs no ELL table: the kernel aggregates
+    from ``block_adj``.  The mode is the policy's ("int8" quantizes every
+    product, "bf16" rounds the gathered rows and the products' operands:
+    the JAX package's ``quant`` and bf16 gather).  Elsewhere each layer
     takes ``mp_layer_cfg``'s route."""
-    if conv not in MP_STACK_CONVS or _unported("mp_block_stack"):
+    if conv not in MP_STACK_CONVS:
         return None
     if _MODE == "never" or not inference_on():
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
-    return {"block_size": g.block_size_static}
+    return _with_mode({"block_size": g.block_size_static})
 
 
 def mp_layer_cfg(g, conv: str) -> Optional[dict]:
@@ -171,21 +170,31 @@ def mp_layer_cfg(g, conv: str) -> Optional[dict]:
     mode) on a standard-packed batch with an ELL table; else None (the
     conv's plain path: the block product for GIN and SAGE and other block
     sizes on block batches, the edge list without a table).  In or
-    out of inference scope, since the layer has a backward.  Under int8
-    only gcn, lg and simple keep the kernel (no Linear inside it); under
-    bf16 none does (``UNPORTED_MODES``).  The JAX package's alignment and
+    out of inference scope, since the layer has a backward.  Under bf16
+    every conv's route carries "mode": "bf16"; under int8 gin and sage
+    carry "mode": "int8" (their epilogue products quantize) and decline
+    under an active calibration, while gcn, lg and simple keep the
+    float32 kernel, calibration or not (no Linear runs inside it: the
+    JAX convs pop ``int8`` there).  The JAX package's alignment and
     batch-size gates are left out: they weighed the TPU's 128-lane
     padding and grid steps, which this kernel does not have."""
     if _MODE == "never":
         return None
-    if _unported("mp_layer") and not (policy() == "int8"
-                                      and conv in INT8_NEUTRAL_CONVS):
+    name = policy()
+    quant = name == "int8" and conv not in INT8_NEUTRAL_CONVS
+    if quant and _calibrating():
         return None
     if g.block_adj is not None:
         if conv not in BLOCK_LAYER_CONVS or g.block_size_static % 128:
             return None
-        return {"block": True}
-    return {} if g.nbr_nodes is not None else None
+        cfg = {"block": True}
+    elif g.nbr_nodes is not None:
+        cfg = {}
+    else:
+        return None
+    if name == "bf16" or quant:
+        cfg["mode"] = name
+    return cfg
 
 
 def pna_stack_cfg(g) -> Optional[dict]:
@@ -271,25 +280,30 @@ def gat_layer_cfg(g, act) -> Optional[dict]:
 
 
 def agg_cfg(g) -> Optional[dict]:
-    """{} when the multi-aggregate kernel (``ops.cuda.ell_agg``) applies to
-    batch ``g``, else None (the caller's plain path).  The JAX package's
-    ``fused_config(kind="agg")``: the batch's ELL table and
-    graph-contiguous packing with a known largest graph.  Like that gate
-    it does not weigh block packing: ``nn.conv._fused_multi`` gives way to
+    """{} ({"mode": "bf16"} under bf16) when the multi-aggregate kernel
+    (``ops.cuda.ell_agg``) applies to batch ``g``, else None (the
+    caller's plain path).  The JAX package's ``fused_config(kind="agg")``:
+    the batch's ELL table and graph-contiguous packing with a known
+    largest graph; the bf16 gather under bf16, the float32 kernel under
+    int8 (calibration or not: it runs no product).  Like that gate it
+    does not weigh block packing: ``nn.conv._fused_multi`` gives way to
     the block product on a block-packed batch, while PNA's block path
     takes the kernel for max and min.  The TPU's lane, VMEM and tile
     gates are left out: this kernel takes any width and row count."""
-    if _MODE == "never" or g.nbr_nodes is None or _unported("ell_agg"):
+    if _MODE == "never" or g.nbr_nodes is None:
         return None
     if g.max_graph_nodes_static <= 0:
         return None
-    return {}
+    return {"mode": "bf16"} if policy() == "bf16" else {}
 
 
 def gine_layer_cfg(g, act) -> Optional[dict]:
-    """{} when the GINE layer kernel (``ops.cuda.gine_layer``) applies to
-    batch ``g`` with epilogue activation ``act``, else None (GINEConv's
-    plain paths).  Needs the batch's ELL table with its edge slots
+    """{} ({"mode": ...} under a policy) when the GINE layer kernel
+    (``ops.cuda.gine_layer``) applies to batch ``g`` with epilogue
+    activation ``act``, else None (GINEConv's plain paths).  The mode is
+    the policy's: "int8" quantizes both MLP products, "bf16" rounds the
+    gathered rows and the products' operands; an active int8 calibration
+    declines.  Needs the batch's ELL table with its edge slots
     (``nbr_edges``) and an activation the kernel has; in or out of
     inference scope, since the layer has a backward, and on block-packed
     batches too (GINE has no block kernel, so the windowed one outranks
@@ -300,27 +314,28 @@ def gine_layer_cfg(g, act) -> Optional[dict]:
 
     if _MODE == "never" or g.nbr_nodes is None or g.nbr_edges is None:
         return None
-    if _unported("gine_layer"):
+    if act not in LAYER_ACTS:
         return None
-    return {} if act in LAYER_ACTS else None
+    return _with_mode({})
 
 
 def edge_block_cfg(g, act) -> Optional[dict]:
-    """{} when the EdgeConv block kernel (``ops.cuda.edge_block``) applies
-    to batch ``g`` with epilogue activation ``act``, else None (EdgeConv's
-    plain paths).  The JAX package's ``edge_block_cfg``: inference scope
-    (the JAX kernel's backward is a recompute and training keeps the ELL
-    path), a block-packed batch at a block size that is a multiple of
-    128, and its ELL table; here also an activation the kernel has."""
+    """{} ({"mode": "bf16"} under bf16) when the EdgeConv block kernel
+    (``ops.cuda.edge_block``) applies to batch ``g`` with epilogue
+    activation ``act``, else None (EdgeConv's plain paths).  The JAX
+    package's ``edge_block_cfg``: inference scope (the JAX kernel's
+    backward is a recompute and training keeps the ELL path), a
+    block-packed batch at a block size that is a multiple of 128, and its
+    ELL table, not under int8; here also an activation the kernel has."""
     from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
 
     if _MODE == "never" or not inference_on() or _unported("edge_block"):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
-    if g.nbr_nodes is None:
+    if g.nbr_nodes is None or act not in LAYER_ACTS:
         return None
-    return {} if act in LAYER_ACTS else None
+    return {"mode": "bf16"} if policy() == "bf16" else {}
 
 
 def readout_config(g, aggrs, act, out_act) -> Optional[dict]:

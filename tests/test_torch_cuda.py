@@ -1285,3 +1285,189 @@ def test_calibrated_int8_forward_on_the_card(cuda_device):
     ref = progs[1].forward(b1)
     m = b1.graph_mask
     assert _scaled_err(out.cpu()[m], ref[m]) <= CHAIN_TOL["int8"]
+
+
+# ------------------------------------------ modes of rows 3, 4, 8, 12, 13
+
+MP_MODE_CASES = ([(c, "bf16") for c in MP_LAYER_CONVS]
+                 + [(c, "int8") for c in mp_layer.QUANT_CONVS])
+
+
+@pytest.mark.parametrize("conv,mode", MP_MODE_CASES)
+@pytest.mark.parametrize("packing", ["ell", "block"])
+def test_mp_layer_modes_match_plain(cuda_device, conv, mode, packing):
+    """Row 4 in each mode at input widths 11 and 128 (gin and sage 128
+    out): 2e-3 / 5e-3 of max on real rows, one launch of the mode."""
+    b = (_std_batch(device=cuda_device)[1] if packing == "ell"
+         else _batch()[1].to(cuda_device))
+    g = torch.Generator(device="cpu").manual_seed(9)
+    for F, act, with_skip in ((11, "relu", True), (128, "tanh", False)):
+        ops = _mp_operands(conv, F, g, cuda_device)
+        w0, w1, s0, s1 = mp_layer.prepare_layer(ops.get("w0"), ops.get("w1"),
+                                                mode)
+        if "w0" in ops:
+            ops.update(w0=w0, w1=w1)
+        x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+        Fout = 128 if conv in ("gin", "sage") else F
+        skip = (torch.randn(b.num_nodes, Fout, generator=g).to(cuda_device)
+                if with_skip else None)
+        kw = dict(ops, skip=skip, act=act, mode=mode, s0=s0, s1=s1,
+                  block_adj=b.block_adj if packing == "block" else None)
+        before = mp_layer.fused_mp_layer.mode_launches[mode]
+        out = mp_layer.fused_mp_layer(x, b.nbr_nodes, b.in_degree, conv, **kw)
+        torch.cuda.synchronize()
+        assert mp_layer.fused_mp_layer.mode_launches[mode] == before + 1
+        want = mp_layer.mp_layer_plain(x, b.nbr_nodes, b.in_degree, conv,
+                                       **kw)
+        m = b.node_mask
+        assert torch.isfinite(out[m]).all()
+        assert _scaled_err(out[m], want[m]) <= MODE_TOL[mode], (F, act)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("conv", ["gcn", "gin", "sage"])
+def test_mp_block_modes_match_plain_per_layer(cuda_device, conv, mode):
+    """Row 3 in each mode, the canonical model's 6 layers one at a time
+    on the plain version's input to each."""
+    gs, b = _batch(256)
+    b = b.to(cuda_device)
+    model = canonical_model(conv, "qm9", graphs=gs).to(cuda_device)
+    stacked, _ = model._kernel_params(128)
+    L = model.gnn_num_layers
+    h = torch.nn.functional.pad(b.node_feat, (0, 128 - b.feature_dim))
+    before = mp_block.fused_mp_block_stack.mode_launches[mode]
+    for l, c in enumerate(model.gnn_convs):
+        st, sc = mp_block.prepare_mp_stack([t[l:l + 1] for t in stacked],
+                                           mode)
+        args = (h.contiguous(), b.block_adj, b.in_degree, *st)
+        lkw = dict(conv=conv, epss=[getattr(c, "eps", 0.0)],
+                   skips=[0 < l < L - 1], act="relu", mode=mode, scales=sc)
+        got = mp_block.fused_mp_block_stack(*args, **lkw)
+        torch.cuda.synchronize()
+        want = mp_block.mp_stack_plain(*args[:7], conv, lkw["epss"],
+                                       lkw["skips"], "relu", mode, sc)
+        assert torch.isfinite(got).all()
+        assert _scaled_err(got, want) <= MODE_TOL[mode], l
+        h = want
+    assert mp_block.fused_mp_block_stack.mode_launches[mode] == before + L
+
+
+@pytest.mark.parametrize("with_u", [False, True])
+def test_ell_agg_bf16_matches_plain(cuda_device, with_u):
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    v = torch.randn(b.num_nodes, 128, generator=g).to(cuda_device)
+    u = (torch.randn(b.num_nodes, 128, generator=g).to(cuda_device)
+         if with_u else None)
+    aggs = ("sum", "mean", "min", "max", "std")
+    got = ell_agg.fused_ell_aggregate(v, b.nbr_nodes, b.in_degree, aggs, u=u,
+                                      mode="bf16")
+    torch.cuda.synchronize()
+    want = ell_agg.ell_aggregate_plain(v, b.nbr_nodes, b.in_degree, aggs, u,
+                                       mode="bf16")
+    m = b.node_mask
+    assert _scaled_err(got[m], want[m]) <= MODE_TOL["bf16"]
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_gine_layer_modes_match_plain(cuda_device, mode):
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    for F in (11, 128):
+        def r(*s, sc=1.0):
+            return (torch.randn(*s, generator=g) * sc).to(cuda_device)
+
+        x, pe = r(b.num_nodes, F), r(b.num_edges, F)
+        w0, w1, s0, s1 = mp_layer.prepare_layer(r(F, 128, sc=F ** -0.5),
+                                                r(128, 128, sc=128 ** -0.5),
+                                                mode)
+        args = (x, pe, b.nbr_nodes, b.nbr_edges, b.in_degree, w0,
+                r(128, sc=.1), w1, r(128, sc=.1))
+        kw = dict(eps=0.1, skip=r(b.num_nodes, 128), act="relu", mode=mode,
+                  s0=s0, s1=s1)
+        got = gine_layer.fused_gine_layer(*args, **kw)
+        torch.cuda.synchronize()
+        want = gine_layer.gine_layer_plain(*args, **kw)
+        m = b.node_mask
+        assert _scaled_err(got[m], want[m]) <= MODE_TOL[mode], F
+
+
+@pytest.mark.parametrize("aggr", ["max", "sum", "mean"])
+def test_edge_block_bf16_matches_plain(cuda_device, aggr):
+    _, b = _batch()
+    b = b.to(cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    for Fin in (11, 128):
+        def r(*s, sc=1.0):
+            return (torch.randn(*s, generator=g) * sc).to(cuda_device)
+
+        args = (r(b.num_nodes, Fin), b.nbr_nodes, b.in_degree,
+                r(2 * Fin, 128, sc=Fin ** -0.5).to(torch.bfloat16),
+                r(128, sc=.1), r(128, 128, sc=128 ** -0.5).to(torch.bfloat16),
+                r(128, sc=.1))
+        kw = dict(aggregation=aggr, act="relu", mode="bf16")
+        got = edge_block.fused_edge_block_layer(*args, **kw)
+        torch.cuda.synchronize()
+        want = edge_block.edge_block_layer_plain(*args, **kw)
+        m = b.node_mask
+        assert _scaled_err(got[m], want[m]) <= MODE_TOL["bf16"], Fin
+
+
+# the slice's forwards on the card against the CPU: the two sides' matrix
+# products round in other orders, and an ulp before a mode's rounding
+# moves a bf16 value by 2^-8 or an int8 level, compounding over six
+# layers (chip_smoke.py SLICE_CPU_TOL)
+SLICE_CPU_TOL = {"bf16": 1e-2, "int8": 5e-2}
+_ALL5 = {"aggregators": ("sum", "mean", "min", "max", "std")}
+# (conv, conv_kwargs, block): the packings the gates send to the slice's
+# kernels
+SLICE_PROGRAMS = [("gcn", None, True), ("gcn", None, False),
+                  ("gin", None, False), ("sage", None, True),
+                  ("sage", None, False), ("lg", None, True),
+                  ("lg", None, False), ("simple", None, True),
+                  ("simple", None, False), ("gine", None, True),
+                  ("gine", None, False), ("edge", None, True),
+                  ("simple", {"aggregation": "max"}, False),
+                  ("pna", _ALL5, True), ("pna", _ALL5, False)]
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("conv,kw,block", SLICE_PROGRAMS)
+def test_program_forward_slice_policies_through_kernels(
+        cuda_device, conv, kw, block, precision):
+    """``Program(precision=...)`` of the slice's convs on the card: a
+    kernel of the slice launches wherever the gates give one (none for
+    EdgeConv under int8, whose gate declines), and the output agrees with
+    the same Program on the CPU."""
+    nd = 128 if conv in ("lg", "simple") else None
+    gs, (b,) = canonical_batches(
+        "qm9", n_graphs=256, batch_size=256, node_dim=nd,
+        block_size=128 if block else 0,
+        node_multiple=128 if block else 256, device="cpu")
+    size = dict(max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, block_size=128 if block else 0)
+    progs = [Program(canonical_model(conv, "qm9", graphs=gs,
+                                     conv_kwargs=dict(kw or {})),
+                     precision=precision, device=d, seed=7, **size)
+             for d in (cuda_device, "cpu")]
+    progs[0].init_params()
+    progs[1].set_params({k: v.cpu() for k, v in progs[0].params.items()})
+    fns = (mp_block.fused_mp_block_stack, mp_layer.fused_mp_layer,
+           ell_agg.fused_ell_aggregate, gine_layer.fused_gine_layer,
+           edge_block.fused_edge_block_layer)
+    before = [dict(f.mode_launches) for f in fns]
+    out = progs[0].forward(b.to(cuda_device))
+    torch.cuda.synchronize()
+    moved = {f.__name__: {k: v - before[i][k] for k, v in
+                          f.mode_launches.items() if v != before[i][k]}
+             for i, f in enumerate(fns)}
+    moved = {k: v for k, v in moved.items() if v}
+    if conv == "edge" and precision == "int8":
+        assert not moved, moved
+    else:
+        assert moved, "no kernel of the slice ran"
+    ref = progs[1].forward(b)
+    m = b.graph_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out.cpu()[m], ref[m]) <= SLICE_CPU_TOL[precision], \
+        moved

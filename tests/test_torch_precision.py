@@ -26,7 +26,14 @@ inputs and weights.
     (the JAX package holds its own int8 stack to 5e-2 of its XLA int8
     path; measured ~4e-3).
   - int8 with static scales 1e-5: both run their plain paths, float32
-    apart from the same int8 products.
+    apart from the same int8 products.  Where a float32 kernel stays on
+    the path under the calibration (GCN's, LG's and Simple's mp layer,
+    the multi-aggregate: ``STATIC_KERNEL_MODELS``), 2e-2 as for dynamic
+    int8: the JAX kernel sums through its count-matrix product and the
+    port over the slots, an ulp apart, and with one scale per site an
+    ulp at a .5 boundary moves a level (measured: Simple, a few outputs
+    1e-4 off and one 1.4e-3 of 0.17 after such a flip in the first MLP
+    layer; every other output within 1e-7).
 * The route each conv takes under each policy: the gates, and the
   kernel functions that ``Program.forward`` reaches."""
 
@@ -39,6 +46,7 @@ import pytest
 import torch
 
 import gnnbuilder_tpu as gnnb
+from gnnbuilder_tpu.bench.canonical import CANONICAL as JAX_CANONICAL
 from gnnbuilder_tpu.bench.canonical import (
     canonical_batches as jax_canonical_batches,
 )
@@ -74,7 +82,12 @@ from gnnbuilder_tpu_torch.ops.cuda import (
 )
 from gnnbuilder_tpu_torch.port import params_from_jax, site_to_jax
 
-PROGRAM_TOL = {"bf16": 5e-3, "int8": 2e-2, "int8_static": 1e-5}
+PROGRAM_TOL = {"bf16": 5e-3, "int8": 2e-2, "int8_static": 1e-5,
+               "int8_static_kernel": 2e-2}
+# models whose forward keeps a float32 kernel under an int8 calibration
+# (GCN's, LG's and Simple's mp layer, the multi-aggregate), in both
+# packages
+STATIC_KERNEL_MODELS = ("gcn", "lg", "simple", "simple_max", "pna5")
 
 
 def _tied(rows, cols, seed):
@@ -190,19 +203,42 @@ def test_precision_policy_objects():
         site_to_jax("gnn_convs.0.pre_nn.weight")
 
 
-def _programs(block_size, layers=3, precision="f32"):
-    kw = dict(n_graphs=64, batch_size=32, block_size=block_size,
-              node_multiple=128)
+_PARAMS: dict = {}
+
+
+def _programs(block_size, layers=3, precision="f32", conv="pna",
+              conv_kwargs=None, n_graphs=64, batch_size=32):
+    """(JAX Program, port Program, JAX batches, port batches, params) of
+    the canonical model with ``conv`` (LG and Simple at input = hidden =
+    output = 128 on features padded to 128)."""
+    same = conv in ("lg", "simple")
+    kw = dict(n_graphs=n_graphs, batch_size=batch_size,
+              block_size=block_size, node_multiple=128,
+              node_dim=128 if same else None)
     gj, jbs = jax_canonical_batches("qm9", **kw)
     gt, tbs = canonical_batches("qm9", **kw, device="cpu")
     over = dict(gnn_num_layers=layers)
-    jm = jax_canonical_model("pna", "qm9", graphs=gj, **over)
-    tm = canonical_model("pna", "qm9", graphs=gt, **over)
+    if conv_kwargs:
+        over["conv_kwargs"] = dict(conv_kwargs)
+    if same:
+        cfg = {**JAX_CANONICAL, **over, "gnn_output_dim": 128}
+        jm = gnnb.GNNModel(graph_input_feature_dim=128,
+                           graph_input_edge_dim=4, gnn_conv=conv, **cfg)
+    else:
+        jm = jax_canonical_model(conv, "qm9", graphs=gj, **dict(
+            over, conv_kwargs=dict(conv_kwargs or {})))
+    tm = canonical_model(conv, "qm9", graphs=gt, **dict(
+        over, conv_kwargs=dict(conv_kwargs or {})))
     b0 = jbs[0]
     size = dict(max_nodes=b0.num_nodes, max_edges=b0.num_edges,
                 max_graphs=b0.num_graphs, block_size=block_size)
-    params = jax.tree.map(np.asarray,
-                          gnnb.Program(jm, **size).init_params(b0))
+    # the weights do not depend on the packing or the policy: one init
+    # per model
+    key = (conv, repr(conv_kwargs), layers, n_graphs, batch_size)
+    if key not in _PARAMS:
+        _PARAMS[key] = jax.tree.map(
+            np.asarray, gnnb.Program(jm, **size).init_params(b0))
+    params = _PARAMS[key]
     jp = gnnb.Program(jm, precision=precision, **size)
     jp.set_params(jax.tree.map(jnp.asarray, params))
     tp = Program(tm, precision=precision, device="cpu", **size)
@@ -255,6 +291,69 @@ def test_program_policy_matches_jax_program(block_size, precision,
             {"stack": [], "readout": [precision] * n,
              "layer": [precision] * (3 * n)})
     assert calls == want
+
+
+# the slice's convs under the policies, by test id: (conv, conv_kwargs)
+SLICE_MODELS = {
+    "gcn": ("gcn", None), "gin": ("gin", None), "sage": ("sage", None),
+    "lg": ("lg", None), "simple": ("simple", None), "gine": ("gine", None),
+    "edge": ("edge", None),
+    "simple_max": ("simple", {"aggregation": "max"}),
+    "pna5": ("pna", {"aggregators": ("sum", "mean", "min", "max", "std")}),
+}
+
+
+def check_program_policy_each_conv(name, precision, block_size,
+                                    monkeypatch):
+    """``test_program_policy_matches_jax_program`` for every other conv
+    whose kernels have the policies' modes (``SLICE_MODELS``; 2 layers, a
+    batch of 16 graphs), and int8 with static scales from
+    ``calibrate_int8``: the output against JAX ``Program`` at
+    ``PROGRAM_TOL``, and the kernel functions reached with the modes the
+    JAX gates choose.  The JAX int8 runs gather with
+    ``gather_mode="highest"``, as the port does.  The cases run from
+    ``tests/test_torch_mp_precision.py`` (the mp convs) and
+    ``tests/test_torch_edge_precision.py`` (the rest), so that the three
+    files share the work."""
+    conv, kw = SLICE_MODELS[name]
+    pol = "int8" if precision == "int8_static" else precision
+    jp, tp, jbs, tbs, _ = _programs(block_size, layers=2, precision=pol,
+                                    conv=conv, conv_kwargs=kw, n_graphs=16,
+                                    batch_size=16)
+    if pol == "int8":
+        jax_dispatch.set_kernel_overrides(gather_mode="highest")
+    try:
+        if precision == "int8_static":
+            # both record on their kernel paths: GCN's kernel path
+            # transforms before it aggregates, its plain path after
+            jax_dispatch.set_fused_mode("always")
+            try:
+                js = jp.calibrate_int8(jbs)
+            finally:
+                jax_dispatch.set_fused_mode("auto")
+            ts = tp.calibrate_int8(tbs)
+            assert {site_to_jax(k) for k in ts} == set(js)
+        refs = _jax_always(jp, jbs)
+    finally:
+        jax_dispatch.set_kernel_overrides(gather_mode=None)
+    calls = _count_calls(monkeypatch)
+    for tb, ref in zip(tbs, refs):
+        out = tp.forward(tb)
+        m = tb.graph_mask.numpy()
+        ours = out.numpy()
+        rel = float(np.abs(ours[m] - ref[m]).max() / np.abs(ref[m]).max())
+        print(f"Program {name} {precision} block={block_size}: {rel:.3e}")
+        assert np.isfinite(ours[m]).all()
+        tol = PROGRAM_TOL[precision + "_kernel" if precision == "int8_static"
+                          and name in STATIC_KERNEL_MODELS else precision]
+        assert rel <= tol, rel
+    n = len(tbs)
+    got = {k: v for k, v in calls.items() if v and k != "readout"}
+    want = {k: v * n for k, v in _route(conv, block_size, precision,
+                                         name=name).items()}
+    assert got == want
+    assert calls["readout"] == ([] if precision == "int8_static"
+                                else [pol] * n)
 
 
 @pytest.mark.parametrize("block_size", [128, 0])
@@ -319,36 +418,42 @@ _COUNTED = {
 }
 
 
-def _route(conv, block, precision):
-    """The conv-stack kernels one forward of a 2-layer model reaches (the
-    readout aside), with their modes where they have one."""
-    f32 = precision == "f32"
+def _route(conv, block, precision, layers=2, name=None):
+    """The conv-stack kernels one forward of a ``layers``-layer model
+    reaches (the readout aside), with their modes: the JAX gates' choices
+    ("int8_static" = int8 under a calibration with static scales; ``name``
+    "simple_max" / "pna5" for Simple max and five-aggregator PNA)."""
+    L = layers
+    static = precision == "int8_static"
+    pol = "int8" if static else precision
+    f32 = pol == "f32"
+    # kernels with a bf16 mode and no int8 one keep float32 under int8
+    agg = "bf16" if pol == "bf16" else "f32"
+    if name == "simple_max":
+        return {} if block else {"ell_agg": [agg] * L}
+    if name == "pna5":
+        return {"ell_agg": [agg] * L}
     if conv == "pna":
-        return ({"pna_stack": [precision]} if block
-                else {"pna_layer": [precision] * 2})
-    if conv in ("gcn", "sage") and block:
-        return {"mp_stack": ["f32"]} if f32 else (
-            {"mp_layer": ["f32"] * 2} if conv == "gcn"
-            and precision == "int8" else {})
+        if static:
+            return {}
+        return {"pna_stack": [pol]} if block else {"pna_layer": [pol] * L}
+    if conv in ("gcn", "sage") and block and not static:
+        return {"mp_stack": [pol]}
     if conv in ("gcn", "lg", "simple"):
-        return {"mp_layer": ["f32"] * 2} if precision != "bf16" else {}
+        return {"mp_layer": [agg] * L}
     if conv in ("gin", "sage"):
-        return {"mp_layer": ["f32"] * 2} if f32 and not block else {}
+        return {} if block or static else {"mp_layer": [pol] * L}
     if conv == "gat":
-        return ({"gat_block" if block else "gat_layer": ["f32"] * 2}
+        return ({"gat_block" if block else "gat_layer": ["f32"] * L}
                 if f32 else {})
     if conv == "gine":
-        return {"gine_layer": ["f32"] * 2} if f32 else {}
-    return {"edge_block": ["f32"] * 2} if f32 and block else {}
+        return {} if static else {"gine_layer": [pol] * L}
+    return {"edge_block": [pol] * L} if block and pol != "int8" else {}
 
 
-@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("conv", _CONVS)
-def test_route_of_each_conv_under_each_policy(conv, precision,
-                                              monkeypatch):
-    """Program.forward of a 2-layer canonical model (hidden 128) on a
-    block- and a standard-packed batch: the kernel functions it reaches,
-    and the readout's mode."""
+def _count_calls(monkeypatch):
+    """{kernel: [mode of each call]} for every counted kernel function
+    and the readout."""
     calls = {k: [] for k in (*_COUNTED, "readout")}
     for key, (mod, name) in {**_COUNTED, "readout": (
             readout, "fused_readout")}.items():
@@ -358,6 +463,17 @@ def test_route_of_each_conv_under_each_policy(conv, precision,
             calls[_key].append(k.get("mode", "f32"))
             return _fn(*a, **k)
         monkeypatch.setattr(mod, name, wrapped)
+    return calls
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("conv", _CONVS)
+def test_route_of_each_conv_under_each_policy(conv, precision,
+                                              monkeypatch):
+    """Program.forward of a 2-layer canonical model (hidden 128) on a
+    block- and a standard-packed batch: the kernel functions it reaches,
+    and the readout's mode."""
+    calls = _count_calls(monkeypatch)
     kw = dict(conv_kwargs={"heads": 2}) if conv == "gat" else {}
     for block in (128, 0):
         nd = 128 if conv in ("lg", "simple") else None
@@ -380,14 +496,16 @@ def test_route_of_each_conv_under_each_policy(conv, precision,
 
 def test_gates_under_each_policy():
     """The gates' answers, kernel by kernel (UNPORTED_MODES and the JAX
-    package's own int8 declines), and every int8 gate of rows 1, 2 and 5
-    declining under an active calibration."""
+    package's own int8 declines), and under an active calibration every
+    gate that would give a kernel the int8 mode declining, while GCN's,
+    LG's and Simple's mp layer and the multi-aggregate keep float32."""
     _, (blk,) = canonical_batches("qm9", n_graphs=16, batch_size=16,
                                   block_size=128, node_multiple=128,
                                   device="cpu")
     _, (std,) = canonical_batches("qm9", n_graphs=16, batch_size=16,
                                   node_multiple=128, device="cpu")
     aggrs = ("add", "mean", "max")
+    convs = ("gcn", "gin", "sage", "lg", "simple")
 
     def answers():
         with dispatch.inference_mode():
@@ -401,7 +519,8 @@ def test_gates_under_each_policy():
                     "mode", "f32"),
                 "mp_stack": dispatch.mp_stack_cfg(blk, "gcn"),
                 **{f"mp_layer_{c}": dispatch.mp_layer_cfg(std, c)
-                   for c in ("gcn", "gin", "sage", "lg", "simple")},
+                   for c in convs},
+                "mp_layer_gcn_block": dispatch.mp_layer_cfg(blk, "gcn"),
                 "gat_block": dispatch.gat_block_cfg(blk, "relu"),
                 "gat_layer": dispatch.gat_layer_cfg(std, "relu"),
                 "ell_agg": dispatch.agg_cfg(std),
@@ -413,8 +532,8 @@ def test_gates_under_each_policy():
     assert f32 == {
         "block": {}, "pna_stack": {"block_size": 128}, "pna_layer": {},
         "readout": "f32", "mp_stack": {"block_size": 128},
-        **{f"mp_layer_{c}": {} for c in ("gcn", "gin", "sage", "lg",
-                                         "simple")},
+        **{f"mp_layer_{c}": {} for c in convs},
+        "mp_layer_gcn_block": {"block": True},
         "gat_block": {}, "gat_layer": {}, "ell_agg": {},
         "gine_layer": {}, "edge_block": {}}
     with Precision.bf16().activate():
@@ -422,25 +541,30 @@ def test_gates_under_each_policy():
             "block": {"mm": "bf16"},
             "pna_stack": {"block_size": 128, "mode": "bf16"},
             "pna_layer": {"mode": "bf16"}, "readout": "bf16",
-            "mp_stack": None,
-            **{f"mp_layer_{c}": None for c in ("gcn", "gin", "sage", "lg",
-                                               "simple")},
-            "gat_block": None, "gat_layer": None, "ell_agg": None,
-            "gine_layer": None, "edge_block": None}
+            "mp_stack": {"block_size": 128, "mode": "bf16"},
+            **{f"mp_layer_{c}": {"mode": "bf16"} for c in convs},
+            "mp_layer_gcn_block": {"block": True, "mode": "bf16"},
+            "gat_block": None, "gat_layer": None,
+            "ell_agg": {"mode": "bf16"}, "gine_layer": {"mode": "bf16"},
+            "edge_block": {"mode": "bf16"}}
     with Precision.int8().activate():
         want = {
             "block": {}, "pna_stack": {"block_size": 128, "mode": "int8"},
             "pna_layer": {"mode": "int8"}, "readout": "int8",
-            "mp_stack": None, "mp_layer_gcn": {}, "mp_layer_gin": None,
-            "mp_layer_sage": None, "mp_layer_lg": {},
-            "mp_layer_simple": {}, "gat_block": None, "gat_layer": None,
-            "ell_agg": {}, "gine_layer": None, "edge_block": None}
+            "mp_stack": {"block_size": 128, "mode": "int8"},
+            "mp_layer_gcn": {}, "mp_layer_gin": {"mode": "int8"},
+            "mp_layer_sage": {"mode": "int8"}, "mp_layer_lg": {},
+            "mp_layer_simple": {}, "mp_layer_gcn_block": {"block": True},
+            "gat_block": None, "gat_layer": None, "ell_agg": {},
+            "gine_layer": {"mode": "int8"}, "edge_block": None}
         assert answers() == want
         for calib in (dict(record={}), dict(scales={})):
             with quant.calibration(**calib):
                 got = answers()
             assert got == {**want, "pna_stack": None, "pna_layer": None,
-                           "readout": None}
-    assert {k for k, _ in dispatch.UNPORTED_MODES} == {
-        "mp_block_stack", "mp_layer", "ell_agg", "gat_block", "gat_layer",
-        "gine_layer", "edge_block"}
+                           "readout": None, "mp_stack": None,
+                           "mp_layer_gin": None, "mp_layer_sage": None,
+                           "gine_layer": None}
+    assert dispatch.UNPORTED_MODES == {
+        ("gat_block", "bf16"), ("gat_layer", "bf16"),
+        ("gat_layer", "int8")}
