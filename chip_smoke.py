@@ -64,7 +64,23 @@ weights):
   the packings the gates send to those kernels, each with its launch
   counts per mode, its error against f32 and a 64-graph batch against
   the CPU in the same policy; row 6's generic entry (reverse CSR, then
-  row 7's CSR gather) against its plain version; the times and bounds.
+  row 7's CSR gather) against its plain version; the times and bounds;
+* canonical GAT (heads 4) under bf16 and int8: the bf16 mode of row 9
+  and the bf16 and int8 modes of row 10 against their plain versions in
+  every layer at b1024; ``Program(precision=...).forward`` on the three
+  block-packed batches (row 9b under bf16, row 10i under int8) and on
+  the standard-packed train batch (rows 10b, 10i), with per-mode launch
+  counts, the error against f32 and a 64-graph batch against the CPU;
+  then serving: ``GNNServer.from_program`` of GAT bf16 block-packed,
+  int8 block-packed and int8 standard-packed (buckets from
+  ``Program.from_dataset`` at 64 graphs) answering three bursts of 512
+  QM9 requests, each on a fresh server after a warm-up one, the mode
+  kernels' launches inside each server, every prediction against
+  ``Program.forward`` of the same graphs, a server from
+  ``export_bundle`` giving the same predictions, sustained graphs/s and
+  p50 / p90 / p99 request latency (the median burst) beside one graph
+  per synchronous forward, and the host syncs of one micro-batch by
+  line; the modes' times and bounds.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -76,14 +92,18 @@ ptxas report of the build; then, each on its own line, a ``kernels`` JSON
 object, the card's name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
 CUDA is unavailable, when run without the package beside it, or when any
-check fails.  Starts no threads; every subprocess has a timeout.
+check fails.  Its only threads are the servers' (every wait on them
+has a timeout, and each server is closed); every subprocess has a
+timeout.
 """
 
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2527,6 +2547,462 @@ def slice_phases(report, *, dev, graphs, b0, tb, counted, zero_counts, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# this slice: the bf16 mode of row 9 and the bf16 and int8 modes of row 10,
+# so that canonical GAT runs its kernels under Program's policies, and
+# serving (GNNServer over Program, export_bundle) at those policies
+
+# kernel: (TPU source, line of the TPU function, the modes it has)
+GAT_MODE_KERNELS = {"gat_block": ("gat_block", 164, ("bf16",)),
+                    "gat_layer": ("gat_layer", 308, PREC_MODES)}
+# the served configurations: (policy, block size)
+SERVE_CELLS = (("bf16", 128), ("int8", 128), ("int8", 0))
+SERVE_REQUESTS = 512     # QM9 graphs answered by each server
+SERVE_BATCH = 64         # the micro-batch (serve_bench.py's bucket)
+SERVE_BURSTS = 3         # timed bursts, each on a fresh server
+SERVE_B1 = 64            # graphs timed one per synchronous forward
+SERVE_WAIT_S = 300.0     # the longest wait on any request
+# a served prediction against Program.forward of the same graphs, and a
+# bundle's server against the live one: a graph's rows take the same
+# operations in any batch, but for the float32 rounding of sums over
+# other padding
+SERVE_TOL = 1e-5
+
+
+def count_syncs(fn):
+    """(count, {"file:line": count}) of the synchronizing CUDA operations
+    (a stream or device synchronize, a blocking copy between host and
+    card) that PyTorch reports while ``fn()`` runs, under
+    ``torch.cuda.set_sync_debug_mode("warn")``, by the Python line that
+    made each."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            at = f"{os.path.basename(w.filename)}:{w.lineno}"
+            where[at] = where.get(at, 0) + 1
+    return sum(where.values()), where
+
+
+class gc_pauses:
+    """The garbage collector's pauses while the block runs, in ms, in
+    ``self.ms`` (from ``gc.callbacks``, whichever thread collects)."""
+
+    def __enter__(self):
+        self.ms, self._t = [], None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.ms.append((time.perf_counter() - self._t) * 1e3)
+            self._t = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
+
+
+def host_ms(fn, iters=5):
+    """Median host wall time of ``fn()`` in ms, the card drained before
+    each call and not waited for after it."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def gat_mode_work(layers, g, block, mode):
+    """([(operations, peak)], bytes) of one forward's six launches of row
+    9 or 10 in ``mode``: the projection's products at the mode's
+    tensor-core peak (row 9b also its bf16 logit terms x . wa, 4 Fin H a
+    row, in place of the 4 HC of h . att), the rest as ``gat_work`` counts
+    it at the float32 peak, int8's ~4 operations per quantized value and
+    2 per dequantized product too; w at the mode's width (int8 with its
+    column scales, row 9b with its two [Fin, H] bf16 logit weights), every
+    other input and output once in float32."""
+    flops, nbytes = gat_work(layers, g, block)
+    pk, wb = MODE_PEAK[mode], WEIGHT_BYTES[mode]
+    n = g.num_nodes
+    prod = rest = 0
+    for args, _ in layers:
+        fin, hc, heads = args[0].shape[1], args[-5].shape[1], args[-1]
+        prod += 2 * n * fin * hc
+        rest -= 2 * n * fin * hc
+        if block:
+            prod += 4 * n * fin * heads
+            rest -= 4 * n * hc
+            nbytes += 2 * 2 * fin * heads
+        if mode == "int8":
+            rest += 4 * n * fin + 2 * n * hc
+            nbytes += 4 * hc
+        nbytes -= (4 - wb) * fin * hc
+    return [(prod, pk), (flops + rest, PEAK_F32_FLOPS)], nbytes
+
+
+def gat_in_mode(layers, key, mode):
+    """The (args, kw) of row 9's or row 10's ``layers`` with w brought to
+    ``mode`` as GATConv brings it (``prepare_block``, ``prepare_layer``)."""
+    from gnnbuilder_tpu_torch.ops.cuda import gat_block, gat_layer
+
+    out = []
+    for args, kw in layers:
+        args, kw = list(args), dict(kw, mode=mode)
+        w = args[-5]
+        if key == "gat_block":
+            args[-5], kw["wa_src"], kw["wa_dst"] = gat_block.prepare_block(
+                w, args[-4], args[-3], mode)
+        else:
+            args[-5], kw["sw"] = gat_layer.prepare_layer(w, mode)
+        out.append((tuple(args), kw))
+    return out
+
+
+def serving_phases(report, *, dev, graphs, batches, b0, tb, counted,
+                   zero_counts, smi):
+    """Canonical GAT (heads 4) under bf16 and int8: rows 9b, 10b and 10i
+    against their plain versions in every layer at b1024;
+    ``Program(precision=...).forward`` on the three block-packed batches
+    and the standard-packed train batch, with its per-mode launch counts,
+    its error against f32 and a 64-graph batch against the CPU; then
+    ``GNNServer.from_program`` of GAT bf16 block-packed, int8 block-packed
+    and int8 standard-packed answering ``SERVE_BURSTS`` bursts of
+    ``SERVE_REQUESTS`` QM9 requests at micro-batches of <= 64 (buckets
+    from ``Program.from_dataset``), the mode kernels' launches inside
+    each server, every prediction against
+    ``Program.forward`` of the same graphs, ``export_bundle`` then
+    ``GNNServer.from_bundle`` giving the same predictions, sustained
+    graphs/s and request latency beside one graph per synchronous
+    forward; the modes' times.  Fills ``report``; returns the summary for
+    the last JSON line."""
+    from gnnbuilder_tpu_torch import Program
+    from gnnbuilder_tpu_torch.bench.canonical import (
+        canonical_batches,
+        canonical_model,
+    )
+    from gnnbuilder_tpu_torch.ops.cuda import gat_block, gat_layer
+    from gnnbuilder_tpu_torch.serve import GNNServer
+
+    fns = {"gat_block": (gat_block.fused_gat_block_layer,
+                         gat_block.gat_block_layer_plain),
+           "gat_layer": (gat_layer.fused_gat_layer,
+                         gat_layer.gat_layer_plain)}
+    kw_gat = dict(conv_kwargs=dict(heads=GAT_HEADS))
+    out = {}
+    torch.set_grad_enabled(False)
+
+    def gat_model():
+        return canonical_model("gat", "qm9", graphs=graphs, **kw_gat)
+
+    with phase("GAT modes: rows 9b, 10b and 10i against their plain "
+               "versions in each of the 6 layers"):
+        base = Program(gat_model(), max_nodes=b0.num_nodes,
+                       max_edges=b0.num_edges, max_graphs=b0.num_graphs,
+                       block_size=128, device=dev, seed=83)
+        params = base.init_params()
+        f32_layers = {"gat_block": (b0, gat_layer_args(base.model, b0, True)),
+                      "gat_layer": (tb, gat_layer_args(base.model, tb,
+                                                       False))}
+        mode_layers = {}
+        for key, (_, _, modes) in GAT_MODE_KERNELS.items():
+            g, layers = f32_layers[key]
+            fn, plain = fns[key]
+            for mode in modes:
+                ls = gat_in_mode(layers, key, mode)
+                worst = 0.0
+                for i, (args, kw) in enumerate(ls):
+                    got = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    want = plain(*args, **kw)
+                    m_ = g.node_mask
+                    e_ = rel_err(got[m_], want[m_])
+                    worst = max(worst, float(
+                        (got[m_] - want[m_]).abs().max()))
+                    if (not bool(torch.isfinite(got[m_]).all())
+                            or e_ > MODE_TOL[mode]):
+                        raise AssertionError(f"{key} {mode} layer {i}: "
+                                             f"{e_:.3e} of max |value|")
+                mode_layers[key, mode] = ls
+                report[f"{key}_{mode}"] = dict(max_abs_err=worst)
+                log(f"{key} {mode} (N={g.num_nodes}): 6 layers within "
+                    f"{MODE_TOL[mode]} of max |value|, max abs {worst:.2e}")
+
+    def program(prec, block_size, device=dev, **size):
+        g = b0 if block_size else tb
+        size = size or dict(max_nodes=g.num_nodes, max_edges=g.num_edges,
+                            max_graphs=g.num_graphs)
+        p = Program(gat_model(), precision=prec, block_size=block_size,
+                    device=device, **size)
+        p.set_params({k: v.to(device) for k, v in params.items()})
+        return p
+
+    def mode_counts():
+        return {k: {md: n for md, n in counted[k].mode_launches.items() if n}
+                for k in (*GAT_MODE_KERNELS, "readout")}
+
+    def want_counts(prec, block, n):
+        key = "gat_block" if block and prec == "bf16" else "gat_layer"
+        return {"gat_block": {}, "gat_layer": {}, key: {prec: 6 * n},
+                "readout": {prec: n}}
+
+    launches = {}
+    with phase(f"main path: Program.forward of canonical GAT under bf16 and "
+               f"int8 on {N_BATCHES} x {BATCH_GRAPHS}-graph block-packed "
+               f"batches and the standard-packed train batch"):
+        _, (small,) = canonical_batches(
+            "qm9", n_graphs=64, batch_size=64, block_size=128,
+            node_multiple=128, device="cpu")
+        fwd_err, progs = {}, {}
+        for block, bats in ((128, batches), (0, [tb])):
+            packing = "block" if block else "standard"
+            ps = {p: program(p, block) for p in ("f32",) + PREC_MODES}
+            progs[packing] = ps
+            refs = [ps["f32"].forward(b) for b in bats]
+            for prec in PREC_MODES:
+                zero_counts()
+                outs = [ps[prec].forward(b) for b in bats]
+                torch.cuda.synchronize()
+                got = mode_counts()
+                total = sum(fn.launches for fn in counted.values())
+                want = want_counts(prec, block, len(bats))
+                log(f"GAT {packing} {prec}: launches {got}; all counts "
+                    f"{total}")
+                if got != want or total != 7 * len(bats):
+                    raise AssertionError(f"GAT {packing} {prec}: launches "
+                                         f"{got}, want {want}")
+                for k, v in got.items():
+                    for md, n in v.items():
+                        launches[k, md] = launches.get((k, md), 0) + n
+                errs = []
+                for b, o, r in zip(bats, outs, refs):
+                    m_ = b.graph_mask
+                    if (tuple(o.shape) != (b.num_graphs, 1)
+                            or not bool(torch.isfinite(o[m_]).all())):
+                        raise AssertionError(f"GAT {prec}: bad output")
+                    errs.append(rel_err(o[m_], r[m_]))
+                ssize = dict(max_nodes=small.num_nodes,
+                             max_edges=small.num_edges,
+                             max_graphs=small.num_graphs)
+                sb = small if block else small.replace(block_adj=None)
+                oc = program(prec, block, **ssize).forward(
+                    sb.to(dev)).cpu()
+                rc = program(prec, block, device="cpu", **ssize).forward(sb)
+                ms_ = sb.graph_mask
+                ecpu = rel_err(oc[ms_], rc[ms_])
+                fwd_err[f"{packing} {prec}"] = dict(vs_f32=errs,
+                                                   card_vs_cpu=ecpu)
+                log(f"GAT {packing} {prec}: against f32 "
+                    f"{[f'{e:.3e}' for e in errs]} of max |value|; 64 "
+                    f"graphs, card vs CPU {ecpu:.3e} (tol "
+                    f"{SLICE_CPU_TOL[prec]})")
+                if ecpu > SLICE_CPU_TOL[prec]:
+                    raise AssertionError(f"GAT {packing} {prec}: card "
+                                         f"disagrees with the CPU")
+        for key, (_, _, modes) in GAT_MODE_KERNELS.items():
+            for mode in modes:
+                report[f"{key}_{mode}"]["launches"] = launches[key, mode]
+        out["error"] = fwd_err
+
+    serve = {}
+    requests = graphs[:SERVE_REQUESTS]
+    for prec, block in SERVE_CELLS:
+        packing = "block" if block else "standard"
+        with phase(f"serving: GNNServer.from_program of canonical GAT "
+                   f"{prec} {packing}-packed, {len(requests)} QM9 requests "
+                   f"at micro-batches of <= {SERVE_BATCH}, then its "
+                   f"export_bundle"):
+            prog = Program.from_dataset(gat_model(), graphs,
+                                        batch_size=SERVE_BATCH,
+                                        block_size=block, precision=prec,
+                                        device=dev)
+            prog.set_params({k: v.to(dev) for k, v in params.items()})
+            # the bucket's example: the largest graphs, so that the widths
+            # the bundle pins (largest graph, ELL widths) cover every one
+            example = prog.batch(sorted(
+                graphs, key=lambda g: g.num_nodes)[-SERVE_BATCH:])
+            want = torch.cat([
+                prog.forward(prog.batch(requests[i:i + SERVE_BATCH]))[
+                    :len(requests[i:i + SERVE_BATCH])].cpu()
+                for i in range(0, len(requests), SERVE_BATCH)])
+            runs = {}
+            kw_srv = dict(max_batch=SERVE_BATCH, max_wait_ms=1.0)
+            # a first server warms what the process keeps between servers
+            # (pinned host buffers, the card's allocator); each timed burst
+            # then runs on a fresh one, whose from_program warms the
+            # forward (compile) before its threads start, so that its
+            # counts, stats and latencies are the burst's alone
+            with GNNServer.from_program(prog, example, **kw_srv) as srv:
+                srv.predict(requests[:SERVE_BATCH], timeout=SERVE_WAIT_S)
+            bursts = []
+            for _ in range(SERVE_BURSTS):
+                with GNNServer.from_program(prog, example, **kw_srv) as srv:
+                    zero_counts()
+                    with gc_pauses() as gcp:
+                        t = time.perf_counter()
+                        got = srv.predict(requests, timeout=SERVE_WAIT_S)
+                        dt = time.perf_counter() - t
+                    bursts.append(dict(graphs_per_s=len(requests) / dt,
+                                       counts=mode_counts(),
+                                       gc_ms=sum(gcp.ms),
+                                       gc_max_ms=max(gcp.ms, default=0.0),
+                                       **srv.stats()))
+                if bursts[-1]["counts"] != want_counts(
+                        prec, block, bursts[-1]["batches"]):
+                    raise AssertionError(
+                        f"serving {prec} {packing}: launches "
+                        f"{bursts[-1]['counts']} in "
+                        f"{bursts[-1]['batches']} micro-batches: the mode "
+                        f"kernels did not run in every layer of every one")
+                runs[f"burst {len(bursts)}"] = torch.from_numpy(got)
+            # the burst of median throughput stands for the cell
+            mid = sorted(bursts, key=lambda r: r["graphs_per_s"])[
+                SERVE_BURSTS // 2]
+            n_b, got_counts = mid["batches"], mid["counts"]
+            # the served path's host work and synchronizations, one
+            # 64-graph micro-batch at a time
+            chunk = requests[:SERVE_BATCH]
+            packed = srv._pack(chunk)
+            syncs = {name: count_syncs(f) for name, f in (
+                ("pack", lambda: srv._pack(chunk)),
+                ("build_graph_batch", lambda: prog.batch(chunk)),
+                ("forward", lambda: prog.forward(packed)))}
+            host = dict(
+                pack_ms=host_ms(lambda: srv._pack(chunk)),
+                build_graph_batch_ms=host_ms(lambda: prog.batch(chunk)),
+                forward_host_ms=host_ms(lambda: prog.forward(packed)),
+                forward_ms=time_ms(lambda: prog.forward(packed), 10),
+                **{f"syncs_{k}": n for k, (n, _) in syncs.items()},
+                sync_lines={k: at for k, (_, at) in syncs.items() if at})
+            log(f"{prec} {packing}, one micro-batch of {len(chunk)}: the "
+                f"server's packing {host['pack_ms']:.3f} ms on the host "
+                f"({host['syncs_pack']} syncs), build_graph_batch on the "
+                f"card {host['build_graph_batch_ms']:.3f} ms "
+                f"({host['syncs_build_graph_batch']} syncs), "
+                f"Program.forward {host['forward_host_ms']:.3f} ms on the "
+                f"host, {host['forward_ms']:.3f} ms by events "
+                f"({host['syncs_forward']} syncs); syncs by line "
+                f"{host['sync_lines']}")
+            with tempfile.TemporaryDirectory() as d:
+                prog.export_bundle(d, example)
+                with GNNServer.from_bundle(d, max_batch=SERVE_BATCH,
+                                           max_wait_ms=1.0,
+                                           device=dev) as srv:
+                    runs["bundle"] = torch.from_numpy(
+                        srv.predict(requests, timeout=SERVE_WAIT_S))
+            log(f"{prec} {packing}: {n_b} micro-batches (avg "
+                f"{len(requests) / n_b:.1f} graphs); launches in the "
+                f"server {got_counts}")
+            errs = {}
+            for name, r_ in runs.items():
+                ref_ = want if name.startswith("burst") else runs["burst 1"]
+                errs[name] = rel_err(r_, ref_)
+                if (tuple(r_.shape) != tuple(ref_.shape)
+                        or not bool(torch.isfinite(r_).all())
+                        or errs[name] > SERVE_TOL):
+                    raise AssertionError(f"serving {prec} {packing} "
+                                         f"({name}): {errs[name]:.3e} of "
+                                         f"max |value|")
+            b1 = Program.from_dataset(gat_model(), graphs, batch_size=1,
+                                      block_size=block, precision=prec,
+                                      device=dev)
+            b1.set_params({k: v.to(dev) for k, v in params.items()})
+            one = [b1.batch([g]) for g in requests[:SERVE_B1]]
+            b1.compile(one[0])
+            lat = []
+            for b in one:
+                t1 = time.perf_counter()
+                b1.forward(b).cpu()
+                lat.append((time.perf_counter() - t1) * 1e3)
+            row = dict(
+                requests=len(requests), micro_batches=n_b,
+                bucket=dict(max_nodes=prog.bucket.max_nodes,
+                            max_edges=prog.bucket.max_edges,
+                            max_graphs=prog.bucket.max_graphs),
+                graphs_per_s=mid["graphs_per_s"], p50_ms=mid["p50_ms"],
+                p90_ms=mid["p90_ms"], p99_ms=mid["p99_ms"],
+                bursts=[{k: r[k] for k in ("graphs_per_s", "p50_ms",
+                                           "p90_ms", "p99_ms", "gc_ms",
+                                           "gc_max_ms")}
+                        for r in bursts],
+                b1_p50_ms=float(np.percentile(lat, 50)),
+                b1_graphs_per_s=1e3 / float(np.mean(lat)),
+                vs_forward=max(v for k, v in errs.items()
+                               if k.startswith("burst")),
+                bundle_vs_live=errs["bundle"], micro_batch=host)
+            serve[f"{prec} {packing}"] = row
+            log(f"{prec} {packing}: {row['graphs_per_s']:.1f} graphs/s "
+                f"sustained; request latency p50 {row['p50_ms']:.3f} / p90 "
+                f"{row['p90_ms']:.3f} / p99 {row['p99_ms']:.3f} ms (all "
+                f"{len(requests)} submitted at once; the median of "
+                f"{SERVE_BURSTS} bursts, each "
+                f"{[round(r['graphs_per_s'], 1) for r in bursts]} graphs/s, "
+                f"p99 {[round(r['p99_ms'], 3) for r in bursts]} ms, "
+                f"garbage-collector pauses "
+                f"{[round(r['gc_ms'], 3) for r in bursts]} ms, longest "
+                f"{[round(r['gc_max_ms'], 3) for r in bursts]}); one "
+                f"graph per synchronous forward p50 "
+                f"{row['b1_p50_ms']:.3f} ms ({row['b1_graphs_per_s']:.1f} "
+                f"graphs/s); predictions vs Program.forward "
+                f"{row['vs_forward']:.2e}, bundle vs live "
+                f"{errs['bundle']:.2e} of max |value| (tol {SERVE_TOL}) on "
+                f"{smi}")
+    out["serving"] = serve
+
+    with phase("GAT mode times (torch.profiler device times; CUDA events)"):
+        def run(fn, ls):
+            def go():
+                for args, kw in ls:
+                    fn(*args, **kw)
+            return go
+
+        for (key, mode), ls in mode_layers.items():
+            g, f32 = f32_layers[key]
+            block = key == "gat_block"
+            fn, plain = fns[key]
+            terms, nbytes = gat_mode_work(ls, g, block, mode)
+            b_ms, b_by = bound_mixed(terms, nbytes)
+            ms, ev = timed(run(fn, ls), 10)
+            ms = ms or ev   # events where the profiler caught nothing
+            pms, pev = timed(run(plain, ls), 3)
+            fms = timed(run(fn, f32), 10)[0]
+            per = (f"one {'block' if block else 'standard'}-packed "
+                   f"b{BATCH_GRAPHS} forward (6 launches)")
+            report[f"{key}_{mode}"].update(
+                ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev,
+                f32_kernel_ms=fms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, flops=sum(t for t, _ in terms),
+                bytes=nbytes, per=per)
+            log(f"{key} {mode} per {per}: device {ms:.4f} ms (events "
+                f"{ev:.4f}), plain {pms:.4f} ({pev:.4f}), f32 kernel "
+                f"{fms:.4f}; bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.2%} "
+                f"of it) on {smi}")
+        fwd = {}
+        for packing, ps in progs.items():
+            g = b0 if packing == "block" else tb
+            fwd[packing] = {p: p_.benchmark(g, iters=10, warmup=2)[
+                "latency_s"] * 1e3 for p, p_ in ps.items()}
+            log(f"Program.forward GAT {packing} b{BATCH_GRAPHS}: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                            fwd[packing].items()) + f" on {smi}")
+        out["forward_ms"] = fwd
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3353,6 +3829,9 @@ def main():
     slice_modes = slice_phases(
         report, dev=dev, graphs=graphs, b0=b0, tb=tb, counted=counted,
         zero_counts=zero_counts, smi=smi)
+    serving = serving_phases(
+        report, dev=dev, graphs=graphs, batches=batches, b0=b0, tb=tb,
+        counted=counted, zero_counts=zero_counts, smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -3639,7 +4118,8 @@ def main():
              source=f"gnnbuilder_tpu_torch/csrc/{src}.cu",
              replaces=f"gnnbuilder_tpu/ops/pallas/{src}.py:{line}",
              **report[f"{k}_{mode}"])
-        for k, (src, line, modes) in SLICE_KERNELS.items()
+        for k, (src, line, modes) in {**SLICE_KERNELS,
+                                      **GAT_MODE_KERNELS}.items()
         for mode in modes
     ]
     print(json.dumps({
@@ -3666,6 +4146,8 @@ def main():
         "gine_edge_agg": dict(batch_graphs=BATCH_GRAPHS, **edge_agg),
         "precision": dict(batch_graphs=BATCH_GRAPHS, **precision),
         "slice_modes": dict(batch_graphs=BATCH_GRAPHS, **slice_modes),
+        "gat_modes_serving": dict(batch_graphs=BATCH_GRAPHS,
+                                  heads=GAT_HEADS, **serving),
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

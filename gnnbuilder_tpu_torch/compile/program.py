@@ -13,6 +13,19 @@ are the master rounded to bf16 (``Precision.cast_params``, held as
 float32 values) on node features rounded to bf16; under int8 it runs the
 master with every ``Linear`` quantized, with the static activation scales
 of ``calibrate_int8`` when it has them.  The output is float32.
+
+Serving (``serve.GNNServer``) sizes the bucket with ``from_dataset``,
+warms the forward with ``compile`` and ships ``export`` /
+``export_bundle``.  The JAX package's artifact is a traced StableHLO
+program; the kernels here are plain-C launchers called through ctypes,
+which no tracer sees, so the artifact is the Program's own description
+instead: a JSON file with ``GNNModel.spec()``, the policy, the bucket,
+the block size, the pinned batch widths (largest graph, ELL and reverse
+ELL widths) and the frozen ``int8_scales``, from which
+``load_exported`` rebuilds the Program (building the kernel library on
+the card); ``export_bundle`` puts the parameters beside it as a state
+dict that ``load_bundle`` reads with ``torch.load(weights_only=True)``:
+no pickled code.
 """
 
 from __future__ import annotations
@@ -20,7 +33,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import json
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -34,7 +49,12 @@ from gnnbuilder_tpu_torch.core.graph import (
 from gnnbuilder_tpu_torch.nn.model import GNNModel
 
 __all__ = ["Program", "BucketSpec", "resolve_device",
-           "enable_persistent_cache"]
+           "enable_persistent_cache", "ARTIFACT_FORMAT"]
+
+# the ``format`` entry of an exported artifact
+ARTIFACT_FORMAT = "gnnbuilder_tpu_torch.program/1"
+# the file names inside an ``export_bundle`` directory
+BUNDLE_ARTIFACT, BUNDLE_PARAMS = "model.json", "params.pt"
 
 
 def enable_persistent_cache(path: Optional[str] = None) -> str:
@@ -60,6 +80,15 @@ class BucketSpec:
     max_nodes: int
     max_edges: int
     max_graphs: int
+
+    def fits(self, n: int, e: int, g: int) -> bool:
+        """Whether ``g`` graphs of ``n`` nodes and ``e`` edges in all fit,
+        beside the ghost node and the ghost graph."""
+        return (
+            n + 1 <= self.max_nodes
+            and e <= self.max_edges
+            and g + 1 <= self.max_graphs
+        )
 
 
 class Program:
@@ -90,6 +119,32 @@ class Program:
         self._initialized = False
         self.int8_scales: Optional[dict] = None
         self._cast = None      # (master key, bf16-rounded model copy)
+        self._loaded = None    # the params mapping ``_call`` loaded last
+        # batch widths the exported artifact pins (``export``)
+        self._pinned = dict(max_graph_nodes=None, ell_width=None,
+                            rev_ell_width=None)
+
+    # ------------------------------------------------------------ construct
+    @classmethod
+    def from_dataset(cls, model: GNNModel, graphs, batch_size: int = 1,
+                     headroom: float = 1.0, **kw) -> "Program":
+        """A Program whose bucket fits the ``batch_size`` largest graphs
+        of ``graphs`` packed together (times ``headroom``), so any batch
+        drawn from them fits: the JAX package's sizing, as its serving
+        benchmark sizes the server's bucket.  Block packing
+        (``block_size``) budgets the worst bin-pack waste, ~half a block
+        per graph boundary, aligned to the block."""
+        ns = sorted((g.x.shape[0] for g in graphs), reverse=True)
+        es = sorted((g.edge_index.shape[1] for g in graphs), reverse=True)
+        k = min(batch_size, len(ns))
+        max_nodes = int((sum(ns[:k]) + 1) * headroom) + 8
+        max_edges = int(max(sum(es[:k]), 1) * headroom) + 8
+        blk = int(kw.get("block_size", 0) or 0)
+        if blk:
+            waste = blk / max(blk - (max_nodes / max(k, 1)) / 2.0, 1.0)
+            max_nodes = int(-(-int(max_nodes * waste + 1) // blk) * blk)
+        return cls(model, max_nodes=max_nodes, max_edges=max_edges,
+                   max_graphs=batch_size + 1, **kw)
 
     # ------------------------------------------------------------ params
     def init_params(self, example_batch: Optional[GraphBatch] = None):
@@ -141,6 +196,25 @@ class Program:
             device=self.device,
         )
 
+    def _dummy_batch(self) -> GraphBatch:
+        """One small random graph in this bucket, at the pinned widths
+        (the JAX package's example batch when the caller gives none)."""
+        from gnnbuilder_tpu_torch.data.datasets import FakeDataset
+
+        gs = FakeDataset(num_graphs=1, avg_num_nodes=4,
+                         node_dim=self.model.graph_input_feature_dim,
+                         edge_dim=self.model.graph_input_edge_dim or 1)
+        pin = self._pinned
+        b = build_graph_batch(
+            gs, node_budget=self.bucket.max_nodes,
+            edge_budget=self.bucket.max_edges,
+            graph_budget=self.bucket.max_graphs,
+            ell_width=pin["ell_width"], rev_ell_width=pin["rev_ell_width"],
+            block_size=self.block_size or None, device=self.device)
+        if pin["max_graph_nodes"]:
+            b = b.replace(max_graph_nodes_static=pin["max_graph_nodes"])
+        return b
+
     # ------------------------------------------------------------ forward
     def _policy_model(self) -> GNNModel:
         """The model the forward runs: under bf16 a copy whose parameters
@@ -180,6 +254,120 @@ class Program:
                   else contextlib.nullcontext())
         with torch.no_grad(), inference_mode(), prec.activate(), static:
             return self._policy_model()(batch).float()
+
+    def _call(self, params, batch: GraphBatch) -> torch.Tensor:
+        """``forward`` with ``params``: a state dict, loaded when it is not
+        the mapping loaded last (a fresh dict reloads, bumping the kernel
+        caches), or None for the parameters the Program holds."""
+        if params is not None and params is not self._loaded:
+            self.set_params(params)
+            self._loaded = params
+        return self.forward(batch)
+
+    def compile(self, example_batch: Optional[GraphBatch] = None):
+        """Warm the forward for this bucket and return ``fn(params,
+        batch)`` (``params`` None = the Program's own).  PyTorch runs
+        eagerly, so this compiles nothing: on the card it loads the kernel
+        library (building it from the sources when no build is cached) and
+        runs one forward on ``example_batch`` (a one-graph batch when
+        None), which fills the model's kernel caches of the active policy
+        (the bf16 copy, the mode weights), then waits for the card.  A
+        server calls it before its threads start, so that only one thread
+        builds."""
+        if example_batch is None:
+            example_batch = self._dummy_batch()
+        if not self._initialized:
+            self.init_params(example_batch)
+        if self.device.type == "cuda":
+            from gnnbuilder_tpu_torch.ops.cuda import _build
+
+            _build.load()
+        self.forward(example_batch)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self._call
+
+    # ------------------------------------------------------------ export
+    def export(self, path: str,
+               example_batch: Optional[GraphBatch] = None) -> str:
+        """Write the artifact that rebuilds this Program (module
+        docstring) to ``path``: JSON with the model's constructor
+        arguments, the policy, the bucket, the block size, the frozen
+        ``int8_scales`` and the batch widths ``example_batch`` pins (its
+        largest-graph bound and ELL widths; unpinned without one).  The
+        parameters are not in it (``export_bundle`` adds them).  Returns
+        ``path``."""
+        pin = dict(max_graph_nodes=None, ell_width=None, rev_ell_width=None)
+        if example_batch is not None:
+            rev = example_batch.rev_nbr_nodes
+            pin = dict(
+                max_graph_nodes=example_batch.max_graph_nodes_static or None,
+                ell_width=example_batch.ell_width or 0,
+                rev_ell_width=0 if rev is None else int(rev.shape[1]))
+        spec = dict(format=ARTIFACT_FORMAT, model=self.model.spec(),
+                    precision=self.precision.name,
+                    bucket=dataclasses.asdict(self.bucket),
+                    block_size=self.block_size, seed=self._seed,
+                    int8_scales=self.int8_scales, **pin)
+        with open(path, "w") as f:
+            json.dump(spec, f, indent=1)
+        return path
+
+    @staticmethod
+    def read_exported(path: str) -> dict:
+        """The artifact's JSON spec; raises on a file of another format."""
+        with open(path) as f:
+            spec = json.load(f)
+        if spec.get("format") != ARTIFACT_FORMAT:
+            raise ValueError(f"{path} is not a {ARTIFACT_FORMAT} artifact")
+        return spec
+
+    @staticmethod
+    def load_exported(path: str, params: Optional[dict] = None,
+                      device=None):
+        """``fn(params, batch) -> output`` of the Program that the
+        artifact at ``path`` rebuilds on ``device`` (None = the card).
+        With ``params`` (a state dict), they are loaded and the forward
+        warmed (``compile``) before this returns."""
+        spec = Program.read_exported(path)
+        model_kw = dict(spec["model"])
+        model_kw["pooling_aggrs"] = tuple(model_kw["pooling_aggrs"])
+        model_kw["conv_kwargs"] = {
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in model_kw["conv_kwargs"].items()}
+        prog = Program(GNNModel(**model_kw), precision=spec["precision"],
+                       block_size=spec["block_size"], seed=spec["seed"],
+                       device=device, **spec["bucket"])
+        prog.int8_scales = spec["int8_scales"]
+        prog._pinned = {k: spec[k] for k in prog._pinned}
+        if params is None:
+            return prog._call
+        prog.set_params(params)
+        prog._loaded = params
+        return prog.compile()
+
+    def export_bundle(self, dirpath: str,
+                      example_batch: Optional[GraphBatch] = None) -> str:
+        """A self-contained directory a serving process needs
+        (``serve.GNNServer.from_bundle``): the artifact (``export``) and
+        the parameters as a state dict saved by ``torch.save``.  Returns
+        ``dirpath``."""
+        os.makedirs(dirpath, exist_ok=True)
+        self.export(os.path.join(dirpath, BUNDLE_ARTIFACT), example_batch)
+        torch.save({k: v.detach().cpu() for k, v in self.params.items()},
+                   os.path.join(dirpath, BUNDLE_PARAMS))
+        return dirpath
+
+    @staticmethod
+    def load_bundle(dirpath: str, device=None):
+        """(fn, params) from an ``export_bundle`` directory: the state dict
+        read with ``torch.load(weights_only=True)`` (tensors only, no
+        code) and ``load_exported``'s warmed ``fn`` over it."""
+        params = torch.load(os.path.join(dirpath, BUNDLE_PARAMS),
+                            map_location="cpu", weights_only=True)
+        fn = Program.load_exported(os.path.join(dirpath, BUNDLE_ARTIFACT),
+                                   params, device)
+        return fn, params
 
     def calibrate_int8(self, batches: Sequence[GraphBatch]) -> dict:
         """Record static int8 activation scales from representative

@@ -17,8 +17,17 @@
 //   out   = act((sum_hd res_hd) / H + bias [+ skip])  (head mean: [N, C])
 //
 // The self terms drop out with self_loops = 0 (an empty row then gives
-// bias).  No edge-logit or int8 mode here (the TPU kernel's edge_table
-// and quant variants are still to port).
+// bias).  No edge-logit mode here (the TPU kernel's edge_table is still
+// to port), and no int8 mode, as in the JAX package: its gate sends GAT
+// to the layer kernel under int8.
+//
+// bf16 mode (mode 1, the TPU kernel's mm="bf16"; inference only): the
+// projection rounds x to bf16 against bfloat16 W, and forms the logit
+// terms as x . wa with bf16 operands, wa = bf16(bf16(W) A) per head (the
+// TPU kernel's asrc = x @ (W @ A_src), not h . att_src: gat_common.cuh);
+// the weighted sum rounds each weight w_j and each gathered h[j] to bf16
+// (the TPU kernel's dot(wgt, hblk) in bf16), while den sums the unrounded
+// weights and the self term es * h[r] and the bias stay float32.
 //
 // What bounds it on the H100: operations, as in gat_layer.cu: the
 // projection's 2 Fin HC flops per row dominate (a QM9 block is ~97 %
@@ -63,6 +72,7 @@ __host__ __device__ __forceinline__ int warp_words(int H) {
   return H * BB + 2 * H;
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(THREADS) gat_block_kernel(BlockArgs a) {
   extern __shared__ float smem[];
   __shared__ int s_cnt[R], s_ptr[R + 1], s_ent[R * BB];
@@ -99,7 +109,8 @@ __global__ void __launch_bounds__(THREADS) gat_block_kernel(BlockArgs a) {
       float sum = 0.f;
       for (int k = lane; k < n; k += 32) {
         const float wk = (float)(ent[k] >> 8) * expf(ew[hd * BB + k] - mx);
-        ew[hd * BB + k] = wk;
+        // the weighted sum's operand; den sums the weight unrounded
+        ew[hd * BB + k] = MODE == BF16 ? gnnb_quant::bf16r(wk) : wk;
         sum += wk;
       }
       sum = warp_sum(sum);
@@ -117,9 +128,10 @@ __global__ void __launch_bounds__(THREADS) gat_block_kernel(BlockArgs a) {
         const int col = a.concat ? c : hd * C + c;
         const float* w = ew + hd * BB;
         float num = 0.f;
-        for (int k = 0; k < n; ++k)
-          num = fmaf(w[k], a.h[(size_t)(blk0 + (ent[k] & 0xFF)) * HC + col],
-                     num);
+        for (int k = 0; k < n; ++k) {
+          const float hv = a.h[(size_t)(blk0 + (ent[k] & 0xFF)) * HC + col];
+          num = fmaf(w[k], MODE == BF16 ? gnnb_quant::bf16r(hv) : hv, num);
+        }
         if (a.self_loops) num = fmaf(es[hd], a.h[(size_t)r * HC + col], num);
         acc += num / fmaxf(den[hd], 1e-16f);
         if (a.concat) break;
@@ -156,20 +168,24 @@ int gnnb_gat_block_smem_bytes(int H) {
 // Launches the layer on `stream` of `device`: the projection into the
 // scratch h [N, H*C], a_src and a_dst [N, H], then the block attention
 // into out ([N, H*C] with concat, else [N, C]).  n_rows % 128 == 0; act:
-// 0 none, 1 relu, 2 gelu, 3 sigmoid, 4 tanh; skip may be null.  All
-// arrays contiguous f32 as documented in ops/cuda/gat_block.py.  Returns
-// the cudaError_t of the launches (0 = success).
+// 0 none, 1 relu, 2 gelu, 3 sigmoid, 4 tanh; skip may be null; mode: 0
+// f32, 1 bf16 (w bfloat16, with the bfloat16 logit weights wa_src and
+// wa_dst [Fin, H]; null in mode 0).  All other arrays contiguous f32 as
+// documented in ops/cuda/gat_block.py.  Returns the cudaError_t of the
+// launches (0 = success).
 int gnnb_gat_block(const void* x, const void* adj, int n_rows, int Fin,
                    int H, int C, const void* w, const void* att_src,
                    const void* att_dst, const void* bias, const void* skip,
                    float neg_slope, int self_loops, int concat, int act,
+                   int mode, const void* wa_src, const void* wa_dst,
                    void* h, void* a_src, void* a_dst, void* out,
                    void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_rows < 0 || n_rows % BB || Fin < 1 || H < 1 || C < 1 || act < 0 ||
       act > 4 || !x || !adj || !w || !att_src || !att_dst || !bias || !h ||
-      !a_src || !a_dst || !out)
+      !a_src || !a_dst || !out || (mode != F32 && mode != BF16) ||
+      (mode == BF16) != (wa_src != nullptr && wa_dst != nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
   size_t optin = 0;
@@ -180,9 +196,12 @@ int gnnb_gat_block(const void* x, const void* adj, int n_rows, int Fin,
   cudaStream_t st = (cudaStream_t)stream;
   ProjArgs p;
   p.x = (const float*)x;
-  p.w = (const float*)w;
+  p.w = w;
+  p.sw = nullptr;
   p.att_src = (const float*)att_src;
   p.att_dst = (const float*)att_dst;
+  p.wa_src = (const __nv_bfloat16*)wa_src;
+  p.wa_dst = (const __nv_bfloat16*)wa_dst;
   p.h = (float*)h;
   p.a_src = (float*)a_src;
   p.a_dst = (float*)a_dst;
@@ -190,7 +209,7 @@ int gnnb_gat_block(const void* x, const void* adj, int n_rows, int Fin,
   p.Fin = Fin;
   p.H = H;
   p.C = C;
-  err = launch_proj(p, optin, st);
+  err = launch_proj(p, mode, optin, st);
   if (err != cudaSuccess) return (int)err;
   BlockArgs a;
   a.h = (const float*)h;
@@ -207,11 +226,12 @@ int gnnb_gat_block(const void* x, const void* adj, int n_rows, int Fin,
   a.concat = concat != 0;
   a.act = act;
   a.neg_slope = neg_slope;
-  err = cudaFuncSetAttribute(gat_block_kernel,
+  auto kernel = mode == BF16 ? gat_block_kernel<BF16> : gat_block_kernel<F32>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gat_block_kernel<<<n_rows / R, THREADS, smem, st>>>(a);
+  kernel<<<n_rows / R, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

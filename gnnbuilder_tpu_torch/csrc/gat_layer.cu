@@ -16,8 +16,17 @@
 //
 // The self slot's terms drop out with self_loops = 0; an empty row then
 // gives bias (+ skip) through act, as the TPU kernel's -BIG mask and
-// clamp give.  No edge-logit or int8 mode here (the TPU kernel's
-// edge_logits and quant variants are still to port).
+// clamp give.  No edge-logit mode here (the TPU kernel's edge_logits is
+// still to port).
+//
+// Modes (inference only): in both only the projection changes
+// (gat_common.cuh).  bf16 (mode 1, the TPU kernel's mm="bf16") rounds
+// its operands; int8 (mode 2, quant=True, the serving precision)
+// quantizes x per row against int8 W with column scales, for a
+// receiver's own row as for its neighbours'.  h, the logit halves, the
+// softmax and the weighted sum stay float32, and the gather is exact: the
+// TPU kernel's gather is its "highest" one-hot product or its hi/lo
+// "split2" pair whatever gather_mode says, never a bf16 rounding.
 //
 // What bounds it on the H100: operations.  The projection is 2 Fin HC
 // flops per row (1 M at 512 x 512) against ~4 KB of row traffic; the
@@ -136,20 +145,23 @@ int gnnb_gat_layer_smem_bytes(int W, int H) {
 // Launches the layer on `stream` of `device`: the projection into the
 // scratch h [N, H*C], a_src and a_dst [N, H], then the attention into out
 // [N, H*C].  act: 0 none, 1 relu, 2 gelu, 3 sigmoid, 4 tanh; skip may be
-// null.  All arrays contiguous f32 / i32 as documented in
-// ops/cuda/gat_layer.py.  Returns the cudaError_t of the launches (0 =
-// success).
+// null; mode: 0 f32, 1 bf16 (w bfloat16), 2 int8 (w int8 with column
+// scales sw [H*C]; sw null otherwise).  All other arrays contiguous f32 /
+// i32 as documented in ops/cuda/gat_layer.py.  Returns the cudaError_t
+// of the launches (0 = success).
 int gnnb_gat_layer(const void* x, const void* nbr, const void* deg,
                    int n_rows, int W, int Fin, int H, int C, const void* w,
                    const void* att_src, const void* att_dst,
                    const void* bias, const void* skip, float neg_slope,
-                   int self_loops, int act, void* h, void* a_src,
-                   void* a_dst, void* out, void* stream, int device) {
+                   int self_loops, int act, int mode, const void* sw,
+                   void* h, void* a_src, void* a_dst, void* out,
+                   void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_rows < 0 || W < 1 || Fin < 1 || H < 1 || C < 1 || act < 0 ||
       act > 4 || !x || !nbr || !deg || !w || !att_src || !att_dst ||
-      !bias || !h || !a_src || !a_dst || !out)
+      !bias || !h || !a_src || !a_dst || !out || mode < F32 ||
+      mode > INT8 || (mode == INT8) != (sw != nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
   size_t optin = 0;
@@ -160,9 +172,11 @@ int gnnb_gat_layer(const void* x, const void* nbr, const void* deg,
   cudaStream_t st = (cudaStream_t)stream;
   ProjArgs p;
   p.x = (const float*)x;
-  p.w = (const float*)w;
+  p.w = w;
+  p.sw = (const float*)sw;
   p.att_src = (const float*)att_src;
   p.att_dst = (const float*)att_dst;
+  p.wa_src = p.wa_dst = nullptr;
   p.h = (float*)h;
   p.a_src = (float*)a_src;
   p.a_dst = (float*)a_dst;
@@ -170,7 +184,7 @@ int gnnb_gat_layer(const void* x, const void* nbr, const void* deg,
   p.Fin = Fin;
   p.H = H;
   p.C = C;
-  err = launch_proj(p, optin, st);
+  err = launch_proj(p, mode, optin, st);
   if (err != cudaSuccess) return (int)err;
   AttnArgs a;
   a.h = (const float*)h;

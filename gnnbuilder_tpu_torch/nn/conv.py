@@ -414,29 +414,55 @@ class GATConv(torch.nn.Module):
         return self.heads * self.out_channels if self.concat \
             else self.out_channels
 
-    def forward(self, g: GraphBatch, x, act=None, skip=None):
+    def mode_operands(self, mode: str):
+        """The weights the GAT kernels take in ``mode`` ("bf16" or
+        "int8"): {"block": (w, wa_src, wa_dst)} (bf16 only: the block
+        kernel has no int8 mode) and {"layer": (w, sw)}, from the float32
+        parameters (``gat_block.prepare_block``,
+        ``gat_layer.prepare_layer``)."""
+        from gnnbuilder_tpu_torch.ops.cuda import gat_block, gat_layer
+
+        w = self.lin.weight.t()
+        out = {"layer": gat_layer.prepare_layer(w, mode)}
+        if mode == "bf16":
+            out["block"] = gat_block.prepare_block(w, self.att_src,
+                                                   self.att_dst, mode)
+        return out
+
+    def forward(self, g: GraphBatch, x, act=None, skip=None, operands=None):
+        """``operands``: ``mode_operands(mode)`` of the active policy's
+        mode, made once by the caller (``GNNModel`` caches them); made
+        here when None."""
         H, C, n = self.heads, self.out_channels, g.num_nodes
         ns, loops = self.negative_slope, self.add_self_loops
         w = self.lin.weight.t()
-        if dispatch.gat_block_cfg(g, act) is not None:
+        cfg = dispatch.gat_block_cfg(g, act)
+        if cfg is not None:
             from gnnbuilder_tpu_torch.ops.cuda.gat_block import (
                 fused_gat_block_layer,
             )
 
+            mode = cfg.get("mode", "f32")
+            wm, wa_src, wa_dst = (w, None, None) if mode == "f32" else (
+                operands or self.mode_operands(mode))["block"]
             return fused_gat_block_layer(
-                x, g.block_adj, w, self.att_src, self.att_dst, self.bias, H,
+                x, g.block_adj, wm, self.att_src, self.att_dst, self.bias, H,
                 neg_slope=ns, self_loops=loops, skip=skip, act=act,
-                concat=self.concat)
-        if self.concat and dispatch.gat_layer_cfg(g, act) is not None:
+                concat=self.concat, mode=mode, wa_src=wa_src, wa_dst=wa_dst)
+        cfg = dispatch.gat_layer_cfg(g, act) if self.concat else None
+        if cfg is not None:
             from gnnbuilder_tpu_torch.ops.cuda.gat_layer import (
                 fused_gat_layer_auto,
             )
 
+            mode = cfg.get("mode", "f32")
+            prepared = None if mode == "f32" or operands is None \
+                else operands["layer"]
             return fused_gat_layer_auto(
                 x, g.nbr_nodes, g.in_degree, w, self.att_src, self.att_dst,
                 self.bias, H, neg_slope=ns, self_loops=loops, skip=skip,
                 act=act, rev_nbr_nodes=g.rev_nbr_nodes,
-                out_degree=g.out_degree)
+                out_degree=g.out_degree, mode=mode, prepared=prepared)
         h = self.lin(x).reshape(n, H, C)
         a_src = (h * self.att_src).sum(-1)                     # [N, H]
         a_dst = (h * self.att_dst).sum(-1)

@@ -201,10 +201,12 @@ class GNNModel(torch.nn.Module):
         if stacked is not None:
             h = stacked
         else:
+            gat_ops = self._gat_operands()
             for i, conv in enumerate(self.gnn_convs):
                 skip = (h if self.gnn_skip_connection and 0 < i < L - 1
                         else None)
-                h = conv(g, h, self.gnn_activation, skip)
+                kw = {} if gat_ops is None else {"operands": gat_ops[i]}
+                h = conv(g, h, self.gnn_activation, skip, **kw)
         fused = self._fused_readout(g, h)
         if fused is not None:
             return fused
@@ -270,9 +272,11 @@ class GNNModel(torch.nn.Module):
 
     def _mode_params(self, width: int, mode: str):
         """((stack operands, their scales), (readout weights, their
-        scales)) as the kernels take them in ``mode`` ("bf16": bfloat16
-        weights; "int8": int8 weights with per-column scales; scales None
-        otherwise), from ``_kernel_params`` and cached the same way."""
+        scales), GAT operands) as the kernels take them in ``mode``
+        ("bf16": bfloat16 weights; "int8": int8 weights with per-column
+        scales; scales None otherwise), from ``_kernel_params`` and cached
+        the same way; the GAT operands are each layer's
+        ``GATConv.mode_operands`` (None for other convs)."""
         def build():
             from gnnbuilder_tpu_torch.ops.cuda.mp_block import (
                 prepare_mp_stack,
@@ -285,9 +289,45 @@ class GNNModel(torch.nn.Module):
                        else prepare_mp_stack)
             stack = ((None, None) if stacked is None
                      else prepare(stacked, mode))
-            return stack, prepare_head(readout, mode)
+            gat = ([c.mode_operands(mode) for c in self.gnn_convs]
+                   if self.gnn_conv == "gat" else None)
+            return stack, prepare_head(readout, mode), gat
 
         return self._cached(mode, width, build)
+
+    def _gat_operands(self):
+        """Each GAT layer's weights in the active policy's mode (bf16 or
+        int8, ``_mode_params``) under inference; None otherwise (float32,
+        a gradient, or another conv)."""
+        from gnnbuilder_tpu_torch.ops import dispatch
+
+        mode = dispatch.policy()
+        if (self.gnn_conv != "gat" or mode == "f32"
+                or torch.is_grad_enabled()):
+            return None
+        return self._mode_params(self._stack_width(), mode)[2]
+
+    def spec(self) -> dict:
+        """The constructor's arguments, as plain JSON values: the model
+        ``GNNModel(**spec())`` has the same parameter names and shapes."""
+        return dict(
+            graph_input_feature_dim=self.graph_input_feature_dim,
+            gnn_hidden_dim=self.gnn_hidden_dim,
+            gnn_num_layers=self.gnn_num_layers,
+            gnn_output_dim=self.gnn_output_dim,
+            gnn_conv=self.gnn_conv,
+            gnn_activation=self.gnn_activation,
+            gnn_skip_connection=self.gnn_skip_connection,
+            graph_input_edge_dim=self.graph_input_edge_dim,
+            pooling_aggrs=list(self.pooling_aggrs),
+            mlp_hidden_dim=self.mlp_hidden_dim,
+            mlp_hidden_layers=self.mlp_hidden_layers,
+            mlp_out_dim=self.mlp_out_dim,
+            mlp_activation=self.mlp_activation,
+            output_activation=self.output_activation,
+            conv_kwargs={k: list(v) if isinstance(v, tuple) else v
+                         for k, v in self.conv_kwargs.items()},
+        )
 
     def _fused_gnn_stack(self, g: GraphBatch, h):
         """The whole conv stack in one kernel call when the gate allows:

@@ -17,6 +17,7 @@ import torch
 
 from gnnbuilder_tpu_torch.ops.activations import leaky_relu
 from gnnbuilder_tpu_torch.ops.ell import _STD_EPS
+from gnnbuilder_tpu_torch.ops.quant import to_bf16
 
 __all__ = ["block_spmm", "block_sum", "block_mean", "block_std",
            "block_multi", "block_gat_attention", "BIG"]
@@ -82,7 +83,7 @@ def block_multi(x, block_adj, in_degree, aggregators, mm=None):
 
 
 def block_gat_attention(block_adj, h, a_src, a_dst, neg_slope: float = 0.2,
-                        self_loops: bool = True):
+                        self_loops: bool = True, bf16_sum: bool = False):
     """GAT attention as dense masked attention per block (PyG semantics):
     logits leaky_relu(a_src_j + a_dst_i) over each receiver's incoming
     edges (and the analytic self loop), softmax, weighted sum of h.
@@ -90,7 +91,9 @@ def block_gat_attention(block_adj, h, a_src, a_dst, neg_slope: float = 0.2,
     ``block_adj`` [T, B, B] holds edge counts, so k parallel edges give k
     identical softmax terms: the weights are A * exp(raw - m).  Non-edges
     mask with -BIG before the row max.  ``h`` [N, H, C], ``a_src`` and
-    ``a_dst`` [N, H]; returns [N, H, C]."""
+    ``a_dst`` [N, H]; returns [N, H, C].  ``bf16_sum`` rounds the weights
+    and h to bf16 in the neighbours' weighted sum (the GAT block kernel's
+    bf16 mode); the denominator and the self term stay float32."""
     T, B, _ = block_adj.shape
     N, H, C = h.shape
     if N != T * B:
@@ -110,7 +113,8 @@ def block_gat_attention(block_adj, h, a_src, a_dst, neg_slope: float = 0.2,
     w = A * torch.exp(torch.where(mask, raw - m[..., None], -float("inf")))
     denom = w.sum(dim=-1)                                     # [T, H, Bi]
     hb = h.reshape(T, B, H, C).transpose(1, 2)                # [T, H, B, C]
-    num = torch.matmul(w, hb)
+    num = (torch.matmul(to_bf16(w), to_bf16(hb)) if bf16_sum
+           else torch.matmul(w, hb))
     if self_loops:
         es = torch.exp(self_logit - m)
         denom = denom + es

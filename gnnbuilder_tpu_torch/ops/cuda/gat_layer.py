@@ -6,7 +6,7 @@ the entry GATConv calls (``fused_gat_layer_auto``).
 runs ``gat_layer_plain``, the same function in plain torch, for CPU
 tensors.  It replaces the TPU kernel
 ``gnnbuilder_tpu/ops/pallas/gat_layer.py`` ``fused_gat_layer`` (without
-its edge-logit and int8 modes); the plain version is that file's
+its edge-logit mode); the plain version is that file's
 ``gat_layer_reference``: h = x W, per head a_src = h . att_src and a_dst
 = h . att_dst, logits leaky_relu(a_src_j + a_dst_i) over each row's ELL
 slots and the analytic self loop, a masked softmax, the weighted sum of
@@ -22,6 +22,15 @@ package runs them in XLA.  Where the JAX gate ``_scatter_ok`` refuses
 (no self loops, or an activation outside None / relu / sigmoid / tanh)
 the backward is autograd of ``gat_layer_plain``, as JAX takes
 ``jax.vjp`` of its reference.
+
+Inference modes (``mode``; the JAX kernel's ``mm="bf16"`` and
+``quant=True``, the serving precision; no backward: a mode meeting a
+gradient raises): only the projection h = x W changes.  "bf16" rounds x
+to bf16 against bfloat16 ``w``; "int8" quantizes x per row against int8
+``w`` with column scales ``sw`` (``ops.quant.qdot``).  The logit halves,
+the softmax, the exact gather and the weighted sum stay float32, as in
+the JAX kernel (whose gather rounds nothing to bf16 in any mode).
+``prepare_layer`` brings a float32 ``w`` to a mode.
 
 What bounds the kernel on the H100: operations (the projection); see the
 source.
@@ -39,12 +48,17 @@ import torch
 
 from gnnbuilder_tpu_torch.ops.activations import ACTIVATIONS, leaky_relu
 from gnnbuilder_tpu_torch.ops.cuda.gat_bwd import fused_gat_scatter_backward
-from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
+from gnnbuilder_tpu_torch.ops.cuda.mp_layer import (
+    LAYER_ACTS,
+    MODES,
+    weight_dtype,
+)
 from gnnbuilder_tpu_torch.ops.ell import ell_gather, ell_mask, ell_softmax_sum
+from gnnbuilder_tpu_torch.ops.quant import qdot, quantize_weight, to_bf16
 
 __all__ = ["fused_gat_layer", "gat_layer_plain", "GATLayerFunction",
-           "fused_gat_layer_vjp", "fused_gat_layer_auto", "GAT_ACTS",
-           "SCATTER_ACTS", "scatter_ok"]
+           "fused_gat_layer_vjp", "fused_gat_layer_auto", "prepare_layer",
+           "GAT_ACTS", "SCATTER_ACTS", "scatter_ok"]
 
 # epilogue activations the GAT kernels take, with their codes in the
 # sources: those of the mp layer kernel
@@ -58,20 +72,39 @@ def _act(o, act):
     return o if act is None else ACTIVATIONS[act](o)
 
 
-def _project(x, w, att_src, att_dst, heads):
-    """h [N, H, C], a_src and a_dst [N, H]."""
+def prepare_layer(w, mode: str):
+    """(w, sw) as ``mode`` takes them: "bf16" rounds w to bfloat16; "int8"
+    quantizes it with per-column scales sw (``ops.quant.quantize_weight``,
+    the JAX kernel's); sw is None in the other modes."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
+    w = w.contiguous()
+    if mode == "int8":
+        return quantize_weight(w)
+    return (w.to(torch.bfloat16) if mode == "bf16" else w), None
+
+
+def _project(x, w, att_src, att_dst, heads, mode="f32", sw=None):
+    """h [N, H, C], a_src and a_dst [N, H]; the product in ``mode``."""
     N = x.shape[0]
-    h = (x @ w).reshape(N, heads, -1)
+    if mode == "int8":
+        h = qdot(x, w, sw)
+    elif mode == "bf16":
+        h = to_bf16(x) @ w.float()
+    else:
+        h = x @ w
+    h = h.reshape(N, heads, -1)
     return h, (h * att_src).sum(-1), (h * att_dst).sum(-1)
 
 
 def gat_layer_plain(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                     heads: int, neg_slope: float = 0.2,
                     self_loops: bool = True, skip=None,
-                    act: Optional[str] = None):
-    """The layer in plain torch (``gat_layer_reference``)."""
+                    act: Optional[str] = None, mode: str = "f32", sw=None):
+    """The layer in plain torch (``gat_layer_reference``), its projection
+    in ``mode``."""
     N = x.shape[0]
-    h, a_src, a_dst = _project(x, w, att_src, att_dst, heads)
+    h, a_src, a_dst = _project(x, w, att_src, att_dst, heads, mode, sw)
     lt = leaky_relu(ell_gather(a_src, nbr_nodes) + a_dst[:, None, :],
                     neg_slope)
     vt = ell_gather(h, nbr_nodes)
@@ -88,9 +121,11 @@ def gat_layer_plain(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
 
 
 def _check(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads, skip,
-           act):
+           act, mode, sw):
     if act not in GAT_ACTS:
         raise ValueError(f"unsupported GAT layer activation {act!r}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"x must be [N, Fin] float32, got {tuple(x.shape)} "
                          f"{x.dtype}")
@@ -105,24 +140,28 @@ def _check(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads, skip,
                            ("att_src", att_src, (1, heads, C)),
                            ("att_dst", att_dst, (1, heads, C)),
                            ("bias", bias, (HC,)),
-                           ("skip", skip, (N, HC))):
-        if t is not None and (tuple(t.shape) != shape
-                              or t.dtype != torch.float32):
-            raise ValueError(f"{name} must be {shape} float32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+                           ("skip", skip, (N, HC)),
+                           ("sw", sw, (HC,))):
+        dt = weight_dtype(mode) if name == "w" else torch.float32
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dt):
+            raise ValueError(f"{name} must be {shape} {dt} in mode "
+                             f"{mode!r}, got {tuple(t.shape)} {t.dtype}")
+    if (sw is None) != (mode != "int8"):
+        raise ValueError(f"sw goes with mode 'int8' only, got mode {mode!r} "
+                         f"and sw {'None' if sw is None else 'given'}")
     if nbr_nodes is None or nbr_nodes.dim() != 2 \
             or nbr_nodes.shape[0] != N:
         raise ValueError("nbr_nodes must be [N, W]")
     if tuple(in_degree.shape) != (N,):
         raise ValueError("in_degree must be [N]")
     devs = {t.device for t in (x, nbr_nodes, in_degree, w, att_src, att_dst,
-                               bias, skip) if t is not None}
+                               bias, skip, sw) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
 
 
 def _launch(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads,
-            neg_slope, self_loops, skip, act):
+            neg_slope, self_loops, skip, act, mode, sw):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -138,15 +177,15 @@ def _launch(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads,
                          f"heads={heads} ({smem} bytes)")
     if nbr_nodes.dtype != torch.int32 or in_degree.dtype != torch.int32:
         raise ValueError("nbr_nodes and in_degree must be int32")
-    ops = [x, nbr_nodes, in_degree, w, att_src, att_dst, bias] + (
-        [] if skip is None else [skip])
+    ops = [t for t in (x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
+                       skip, sw) if t is not None]
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("all inputs must be contiguous")
     fn = lib.gnnb_gat_layer
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 3 + [I] * 5 + [P] * 5 + [ctypes.c_float, I, I] + \
-        [P] * 5 + [I]
+    fn.argtypes = [P] * 3 + [I] * 5 + [P] * 5 + [ctypes.c_float, I, I, I] \
+        + [P] * 6 + [I]
     f = torch.float32
     h = torch.empty((N, HC), dtype=f, device=dev)
     a_src = torch.empty((N, heads), dtype=f, device=dev)
@@ -157,36 +196,41 @@ def _launch(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads,
              Fin, heads, HC // heads, w.data_ptr(), att_src.data_ptr(),
              att_dst.data_ptr(), bias.data_ptr(),
              None if skip is None else skip.data_ptr(), float(neg_slope),
-             int(bool(self_loops)), GAT_ACTS[act], h.data_ptr(),
+             int(bool(self_loops)), GAT_ACTS[act], MODES[mode],
+             None if sw is None else sw.data_ptr(), h.data_ptr(),
              a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), stream,
              dev.index or 0)
     if err != 0:
         raise RuntimeError(f"gat_layer launch failed: cudaError {err}")
     fused_gat_layer.launches += 1
+    fused_gat_layer.mode_launches[mode] += 1
     return out
 
 
 def fused_gat_layer(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                     heads: int, neg_slope: float = 0.2,
                     self_loops: bool = True, skip=None,
-                    act: Optional[str] = None):
+                    act: Optional[str] = None, mode: str = "f32", sw=None):
     """One GAT layer (module docstring) on x [N, Fin] float32 over the ELL
     table ``nbr_nodes`` [N, W] / ``in_degree`` [N] int32, concatenated
-    heads: out [N, H*C].  A CUDA ``x`` launches the kernel, which takes
+    heads: out [N, H*C]; ``w`` and ``sw`` typed by ``mode``
+    (``prepare_layer``).  A CUDA ``x`` launches the kernel, which takes
     any width and raises on what it does not take; a CPU ``x`` runs the
     plain version."""
     _check(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads, skip,
-           act)
+           act, mode, sw)
     if x.device.type == "cuda":
         return _launch(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
-                       heads, neg_slope, self_loops, skip, act)
+                       heads, neg_slope, self_loops, skip, act, mode, sw)
     if x.device.type != "cpu":
         raise ValueError(f"no GAT layer for device {x.device}")
     return gat_layer_plain(x, nbr_nodes, in_degree, w, att_src, att_dst,
-                           bias, heads, neg_slope, self_loops, skip, act)
+                           bias, heads, neg_slope, self_loops, skip, act,
+                           mode, sw)
 
 
 fused_gat_layer.launches = 0
+fused_gat_layer.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def scatter_ok(self_loops: bool, act) -> bool:
@@ -276,11 +320,15 @@ def fused_gat_layer_vjp(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                         heads: int, neg_slope: float = 0.2,
                         self_loops: bool = True, skip=None,
                         act: Optional[str] = None, rev_nbr_nodes=None,
-                        out_degree=None):
+                        out_degree=None, mode: str = "f32"):
     """Differentiable ``fused_gat_layer``: the kernel forward and the
     backward of ``GATLayerFunction``, whose softmax backward gathers over
     the reverse table when both ``rev_nbr_nodes`` and ``out_degree`` are
-    given, else over the reverse CSR of ``nbr_nodes``."""
+    given, else over the reverse CSR of ``nbr_nodes``.  Mode "f32" only:
+    the bf16 and int8 modes are inference modes and raise here (the JAX
+    package's int8 straight-through backward is not ported)."""
+    if mode != "f32":
+        raise ValueError(f"mode {mode!r} is an inference mode: no backward")
     if rev_nbr_nodes is None or out_degree is None:
         rev_nbr_nodes = out_degree = None
     return GATLayerFunction.apply(x, nbr_nodes, in_degree, rev_nbr_nodes,
@@ -293,9 +341,11 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                          heads: int, neg_slope: float = 0.2,
                          self_loops: bool = True, skip=None,
                          act: Optional[str] = None, rev_nbr_nodes=None,
-                         out_degree=None):
+                         out_degree=None, mode: str = "f32", prepared=None):
     """The layer as GATConv calls it: the differentiable path when grad
-    mode is on and an input needs a gradient, else the kernel alone.  The
+    mode is on and an input needs a gradient (mode "f32" only: an
+    inference mode raises there), else the kernel alone, in ``mode`` with
+    ``prepared`` = ``prepare_layer(w, mode)`` (made here when None).  The
     kernel takes any width, so nothing is padded."""
     ops = [None if t is None else t.contiguous()
            for t in (x, skip, w, att_src, att_dst, bias)]
@@ -303,6 +353,10 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
             t is not None and t.requires_grad for t in ops):
         return fused_gat_layer_vjp(
             ops[0], nbr_nodes, in_degree, *ops[2:], heads, neg_slope,
-            self_loops, ops[1], act, rev_nbr_nodes, out_degree)
-    return fused_gat_layer(ops[0], nbr_nodes, in_degree, *ops[2:], heads,
-                           neg_slope, self_loops, ops[1], act)
+            self_loops, ops[1], act, rev_nbr_nodes, out_degree, mode=mode)
+    wm, sw = ((ops[2], None) if mode == "f32" else
+              prepared if prepared is not None else
+              prepare_layer(ops[2], mode))
+    return fused_gat_layer(ops[0], nbr_nodes, in_degree, wm, *ops[3:],
+                           heads, neg_slope, self_loops, ops[1], act,
+                           mode=mode, sw=sw)

@@ -16,17 +16,15 @@ Precision policies (``compile.precision``, activated by ``Program``):
 a gate whose kernel has the JAX package's mode under the active policy
 returns it in ``cfg["mode"]`` ("bf16" or "int8"; absent under f32), as
 the JAX gates set ``quant`` / ``int8`` and the bf16 gather and products:
-the PNA stack and layer, the readout, the mp stack and the GINE layer in
-both policies; the mp layer in bf16 for every conv and in int8 for GIN
-and SAGE; the multi-aggregate and EdgeConv's block layer in bf16.  The
-rest copies the JAX package's decisions: GCN's, LG's and Simple's mp
-layer and the multi-aggregate keep their float32 kernels under int8
-(the JAX convs drop int8 there as numerics-neutral: no Linear runs
-inside those kernels), even under an int8 calibration, and GAT's block
-attention and EdgeConv's block layer decline under int8.  Where the JAX
-package has a kernel mode that this package does not have yet
-(``UNPORTED_MODES``), the gate declines and the plain path runs with the
-policy's numerics (``nn.linear.Linear``, the bf16 block product).
+the PNA stack and layer, the readout, the mp stack, the GINE layer and
+GAT's layer in both policies; the mp layer in bf16 for every conv and in
+int8 for GIN and SAGE; the multi-aggregate, EdgeConv's and GAT's block
+layers in bf16.  The rest copies the JAX package's decisions: GCN's,
+LG's and Simple's mp layer and the multi-aggregate keep their float32
+kernels under int8 (the JAX convs drop int8 there as numerics-neutral:
+no Linear runs inside those kernels), even under an int8 calibration,
+and GAT's and EdgeConv's block layers decline under int8
+(``INT8_DECLINED``), where GAT takes its layer kernel in int8.
 Under an active int8 calibration every gate that would give a kernel
 the int8 mode declines: the plain path owns the per-site state.
 """
@@ -37,10 +35,10 @@ import contextlib
 import contextvars
 from typing import Optional
 
-__all__ = ["set_fused_mode", "inference_mode", "policy", "UNPORTED_MODES",
-           "inference_on", "block_cfg", "pna_stack_cfg", "mp_stack_cfg",
-           "mp_layer_cfg", "pna_layer_cfg", "gat_block_cfg", "gat_layer_cfg",
-           "agg_cfg", "gine_layer_cfg", "edge_block_cfg", "readout_config"]
+__all__ = ["set_fused_mode", "inference_mode", "policy", "inference_on",
+           "block_cfg", "pna_stack_cfg", "mp_stack_cfg", "mp_layer_cfg",
+           "pna_layer_cfg", "gat_block_cfg", "gat_layer_cfg", "agg_cfg",
+           "gine_layer_cfg", "edge_block_cfg", "readout_config"]
 
 # convs whose whole stack runs in the mp stack kernel under "auto": the JAX
 # package's A/B on its TPU kept GIN on the per-layer path
@@ -55,13 +53,6 @@ BLOCK_LAYER_CONVS = ("gcn", "lg", "simple")
 
 _MODE = "auto"
 
-# the JAX package's kernel modes under a precision policy that this
-# package has not ported yet, (kernel, policy), with the TPU kernel's row
-# in PERF.md: their gates decline under that policy (ROADMAP queue 2)
-UNPORTED_MODES = frozenset({
-    ("gat_block", "bf16"),                                      # row 9
-    ("gat_layer", "bf16"), ("gat_layer", "int8"),               # row 10
-})
 # kernels whose gate declines under int8 in the JAX package itself (its
 # ``_r4_block_cfg`` without ``int8_ok``): the plain path quantizes
 INT8_DECLINED = ("gat_block", "edge_block")
@@ -103,8 +94,8 @@ def _calibrating() -> bool:
 
 
 def _with_mode(cfg: dict) -> Optional[dict]:
-    """``cfg`` for a kernel with all three modes (rows 1, 2, 3, 5, 12; row
-    4 for GIN and SAGE): with "mode" set to the active policy's when that
+    """``cfg`` for a kernel with all three modes (rows 1, 2, 3, 5, 10, 12;
+    row 4 for GIN and SAGE): with "mode" set to the active policy's when that
     is not "f32"; None under an active int8 calibration."""
     name = policy()
     if name == "int8" and _calibrating():
@@ -114,12 +105,10 @@ def _with_mode(cfg: dict) -> Optional[dict]:
     return cfg
 
 
-def _unported(kernel: str) -> bool:
-    """Whether ``kernel`` declines under the active policy: a mode this
-    package lacks, or the JAX package's own int8 decline."""
-    name = policy()
-    return ((kernel, name) in UNPORTED_MODES
-            or (name == "int8" and kernel in INT8_DECLINED))
+def _int8_declined(kernel: str) -> bool:
+    """Whether ``kernel`` declines under the active policy: the JAX
+    package's own int8 decline."""
+    return kernel in INT8_DECLINED and policy() == "int8"
 
 
 def set_fused_mode(mode: str) -> None:
@@ -245,38 +234,45 @@ def pna_layer_cfg(g, act) -> Optional[dict]:
 
 
 def gat_block_cfg(g, act) -> Optional[dict]:
-    """{} when GAT's block attention kernel (``ops.cuda.gat_block``)
-    applies to batch ``g`` with epilogue activation ``act``, else None
-    (GATConv tries the layer kernel, then its plain paths).  The JAX
-    package's ``gat_block_cfg``: inference scope (the kernel has no
-    backward) and a block-packed batch at a block size that is a multiple
-    of 128; here also an activation the kernel has.  The block size
-    beyond that is the kernel's to check: the CUDA wrapper raises on what
-    it does not take."""
+    """{} ({"mode": "bf16"} under bf16) when GAT's block attention kernel
+    (``ops.cuda.gat_block``) applies to batch ``g`` with epilogue
+    activation ``act``, else None (GATConv tries the layer kernel, then
+    its plain paths).  The JAX package's ``gat_block_cfg``: inference
+    scope (the kernel has no backward) and a block-packed batch at a
+    block size that is a multiple of 128, not under int8 (GAT's layer
+    kernel takes the int8 policy); here also an activation the kernel
+    has.  The block size beyond that is the kernel's to check: the CUDA
+    wrapper raises on what it does not take."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
-    if _MODE == "never" or not inference_on() or _unported("gat_block"):
+    if _MODE == "never" or not inference_on() or _int8_declined("gat_block"):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
-    return {} if act in GAT_ACTS else None
+    if act not in GAT_ACTS:
+        return None
+    return {"mode": "bf16"} if policy() == "bf16" else {}
 
 
 def gat_layer_cfg(g, act) -> Optional[dict]:
-    """{} when the windowed GAT layer kernel (``ops.cuda.gat_layer``)
-    applies to batch ``g`` with epilogue activation ``act``, else None
-    (GATConv's plain paths).  The caller checks concat mode.  Needs the
+    """{} ({"mode": ...} under a policy) when the windowed GAT layer
+    kernel (``ops.cuda.gat_layer``) applies to batch ``g`` with epilogue
+    activation ``act``, else None (GATConv's plain paths).  The mode is
+    the policy's: "int8" quantizes the projection (the JAX kernel's
+    ``quant``, the serving precision), "bf16" rounds the projection's
+    operands; an active int8 calibration declines, as the JAX conv's
+    ``_quant_ok`` does.  The caller checks concat mode.  Needs the
     batch's ELL table and an activation the kernel has; in or out of
-    inference scope, since the layer has a backward, and on block-packed
-    batches too outside inference scope (training keeps this kernel
-    there, as in the JAX package).  The JAX package's alignment and
-    batch-size gates are left out: they weighed the TPU's 128-lane
-    padding, which this kernel does not have."""
+    inference scope, since the layer has a backward (float32 only), and
+    on block-packed batches too outside inference scope or under int8
+    (training keeps this kernel there, as in the JAX package).  The JAX
+    package's alignment and batch-size gates are left out: they weighed
+    the TPU's 128-lane padding, which this kernel does not have."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
-    if _MODE == "never" or g.nbr_nodes is None or _unported("gat_layer"):
+    if _MODE == "never" or g.nbr_nodes is None or act not in GAT_ACTS:
         return None
-    return {} if act in GAT_ACTS else None
+    return _with_mode({})
 
 
 def agg_cfg(g) -> Optional[dict]:
@@ -329,7 +325,7 @@ def edge_block_cfg(g, act) -> Optional[dict]:
     ELL table, not under int8; here also an activation the kernel has."""
     from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
 
-    if _MODE == "never" or not inference_on() or _unported("edge_block"):
+    if _MODE == "never" or not inference_on() or _int8_declined("edge_block"):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None

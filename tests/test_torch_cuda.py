@@ -1471,3 +1471,135 @@ def test_program_forward_slice_policies_through_kernels(
     assert torch.isfinite(out[m]).all()
     assert _scaled_err(out.cpu()[m], ref[m]) <= SLICE_CPU_TOL[precision], \
         moved
+
+
+# ------------------------------------ modes of rows 9 and 10, and serving
+
+# a served prediction against Program.forward of the same graphs: a
+# graph's rows go through the same operations in any batch, but for the
+# float32 rounding of sums whose padding differs
+SERVE_TOL = 1e-5
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("Fin,skip", [(11, False), (512, True)])
+def test_gat_layer_modes_match_plain(cuda_device, mode, Fin, skip):
+    """Row 10 in bf16 and int8 at the canonical heads-4 widths on the
+    standard-packed batch: 2e-3 / 5e-3 of max on real rows, one launch of
+    the mode."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(31)
+    ops = _gat_operands(Fin, 4, 128, g, cuda_device)
+    x = torch.randn(b.num_nodes, Fin, generator=g).to(cuda_device)
+    w, sw = gat_layer.prepare_layer(ops["w"], mode)
+    args = (x, b.nbr_nodes, b.in_degree, w, ops["att_src"], ops["att_dst"],
+            ops["bias"], 4)
+    kw = dict(act="relu", mode=mode, sw=sw,
+              skip=(torch.randn(b.num_nodes, 512, generator=g)
+                    .to(cuda_device) if skip else None))
+    before = gat_layer.fused_gat_layer.mode_launches[mode]
+    out = gat_layer.fused_gat_layer(*args, **kw)
+    torch.cuda.synchronize()
+    assert gat_layer.fused_gat_layer.mode_launches[mode] == before + 1
+    want = gat_layer.gat_layer_plain(*args, **kw)
+    m = b.node_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out[m], want[m]) <= MODE_TOL[mode]
+
+
+@pytest.mark.parametrize("concat", [True, False])
+@pytest.mark.parametrize("Fin,skip", [(11, False), (512, True)])
+def test_gat_block_bf16_matches_plain(cuda_device, concat, Fin, skip):
+    """Row 9 in bf16, heads 4, on the block-packed batch and on one with a
+    70-in-degree hub: 2e-3 of max on real rows."""
+    H, C = 4, 128 if concat else 64
+    g = torch.Generator(device="cpu").manual_seed(32)
+    for b in (_batch()[1].to(cuda_device), _hub_block_batch(cuda_device)[1]):
+        ops = _gat_operands(Fin, H, C, g, cuda_device, concat)
+        w, wa_src, wa_dst = gat_block.prepare_block(
+            ops["w"], ops["att_src"], ops["att_dst"], "bf16")
+        out_w = H * C if concat else C
+        x = torch.randn(b.num_nodes, Fin, generator=g).to(cuda_device)
+        args = (x, b.block_adj, w, ops["att_src"], ops["att_dst"],
+                ops["bias"], H)
+        kw = dict(act="relu", concat=concat, mode="bf16", wa_src=wa_src,
+                  wa_dst=wa_dst,
+                  skip=(torch.randn(b.num_nodes, out_w, generator=g)
+                        .to(cuda_device) if skip else None))
+        before = gat_block.fused_gat_block_layer.mode_launches["bf16"]
+        out = gat_block.fused_gat_block_layer(*args, **kw)
+        torch.cuda.synchronize()
+        assert gat_block.fused_gat_block_layer.mode_launches["bf16"] == \
+            before + 1
+        want = gat_block.gat_block_layer_plain(*args, **kw)
+        m = b.node_mask
+        assert torch.isfinite(out[m]).all()
+        assert _scaled_err(out[m], want[m]) <= MODE_TOL["bf16"]
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("block", [True, False])
+def test_program_forward_gat_policies_through_kernels(cuda_device,
+                                                      precision, block):
+    """Canonical heads-4 GAT under bf16 and int8 on the card: every layer
+    launches row 9 in bf16 (block-packed under bf16) or row 10 in the
+    policy's mode (standard-packed, and block-packed under int8), and
+    the output agrees with the same Program on the CPU."""
+    gs, b = _batch(256) if block else _std_batch(256)
+    size = dict(max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, block_size=128 if block else 0)
+    progs = [Program(canonical_model("gat", "qm9", graphs=gs,
+                                     conv_kwargs=dict(heads=4)),
+                     precision=precision, device=d, seed=7, **size)
+             for d in (cuda_device, "cpu")]
+    progs[0].init_params()
+    progs[1].set_params({k: v.cpu() for k, v in progs[0].params.items()})
+    fns = (gat_block.fused_gat_block_layer, gat_layer.fused_gat_layer)
+    before = [dict(f.mode_launches) for f in fns]
+    out = progs[0].forward(b.to(cuda_device))
+    torch.cuda.synchronize()
+    moved = [{k: v - before[i][k] for k, v in f.mode_launches.items()
+              if v != before[i][k]} for i, f in enumerate(fns)]
+    want = ([{"bf16": 6}, {}] if block and precision == "bf16"
+            else [{}, {precision: 6}])
+    assert moved == want
+    ref = progs[1].forward(b)
+    m = b.graph_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out.cpu()[m], ref[m]) <= SLICE_CPU_TOL[precision]
+
+
+def test_served_int8_gat_through_row_10(cuda_device, tmp_path):
+    """A block-packed canonical GAT under int8 behind ``GNNServer``: the
+    server's forwards launch row 10 in int8 in every layer, each
+    prediction agrees with ``Program.forward`` of the same graphs, and a
+    server from ``export_bundle`` gives the same predictions."""
+    from gnnbuilder_tpu_torch.data.datasets import load_dataset
+    from gnnbuilder_tpu_torch.serve import GNNServer
+
+    graphs = load_dataset("qm9", n=160)
+    prog = Program.from_dataset(
+        canonical_model("gat", "qm9", graphs=graphs,
+                        conv_kwargs=dict(heads=4)),
+        graphs, batch_size=32, block_size=128, precision="int8",
+        device=cuda_device, seed=5)
+    # the bucket's example: the largest graphs, so that the widths the
+    # bundle pins cover every request
+    example = prog.batch(sorted(graphs, key=lambda g: g.num_nodes)[-32:])
+    prog.init_params()
+    want = np.concatenate([prog.forward(prog.batch(graphs[i:i + 32]))
+                           .cpu().numpy()[:32] for i in range(0, 160, 32)])
+    counter = gat_layer.fused_gat_layer.mode_launches
+    with GNNServer.from_program(prog, example, max_batch=32) as srv:
+        before = counter["int8"]
+        got = srv.predict(graphs, timeout=300)
+        st = srv.stats()
+        launched = counter["int8"] - before
+    assert launched == 6 * st["batches"] and st["served"] == 160
+    assert _scaled_err(torch.from_numpy(got), torch.from_numpy(want)) <= \
+        SERVE_TOL
+    prog.export_bundle(str(tmp_path / "b"), example)
+    with GNNServer.from_bundle(str(tmp_path / "b"), max_batch=32,
+                               device=cuda_device) as srv:
+        again = srv.predict(graphs, timeout=300)
+    assert _scaled_err(torch.from_numpy(again), torch.from_numpy(got)) <= \
+        SERVE_TOL

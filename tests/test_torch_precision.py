@@ -300,6 +300,7 @@ SLICE_MODELS = {
     "edge": ("edge", None),
     "simple_max": ("simple", {"aggregation": "max"}),
     "pna5": ("pna", {"aggregators": ("sum", "mean", "min", "max", "std")}),
+    "gat": ("gat", {"heads": 2}),
 }
 
 
@@ -312,9 +313,10 @@ def check_program_policy_each_conv(name, precision, block_size,
     ``PROGRAM_TOL``, and the kernel functions reached with the modes the
     JAX gates choose.  The JAX int8 runs gather with
     ``gather_mode="highest"``, as the port does.  The cases run from
-    ``tests/test_torch_mp_precision.py`` (the mp convs) and
-    ``tests/test_torch_edge_precision.py`` (the rest), so that the three
-    files share the work."""
+    ``tests/test_torch_mp_precision.py`` (the mp convs),
+    ``tests/test_torch_gat_policy.py`` (GAT) and
+    ``tests/test_torch_edge_precision.py`` (the rest), so that the files
+    share the work."""
     conv, kw = SLICE_MODELS[name]
     pol = "int8" if precision == "int8_static" else precision
     jp, tp, jbs, tbs, _ = _programs(block_size, layers=2, precision=pol,
@@ -426,7 +428,6 @@ def _route(conv, block, precision, layers=2, name=None):
     L = layers
     static = precision == "int8_static"
     pol = "int8" if static else precision
-    f32 = pol == "f32"
     # kernels with a bf16 mode and no int8 one keep float32 under int8
     agg = "bf16" if pol == "bf16" else "f32"
     if name == "simple_max":
@@ -444,8 +445,12 @@ def _route(conv, block, precision, layers=2, name=None):
     if conv in ("gin", "sage"):
         return {} if block or static else {"mp_layer": [pol] * L}
     if conv == "gat":
-        return ({"gat_block" if block else "gat_layer": ["f32"] * L}
-                if f32 else {})
+        # the block gate declines under int8 and the layer kernel takes it
+        if static:
+            return {}
+        if block and pol != "int8":
+            return {"gat_block": [pol] * L}
+        return {"gat_layer": [pol] * L}
     if conv == "gine":
         return {} if static else {"gine_layer": [pol] * L}
     return {"edge_block": [pol] * L} if block and pol != "int8" else {}
@@ -495,10 +500,10 @@ def test_route_of_each_conv_under_each_policy(conv, precision,
 
 
 def test_gates_under_each_policy():
-    """The gates' answers, kernel by kernel (UNPORTED_MODES and the JAX
-    package's own int8 declines), and under an active calibration every
-    gate that would give a kernel the int8 mode declining, while GCN's,
-    LG's and Simple's mp layer and the multi-aggregate keep float32."""
+    """The gates' answers, kernel by kernel (with the JAX package's own
+    int8 declines), and under an active calibration every gate that would
+    give a kernel the int8 mode declining, while GCN's, LG's and Simple's
+    mp layer and the multi-aggregate keep float32."""
     _, (blk,) = canonical_batches("qm9", n_graphs=16, batch_size=16,
                                   block_size=128, node_multiple=128,
                                   device="cpu")
@@ -544,7 +549,7 @@ def test_gates_under_each_policy():
             "mp_stack": {"block_size": 128, "mode": "bf16"},
             **{f"mp_layer_{c}": {"mode": "bf16"} for c in convs},
             "mp_layer_gcn_block": {"block": True, "mode": "bf16"},
-            "gat_block": None, "gat_layer": None,
+            "gat_block": {"mode": "bf16"}, "gat_layer": {"mode": "bf16"},
             "ell_agg": {"mode": "bf16"}, "gine_layer": {"mode": "bf16"},
             "edge_block": {"mode": "bf16"}}
     with Precision.int8().activate():
@@ -555,7 +560,7 @@ def test_gates_under_each_policy():
             "mp_layer_gcn": {}, "mp_layer_gin": {"mode": "int8"},
             "mp_layer_sage": {"mode": "int8"}, "mp_layer_lg": {},
             "mp_layer_simple": {}, "mp_layer_gcn_block": {"block": True},
-            "gat_block": None, "gat_layer": None, "ell_agg": {},
+            "gat_block": None, "gat_layer": {"mode": "int8"}, "ell_agg": {},
             "gine_layer": {"mode": "int8"}, "edge_block": None}
         assert answers() == want
         for calib in (dict(record={}), dict(scales={})):
@@ -564,7 +569,4 @@ def test_gates_under_each_policy():
             assert got == {**want, "pna_stack": None, "pna_layer": None,
                            "readout": None, "mp_stack": None,
                            "mp_layer_gin": None, "mp_layer_sage": None,
-                           "gine_layer": None}
-    assert dispatch.UNPORTED_MODES == {
-        ("gat_block", "bf16"), ("gat_layer", "bf16"),
-        ("gat_layer", "int8")}
+                           "gat_layer": None, "gine_layer": None}
