@@ -80,7 +80,22 @@ weights):
   ``export_bundle`` giving the same predictions, sustained graphs/s and
   p50 / p90 / p99 request latency (the median burst) beside one graph
   per synchronous forward, and the host syncs of one micro-batch by
-  line; the modes' times and bounds.
+  line; the modes' times and bounds;
+* canonical GAT with QM9's edge features (``conv_kwargs={"heads": 4,
+  "edge_dim": 4}``): the edge-logit modes of rows 9 (f32, bf16) and 10
+  (f32, bf16, int8) against their plain versions in every layer at
+  b1024; ``Program.forward`` on a block-packed batch of 1024 QM9 graphs
+  with repeated (sender, receiver) pairs removed (row 9's edge mode in
+  every layer), on the raw block-packed batch, which repeats pairs (row
+  10's: the block route declines it), and on the standard-packed train
+  batch (row 10's), against the plain path; the train step (row 10's
+  edge mode forward, autograd of the plain layer backward): gradients
+  against the float64 plain path on the kernel path's ReLU decisions,
+  bitwise-equal gradients on two steps, a 3-step loss curve; the bf16
+  policy on both packings (both kernels' bf16 edge modes) and int8 (no
+  GAT kernel: the JAX gate declines an edge conv there), against f32
+  and the CPU; the times, the edge terms' torch time per forward and the
+  train step's profiler split.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -628,8 +643,11 @@ def gat_layer_args(model, g, block):
     """Each GAT layer's operands on batch ``g`` as the model's kernel gets
     them, the hidden state advanced through the plain version (so each
     kernel launch is held against its plain version on the same input):
-    ((x, table or block_adj, w, att_src, att_dst, bias, heads), kw)."""
+    ((x, table or block_adj, w, att_src, att_dst, bias, heads), kw); with
+    edge features kw also holds the layer's edge terms."""
     from gnnbuilder_tpu_torch.ops.cuda import gat_block, gat_layer
+
+    from gnnbuilder_tpu_torch.ops import ell
 
     L = model.gnn_num_layers
     h = g.node_feat
@@ -642,6 +660,16 @@ def gat_layer_args(model, g, block):
         args = (ops[0], *table, *ops[1:], c.heads)
         kw = dict(neg_slope=c.negative_slope, self_loops=c.add_self_loops,
                   skip=skip, act=model.gnn_activation)
+        if c.edge_dim is not None:
+            # the edge terms as GATConv forms them for each kernel
+            a_edge, a_self = c._edge_logits(g)
+            if block:
+                kw.update(edge_table=gat_block.build_block_edge_logits(
+                    g.senders, g.receivers, g.edge_mask, a_edge,
+                    g.num_nodes, g.block_size_static), self_extra=a_self)
+            else:
+                kw.update(edge_logits=ell.ell_gather_valid(
+                    a_edge, g.nbr_edges, g.in_degree), self_edge_logit=a_self)
         if block:
             kw["concat"] = c.concat
             h = gat_block.gat_block_layer_plain(*args, **kw)
@@ -3003,6 +3031,439 @@ def serving_phases(report, *, dev, graphs, batches, b0, tb, counted,
     return out
 
 
+# ---------------------------------------------------------------------------
+# this slice: GAT with edge features (GATConv edge_dim, QM9's bond one-hot)
+# through the edge-logit modes of rows 9 and 10
+
+EDGE_GAT = dict(conv_kwargs=dict(heads=GAT_HEADS, edge_dim=4))
+EDGE_TRAIN_STEPS = 3
+# kernel: (key of its rows in the report, TPU source, line, its modes on
+# the path); row 10's int8 edge mode is held against its plain version and
+# timed, but no gate sends an edge conv to it
+EDGE_KERNELS = {"gat_block": ("gat_block_edge", "gat_block", 164,
+                              ("f32", "bf16")),
+                "gat_layer": ("gat_layer_edge", "gat_layer", 308,
+                              ("f32", "bf16"))}
+
+
+def top_ops(prof, n_calls, k=6):
+    """The ``k`` CUDA kernels with the most self device time in a
+    torch.profiler run, as [(name, ms per call)] over ``n_calls``."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        rows.append((e.key[:80], (e.self_cuda_time_total if us is None
+                                  else us) / 1e3 / n_calls))
+    return sorted(rows, key=lambda r: -r[1])[:k]
+
+
+def edge_gat_work(layers, g, block, mode="f32"):
+    """([(operations, peak)], bytes) of one forward's six launches of row
+    9 or 10 in its edge-logit mode: ``gat_work`` or ``gat_mode_work``,
+    plus per edge and head the added term and its 4-byte load (the pairs
+    the block kernel visits, the valid slots of the layer kernel: only
+    those entries of the [T, H, 128, 128] table or [N, W, H] slots are
+    read) and per node and head the self term."""
+    n = g.num_nodes
+    e = (int((g.block_adj > 0).sum()) if block
+         else int(g.in_degree.sum()))
+    if mode == "f32":
+        flops, nbytes = gat_work(layers, g, block)
+        terms = [(flops, PEAK_F32_FLOPS)]
+    else:
+        terms, nbytes = gat_mode_work(layers, g, block, mode)
+    for args, _ in layers:
+        heads = args[-1]
+        terms.append(((e + n) * heads, PEAK_F32_FLOPS))
+        nbytes += 4 * (e + n) * heads
+    return terms, nbytes
+
+
+def edge_gat_phases(report, *, dev, graphs, b0, tgraphs, tb, target,
+                    counted, zero_counts, counts, only, fresh_step, smi):
+    """Canonical GAT (heads 4) with QM9's edge features (``edge_dim=4``):
+    rows 9e, 9eb, 10e, 10eb and 10ei against their plain versions in each
+    of the 6 layers at b1024; ``Program.forward`` on a block-packed batch
+    of 1024 simple QM9 graphs (row 9e), on the raw block-packed batch
+    that repeats pairs (row 10e: the block route declines it) and on the
+    standard-packed train batch (row 10e), each against the plain path;
+    the train step (row 10e forward, the plain layer's autograd backward):
+    gradients against the float64 plain path on the kernel path's ReLU
+    decisions, bitwise-equal gradients on two steps, a 3-step loss curve;
+    the bf16 policy on both packings (rows 9eb, 10eb) and int8 (no GAT
+    kernel: the JAX gate declines an edge conv); the times.  Fills
+    ``report``; returns the summary for the last JSON line."""
+    from gnnbuilder_tpu_torch import Program, train
+    from gnnbuilder_tpu_torch.bench.canonical import canonical_model
+    from gnnbuilder_tpu_torch.bench.grad_precision import (
+        conv_output_masks,
+        grads_on_relu_pattern,
+    )
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+    from gnnbuilder_tpu_torch.data.datasets import drop_repeated_edges
+    from gnnbuilder_tpu_torch.ops import dispatch, ell
+    from gnnbuilder_tpu_torch.ops.cuda import gat_block, gat_layer
+
+    fns = {"gat_block": (gat_block.fused_gat_block_layer,
+                         gat_block.gat_block_layer_plain),
+           "gat_layer": (gat_layer.fused_gat_layer,
+                         gat_layer.gat_layer_plain)}
+    out = {}
+    torch.set_grad_enabled(False)
+
+    def edge_model(gs=graphs):
+        return canonical_model("gat", "qm9", graphs=gs, **EDGE_GAT)
+
+    def edge_counts():
+        return {k: {md: n for md, n in counted[k].edge_launches.items()
+                    if n} for k in fns}
+
+    with phase("edge GAT: data, models, and rows 9e, 9eb, 10e, 10eb and "
+               "10ei against their plain versions in each of the 6 layers"):
+        sgraphs = drop_repeated_edges(graphs[:BATCH_GRAPHS])
+        sb = build_graph_batch(sgraphs, block_size=128,
+                               node_multiple=1024, device=dev)
+        if sb.multigraph_static or not b0.multigraph_static:
+            raise AssertionError("the simple batch repeats a pair, or the "
+                                 "raw one does not")
+        real = int(sb.edge_mask.sum())
+        dropped = sum(g.edge_index.shape[1] for g in
+                      graphs[:BATCH_GRAPHS]) - real
+        log(f"simple block batch: N={sb.num_nodes} E={sb.num_edges} ({real} "
+            f"real, {dropped} repeated pairs dropped) G={sb.num_graphs}; "
+            f"the raw batch repeats a pair: {b0.multigraph_static}")
+        prog = Program(edge_model(), max_nodes=sb.num_nodes,
+                       max_edges=sb.num_edges, max_graphs=sb.num_graphs,
+                       block_size=128, device=dev, seed=53)
+        params = prog.init_params()
+        model = prog.model
+        layer_sets = {"gat_block": (sb, gat_layer_args(model, sb, True)),
+                      "gat_layer": (tb, gat_layer_args(model, tb, False))}
+        mode_layers, errs = {}, {}
+        for key, (g, f32_layers) in layer_sets.items():
+            fn, plain = fns[key]
+            modes = EDGE_KERNELS[key][3] + (("int8",) if key == "gat_layer"
+                                            else ())
+            for mode in modes:
+                ls = (f32_layers if mode == "f32"
+                      else gat_in_mode(f32_layers, key, mode))
+                tol = KERNEL_TOL if mode == "f32" else MODE_TOL[mode]
+                worst = worst_rel = 0.0
+                for i, (args, kw) in enumerate(ls):
+                    got = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    m_ = g.node_mask
+                    ok, abs_err, rel = close_enough(
+                        got[m_], plain(*args, **kw)[m_], tol)
+                    worst, worst_rel = max(worst, abs_err), max(worst_rel,
+                                                                rel)
+                    if not ok:
+                        raise AssertionError(
+                            f"{key} edge {mode} layer {i}: {rel:.3e} of max "
+                            f"|value| against its plain version (tol {tol})")
+                mode_layers[key, mode] = ls
+                errs[key, mode] = worst
+                log(f"{key} edge {mode} (N={g.num_nodes}): 6 layers within "
+                    f"{tol} of max |value|, worst {worst_rel:.3e}, max abs "
+                    f"{worst:.3e}")
+
+    def name_of(key, mode):
+        return EDGE_KERNELS[key][0] + ("" if mode == "f32" else f"_{mode}")
+
+    launches = {}
+    with phase("main path: Program.forward of canonical edge GAT on the "
+               "block-packed batch of simple graphs, the raw block-packed "
+               "batch and the standard-packed train batch"):
+        tprog = Program(edge_model(), max_nodes=tb.num_nodes,
+                        max_edges=tb.num_edges, max_graphs=tb.num_graphs,
+                        device=dev)
+        tprog.set_params(params)
+        mprog = Program(edge_model(), max_nodes=b0.num_nodes,
+                        max_edges=b0.num_edges, max_graphs=b0.num_graphs,
+                        block_size=128, device=dev)
+        mprog.set_params(params)
+        fwd_err = {}
+        for label, p_, g, key in (("simple block", prog, sb, "gat_block"),
+                                  ("raw block", mprog, b0, "gat_layer"),
+                                  ("standard", tprog, tb, "gat_layer")):
+            zero_counts()
+            o_ = p_.forward(g)
+            torch.cuda.synchronize()
+            got, edge = counts(), edge_counts()
+            log(f"{label}: launches {got}; edge-mode launches {edge}")
+            if got != only(**{key: 6}, readout=1) or edge != {
+                    **dict.fromkeys(fns, {}), key: {"f32": 6}}:
+                raise AssertionError(f"edge GAT {label}: every layer did "
+                                     f"not take {key}'s edge mode")
+            launches[key, "f32"] = launches.get((key, "f32"), 0) + 6
+            dispatch.set_fused_mode("never")
+            try:
+                r_ = p_.forward(g)
+            finally:
+                dispatch.set_fused_mode("auto")
+            m = g.graph_mask
+            ok, abs_err, rel = close_enough(o_[m], r_[m])
+            fwd_err[label] = rel
+            log(f"{label}: kernels vs per-layer plain on the card: max abs "
+                f"{abs_err:.3e}, {rel:.3e} of max |value| (tol {TOL})")
+            if not ok or tuple(o_.shape) != (g.num_graphs, 1):
+                raise AssertionError(f"edge GAT {label} forward disagrees")
+        small = build_graph_batch(drop_repeated_edges(graphs[:64]),
+                                  block_size=128, node_multiple=128,
+                                  device="cpu")
+        cpu_p = Program(edge_model(), max_nodes=small.num_nodes,
+                        max_edges=small.num_edges,
+                        max_graphs=small.num_graphs, block_size=128,
+                        device="cpu")
+        cpu_p.set_params({k: v.cpu() for k, v in params.items()})
+        dispatch.set_fused_mode("never")
+        try:
+            ref = cpu_p.forward(small)
+        finally:
+            dispatch.set_fused_mode("auto")
+        o_ = prog.forward(small.to(dev)).cpu()
+        m = small.graph_mask
+        ok, abs_err, rel = close_enough(o_[m], ref[m])
+        fwd_err["64 simple graphs, card vs CPU"] = rel
+        log(f"64 simple graphs: card kernels vs CPU plain path: max abs "
+            f"{abs_err:.3e}, {rel:.3e} of max |value| (tol {TOL})")
+        if not ok:
+            raise AssertionError("edge GAT: card disagrees with the CPU")
+        out["forward_error"] = fwd_err
+
+    torch.set_grad_enabled(True)
+    with phase("edge GAT training: gradients of one step against the float64 "
+               "plain path, two steps from one state, and "
+               f"{EDGE_TRAIN_STEPS} Adam steps against the plain path"):
+        tm = edge_model(tgraphs)
+        tp = Program(tm, max_nodes=tb.num_nodes, max_edges=tb.num_edges,
+                     max_graphs=tb.num_graphs, device=dev, seed=59)
+        st = {k: v.clone() for k, v in tp.init_params().items()}
+        again = []
+        for _ in range(2):
+            tm.load_state_dict(st)
+            step = fresh_step(tm)
+            zero_counts()
+            step(tb, target)
+            torch.cuda.synchronize()
+            got, edge = counts(), edge_counts()
+            if got != only(gat_layer=6, readout=1) or edge != {
+                    "gat_block": {}, "gat_layer": {"f32": 6}}:
+                raise AssertionError(f"edge GAT step launches {got}, edge "
+                                     f"{edge}")
+            again.append(grads_of(tm))
+        same = [k for k in again[0] if torch.equal(again[0][k], again[1][k])]
+        log(f"launches {got}; bitwise-equal gradients {len(same)} of "
+            f"{len(again[0])}")
+        if len(same) != len(again[0]):
+            raise AssertionError("edge GAT: two train steps from one state "
+                                 "gave different gradients")
+        kern = again[0]
+        tm.load_state_dict(st)
+        masks = conv_output_masks(tm, tb)
+        mr = edge_model(tgraphs).to(dev).double()
+        mr.load_state_dict({k: v.double() for k, v in st.items()})
+        gb = tb.replace(node_feat=tb.node_feat.double(),
+                        edge_feat=tb.edge_feat.double())
+        want = grads_on_relu_pattern(mr, gb, target.double(), masks)
+        del mr
+        ok, abs_err, rel, k = worst_grad(kern, want)
+        edge_rel = {k_: close_enough(kern[k_].double(), want[k_])[2]
+                    for k_ in kern if "edge" in k_}
+        log(f"gradients vs the float64 plain path on the kernel path's ReLU "
+            f"decisions: worst {rel:.3e} of max |value| ({k}), max abs "
+            f"{abs_err:.3e} (tol {TOL}); lin_edge / att_edge worst "
+            f"{max(edge_rel.values()):.3e}")
+        if not ok:
+            raise AssertionError("edge GAT gradients disagree with the "
+                                 "float64 plain path")
+        out["gradients_worst_rel"] = rel
+        out["edge_gradients_worst_rel"] = max(edge_rel.values())
+        curves = {}
+        for mode in ("auto", "never"):
+            tm.load_state_dict(st)
+            step = fresh_step(tm)
+            dispatch.set_fused_mode(mode)
+            try:
+                if mode == "auto":
+                    zero_counts()
+                curves[mode] = [float(step(tb, target))
+                                for _ in range(EDGE_TRAIN_STEPS)]
+                torch.cuda.synchronize()
+                if mode == "auto":
+                    got = counts()
+            finally:
+                dispatch.set_fused_mode("auto")
+        log(f"launches {got}; losses {curves['auto']}, plain "
+            f"{curves['never']}")
+        if got != only(gat_layer=6 * EDGE_TRAIN_STEPS,
+                       readout=EDGE_TRAIN_STEPS):
+            raise AssertionError(f"edge GAT train launches {got}")
+        launches["gat_layer", "f32"] += 6 * EDGE_TRAIN_STEPS
+        for i, (a, b) in enumerate(zip(curves["auto"], curves["never"])):
+            if not (math.isfinite(a) and abs(a - b) <= CURVE_TOL * abs(b)):
+                raise AssertionError(f"edge GAT step {i}: loss {a} against "
+                                     f"plain {b}")
+        out["loss_curve"], out["plain_loss_curve"] = (curves["auto"],
+                                                      curves["never"])
+    torch.set_grad_enabled(False)
+
+    with phase("main path: Program.forward of canonical edge GAT under bf16 "
+               "and int8 on the simple block-packed batch and the "
+               "standard-packed train batch"):
+        small_std = build_graph_batch(drop_repeated_edges(graphs[:64]),
+                                      node_multiple=8, device="cpu")
+        pol_err = {}
+        for label, g, block, sm in (("block", sb, 128, small),
+                                    ("standard", tb, 0, small_std)):
+            f32 = (prog if block else tprog).forward(g)
+            for prec in PREC_MODES:
+                def program(device, g_):
+                    p_ = Program(edge_model(), precision=prec,
+                                 max_nodes=g_.num_nodes,
+                                 max_edges=g_.num_edges,
+                                 max_graphs=g_.num_graphs, block_size=block,
+                                 device=device)
+                    p_.set_params({k: v.to(device) for k, v in
+                                   params.items()})
+                    return p_
+
+                zero_counts()
+                o_ = program(dev, g).forward(g)
+                torch.cuda.synchronize()
+                got = {k: {md: n for md, n in getattr(
+                           fn, "mode_launches", {"f32": fn.launches}).items()
+                           if n} for k, fn in counted.items() if fn.launches}
+                edge = edge_counts()
+                key = "gat_block" if block else "gat_layer"
+                want = {"readout": {prec: 1}}
+                want_edge = dict.fromkeys(fns, {})
+                if prec == "bf16":
+                    want[key] = {prec: 6}
+                    want_edge[key] = {prec: 6}
+                    launches[key, prec] = launches.get((key, prec), 0) + 6
+                log(f"{label} {prec}: launches {got}; edge {edge}")
+                if got != want or edge != want_edge:
+                    raise AssertionError(f"edge GAT {label} {prec}: "
+                                         f"launches {got}, want {want}")
+                m = g.graph_mask
+                if not bool(torch.isfinite(o_[m]).all()):
+                    raise AssertionError(f"edge GAT {label} {prec}: not "
+                                         f"finite")
+                oc = program(dev, sm).forward(sm.to(dev)).cpu()
+                rc = program("cpu", sm).forward(sm)
+                ecpu = rel_err(oc[sm.graph_mask], rc[sm.graph_mask])
+                pol_err[f"{label} {prec}"] = dict(
+                    vs_f32=rel_err(o_[m], f32[m]), card_vs_cpu=ecpu)
+                log(f"{label} {prec}: against f32 "
+                    f"{pol_err[f'{label} {prec}']['vs_f32']:.3e} of max "
+                    f"|value|; 64 graphs, card vs CPU {ecpu:.3e} (tol "
+                    f"{SLICE_CPU_TOL[prec]})")
+                if ecpu > SLICE_CPU_TOL[prec]:
+                    raise AssertionError(f"edge GAT {label} {prec}: card "
+                                         f"disagrees with the CPU")
+        out["policy_error"] = pol_err
+
+    with phase("edge GAT times (torch.profiler device times; CUDA events)"):
+        def run(fn, ls):
+            def go():
+                for args, kw in ls:
+                    fn(*args, **kw)
+            return go
+
+        for (key, mode), ls in mode_layers.items():
+            g, f32_layers = layer_sets[key]
+            block = key == "gat_block"
+            fn, plain = fns[key]
+            terms, nbytes = edge_gat_work(ls, g, block, mode)
+            b_ms, b_by = bound_mixed(terms, nbytes)
+            ms, ev = timed(run(fn, ls), 10)
+            ms = ms or ev   # events where the profiler caught nothing
+            pms, pev = timed(run(plain, ls), 3)
+            # the same kernel without the edge terms, in the same call
+            bare = [(a, {k: v for k, v in kw.items() if k not in (
+                "edge_table", "self_extra", "edge_logits",
+                "self_edge_logit")}) for a, kw in ls]
+            nms = timed(run(fn, bare), 10)[0]
+            per = (f"one {'block' if block else 'standard'}-packed "
+                   f"b{BATCH_GRAPHS} forward (6 launches)")
+            row = dict(ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev,
+                       no_edge_kernel_ms=nms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, max_abs_err=errs[key, mode],
+                       launches=launches.get((key, mode), 0),
+                       flops=sum(t for t, _ in terms), bytes=nbytes, per=per)
+            log(f"{key} edge {mode} per {per}: device {ms:.4f} ms (events "
+                f"{ev:.4f}), plain {pms:.4f} ({pev:.4f}), the kernel without "
+                f"edge terms {nms:.4f}; bound {b_ms:.4f} ms by {b_by} "
+                f"({b_ms / ms:.2%} of it) on {smi}")
+            if mode in EDGE_KERNELS[key][3]:
+                report[name_of(key, mode)] = row
+            else:
+                out["gat_layer_edge_int8_off_path"] = row
+
+        # the edge terms GATConv forms per forward, in torch
+        def terms(g, block):
+            def go():
+                for c in model.gnn_convs:
+                    a_edge, a_self = c._edge_logits(g)
+                    if block:
+                        gat_block.build_block_edge_logits(
+                            g.senders, g.receivers, g.edge_mask, a_edge,
+                            g.num_nodes, 128)
+                    else:
+                        ell.ell_gather_valid(a_edge, g.nbr_edges,
+                                             g.in_degree)
+            return go
+
+        from torch.profiler import ProfilerActivity, profile
+
+        prep = {}
+        for label, g, blk in (("block", sb, True), ("standard", tb, False)):
+            prep[label] = dict(zip(("device_ms", "event_ms"),
+                                   timed(terms(g, blk), 10)))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    terms(g, blk)()
+                torch.cuda.synchronize()
+            prep[label]["top_ops_ms"] = top_ops(prof, 3)
+        fwd = {label: p_.benchmark(g, iters=10, warmup=2)["latency_s"] * 1e3
+               for label, p_, g in (("simple block", prog, sb),
+                                    ("raw block", mprog, b0),
+                                    ("standard", tprog, tb))}
+        log(f"edge terms per forward (6 layers: _edge_logits and the "
+            f"block table / the slot gather): {prep}; Program.forward "
+            f"b{BATCH_GRAPHS}: {fwd} ms on {smi}")
+        torch.set_grad_enabled(True)
+        tm.load_state_dict(st)
+        step = fresh_step(tm)
+        step_ms = time_ms(lambda: step(tb, target), 10, warmup=3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            for _ in range(3):
+                step(tb, target)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t) * 1e3 / 3
+        split = split_device_time(prof, 3)
+        busy = sum(split.values())
+        step_top = top_ops(prof, 3)
+        log(f"edge GAT train step b{BATCH_GRAPHS}: {step_ms:.4f} ms (events);"
+            f" device ms per step by part: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v)
+            + f"; busy {busy:.4f} of {wall_ms:.4f} ms wall; top kernels "
+            f"{step_top}")
+        torch.set_grad_enabled(False)
+        out.update(edge_terms_ms=prep, forward_ms=fwd, step_ms=step_ms,
+                   device_ms_per_step=split, step_top_ops_ms=step_top,
+                   profiled_wall_ms=wall_ms)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3056,8 +3517,10 @@ def main():
     def zero_counts():
         for fn in counted.values():
             fn.launches = 0
-            if hasattr(fn, "mode_launches"):
-                fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
+            for per_mode in ("mode_launches", "edge_launches"):
+                if hasattr(fn, per_mode):
+                    setattr(fn, per_mode,
+                            dict.fromkeys(getattr(fn, per_mode), 0))
 
     def counts():
         return {k: fn.launches for k, fn in counted.items()}
@@ -3832,6 +4295,10 @@ def main():
     serving = serving_phases(
         report, dev=dev, graphs=graphs, batches=batches, b0=b0, tb=tb,
         counted=counted, zero_counts=zero_counts, smi=smi)
+    edge_gat = edge_gat_phases(
+        report, dev=dev, graphs=graphs, b0=b0, tgraphs=tgraphs, tb=tb,
+        target=target, counted=counted, zero_counts=zero_counts,
+        counts=counts, only=only, fresh_step=fresh_step, smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -4121,6 +4588,13 @@ def main():
         for k, (src, line, modes) in {**SLICE_KERNELS,
                                       **GAT_MODE_KERNELS}.items()
         for mode in modes
+    ] + [
+        dict(name=name + ("" if mode == "f32" else f"_{mode}"), route="cuda",
+             source=f"gnnbuilder_tpu_torch/csrc/{src}.cu",
+             replaces=f"gnnbuilder_tpu/ops/pallas/{src}.py:{line}",
+             **report[name + ("" if mode == "f32" else f"_{mode}")])
+        for name, src, line, modes in EDGE_KERNELS.values()
+        for mode in modes
     ]
     print(json.dumps({
         "kernels": kernels,
@@ -4148,6 +4622,8 @@ def main():
         "slice_modes": dict(batch_graphs=BATCH_GRAPHS, **slice_modes),
         "gat_modes_serving": dict(batch_graphs=BATCH_GRAPHS,
                                   heads=GAT_HEADS, **serving),
+        "edge_gat": dict(batch_graphs=BATCH_GRAPHS, heads=GAT_HEADS,
+                         edge_dim=4, **edge_gat),
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

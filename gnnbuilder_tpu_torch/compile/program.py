@@ -150,8 +150,9 @@ class Program:
     def init_params(self, example_batch: Optional[GraphBatch] = None):
         """Seeded init, torch.nn.Linear's law U(+-1/sqrt(fan_in)) for weight
         and bias (where the Linear has one) and GAT's attention vectors
-        [1, H, C] glorot-uniform U(+-sqrt(6 / (H + C))) (the JAX package's
-        init), drawn from one ``torch.Generator`` in module order; GCN's
+        [1, H, C] (``att_edge`` too, with edge features) glorot-uniform
+        U(+-sqrt(6 / (H + C))) (the JAX package's init), drawn from one
+        ``torch.Generator`` in module order; GCN's
         and GAT's separate biases stay zero, as in the JAX package.
         Returns the state dict."""
         from gnnbuilder_tpu_torch.nn.conv import GATConv
@@ -161,7 +162,10 @@ class Program:
             for mod in self.model.modules():
                 if isinstance(mod, GATConv):
                     bound = math.sqrt(6.0 / (mod.heads + mod.out_channels))
-                    for p in (mod.att_src, mod.att_dst):
+                    atts = [mod.att_src, mod.att_dst]
+                    if mod.edge_dim is not None:
+                        atts.append(mod.att_edge)
+                    for p in atts:
                         r = torch.rand(p.shape, generator=gen)
                         p.copy_((2.0 * r - 1.0) * bound)
                 if isinstance(mod, torch.nn.Linear):
@@ -203,7 +207,9 @@ class Program:
 
         gs = FakeDataset(num_graphs=1, avg_num_nodes=4,
                          node_dim=self.model.graph_input_feature_dim,
-                         edge_dim=self.model.graph_input_edge_dim or 1)
+                         edge_dim=(self.model.graph_input_edge_dim
+                                   or self.model.conv_kwargs.get("edge_dim")
+                                   or 1))
         pin = self._pinned
         b = build_graph_batch(
             gs, node_budget=self.bucket.max_nodes,

@@ -17,9 +17,20 @@
 //   out   = act((sum_hd res_hd) / H + bias [+ skip])  (head mean: [N, C])
 //
 // The self terms drop out with self_loops = 0 (an empty row then gives
-// bias).  No edge-logit mode here (the TPU kernel's edge_table is still
-// to port), and no int8 mode, as in the JAX package: its gate sends GAT
-// to the layer kernel under int8.
+// bias).  No int8 mode, as in the JAX package: its gate sends GAT to the
+// layer kernel under int8.
+//
+// Edge-logit mode (EDGE, a template argument; GATConv edge_dim, in both
+// modes): elog [N / 128, H, 128, 128] holds a float32 term per pair and
+// self_extra [N, H] one per self loop, added before the leaky ReLU:
+//
+//   z_j   = leaky_relu((a_dst[r, hd] + a_src[t*128 + j, hd])
+//                      + elog[t, hd, i, j])
+//   z_s   = leaky_relu((a_src[r, hd] + a_dst[r, hd]) + self_extra[r, hd])
+//
+// (the TPU kernel's elog_in, float32 in every mode).  Only the entries at
+// edges are read: one 4-byte load per (edge, head) from the row's 512
+// contiguous bytes of its head's table.
 //
 // bf16 mode (mode 1, the TPU kernel's mm="bf16"; inference only): the
 // projection rounds x to bf16 against bfloat16 W, and forms the logit
@@ -59,6 +70,8 @@ struct BlockArgs {
   const float* a_src;   // [N, H]
   const float* a_dst;   // [N, H]
   const float* adj;     // [N / 128, 128, 128] counts
+  const float* elog;    // [N / 128, H, 128, 128] edge terms (EDGE)
+  const float* sextra;  // [N, H] self-loop edge terms (EDGE)
   const float* bias;    // [HC] (concat) or [C] (head mean)
   const float* skip;    // [N, out width] or null
   float* out;           // [N, HC] or [N, C]
@@ -72,7 +85,7 @@ __host__ __device__ __forceinline__ int warp_words(int H) {
   return H * BB + 2 * H;
 }
 
-template <int MODE>
+template <int MODE, bool EDGE>
 __global__ void __launch_bounds__(THREADS) gat_block_kernel(BlockArgs a) {
   extern __shared__ float smem[];
   __shared__ int s_cnt[R], s_ptr[R + 1], s_ent[R * BB];
@@ -92,17 +105,25 @@ __global__ void __launch_bounds__(THREADS) gat_block_kernel(BlockArgs a) {
     const int* ent = s_ent + e0;
     for (int hd = 0; hd < H; ++hd) {
       const float ad = a.a_dst[(size_t)r * H + hd];
+      // this row's 128 pair terms of head hd
+      const float* el = EDGE ? a.elog + ((size_t)(blk0 / BB) * H + hd) *
+                                            (BB * BB) + (size_t)(r - blk0) * BB
+                             : nullptr;
       float mx = -BIG;
       for (int k = lane; k < n; k += 32) {
-        const int j = blk0 + (ent[k] & 0xFF);
-        const float z = lrelu(ad + a.a_src[(size_t)j * H + hd], ns);
+        const int jl = ent[k] & 0xFF;
+        float z = ad + a.a_src[(size_t)(blk0 + jl) * H + hd];
+        if (EDGE) z += el[jl];
+        z = lrelu(z, ns);
         ew[hd * BB + k] = z;
         mx = fmaxf(mx, z);
       }
       mx = warp_max(mx);
       float zs = 0.f;
       if (a.self_loops) {
-        zs = lrelu(a.a_src[(size_t)r * H + hd] + ad, ns);
+        zs = a.a_src[(size_t)r * H + hd] + ad;
+        if (EDGE) zs += a.sextra[(size_t)r * H + hd];
+        zs = lrelu(zs, ns);
         mx = fmaxf(mx, zs);
       }
       mx = fmaxf(mx, -BIG * 0.5f);
@@ -170,14 +191,16 @@ int gnnb_gat_block_smem_bytes(int H) {
 // into out ([N, H*C] with concat, else [N, C]).  n_rows % 128 == 0; act:
 // 0 none, 1 relu, 2 gelu, 3 sigmoid, 4 tanh; skip may be null; mode: 0
 // f32, 1 bf16 (w bfloat16, with the bfloat16 logit weights wa_src and
-// wa_dst [Fin, H]; null in mode 0).  All other arrays contiguous f32 as
-// documented in ops/cuda/gat_block.py.  Returns the cudaError_t of the
-// launches (0 = success).
+// wa_dst [Fin, H]; null in mode 0); elog [N / 128, H, 128, 128] and
+// self_extra [N, H] both given (the edge-logit mode) or both null.  All
+// other arrays contiguous f32 as documented in ops/cuda/gat_block.py.
+// Returns the cudaError_t of the launches (0 = success).
 int gnnb_gat_block(const void* x, const void* adj, int n_rows, int Fin,
                    int H, int C, const void* w, const void* att_src,
                    const void* att_dst, const void* bias, const void* skip,
                    float neg_slope, int self_loops, int concat, int act,
                    int mode, const void* wa_src, const void* wa_dst,
+                   const void* elog, const void* self_extra,
                    void* h, void* a_src, void* a_dst, void* out,
                    void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
@@ -185,7 +208,8 @@ int gnnb_gat_block(const void* x, const void* adj, int n_rows, int Fin,
   if (n_rows < 0 || n_rows % BB || Fin < 1 || H < 1 || C < 1 || act < 0 ||
       act > 4 || !x || !adj || !w || !att_src || !att_dst || !bias || !h ||
       !a_src || !a_dst || !out || (mode != F32 && mode != BF16) ||
-      (mode == BF16) != (wa_src != nullptr && wa_dst != nullptr))
+      (mode == BF16) != (wa_src != nullptr && wa_dst != nullptr) ||
+      (elog == nullptr) != (self_extra == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
   size_t optin = 0;
@@ -216,6 +240,8 @@ int gnnb_gat_block(const void* x, const void* adj, int n_rows, int Fin,
   a.a_src = (const float*)a_src;
   a.a_dst = (const float*)a_dst;
   a.adj = (const float*)adj;
+  a.elog = (const float*)elog;
+  a.sextra = (const float*)self_extra;
   a.bias = (const float*)bias;
   a.skip = (const float*)skip;
   a.out = (float*)out;
@@ -226,7 +252,12 @@ int gnnb_gat_block(const void* x, const void* adj, int n_rows, int Fin,
   a.concat = concat != 0;
   a.act = act;
   a.neg_slope = neg_slope;
-  auto kernel = mode == BF16 ? gat_block_kernel<BF16> : gat_block_kernel<F32>;
+  const bool edge = elog != nullptr;
+  auto kernel = mode == BF16
+                    ? (edge ? gat_block_kernel<BF16, true>
+                            : gat_block_kernel<BF16, false>)
+                    : (edge ? gat_block_kernel<F32, true>
+                            : gat_block_kernel<F32, false>);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

@@ -16,8 +16,19 @@
 //
 // The self slot's terms drop out with self_loops = 0; an empty row then
 // gives bias (+ skip) through act, as the TPU kernel's -BIG mask and
-// clamp give.  No edge-logit mode here (the TPU kernel's edge_logits is
-// still to port).
+// clamp give.
+//
+// Edge-logit mode (EDGE, a template argument; GATConv edge_dim, in every
+// mode): le [N, W, H] holds a float32 term per slot and ae_self [N, H]
+// one per self slot, added before the leaky ReLU (the TPU kernel's
+// edge_logits / self_edge_logit):
+//
+//   z_w   = leaky_relu((a_src[j_w, hd] + a_dst[r, hd]) + le[r, w, hd])
+//   z_s   = leaky_relu((a_src[r, hd] + a_dst[r, hd]) + ae_self[r, hd])
+//
+// le is read row-major from device memory, each valid slot's term once
+// per head: the TPU kernel's slot-major stacked copy fed its one-hot
+// gather tiles and has no use here.
 //
 // Modes (inference only): in both only the projection changes
 // (gat_common.cuh).  bf16 (mode 1, the TPU kernel's mm="bf16") rounds
@@ -55,6 +66,8 @@ struct AttnArgs {
   const float* a_dst;   // [N, H]
   const int* nbr;       // [N, W]
   const int* deg;       // [N]
+  const float* le;      // [N, W, H] slot edge terms (EDGE)
+  const float* ae_self; // [N, H] self-slot edge terms (EDGE)
   const float* bias;    // [HC]
   const float* skip;    // [N, HC] or null
   float* out;           // [N, HC]
@@ -68,6 +81,7 @@ __host__ __device__ __forceinline__ int warp_words(int W, int H) {
   return W + H * W + 2 * H;
 }
 
+template <bool EDGE>
 __global__ void __launch_bounds__(THREADS) gat_attn_kernel(AttnArgs a) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -87,14 +101,18 @@ __global__ void __launch_bounds__(THREADS) gat_attn_kernel(AttnArgs a) {
       const float ad = a.a_dst[(size_t)r * H + hd];
       float mx = -BIG;
       for (int k = lane; k < d; k += 32) {
-        const float z = lrelu(a.a_src[(size_t)ids[k] * H + hd] + ad, ns);
+        float z = a.a_src[(size_t)ids[k] * H + hd] + ad;
+        if (EDGE) z += a.le[((size_t)r * W + k) * H + hd];
+        z = lrelu(z, ns);
         ew[hd * W + k] = z;
         mx = fmaxf(mx, z);
       }
       mx = warp_max(mx);
       float zs = 0.f;
       if (a.self_loops) {
-        zs = lrelu(a.a_src[(size_t)r * H + hd] + ad, ns);
+        zs = a.a_src[(size_t)r * H + hd] + ad;
+        if (EDGE) zs += a.ae_self[(size_t)r * H + hd];
+        zs = lrelu(zs, ns);
         mx = fmaxf(mx, zs);
       }
       mx = fmaxf(mx, -BIG * 0.5f);
@@ -146,14 +164,16 @@ int gnnb_gat_layer_smem_bytes(int W, int H) {
 // scratch h [N, H*C], a_src and a_dst [N, H], then the attention into out
 // [N, H*C].  act: 0 none, 1 relu, 2 gelu, 3 sigmoid, 4 tanh; skip may be
 // null; mode: 0 f32, 1 bf16 (w bfloat16), 2 int8 (w int8 with column
-// scales sw [H*C]; sw null otherwise).  All other arrays contiguous f32 /
-// i32 as documented in ops/cuda/gat_layer.py.  Returns the cudaError_t
-// of the launches (0 = success).
+// scales sw [H*C]; sw null otherwise); le [N, W, H] and ae_self [N, H]
+// both given (the edge-logit mode) or both null.  All other arrays
+// contiguous f32 / i32 as documented in ops/cuda/gat_layer.py.  Returns
+// the cudaError_t of the launches (0 = success).
 int gnnb_gat_layer(const void* x, const void* nbr, const void* deg,
                    int n_rows, int W, int Fin, int H, int C, const void* w,
                    const void* att_src, const void* att_dst,
                    const void* bias, const void* skip, float neg_slope,
                    int self_loops, int act, int mode, const void* sw,
+                   const void* le, const void* ae_self,
                    void* h, void* a_src, void* a_dst, void* out,
                    void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
@@ -161,7 +181,8 @@ int gnnb_gat_layer(const void* x, const void* nbr, const void* deg,
   if (n_rows < 0 || W < 1 || Fin < 1 || H < 1 || C < 1 || act < 0 ||
       act > 4 || !x || !nbr || !deg || !w || !att_src || !att_dst ||
       !bias || !h || !a_src || !a_dst || !out || mode < F32 ||
-      mode > INT8 || (mode == INT8) != (sw != nullptr))
+      mode > INT8 || (mode == INT8) != (sw != nullptr) ||
+      (le == nullptr) != (ae_self == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
   size_t optin = 0;
@@ -192,6 +213,8 @@ int gnnb_gat_layer(const void* x, const void* nbr, const void* deg,
   a.a_dst = (const float*)a_dst;
   a.nbr = (const int*)nbr;
   a.deg = (const int*)deg;
+  a.le = (const float*)le;
+  a.ae_self = (const float*)ae_self;
   a.bias = (const float*)bias;
   a.skip = (const float*)skip;
   a.out = (float*)out;
@@ -202,12 +225,14 @@ int gnnb_gat_layer(const void* x, const void* nbr, const void* deg,
   a.self_loops = self_loops != 0;
   a.act = act;
   a.neg_slope = neg_slope;
-  err = cudaFuncSetAttribute(gat_attn_kernel,
+  auto kernel = le != nullptr ? gat_attn_kernel<true>
+                               : gat_attn_kernel<false>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_rows + WARPS - 1) / WARPS;
-  gat_attn_kernel<<<blocks, THREADS, smem, st>>>(a);
+  kernel<<<blocks, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

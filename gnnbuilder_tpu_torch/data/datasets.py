@@ -26,7 +26,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["Graph", "load_dataset", "er_graph", "DATASET_SPECS", "FakeDataset"]
+__all__ = ["Graph", "load_dataset", "er_graph", "DATASET_SPECS", "FakeDataset",
+           "drop_repeated_edges"]
 
 
 @dataclasses.dataclass
@@ -155,6 +156,22 @@ def load_dataset(
     # results table built from one — irreproducible across runs
     rng = np.random.default_rng(seed + zlib.crc32(name.encode()) % (2**31))
     return [_molecule_like_graph(rng, spec) for _ in range(count)]
+
+
+def drop_repeated_edges(graphs):
+    """``graphs`` with each repeated (sender, receiver) pair kept once, at
+    its first occurrence, with its edge features: simple graphs, as real
+    molecules are (a synthetic molecule's ring closure can repeat a bond).
+    GAT's block kernel takes edge features on such batches only
+    (``GraphBatch.multigraph_static``)."""
+    out = []
+    for g in graphs:
+        key = g.edge_index[0] * (g.num_nodes + 1) + g.edge_index[1]
+        keep = np.sort(np.unique(key, return_index=True)[1])
+        out.append(dataclasses.replace(
+            g, edge_index=g.edge_index[:, keep],
+            edge_attr=None if g.edge_attr is None else g.edge_attr[keep]))
+    return out
 
 
 def _load_npz(path: str, n: Optional[int]) -> list[Graph]:

@@ -69,7 +69,12 @@ the windowed layer kernel (``ops.cuda.gat_layer``, differentiable through
 its hand-written backward) in concat mode on a batch with an ELL table
 (``dispatch.gat_layer_cfg``); else plain: the block attention
 (``ops.block.block_gat_attention``), the ELL table
-(``ops.ell.ell_softmax_sum``) or the edge list.
+(``ops.ell.ell_softmax_sum``) or the edge list.  With ``edge_dim`` (PyG
+``GATConv(edge_dim=...)``) each logit gains ``att_edge . lin_edge(e_ij)``
+before the leaky ReLU, and the self loop the same term of the mean of
+the receiver's incoming edge features (PyG's ``fill_value="mean"``);
+the block kernel takes it on batches without repeated pairs only, the
+plain block attention never (the per-edge terms are not rank 1).
 """
 
 from __future__ import annotations
@@ -383,17 +388,16 @@ class GATConv(torch.nn.Module):
     """GAT with ``heads`` heads of ``out_channels`` each: the output is
     [N, heads * out_channels] with ``concat``, else the head mean [N,
     out_channels].  ``lin`` has no bias; ``att_src`` and ``att_dst`` are
-    [1, heads, out_channels] as in the JAX package.  ``edge_dim`` (edge
-    features in the logits) is not ported: it raises."""
+    [1, heads, out_channels] as in the JAX package.  ``edge_dim``, the
+    width of the batch's edge features, adds ``lin_edge`` (no bias) and
+    ``att_edge`` [1, heads, out_channels] for the edge terms of the
+    logits."""
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
                  concat: bool = True, negative_slope: float = 0.2,
                  add_self_loops: bool = True, edge_dim=None):
         super().__init__()
-        if edge_dim is not None:
-            raise ValueError(
-                "GATConv edge_dim (edge features in the attention logits) "
-                "is not ported yet: ROADMAP queue 1 item 5")
+        self.edge_dim = None if edge_dim is None else int(edge_dim)
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.heads = int(heads)
@@ -406,6 +410,10 @@ class GATConv(torch.nn.Module):
         self.att_dst = torch.nn.Parameter(torch.empty(1, H, C))
         torch.nn.init.xavier_uniform_(self.att_src.view(H, C))
         torch.nn.init.xavier_uniform_(self.att_dst.view(H, C))
+        if self.edge_dim is not None:
+            self.lin_edge = Linear(self.edge_dim, H * C, bias=False)
+            self.att_edge = torch.nn.Parameter(torch.empty(1, H, C))
+            torch.nn.init.xavier_uniform_(self.att_edge.view(H, C))
         self.bias = torch.nn.Parameter(
             torch.zeros(H * C if self.concat else C))
 
@@ -429,27 +437,55 @@ class GATConv(torch.nn.Module):
                                                    self.att_dst, mode)
         return out
 
+    def _edge_logits(self, g: GraphBatch):
+        """The edge terms of the logits: per edge att_edge . lin_edge(e)
+        [E, H], and per node that of the mean of its incoming edge
+        features [N, H] (PyG's ``fill_value="mean"``: the projection
+        commutes with the mean, so the raw features are averaged; an
+        empty row's mean is 0)."""
+        if g.edge_feat is None:
+            raise ValueError("GATConv with edge_dim needs the batch's edge "
+                             "features")
+        H, C, n = self.heads, self.out_channels, g.num_nodes
+        e = g.edge_feat
+        a_edge = (self.lin_edge(e).reshape(-1, H, C)
+                  * self.att_edge).sum(-1)                     # [E, H]
+        mean_attr = segment.segment_mean(
+            e, g.receivers, n, count=g.in_degree.to(e.dtype)[:, None])
+        a_self = (self.lin_edge(mean_attr).reshape(n, H, C)
+                  * self.att_edge).sum(-1)                     # [N, H]
+        return a_edge, a_self
+
     def forward(self, g: GraphBatch, x, act=None, skip=None, operands=None):
         """``operands``: ``mode_operands(mode)`` of the active policy's
         mode, made once by the caller (``GNNModel`` caches them); made
         here when None."""
         H, C, n = self.heads, self.out_channels, g.num_nodes
         ns, loops = self.negative_slope, self.add_self_loops
+        edge = self.edge_dim is not None
         w = self.lin.weight.t()
-        cfg = dispatch.gat_block_cfg(g, act)
+        cfg = dispatch.gat_block_cfg(g, act, edge)
         if cfg is not None:
             from gnnbuilder_tpu_torch.ops.cuda.gat_block import (
+                build_block_edge_logits,
                 fused_gat_block_layer,
             )
 
             mode = cfg.get("mode", "f32")
             wm, wa_src, wa_dst = (w, None, None) if mode == "f32" else (
                 operands or self.mode_operands(mode))["block"]
+            ekw = {}
+            if edge:
+                a_edge, a_self = self._edge_logits(g)
+                ekw = dict(edge_table=build_block_edge_logits(
+                    g.senders, g.receivers, g.edge_mask, a_edge, n,
+                    g.block_size_static), self_extra=a_self)
             return fused_gat_block_layer(
                 x, g.block_adj, wm, self.att_src, self.att_dst, self.bias, H,
                 neg_slope=ns, self_loops=loops, skip=skip, act=act,
-                concat=self.concat, mode=mode, wa_src=wa_src, wa_dst=wa_dst)
-        cfg = dispatch.gat_layer_cfg(g, act) if self.concat else None
+                concat=self.concat, mode=mode, wa_src=wa_src, wa_dst=wa_dst,
+                **ekw)
+        cfg = dispatch.gat_layer_cfg(g, act, edge) if self.concat else None
         if cfg is not None:
             from gnnbuilder_tpu_torch.ops.cuda.gat_layer import (
                 fused_gat_layer_auto,
@@ -458,34 +494,48 @@ class GATConv(torch.nn.Module):
             mode = cfg.get("mode", "f32")
             prepared = None if mode == "f32" or operands is None \
                 else operands["layer"]
+            ekw = {}
+            if edge:
+                a_edge, a_self = self._edge_logits(g)
+                ekw = dict(edge_logits=ell.ell_gather_valid(
+                    a_edge, g.nbr_edges, g.in_degree), self_edge_logit=a_self)
             return fused_gat_layer_auto(
                 x, g.nbr_nodes, g.in_degree, w, self.att_src, self.att_dst,
                 self.bias, H, neg_slope=ns, self_loops=loops, skip=skip,
                 act=act, rev_nbr_nodes=g.rev_nbr_nodes,
-                out_degree=g.out_degree, mode=mode, prepared=prepared)
+                out_degree=g.out_degree, mode=mode, prepared=prepared, **ekw)
         h = self.lin(x).reshape(n, H, C)
         a_src = (h * self.att_src).sum(-1)                     # [N, H]
         a_dst = (h * self.att_dst).sum(-1)
-        if dispatch.block_cfg(g) is not None:
+        z_self = a_src + a_dst
+        if edge:
+            a_edge, a_self = self._edge_logits(g)
+            z_self = z_self + a_self
+        if dispatch.block_cfg(g) is not None and not edge:
             out = block.block_gat_attention(g.block_adj, h, a_src, a_dst,
                                             neg_slope=ns, self_loops=loops)
-        elif g.nbr_nodes is not None:
-            # separable logits per ELL slot; the self loop is an analytic
-            # extra slot
-            lt = leaky_relu(ell.ell_gather(a_src, g.nbr_nodes)
-                       + a_dst[:, None, :], ns)                 # [N, W, H]
+        elif g.nbr_nodes is not None and g.nbr_edges is not None:
+            # separable logits per ELL slot (plus the edge term); the self
+            # loop is an analytic extra slot
+            z = ell.ell_gather(a_src, g.nbr_nodes) + a_dst[:, None, :]
+            if edge:
+                z = z + ell.ell_gather_valid(a_edge, g.nbr_edges, g.in_degree)
+            lt = leaky_relu(z, ns)                              # [N, W, H]
             vt = ell.ell_gather(h, g.nbr_nodes)                 # [N, W, H, C]
             mask = ell.ell_mask(g.nbr_nodes, g.in_degree)
             if loops:
                 out = ell.ell_softmax_sum(lt, vt, mask,
-                                          leaky_relu(a_src + a_dst, ns), h)
+                                          leaky_relu(z_self, ns), h)
             else:
                 out = ell.ell_softmax_sum(lt, vt, mask)
         else:
             send, recv = g.senders.long(), g.receivers.long()
-            logits = leaky_relu(a_src[send] + a_dst[recv], ns)       # [E, H]
+            z = a_src[send] + a_dst[recv]
+            if edge:
+                z = z + a_edge
+            logits = leaky_relu(z, ns)                          # [E, H]
             if loops:
-                self_logit = leaky_relu(a_src + a_dst, ns)
+                self_logit = leaky_relu(z_self, ns)
                 m = logits.new_full((n, H), float("-inf")).scatter_reduce(
                     0, recv[:, None].expand_as(logits), logits,
                     reduce="amax", include_self=True)

@@ -20,7 +20,10 @@ parameters and no stack kernel.  GAT layers run through
 through ``ops.cuda.gat_layer`` elsewhere on a batch with an ELL table
 (concat heads), else their plain paths; with concat heads a GAT layer's
 output is heads * channels wide, and the next layer and the MLP head take
-that width, as the JAX package's layers infer it.  GINE layers (which
+that width, as the JAX package's layers infer it.  A GAT with edge
+features (``conv_kwargs={"heads": H, "edge_dim": E}``, as in the JAX
+package) runs the block kernel only on a batch that repeats no (sender,
+receiver) pair.  GINE layers (which
 read the batch's edge features, ``edge_dim=graph_input_edge_dim``) run
 through ``ops.cuda.gine_layer`` on any batch with an ELL table, in
 inference and in training; EdgeConv layers through ``ops.cuda.edge_block``

@@ -83,10 +83,18 @@ def block_multi(x, block_adj, in_degree, aggregators, mm=None):
 
 
 def block_gat_attention(block_adj, h, a_src, a_dst, neg_slope: float = 0.2,
-                        self_loops: bool = True, bf16_sum: bool = False):
+                        self_loops: bool = True, bf16_sum: bool = False,
+                        edge_table=None, self_extra=None):
     """GAT attention as dense masked attention per block (PyG semantics):
     logits leaky_relu(a_src_j + a_dst_i) over each receiver's incoming
     edges (and the analytic self loop), softmax, weighted sum of h.
+
+    Edge-featured attention (GATConv ``edge_dim``): ``edge_table`` [T, H,
+    B, B] adds a per-pair term to each logit before the leaky ReLU, and
+    ``self_extra`` [N, H] one to the self loop's.  A per-pair term is
+    exact for simple graphs only (parallel edges would need one term
+    each), so callers take this route only when the batch has no repeated
+    (sender, receiver) pair.
 
     ``block_adj`` [T, B, B] holds edge counts, so k parallel edges give k
     identical softmax terms: the weights are A * exp(raw - m).  Non-edges
@@ -102,12 +110,17 @@ def block_gat_attention(block_adj, h, a_src, a_dst, neg_slope: float = 0.2,
     mask = A > 0
     asrc = a_src.reshape(T, B, H).transpose(1, 2)             # [T, H, B] j
     adst = a_dst.reshape(T, B, H).transpose(1, 2)             # [T, H, B] i
-    raw = leaky_relu(
-        adst[..., :, None] + asrc[..., None, :], neg_slope)    # [T,H,Bi,Bj]
+    z = adst[..., :, None] + asrc[..., None, :]               # [T,H,Bi,Bj]
+    if edge_table is not None:
+        z = z + edge_table
+    raw = leaky_relu(z, neg_slope)
     m = torch.where(mask, raw, -BIG).amax(dim=-1)             # [T, H, Bi]
     if self_loops:
-        self_logit = leaky_relu(
-            (a_src + a_dst).reshape(T, B, H).transpose(1, 2), neg_slope)
+        sl_z = a_src + a_dst
+        if self_extra is not None:
+            sl_z = sl_z + self_extra
+        self_logit = leaky_relu(sl_z.reshape(T, B, H).transpose(1, 2),
+                                neg_slope)
         m = torch.maximum(m, self_logit)
     # exp only where an edge is, so no masked entry overflows
     w = A * torch.exp(torch.where(mask, raw - m[..., None], -float("inf")))

@@ -4,15 +4,22 @@ and runs ``gat_block_layer_plain``, the same function in plain torch, for
 CPU tensors.
 
 It replaces the TPU kernel ``gnnbuilder_tpu/ops/pallas/gat_block.py``
-``fused_gat_block_layer`` (without its edge-logit mode; it has no int8
-mode); the plain version is that file's ``_reference``: h = x W, per
-head a_src = h . att_src and a_dst = h . att_dst, then
+``fused_gat_block_layer`` (it has no int8 mode, as the JAX gate never
+gives it one); the plain version is that file's ``_reference``: h = x W,
+per head a_src = h . att_src and a_dst = h . att_dst, then
 ``ops.block.block_gat_attention``
 over the block adjacency's edge counts (k parallel edges give k equal
 softmax terms), heads concatenated ([N, H*C]) or averaged ([N, C]), then
 bias, skip (before the activation) and the activation.  Like the TPU
 kernel it serves inference: GATConv takes it under inference scope only,
 and training keeps the windowed layer kernel (``ops.cuda.gat_layer``).
+
+The edge-logit mode (GATConv ``edge_dim``, in both modes): ``edge_table``
+[N / 128, H, 128, 128] float32 adds a per-pair term to each logit before
+the leaky ReLU, ``self_extra`` [N, H] one to the self loop's
+(``build_block_edge_logits`` scatters the per-edge terms into the
+table).  One term per pair is exact on simple graphs only: GATConv takes
+this mode only on a batch without repeated pairs.
 
 The bf16 mode (``mode="bf16"``, the JAX kernel's ``mm="bf16"``):
 bfloat16 ``w``; h = bf16(x) w; the logit terms formed as the JAX kernel
@@ -38,7 +45,7 @@ from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 from gnnbuilder_tpu_torch.ops.quant import to_bf16
 
 __all__ = ["fused_gat_block_layer", "gat_block_layer_plain",
-           "prepare_block", "MODES"]
+           "prepare_block", "build_block_edge_logits", "MODES"]
 
 # kernel modes, with their codes in the source
 MODES = {"f32": 0, "bf16": 1}
@@ -65,11 +72,30 @@ def prepare_block(w, att_src, att_dst, mode: str):
             logit_weights(att_dst))
 
 
+def build_block_edge_logits(senders, receivers, edge_mask, a_edge,
+                            num_nodes: int, block_size: int):
+    """The per-pair edge-logit table [T, H, B, B] (T = num_nodes / B) of
+    per-edge terms ``a_edge`` [E, H]: entry [t, hd, i, j] holds the term
+    of edge (t*B + j) -> (t*B + i), the layout of ``block_adj``.  Pad
+    edges add 0 at the ghost position.  Parallel edges would add up, so
+    the table is exact for simple graphs only (the JAX package's
+    ``build_block_edge_logits``, built here in the kernel's layout)."""
+    B = block_size
+    H = a_edge.shape[1]
+    r, s = receivers.long(), senders.long()
+    vals = torch.where(edge_mask[:, None], a_edge, a_edge.new_zeros(()))
+    heads = torch.arange(H, device=a_edge.device)[None, :]
+    table = a_edge.new_zeros((num_nodes // B, H, B, B))
+    return table.index_put(((r // B)[:, None], heads, (r % B)[:, None],
+                            (s % B)[:, None]), vals, accumulate=True)
+
+
 def gat_block_layer_plain(x, block_adj, w, att_src, att_dst, bias,
                           heads: int, neg_slope: float = 0.2,
                           self_loops: bool = True, skip=None,
                           act: Optional[str] = None, concat: bool = True,
-                          mode: str = "f32", wa_src=None, wa_dst=None):
+                          mode: str = "f32", wa_src=None, wa_dst=None,
+                          edge_table=None, self_extra=None):
     """The layer in plain torch (``_reference``), in ``mode``."""
     N = x.shape[0]
     bf16 = mode == "bf16"
@@ -83,7 +109,8 @@ def gat_block_layer_plain(x, block_adj, w, att_src, att_dst, bias,
         a_dst = (h * att_dst).sum(-1)
     out = block_gat_attention(block_adj, h, a_src, a_dst,
                               neg_slope=neg_slope, self_loops=self_loops,
-                              bf16_sum=bf16)
+                              bf16_sum=bf16, edge_table=edge_table,
+                              self_extra=self_extra)
     out = out.reshape(N, -1) if concat else out.mean(dim=1)
     out = out + bias
     if skip is not None:
@@ -92,7 +119,7 @@ def gat_block_layer_plain(x, block_adj, w, att_src, att_dst, bias,
 
 
 def _check(x, block_adj, w, att_src, att_dst, bias, heads, skip, act,
-           concat, mode, wa_src, wa_dst):
+           concat, mode, wa_src, wa_dst, edge_table, self_extra):
     if act not in GAT_ACTS:
         raise ValueError(f"unsupported GAT block activation {act!r}")
     if mode not in MODES:
@@ -117,7 +144,8 @@ def _check(x, block_adj, w, att_src, att_dst, bias, heads, skip, act,
                                ("bias", bias, (out_w,), None),
                                ("skip", skip, (N, out_w), None),
                                ("wa_src", wa_src, (Fin, heads), bf),
-                               ("wa_dst", wa_dst, (Fin, heads), bf)):
+                               ("wa_dst", wa_dst, (Fin, heads), bf),
+                               ("self_extra", self_extra, (N, heads), None)):
         dt = dt or torch.float32
         if t is not None and (tuple(t.shape) != shape or t.dtype != dt):
             raise ValueError(f"{name} must be {shape} {dt} in mode "
@@ -128,14 +156,24 @@ def _check(x, block_adj, w, att_src, att_dst, bias, heads, skip, act,
     if (block_adj.dim() != 3 or block_adj.shape[1] != block_adj.shape[2]
             or block_adj.shape[0] * block_adj.shape[1] != N):
         raise ValueError(f"block_adj must be [N / B, B, B] with N={N}")
+    T, B = block_adj.shape[:2]
+    if edge_table is not None and (
+            tuple(edge_table.shape) != (T, heads, B, B)
+            or edge_table.dtype != torch.float32):
+        raise ValueError(f"edge_table must be {(T, heads, B, B)} float32, "
+                         f"got {tuple(edge_table.shape)} {edge_table.dtype}")
+    if self_extra is not None and edge_table is None:
+        raise ValueError("self_extra goes with edge_table")
     devs = {t.device for t in (x, block_adj, w, att_src, att_dst, bias,
-                               skip, wa_src, wa_dst) if t is not None}
+                               skip, wa_src, wa_dst, edge_table, self_extra)
+            if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
 
 
 def _launch(x, block_adj, w, att_src, att_dst, bias, heads, neg_slope,
-            self_loops, skip, act, concat, mode, wa_src, wa_dst):
+            self_loops, skip, act, concat, mode, wa_src, wa_dst, edge_table,
+            self_extra):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -154,8 +192,11 @@ def _launch(x, block_adj, w, att_src, att_dst, bias, heads, neg_slope,
         raise ValueError(f"the CUDA GAT block layer takes heads within "
                          f"{smem_max} bytes of shared memory; got heads="
                          f"{heads} ({smem} bytes)")
+    if edge_table is not None and self_extra is None:
+        self_extra = x.new_zeros((N, heads))
     ops = [t for t in (x, block_adj, w, att_src, att_dst, bias, skip,
-                       wa_src, wa_dst) if t is not None]
+                       wa_src, wa_dst, edge_table, self_extra)
+           if t is not None]
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("all inputs must be contiguous")
     if block_adj.data_ptr() % 16:
@@ -164,7 +205,7 @@ def _launch(x, block_adj, w, att_src, att_dst, bias, heads, neg_slope,
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [P] * 2 + [I] * 4 + [P] * 5 + \
-        [ctypes.c_float, I, I, I, I] + [P] * 7 + [I]
+        [ctypes.c_float, I, I, I, I] + [P] * 9 + [I]
     f = torch.float32
     h = torch.empty((N, HC), dtype=f, device=dev)
     a_src = torch.empty((N, heads), dtype=f, device=dev)
@@ -177,13 +218,18 @@ def _launch(x, block_adj, w, att_src, att_dst, bias, heads, neg_slope,
              float(neg_slope), int(bool(self_loops)), int(bool(concat)),
              GAT_ACTS[act], MODES[mode],
              None if wa_src is None else wa_src.data_ptr(),
-             None if wa_dst is None else wa_dst.data_ptr(), h.data_ptr(),
+             None if wa_dst is None else wa_dst.data_ptr(),
+             None if edge_table is None else edge_table.data_ptr(),
+             None if self_extra is None else self_extra.data_ptr(),
+             h.data_ptr(),
              a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), stream,
              dev.index or 0)
     if err != 0:
         raise RuntimeError(f"gat_block launch failed: cudaError {err}")
     fused_gat_block_layer.launches += 1
     fused_gat_block_layer.mode_launches[mode] += 1
+    if edge_table is not None:
+        fused_gat_block_layer.edge_launches[mode] += 1
     return out
 
 
@@ -191,20 +237,23 @@ def fused_gat_block_layer(x, block_adj, w, att_src, att_dst, bias,
                           heads: int, neg_slope: float = 0.2,
                           self_loops: bool = True, skip=None,
                           act: Optional[str] = None, concat: bool = True,
-                          mode: str = "f32", wa_src=None, wa_dst=None):
+                          mode: str = "f32", wa_src=None, wa_dst=None,
+                          edge_table=None, self_extra=None):
     """One GAT layer (module docstring) on x [N, Fin] float32 over
     ``block_adj`` [N / 128, 128, 128] float32 edge counts, with w [Fin,
     H*C], att_src and att_dst [1, H, C], bias and skip of the output
     width (H*C with ``concat``, else C); in mode "bf16" ``w``, ``wa_src``
-    and ``wa_dst`` as ``prepare_block`` gives them.  A CUDA ``x``
-    launches the kernel, which takes any width and raises on what it does
-    not take (and on inputs that need a gradient: it has no backward); a
-    CPU ``x`` runs the plain version."""
+    and ``wa_dst`` as ``prepare_block`` gives them; with edge features
+    ``edge_table`` [N / 128, H, 128, 128] and ``self_extra`` [N, H] (0
+    when None).  A CUDA ``x`` launches the kernel, which takes any width
+    and raises on what it does not take (and on inputs that need a
+    gradient: it has no backward); a CPU ``x`` runs the plain version."""
     ops = [None if t is None else t.contiguous()
-           for t in (x, w, att_src, att_dst, bias, skip)]
-    x, w, att_src, att_dst, bias, skip = ops
+           for t in (x, w, att_src, att_dst, bias, skip, edge_table,
+                     self_extra)]
+    x, w, att_src, att_dst, bias, skip, edge_table, self_extra = ops
     _check(x, block_adj, w, att_src, att_dst, bias, heads, skip, act, concat,
-           mode, wa_src, wa_dst)
+           mode, wa_src, wa_dst, edge_table, self_extra)
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in ops)
     if grad and mode != "f32":
@@ -215,13 +264,16 @@ def fused_gat_block_layer(x, block_adj, w, att_src, att_dst, bias,
                              "run it under torch.no_grad()")
         return _launch(x, block_adj, w, att_src, att_dst, bias, heads,
                        neg_slope, self_loops, skip, act, concat, mode,
-                       wa_src, wa_dst)
+                       wa_src, wa_dst, edge_table, self_extra)
     if x.device.type != "cpu":
         raise ValueError(f"no GAT block layer for device {x.device}")
     return gat_block_layer_plain(x, block_adj, w, att_src, att_dst, bias,
                                  heads, neg_slope, self_loops, skip, act,
-                                 concat, mode, wa_src, wa_dst)
+                                 concat, mode, wa_src, wa_dst, edge_table,
+                                 self_extra)
 
 
 fused_gat_block_layer.launches = 0
 fused_gat_block_layer.mode_launches = dict.fromkeys(MODES, 0)
+# the launches in the edge-logit mode, per mode (also in the counts above)
+fused_gat_block_layer.edge_launches = dict.fromkeys(MODES, 0)

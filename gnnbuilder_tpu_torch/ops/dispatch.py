@@ -24,7 +24,8 @@ LG's and Simple's mp layer and the multi-aggregate keep their float32
 kernels under int8 (the JAX convs drop int8 there as numerics-neutral:
 no Linear runs inside those kernels), even under an int8 calibration,
 and GAT's and EdgeConv's block layers decline under int8
-(``INT8_DECLINED``), where GAT takes its layer kernel in int8.
+(``INT8_DECLINED``), where GAT takes its layer kernel in int8, unless
+the conv has edge features: then the layer kernel declines too.
 Under an active int8 calibration every gate that would give a kernel
 the int8 mode declines: the plain path owns the per-site state.
 """
@@ -233,7 +234,7 @@ def pna_layer_cfg(g, act) -> Optional[dict]:
     return _with_mode({})
 
 
-def gat_block_cfg(g, act) -> Optional[dict]:
+def gat_block_cfg(g, act, edge: bool = False) -> Optional[dict]:
     """{} ({"mode": "bf16"} under bf16) when GAT's block attention kernel
     (``ops.cuda.gat_block``) applies to batch ``g`` with epilogue
     activation ``act``, else None (GATConv tries the layer kernel, then
@@ -241,20 +242,26 @@ def gat_block_cfg(g, act) -> Optional[dict]:
     scope (the kernel has no backward) and a block-packed batch at a
     block size that is a multiple of 128, not under int8 (GAT's layer
     kernel takes the int8 policy); here also an activation the kernel
-    has.  The block size beyond that is the kernel's to check: the CUDA
-    wrapper raises on what it does not take."""
+    has.  For a conv with edge features (``edge``) the batch must carry
+    them and repeat no (sender, receiver) pair, as the JAX conv checks
+    (``multigraph_static``): the kernel's per-pair edge term cannot hold
+    two parallel edges' terms.  The block size beyond that is the
+    kernel's to check: the CUDA wrapper raises on what it does not
+    take."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
     if _MODE == "never" or not inference_on() or _int8_declined("gat_block"):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
+    if edge and (g.edge_feat is None or g.multigraph_static):
+        return None
     if act not in GAT_ACTS:
         return None
     return {"mode": "bf16"} if policy() == "bf16" else {}
 
 
-def gat_layer_cfg(g, act) -> Optional[dict]:
+def gat_layer_cfg(g, act, edge: bool = False) -> Optional[dict]:
     """{} ({"mode": ...} under a policy) when the windowed GAT layer
     kernel (``ops.cuda.gat_layer``) applies to batch ``g`` with epilogue
     activation ``act``, else None (GATConv's plain paths).  The mode is
@@ -265,12 +272,19 @@ def gat_layer_cfg(g, act) -> Optional[dict]:
     batch's ELL table and an activation the kernel has; in or out of
     inference scope, since the layer has a backward (float32 only), and
     on block-packed batches too outside inference scope or under int8
-    (training keeps this kernel there, as in the JAX package).  The JAX
+    (training keeps this kernel there, as in the JAX package).  A conv
+    with edge features (``edge``) also needs the table's edge slots
+    (``nbr_edges``), and declines under int8: the JAX conv gives its
+    kernel ``int8_ok`` only without ``edge_dim``, so the plain path
+    quantizes (the kernel's edge mode takes int8 all the same).  The JAX
     package's alignment and batch-size gates are left out: they weighed
     the TPU's 128-lane padding, which this kernel does not have."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
     if _MODE == "never" or g.nbr_nodes is None or act not in GAT_ACTS:
+        return None
+    if edge and (g.nbr_edges is None or g.edge_feat is None
+                 or policy() == "int8"):
         return None
     return _with_mode({})
 

@@ -15,7 +15,8 @@ import torch
 
 __all__ = ["ell_gather", "ell_mask", "ell_sum", "ell_mean", "ell_max",
            "ell_min", "ell_std", "ell_multi", "ell_multi_table",
-           "ell_softmax_sum", "ell_own_pads", "reverse_csr", "_STD_EPS"]
+           "ell_softmax_sum", "ell_own_pads", "ell_gather_valid",
+           "reverse_csr", "_STD_EPS"]
 
 _STD_EPS = 1e-5  # PyG StdAggregation epsilon
 
@@ -42,6 +43,20 @@ def ell_own_pads(nbr_nodes, in_degree):
     rows = torch.arange(nbr_nodes.shape[0], device=nbr_nodes.device,
                         dtype=nbr_nodes.dtype)[:, None]
     return torch.where(ell_mask(nbr_nodes, in_degree), nbr_nodes, rows)
+
+
+def ell_gather_valid(values, table, in_degree):
+    """``ell_gather`` with 0 at the pad slots, which read another row each
+    (slot index mod the rows of ``values``): the valid slots give the
+    same values, and autograd of the gather spreads the pad slots' zero
+    gradients over the rows instead of accumulating all of them into the
+    one row every pad slot names (the last pad edge of ``nbr_edges``)."""
+    mask = ell_mask(table, in_degree)
+    spread = torch.arange(table.numel(), device=table.device).view(
+        table.shape) % values.shape[0]
+    g = ell_gather(values, torch.where(mask, table.long(), spread))
+    return torch.where(mask.view(mask.shape + (1,) * (values.dim() - 1)),
+                       g, g.new_zeros(()))
 
 
 def ell_sum(x, nbr_nodes, in_degree, mask=None):

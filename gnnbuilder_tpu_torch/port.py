@@ -8,7 +8,8 @@ package's ``verify/port.py`` ``port_conv`` names): PNA ``pre_nn``,
 EdgeConv ``lin0``, ``lin1`` (EdgeConv's lin0 a PairLinear, [2 Fin, F] in
 flax); GINE ``lin_edge``, ``lin0``, ``lin1``; SAGE ``lin_l`` and
 ``lin_r`` (no bias); GAT ``lin`` (no bias), ``att_src`` and ``att_dst``
-([1, H, C], carried as they are) and ``bias``; LG and Simple none (flax
+([1, H, C], carried as they are) and ``bias``, and with ``edge_dim``
+also ``lin_edge`` (no bias) and ``att_edge``; LG and Simple none (flax
 leaves their layers out of the tree).  The mapping goes by the leaves
 alone: GIN's and EdgeConv's trees are alike and map the same way.  A
 flax kernel is
@@ -38,6 +39,8 @@ _CONV_PARAMS = {
     "gine": {"lin_edge": True, "lin0": True, "lin1": True},
     "sage": {"lin_l": True, "lin_r": False},
     "gat": {"lin": False, "att_src": None, "att_dst": None, "bias": None},
+    "gat with edge_dim": {"lin": False, "lin_edge": False, "att_src": None,
+                          "att_dst": None, "att_edge": None, "bias": None},
 }
 
 
@@ -52,7 +55,8 @@ def _conv_of(key, node) -> str:
     raise ValueError(
         f"{key}: got {sorted(node)}, which matches no conv this port "
         f"takes: expected PNA params {tuple(_CONV_PARAMS['pna'])}, or "
-        f"those of gcn, gin, gine, sage, gat or edge ({_CONV_PARAMS})")
+        f"those of gcn, gin, gine, sage, gat (with or without edge_dim) or "
+        f"edge ({_CONV_PARAMS})")
 
 
 def params_from_jax(flax_params) -> dict:

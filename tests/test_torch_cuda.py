@@ -1603,3 +1603,185 @@ def test_served_int8_gat_through_row_10(cuda_device, tmp_path):
         again = srv.predict(graphs, timeout=300)
     assert _scaled_err(torch.from_numpy(again), torch.from_numpy(got)) <= \
         SERVE_TOL
+
+
+# --------------------------------------- GAT with edge features (edge_dim)
+EDGE_GAT = dict(conv_kwargs=dict(heads=4, edge_dim=4))
+
+
+def _simple_block_batch(n_graphs=128, device="cpu"):
+    """QM9 graphs with each repeated (sender, receiver) pair kept once,
+    block-packed: the batches the block kernel's edge mode takes."""
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+    from gnnbuilder_tpu_torch.data.datasets import (
+        drop_repeated_edges,
+        load_dataset,
+    )
+
+    gs = drop_repeated_edges(load_dataset("qm9", n=n_graphs))
+    b = build_graph_batch(gs, block_size=128, node_multiple=128,
+                          device=device)
+    assert not b.multigraph_static
+    return gs, b
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("concat", [True, False])
+def test_gat_block_edge_mode_matches_plain(cuda_device, mode, concat):
+    """Row 9's edge-logit mode, heads 4, on a block-packed batch of simple
+    QM9 graphs: 1e-4 of max on real rows in f32, 2e-3 in bf16; one launch
+    counted in the mode's edge launches."""
+    H, C = 4, 128 if concat else 64
+    _, b = _simple_block_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(41)
+    ops = _gat_operands(11, H, C, g, cuda_device, concat)
+    w, wa_src, wa_dst = gat_block.prepare_block(
+        ops["w"], ops["att_src"], ops["att_dst"], mode)
+    a_edge = torch.randn(b.num_edges, H, generator=g).to(cuda_device)
+    table = gat_block.build_block_edge_logits(
+        b.senders, b.receivers, b.edge_mask, a_edge, b.num_nodes, 128)
+    x = torch.randn(b.num_nodes, 11, generator=g).to(cuda_device)
+    args = (x, b.block_adj, w, ops["att_src"], ops["att_dst"], ops["bias"],
+            H)
+    kw = dict(act="relu", concat=concat, mode=mode, wa_src=wa_src,
+              wa_dst=wa_dst, edge_table=table,
+              self_extra=torch.randn(b.num_nodes, H, generator=g).to(
+                  cuda_device))
+    before = gat_block.fused_gat_block_layer.edge_launches[mode]
+    out = gat_block.fused_gat_block_layer(*args, **kw)
+    torch.cuda.synchronize()
+    assert gat_block.fused_gat_block_layer.edge_launches[mode] == before + 1
+    want = gat_block.gat_block_layer_plain(*args, **kw)
+    m = b.node_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out[m], want[m]) <= (1e-4 if mode == "f32"
+                                            else MODE_TOL[mode])
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_gat_layer_edge_mode_matches_plain(cuda_device, mode):
+    """Row 10's edge-logit mode at the canonical heads-4 widths on the
+    standard-packed batch, in each mode (int8 is on no path: the gate
+    declines an edge conv under int8): 1e-4 / 2e-3 / 5e-3 of max."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(42)
+    ops = _gat_operands(512, 4, 128, g, cuda_device)
+    w, sw = gat_layer.prepare_layer(ops["w"], mode)
+    x = torch.randn(b.num_nodes, 512, generator=g).to(cuda_device)
+    le = torch.randn(b.num_nodes, b.nbr_nodes.shape[1], 4,
+                     generator=g).to(cuda_device)
+    args = (x, b.nbr_nodes, b.in_degree, w, ops["att_src"], ops["att_dst"],
+            ops["bias"], 4)
+    kw = dict(act="relu", mode=mode, sw=sw, edge_logits=le,
+              self_edge_logit=torch.randn(b.num_nodes, 4, generator=g).to(
+                  cuda_device),
+              skip=torch.randn(b.num_nodes, 512, generator=g).to(
+                  cuda_device))
+    before = gat_layer.fused_gat_layer.edge_launches[mode]
+    out = gat_layer.fused_gat_layer(*args, **kw)
+    torch.cuda.synchronize()
+    assert gat_layer.fused_gat_layer.edge_launches[mode] == before + 1
+    want = gat_layer.gat_layer_plain(*args, **kw)
+    m = b.node_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out[m], want[m]) <= (1e-4 if mode == "f32"
+                                            else MODE_TOL[mode])
+
+
+def test_edge_gat_train_step_is_bitwise_reproducible(cuda_device):
+    """One Adam step of canonical edge GAT (heads 4, edge_dim 4) on the
+    128-graph standard-packed batch: six launches of row 10's edge mode
+    (its backward is torch autograd of the plain layer, no row 11), the
+    same bits on a second step from the same state, and every gradient,
+    ``lin_edge`` and ``att_edge`` included, within 1e-4 of max of the
+    float64 plain path on the kernel path's ReLU decisions."""
+    from gnnbuilder_tpu_torch.bench.grad_precision import (
+        conv_output_masks,
+        grads_on_relu_pattern,
+    )
+
+    gs, b = _std_batch(device=cuda_device)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    model = canonical_model("gat", "qm9", graphs=gs, **EDGE_GAT)
+    Program(model, device="cuda", seed=5).init_params()
+    state = {k: t.clone() for k, t in model.state_dict().items()}
+    grads = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        step = train.make_train_step(
+            model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        before = (dict(gat_layer.fused_gat_layer.edge_launches),
+                  gat_bwd.fused_gat_scatter_backward.launches)
+        step(b, target)
+        torch.cuda.synchronize()
+        assert gat_layer.fused_gat_layer.edge_launches["f32"] == \
+            before[0]["f32"] + 6
+        assert gat_bwd.fused_gat_scatter_backward.launches == before[1]
+        grads.append({k: q.grad.clone() for k, q in
+                      model.named_parameters()})
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k
+    model.load_state_dict(state)
+    masks = conv_output_masks(model, b)
+    ref = canonical_model("gat", "qm9", graphs=gs, **EDGE_GAT).to(
+        cuda_device).double()
+    ref.load_state_dict({k: v.double() for k, v in state.items()})
+    want = grads_on_relu_pattern(
+        ref, b.replace(node_feat=b.node_feat.double(),
+                       edge_feat=b.edge_feat.double()), target.double(),
+        masks)
+    assert grads[0]["gnn_convs.0.att_edge"].abs().max() > 0
+    for k, q in grads[0].items():
+        assert torch.isfinite(q).all(), k
+        assert _scaled_err(q.double(), want[k]) <= 1e-4, k
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_program_forward_edge_gat_through_kernels(cuda_device, precision):
+    """Canonical edge GAT through ``Program.forward`` on three batches:
+    simple block-packed graphs take row 9's edge mode in every layer (f32,
+    bf16), block-packed graphs with repeated pairs and standard-packed
+    ones row 10's (int8: neither, the plain path); outputs within 1e-4 of
+    max of the plain path in f32, and of the CPU in the same policy
+    within 1e-2 / 5e-2 under bf16 / int8."""
+    sgs, simple = _simple_block_batch(device="cpu")
+    mgs, multi = _batch()
+    assert multi.multigraph_static
+    tgs, std = _std_batch()
+    for gs, b, key in ((sgs, simple, "gat_block"), (mgs, multi, "gat_layer"),
+                       (tgs, std, "gat_layer")):
+        size = dict(max_nodes=b.num_nodes, max_edges=b.num_edges,
+                    max_graphs=b.num_graphs,
+                    block_size=128 if b.block_adj is not None else 0)
+        progs = [Program(canonical_model("gat", "qm9", graphs=gs,
+                                         **EDGE_GAT),
+                         precision=precision, device=d, seed=7, **size)
+                 for d in (cuda_device, "cpu")]
+        progs[0].init_params()
+        progs[1].set_params({k: v.cpu() for k, v in progs[0].params.items()})
+        fns = {"gat_block": gat_block.fused_gat_block_layer,
+               "gat_layer": gat_layer.fused_gat_layer}
+        before = {k: dict(f.edge_launches) for k, f in fns.items()}
+        bc = b.to(cuda_device)
+        out = progs[0].forward(bc)
+        torch.cuda.synchronize()
+        moved = {k: {md: n - before[k][md] for md, n in
+                     f.edge_launches.items() if n != before[k][md]}
+                 for k, f in fns.items()}
+        want = {"gat_block": {}, "gat_layer": {}}
+        if precision != "int8":
+            want[key] = {precision: 6}
+        assert moved == want, (key, moved)
+        m = bc.graph_mask
+        assert torch.isfinite(out[m]).all()
+        if precision == "f32":
+            dispatch.set_fused_mode("never")
+            try:
+                ref = progs[0].forward(bc)
+            finally:
+                dispatch.set_fused_mode("auto")
+            assert _scaled_err(out[m], ref[m]) <= 1e-4
+        else:
+            ref = progs[1].forward(b)
+            assert _scaled_err(out.cpu()[b.graph_mask],
+                               ref[b.graph_mask]) <= SLICE_CPU_TOL[precision]

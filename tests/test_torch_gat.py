@@ -13,7 +13,8 @@ GATConv, the model, training) against the JAX package on the CPU.
   ``gat_block_layer_auto(..., interpret=True, mm="f32")`` and
   ``_reference``, concat and head mean.
 * ``GATConv`` on the block, ELL and edge-list routes against the JAX
-  conv, the route each takes, and ``edge_dim`` refused.
+  conv, and the route each takes (``edge_dim``:
+  ``tests/test_torch_gat_edge.py``).
 * ``GNNModel(gnn_conv="gat")`` at the JAX package's widths (heads 2,
   concat and head mean), ``Program.forward`` of a 3-layer heads-2 model
   in both packings against the JAX ``Program`` under
@@ -317,11 +318,6 @@ def test_gat_conv_matches_jax_on_each_route(route, kw):
                                            err_msg=f"{mode} {scope}")
         finally:
             dispatch.set_fused_mode("auto")
-
-
-def test_gat_conv_refuses_edge_dim():
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 5"):
-        torch_conv.GATConv(11, 8, heads=2, edge_dim=4)
 
 
 def test_gat_gates_route():
