@@ -128,8 +128,9 @@ T0 = time.time()
 SMI_TIMEOUT_S = 30
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
-# tensor cores and HBM bandwidth
+# tensor cores, TF32 on them, and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # tolerance of every comparison below: max |got - want| <= TOL * max |want|
@@ -227,6 +228,63 @@ def bound(flops, nbytes):
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def bound_f32_products(products, other, nbytes):
+    """The least time for f32-accurate products and ``other`` f32 CUDA-core
+    operations: the products at the f32 FMA rate or in three TF32 passes
+    on the tensor cores, whichever is faster, the rest at the f32 rate;
+    against the bytes over the memory rate."""
+    t_ops = (min(products / PEAK_F32_FLOPS, 3 * products / PEAK_TF32_FLOPS)
+             + other / PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# the tensor-core instructions of each mode's instance of the PNA stack
+# kernel in the built library's SASS (sm_90: HGMMA for wgmma, HMMA for
+# f16 / bf16 / tf32 mma.sync, IMMA for int8)
+TC_OPS = ("HGMMA", "HMMA", "IMMA")
+STACK_MODES = {"f32": 0, "bf16": 1, "int8": 2}
+
+
+def stack_kernel_resources(lib_path, lib, nvcc_path):
+    """{mode: {"HMMA": n, ..., "registers": r, "shared_bytes": b,
+    "ctas_per_sm": c}} for pna_block_stack_kernel<MODE>: SASS counts from
+    ``cuobjdump -sass`` of the library, the rest from the CUDA runtime
+    (``gnnb_pna_block_info``)."""
+    import ctypes
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {m: dict.fromkeys(TC_OPS, 0) for m in STACK_MODES}
+    code = {v: k for k, v in STACK_MODES.items()}
+    mode = None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            inst = re.search(r"pna_block_stack_kernelILi(\d)E", fn.group(1))
+            mode = code.get(int(inst.group(1))) if inst else None
+            continue
+        if mode is not None:
+            for op in TC_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    out[mode][op] += 1
+    info = lib.gnnb_pna_block_info
+    info.restype = ctypes.c_int
+    info.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    for m, c in STACK_MODES.items():
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = info(c, *map(ctypes.byref, vals))
+        if err != 0:
+            raise RuntimeError(f"gnnb_pna_block_info({m}): cudaError {err}")
+        out[m].update(registers=vals[0].value, shared_bytes=vals[1].value,
+                      ctas_per_sm=vals[2].value)
+    return out
 
 
 def pna_widths(model):
@@ -1659,7 +1717,7 @@ def rel_err(got, want):
 
 
 def precision_phases(report, *, dev, graphs, batches, b0, tb, prog,
-                     counted, zero_counts, smi):
+                     counted, zero_counts, smi, tc):
     """Program(precision="bf16" | "int8") of canonical PNA: the bf16 and
     int8 modes of rows 1, 2 and 5 against their plain versions in every
     layer, the block-packed main path (3 x b1024, rows 1 and 2) and the
@@ -1747,7 +1805,8 @@ def precision_phases(report, *, dev, graphs, batches, b0, tb, prog,
                 f"{MODE_TOL[mode]}; graph_mask rows)")
             if not bool(torch.isfinite(got_r[m]).all()) or e > MODE_TOL[mode]:
                 raise AssertionError(f"readout {mode} disagrees")
-            report[f"pna_block_stack_{mode}"] = dict(max_abs_err=max(errs))
+            report[f"pna_block_stack_{mode}"] = dict(max_abs_err=max(errs),
+                                                     resources=tc[mode])
             report[f"readout_{mode}"] = dict(
                 max_abs_err=float((got_r[m] - want_r[m]).abs().max()))
 
@@ -1926,7 +1985,9 @@ def precision_phases(report, *, dev, graphs, batches, b0, tb, prog,
                      if mode == "int8" else 0))
             b_ms, b_by = bound_mixed(
                 [(prod, pk), (agg + quant, PEAK_F32_FLOPS)], by)
-            fn = lambda: pna_block.fused_pna_block_stack(*sargs, **skw)
+            staged = pna_block.stage_stack(st, mode)
+            fn = lambda: pna_block.fused_pna_block_stack(*sargs, **skw,
+                                                         staged=staged)
             dms, ems = timed(fn, 10)
             report[f"pna_block_stack_{mode}"].update(
                 ms=ems, device_ms=dms,
@@ -3545,6 +3606,16 @@ def main():
         log(f"built in {time.time() - t:.2f}s: {lib}")
         print(f"--- ptxas\n{_build.build_log.strip()}", flush=True)
 
+    with phase("pna_block_stack: tensor-core instructions and resources of "
+               "each mode's instance"):
+        tc = stack_kernel_resources(lib, _build.load(), _build.nvcc())
+        for mode, v in tc.items():
+            log(f"pna_block_stack_kernel<{mode}>: "
+                + ", ".join(f"{k} {n}" for k, n in v.items()))
+            if not sum(v[op] for op in TC_OPS):
+                raise AssertionError(f"pna_block_stack_kernel<{mode}> has no "
+                                     f"tensor-core instruction")
+
     with phase("data and model"):
         graphs, batches = canonical_batches(
             "qm9", n_graphs=BATCH_GRAPHS * N_BATCHES,
@@ -3580,7 +3651,8 @@ def main():
         if not ok:
             raise AssertionError("pna_block_stack disagrees with its plain "
                                  "version")
-        report["pna_block_stack"] = dict(max_abs_err=abs_err)
+        report["pna_block_stack"] = dict(max_abs_err=abs_err,
+                                         resources=tc["f32"])
 
         h = got[:, :model.gnn_output_dim].contiguous()
         aggrs = model.pooling_aggrs
@@ -4288,7 +4360,7 @@ def main():
         counts=counts, only=only, fresh_step=fresh_step, smi=smi)
     precision = precision_phases(
         report, dev=dev, graphs=graphs, batches=batches, b0=b0, tb=tb,
-        prog=prog, counted=counted, zero_counts=zero_counts, smi=smi)
+        prog=prog, counted=counted, zero_counts=zero_counts, smi=smi, tc=tc)
     slice_modes = slice_phases(
         report, dev=dev, graphs=graphs, b0=b0, tb=tb, counted=counted,
         zero_counts=zero_counts, smi=smi)
@@ -4314,13 +4386,20 @@ def main():
         # neighbour value (add, square-add, max, min); every input once,
         # the output once
         s_flops = sum(layer_flops(N, edges, *w, 5) for w in widths)
+        s_agg = sum(5 * edges * w[1] for w in widths)
         s_pad = L * layer_flops(N, edges, 128, 128, 128, 5)
         s_bytes = 4 * (N * widths[0][0] + N * widths[-1][2] + N * W + N
                        + sum(layer_weights(*w) for w in widths))
-        s_bound, s_by = bound(s_flops, s_bytes)
+        s_bound, s_by = bound_f32_products(s_flops - s_agg, s_agg, s_bytes)
+        # the weights in the kernel's layout, as Program's model caches it
+        staged = pna_block.stage_stack(sargs[3:], "f32")
+        log(f"pna_block_stack: weights streamed into shared memory "
+            f"{staged.numel() * 4 * (N // 128) / 1e9:.3f} GB a forward, "
+            f"{staged.numel() * 4 / 1e6:.3f} MB a block (each layer's "
+            f"once, f32 as TF32 halves)")
         report["pna_block_stack"].update(
-            ms=time_ms(lambda: pna_block.fused_pna_block_stack(*sargs, **skw),
-                       10),
+            ms=time_ms(lambda: pna_block.fused_pna_block_stack(
+                *sargs, **skw, staged=staged), 10),
             plain_ms=time_ms(lambda: pna_block.pna_block_stack_plain(
                 *sargs, **skw), 3),
             bound_ms=s_bound, bound_by=s_by,

@@ -298,6 +298,19 @@ class GNNModel(torch.nn.Module):
 
         return self._cached(mode, width, build)
 
+    def _staged_stack(self, width: int, mode: str):
+        """The PNA stack's weights in ``mode`` laid out as its kernel
+        streams them (``pna_block.stage_stack``), cached like
+        ``_kernel_params``."""
+        def build():
+            from gnnbuilder_tpu_torch.ops.cuda.pna_block import stage_stack
+
+            stacked = (self._kernel_params(width)[0] if mode == "f32"
+                       else self._mode_params(width, mode)[0][0])
+            return stage_stack(stacked, mode)
+
+        return self._cached(f"{mode} staged", width, build)
+
     def _gat_operands(self):
         """Each GAT layer's weights in the active policy's mode (bf16 or
         int8, ``_mode_params``) under inference; None otherwise (float32,
@@ -362,6 +375,8 @@ class GNNModel(torch.nn.Module):
             stacked, scales = self._kernel_params(width)[0], None
         else:
             stacked, scales = self._mode_params(width, mode)[0]
+        staged = (self._staged_stack(width, mode) if h.device.type == "cuda"
+                  else None)
         return pna_block_stack_auto(
             h, g.nbr_nodes, g.in_degree, stacked,
             deltas=[c.delta for c in self.gnn_convs],
@@ -369,6 +384,7 @@ class GNNModel(torch.nn.Module):
                    for i in range(L)],
             act=self.gnn_activation, out_dim=self.gnn_output_dim,
             block_size=cfg["block_size"], mode=mode, scales=scales,
+            staged=staged,
         )
 
     def _fused_mp_stack(self, g: GraphBatch, h):

@@ -7,8 +7,16 @@ CPU tensors.  It replaces the TPU kernel
 
 What bounds it on the H100: operations (2*(4F^2 + 12F^2) flops per row
 per layer against ~2 KB of row traffic).  The kernel keeps each 128-row
-block's hidden state in shared memory for all layers and runs the dots as
-f32 FMAs; see the source for the layout.
+block's hidden state in shared memory for all layers and runs the
+products on the tensor cores (split TF32 in three passes for "f32", bf16
+and int8 for the modes), with the weights streamed into shared memory
+once per block and layer; see the source for the layout.
+
+The kernel reads the weights in its own layout (``stage_stack``): each
+layer's five matrices in the order it multiplies them, each cut into
+k-steps in the order of the tensor cores' B fragments.  ``Program``'s
+model caches it per mode beside its other kernel operands; a direct call
+without ``staged`` lays the weights out on the call.
 
 Weights use the JAX package's layout: ``[in, out]`` matrices stacked over
 layers and zero-padded to one width F (``stack_params``), so
@@ -41,7 +49,8 @@ from gnnbuilder_tpu_torch.ops.quant import (
 
 __all__ = ["fused_pna_block_stack", "pna_block_stack_plain",
            "pna_block_stack_auto", "stack_params", "prepare_stack",
-           "STACK_ACTS", "MODES"]
+           "stage_stack", "unstage_stack", "split_tf32", "STACK_ACTS",
+           "MODES"]
 
 # epilogue activations the kernel takes, with their codes in the source
 STACK_ACTS = {None: 0, "relu": 1, "gelu": 2, "sigmoid": 3, "tanh": 4}
@@ -50,10 +59,17 @@ MODES = {"f32": 0, "bf16": 1, "int8": 2}
 _WEIGHT_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16,
                  "int8": torch.int8}
 _MATS = ("wi", "wj", "k0", "ks", "w_lin")
+# weight values per 32-bit register of the mode's tensor-core fragments
+_PER_REG = {"f32": 1, "bf16": 2, "int8": 4}
 
 
 def _act(name):
     return (lambda t: t) if name is None else ACTIVATIONS[name]
+
+
+def _f32_dot(a, w):
+    """The f32 mode's product in the plain version."""
+    return a @ w
 
 
 def pna_block_stack_plain(x, nbr_nodes, in_degree, wi, wj, b_pre, k0, ks,
@@ -69,7 +85,7 @@ def pna_block_stack_plain(x, nbr_nodes, in_degree, wi, wj, b_pre, k0, ks,
     def dot(a, name, l):
         w = mats[name][l]
         if mode == "f32":
-            return a @ w
+            return _f32_dot(a, w)
         if mode == "bf16":
             return to_bf16(a) @ w.float()
         return qdot(a, w, sc[name][l])
@@ -112,6 +128,118 @@ def pna_block_stack_plain(x, nbr_nodes, in_degree, wi, wj, b_pre, k0, ks,
             o = o + h
         h = f(o)
     return h
+
+
+def split_tf32(a):
+    """(hi, lo): hi = ``a`` rounded to TF32 (10 mantissa bits, to nearest,
+    ties away from zero: ``cvt.rna.tf32.f32``), lo = the TF32 rounding of
+    a - hi.  The f32 mode's products are hi*hi + hi*lo + lo*hi of their
+    operands summed in f32: ``stage_stack`` splits the weights with this,
+    the kernel its activations with the same rounding (and the tests
+    emulate the products with it).
+
+    Why three passes: over the canonical six layers at F = 128
+    (``tests/test_torch_pna_block_tc.py``, emulated on the CPU), one TF32
+    pass hi*hi lands 1.0e-3 abs (9.6e-4 of max |value|) from the JAX
+    kernel's precision=HIGHEST products, outside the stack's atol 5e-4 /
+    rtol 1e-3; the three passes land 1.1e-6 abs (1.05e-6 of max)."""
+    bits = a.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    lbits = (a - hi).contiguous().view(torch.int32)
+    lo = ((lbits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def _fragment_index(K: int, N: int, per_reg: int):
+    """Flat indices (k * N + n) of a [K, N] matrix in the kernel's order:
+    k-steps of 8 * per_reg rows; in each, pairs of n8 tiles; per pair, the
+    32 lanes (g = lane // 4 the column in the tile, t = lane % 4); per
+    lane, the two tiles' two B registers of per_reg values each (128
+    values a pair).  Lane t's registers hold k = 2 per_reg t .. 2 per_reg
+    t + 2 per_reg - 1 of the step, the k its A fragments read
+    (csrc/pna_block.cu ``product``)."""
+    E = per_reg
+    shape = lambda *d: torch.arange(d[0]).view(*d[1:])
+    ks = shape(K // (8 * E), -1, 1, 1, 1, 1, 1)
+    pair = shape(N // 16, 1, -1, 1, 1, 1, 1)
+    lane = shape(32, 1, 1, -1, 1, 1, 1)
+    tile = shape(2, 1, 1, 1, -1, 1, 1)
+    reg = shape(2, 1, 1, 1, 1, -1, 1)
+    e = shape(E, 1, 1, 1, 1, 1, -1)
+    k = ks * 8 * E + 2 * E * (lane % 4) + E * reg + e
+    n = 8 * (2 * pair + tile) + lane // 4
+    return (k * N + n).reshape(-1)
+
+
+def _ks_rows(mode: str, F: int):
+    """The order of Ks's rows in the stream: in "f32" and "bf16" the
+    kernel forms the aggregate in chunks of 64 columns, chunk j holding
+    aggregates p = 0..3 (max, min, mean, std) of features 16 j .. 16 j +
+    15; int8 quantizes the whole aggregate in its natural order."""
+    kk = torch.arange(4 * F)
+    if mode == "int8":
+        return kk
+    return (kk % 64) // 16 * F + kk // 64 * 16 + kk % 16
+
+
+def _stream_order(mode: str, L: int, F: int):
+    """(index, half): the positions of the stream ``stage_stack`` makes, as
+    indices into the five stacks' values concatenated flat (wi, wj, k0,
+    ks, w_lin), and for "f32" the TF32 half each holds (0 hi, 1 lo: a
+    pair of n8 tiles' 128 hi values, then its 128 lo values).  Per layer:
+    Wj, K0, Wi, the three F-column blocks of Ks (rows in ``_ks_rows``
+    order) and Wlin, each in ``_fragment_index`` order."""
+    E = _PER_REG[mode]
+    sizes = [F * F, F * F, F * F, 12 * F * F, F * F]
+    offs = [L * sum(sizes[:i]) for i in range(5)]
+    sq = _fragment_index(F, F, E)
+    tall = _fragment_index(4 * F, F, E)
+    rows = _ks_rows(mode, F)[tall // F] * 3 * F + tall % F
+    parts = []
+    for l in range(L):
+        parts += [offs[m] + l * F * F + sq for m in (1, 2, 0)]
+        parts += [offs[3] + l * 12 * F * F + rows + s * F for s in range(3)]
+        parts.append(offs[4] + l * F * F + sq)
+    index = torch.cat(parts)
+    if mode != "f32":
+        return index, torch.zeros_like(index)
+    pairs = index.numel() // 128
+    index = index.view(pairs, 1, 128).expand(pairs, 2, 128).reshape(-1)
+    half = torch.arange(2).view(1, 2, 1).expand(pairs, 2, 128).reshape(-1)
+    return index, half
+
+
+def stage_stack(stacked, mode: str):
+    """The five weight stacks of ``stacked`` (as ``prepare_stack`` gives
+    them for ``mode``) in the layout the kernel streams
+    (``_stream_order``): one flat tensor of the weights' type, 16 F^2
+    values a layer, in "f32" 32 F^2 (each weight's ``split_tf32``
+    halves)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
+    wi, wj, _, k0, ks, _, w_lin, _ = stacked
+    L, F = wi.shape[0], wi.shape[2]
+    index, half = (t.to(wi.device) for t in _stream_order(mode, L, F))
+    flat = torch.cat([m.reshape(-1) for m in (wi, wj, k0, ks, w_lin)])
+    if mode == "f32":
+        return torch.stack(split_tf32(flat))[half, index]
+    return flat[index]
+
+
+def unstage_stack(staged, mode: str, L: int, F: int):
+    """(wi, wj, k0, ks, w_lin) back from ``stage_stack``'s layout; in "f32"
+    each with a leading dimension of 2, its TF32 halves (hi, lo)."""
+    index, half = (t.to(staged.device) for t in _stream_order(mode, L, F))
+    shapes = [(L, F, F), (L, F, F), (L, F, F), (L, 4 * F, 3 * F), (L, F, F)]
+    sizes = [a * b * c for a, b, c in shapes]
+    flat = staged.new_empty((2 if mode == "f32" else 1, sum(sizes)))
+    flat[half, index] = staged
+    out, o = [], 0
+    for n, sh in zip(sizes, shapes):
+        m = flat[:, o:o + n].reshape(-1, *sh)
+        out.append(m if mode == "f32" else m[0])
+        o += n
+    return tuple(out)
 
 
 def _check(x, nbr_nodes, in_degree, mats, biases, deltas, skips, act,
@@ -161,7 +289,7 @@ def _check(x, nbr_nodes, in_degree, mats, biases, deltas, skips, act,
 
 
 def _launch(x, nbr_nodes, in_degree, mats, biases, deltas, skips, act,
-            block_size, mode, scales):
+            block_size, mode, scales, staged):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -177,7 +305,18 @@ def _launch(x, nbr_nodes, in_degree, mats, biases, deltas, skips, act,
             f"L={L}")
     if nbr_nodes.dtype != torch.int32 or in_degree.dtype != torch.int32:
         raise ValueError("nbr_nodes and in_degree must be int32")
-    tensors = (x, nbr_nodes, in_degree, *mats, *biases, *(scales or ()))
+    wi, wj, k0, ks, w_lin = mats
+    b_pre, b_post, b_lin = biases
+    if staged is None:
+        staged = stage_stack((wi, wj, b_pre, k0, ks, b_post, w_lin, b_lin),
+                             mode)
+    n = L * 16 * F * F * (2 if mode == "f32" else 1)
+    if (tuple(staged.shape) != (n,) or staged.dtype != _WEIGHT_DTYPE[mode]
+            or staged.device != x.device):
+        raise ValueError(f"staged must be stage_stack's layout of the "
+                         f"weights: ({n},) {_WEIGHT_DTYPE[mode]} on "
+                         f"{x.device}")
+    tensors = (x, nbr_nodes, in_degree, staged, *biases, *(scales or ()))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -185,14 +324,12 @@ def _launch(x, nbr_nodes, in_degree, mats, biases, deltas, skips, act,
     fn = lib.gnnb_pna_block_stack
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
         + [ctypes.c_int, ctypes.POINTER(ctypes.c_float),
            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 5
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     )
-    wi, wj, k0, ks, w_lin = mats
-    b_pre, b_post, b_lin = biases
     out = torch.empty_like(x)
     W = nbr_nodes.shape[1]
     c_deltas = (ctypes.c_float * L)(*[float(d) for d in deltas])
@@ -201,8 +338,7 @@ def _launch(x, nbr_nodes, in_degree, mats, biases, deltas, skips, act,
                   else [t.data_ptr() for t in scales])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), nbr_nodes.data_ptr(), in_degree.data_ptr(), N, W,
-             wi.data_ptr(), wj.data_ptr(), b_pre.data_ptr(), k0.data_ptr(),
-             ks.data_ptr(), b_post.data_ptr(), w_lin.data_ptr(),
+             staged.data_ptr(), b_pre.data_ptr(), b_post.data_ptr(),
              b_lin.data_ptr(), L, c_deltas, c_skips, STACK_ACTS[act],
              MODES[mode], *scale_ptrs, out.data_ptr(), stream,
              x.device.index or 0)
@@ -217,7 +353,7 @@ def fused_pna_block_stack(x, nbr_nodes, in_degree, wi, wj, b_pre, k0, ks,
                           b_post, w_lin, b_lin, deltas: Sequence[float],
                           skips: Sequence[bool], act: Optional[str] = None,
                           block_size: int = 128, mode: str = "f32",
-                          scales=None):
+                          scales=None, staged=None):
     """Run the whole L-layer PNA stack.
 
     x [N, F] float32; nbr_nodes [N, W] int32, every neighbour inside its
@@ -227,14 +363,16 @@ def fused_pna_block_stack(x, nbr_nodes, in_degree, wi, wj, b_pre, k0, ks,
     (mode "int8" only) the five stacks' per-column scales, [L, F] and for
     ks [L, 3F].  A CUDA ``x`` launches the kernel, which takes F = 128
     and 128-row blocks and raises on anything else; a CPU ``x`` runs the
-    plain version.  Returns h [N, F] float32."""
+    plain version.  ``staged``: ``stage_stack``'s layout of the same
+    weights, which the kernel reads (made on the call when None; unused
+    on the CPU).  Returns h [N, F] float32."""
     mats = (wi, wj, k0, ks, w_lin)
     biases = (b_pre, b_post, b_lin)
     _check(x, nbr_nodes, in_degree, mats, biases, deltas, skips, act,
            block_size, mode, scales)
     if x.device.type == "cuda":
         return _launch(x, nbr_nodes, in_degree, mats, biases, deltas, skips,
-                       act, block_size, mode, scales)
+                       act, block_size, mode, scales, staged)
     if x.device.type != "cpu":
         raise ValueError(f"no PNA stack for device {x.device}")
     return pna_block_stack_plain(x, nbr_nodes, in_degree, wi, wj, b_pre, k0,
@@ -309,15 +447,15 @@ def prepare_stack(stacked, mode: str):
 def pna_block_stack_auto(x, nbr_nodes, in_degree, stacked, deltas, skips,
                          act=None, out_dim: Optional[int] = None,
                          block_size: int = 128, mode: str = "f32",
-                         scales=None):
+                         scales=None, staged=None):
     """``fused_pna_block_stack`` on ``x`` of any width <= F: zero-pads x to
     the stacked width F and returns the first ``out_dim`` columns.
     ``stacked`` and ``scales`` as ``prepare_stack`` gives them for
-    ``mode``."""
+    ``mode``, ``staged`` as ``stage_stack`` gives it."""
     F_p = stacked[0].shape[2]
     xp = torch.nn.functional.pad(x, (0, F_p - x.shape[1])).contiguous()
     out = fused_pna_block_stack(xp, nbr_nodes, in_degree, *stacked,
                                 deltas=deltas, skips=skips, act=act,
                                 block_size=block_size, mode=mode,
-                                scales=scales)
+                                scales=scales, staged=staged)
     return out if out_dim is None else out[:, :out_dim]

@@ -90,6 +90,128 @@ def test_pna_block_kernel_matches_plain(cuda_device):
                                atol=5e-4, rtol=1e-3)
 
 
+# --------------------------------- the tensor-core PNA stack (row 1, 1b, 1i)
+# f32 within 1e-4 of max |value| (chip_smoke.py's TOL: split TF32 keeps
+# f32 accuracy); the modes layer by layer within MODE_TOL, and through a
+# whole 16-layer launch within CHAIN_TOL (each moved bf16 rounding or
+# int8 level moves the next layer's input).
+STACK_TC_TOL = 1e-4
+
+
+def _stack_case(dev, blocks, W, L, seed):
+    """A synthetic block-packed case: ``blocks`` 128-row blocks, every
+    neighbour inside its row's block, in-degrees in [0, W] with empty rows
+    and at least one row at the full width W in every block, L layers of
+    random weights (stack_params layout, F = 128)."""
+    rng = np.random.default_rng(seed)
+    N, F = 128 * blocks, 128
+    deg = rng.integers(0, W + 1, size=N)
+    deg[::128] = W            # a full row in every block
+    deg[5::128] = 0           # and an empty one
+    base = (np.arange(N) // 128 * 128)[:, None]
+    nbr = base + rng.integers(0, 128, size=(N, W))
+    s = 0.3 / np.sqrt(F + 1)
+
+    def layer():
+        a = (rng.standard_normal((2 * F, F)) * s, rng.standard_normal(F) * .1,
+             rng.standard_normal((13 * F, F)) * s, rng.standard_normal(F) * .1,
+             rng.standard_normal((F, F)) * s, rng.standard_normal(F) * .1)
+        return tuple(torch.from_numpy(t.astype(np.float32)) for t in a)
+
+    stacked = [t.to(dev) for t in pna_block.stack_params(
+        [layer() for _ in range(L)], F)]
+    x = torch.from_numpy(rng.standard_normal((N, F)).astype(np.float32))
+    kw = dict(deltas=list(rng.uniform(1.0, 3.0, size=L)),
+              skips=[bool(v) for v in rng.integers(0, 2, size=L)],
+              act="relu")
+    return (x.to(dev), torch.from_numpy(nbr.astype(np.int32)).to(dev),
+            torch.from_numpy(deg.astype(np.int32)).to(dev), stacked, kw)
+
+
+# 1 block; 132 = one wave on the H100's 132 SMs; 133 = one CTA over;
+# 160 = the b1024 batch's blocks.  W = 72 exceeds the 64 neighbour slots
+# the kernel stages in shared memory (the rest come from device memory).
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("blocks,W,L", [(1, 72, 1), (132, 8, 1),
+                                        (133, 8, 16), (160, 8, 1)])
+def test_pna_block_tc_matches_plain(cuda_device, mode, blocks, W, L):
+    x, nbr, deg, stacked, kw = _stack_case(cuda_device, blocks, W, L,
+                                           seed=blocks + L)
+    st, sc = pna_block.prepare_stack(stacked, mode)
+    kw = dict(kw, mode=mode, scales=sc)
+    before = pna_block.fused_pna_block_stack.mode_launches[mode]
+    got = pna_block.fused_pna_block_stack(x, nbr, deg, *st, **kw)
+    again = pna_block.fused_pna_block_stack(x, nbr, deg, *st, **kw)
+    torch.cuda.synchronize()
+    assert pna_block.fused_pna_block_stack.mode_launches[mode] == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)                      # bitwise twice
+    want = pna_block.pna_block_stack_plain(x, nbr, deg, *st, **kw)
+    tol = (STACK_TC_TOL if mode == "f32"
+           else MODE_TOL[mode] if L == 1 else CHAIN_TOL[mode])
+    assert _scaled_err(got, want) <= tol
+    if mode != "f32" and L > 1:     # and layer by layer at MODE_TOL
+        h = x
+        for l in range(L):
+            one = [t[l:l + 1] for t in st]
+            lkw = dict(kw, deltas=kw["deltas"][l:l + 1],
+                       skips=kw["skips"][l:l + 1],
+                       scales=None if sc is None else [t[l:l + 1]
+                                                       for t in sc])
+            g1 = pna_block.fused_pna_block_stack(h, nbr, deg, *one, **lkw)
+            w1 = pna_block.pna_block_stack_plain(h, nbr, deg, *one, **lkw)
+            assert _scaled_err(g1, w1) <= MODE_TOL[mode], l
+            h = w1.contiguous()
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_pna_block_cached_layout_matches_layout_on_the_call(cuda_device,
+                                                             mode):
+    """The model's cached stage_stack layout gives the same output, bit for
+    bit, as a direct call that lays the weights out on the call; the f32
+    model path (inference scope) reuses the cache without a new layout."""
+    gs, b = _batch(256)
+    b = b.to(cuda_device)
+    model = canonical_model("pna", "qm9", graphs=gs).to(cuda_device)
+    if mode == "f32":
+        stacked, scales = model._kernel_params(128)[0], None
+    else:
+        stacked, scales = model._mode_params(128, mode)[0]
+    staged = model._staged_stack(128, mode)
+    assert model._staged_stack(128, mode) is staged
+    L = model.gnn_num_layers
+    x = torch.nn.functional.pad(b.node_feat,
+                                (0, 128 - b.feature_dim)).contiguous()
+    kw = dict(deltas=[c.delta for c in model.gnn_convs],
+              skips=[0 < i < L - 1 for i in range(L)], act="relu",
+              mode=mode, scales=scales)
+    cached = pna_block.fused_pna_block_stack(
+        x, b.nbr_nodes, b.in_degree, *stacked, staged=staged, **kw)
+    fresh = pna_block.fused_pna_block_stack(
+        x, b.nbr_nodes, b.in_degree, *stacked, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cached, fresh)
+    if mode == "f32":
+        layouts = []
+        orig = pna_block.stage_stack
+
+        def counting(*a, **k):
+            layouts.append(1)
+            return orig(*a, **k)
+
+        pna_block.stage_stack = counting
+        try:
+            with torch.no_grad(), dispatch.inference_mode():
+                before = pna_block.fused_pna_block_stack.launches
+                out = model._fused_gnn_stack(b, b.node_feat)
+                torch.cuda.synchronize()
+        finally:
+            pna_block.stage_stack = orig
+        assert pna_block.fused_pna_block_stack.launches == before + 1
+        assert not layouts
+        assert torch.equal(out, fresh[:, :model.gnn_output_dim])
+
+
 def _readout_case(cuda_device, out_act, F):
     _, b = _batch()
     bc = b.to(cuda_device)
