@@ -36,7 +36,11 @@ weights):
   backward): gradients against the float64 plain path taken on the
   kernel path's ReLU decisions (the others logged), bitwise-equal gradients
   on two steps with and without the reverse table, a 3-step loss curve
-  against the plain path;
+  against the plain path; rows 9 and 10 project on the tensor cores
+  (their instances' HGMMA / HMMA / IMMA counted in the SASS with row
+  1's, and zero fails), timed on staged weights as the model's cache
+  passes them, row 10's projection and attention launches apart, and
+  the per-step cost of laying out a train step's live weights;
 * GINE (edge features, row 12), EdgeConv (max, row 13) and the
   multi-aggregate (row 8) under Simple max / min (128 wide) and PNA with
   all five aggregators: each kernel against its plain version in every
@@ -194,28 +198,39 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=2):
-    """Device time per call of ``fn``: the CUDA kernels' self time under
-    torch.profiler over ``iters`` calls.  For calls shorter than the host's
-    launch overhead, CUDA events around back-to-back calls (``time_ms``)
-    measure the host's launch rate instead."""
+def kernel_split(fn, iters=20, warmup=2):
+    """Device ms per call of ``fn`` by CUDA kernel name: the kernels' self
+    time under torch.profiler over ``iters`` calls (a profile that caught
+    no device event is retaken, up to three times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            total += e.self_cuda_time_total if us is None else us
-    return total / 1e3 / iters
+    out = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                us = e.self_cuda_time_total if us is None else us
+                out[e.key] = out.get(e.key, 0.0) + us / 1e3 / iters
+        if sum(out.values()) > 0:
+            break
+    return out
+
+
+def device_ms(fn, iters=20, warmup=2):
+    """Device time per call of ``fn``: the sum of ``kernel_split``.  For
+    calls shorter than the host's launch overhead, CUDA events around
+    back-to-back calls (``time_ms``) measure the host's launch rate
+    instead."""
+    return sum(kernel_split(fn, iters, warmup).values())
 
 
 def timed(fn, iters):
@@ -242,18 +257,39 @@ def bound_f32_products(products, other, nbytes):
                                        else "bytes")
 
 
-# the tensor-core instructions of each mode's instance of the PNA stack
-# kernel in the built library's SASS (sm_90: HGMMA for wgmma, HMMA for
-# f16 / bf16 / tf32 mma.sync, IMMA for int8)
+# the tensor-core instructions of each instance of the kernels whose
+# products run on them, in the built library's SASS (sm_90: HGMMA for
+# wgmma, HMMA for f16 / bf16 / tf32 mma.sync, IMMA for int8)
 TC_OPS = ("HGMMA", "HMMA", "IMMA")
 STACK_MODES = {"f32": 0, "bf16": 1, "int8": 2}
+# kernel: (SASS name pattern, info entry, {instance: info arguments}).
+# The GAT instances are MODE x chunk width (64 * np); their edge-logit
+# modes are a runtime argument of the block kernel and live in row 10's
+# attention launch, which runs no product.
+TC_KERNELS = {
+    "pna_block_stack": (r"pna_block_stack_kernelILi(\d)E",
+                        "gnnb_pna_block_info",
+                        {(c,): (c,) for c in STACK_MODES.values()}),
+    "gat_proj_tc": (r"gat_proj_tc_kernelILi(\d)ELi(\d)E",
+                    "gnnb_gat_proj_info",
+                    {(c, n): (c, n) for c in (0, 1, 2) for n in (1, 2)}),
+    "gat_block_tc": (r"gat_block_tc_kernelILi(\d)ELi(\d)E",
+                     "gnnb_gat_block_info",
+                     {(c, n): (c, n) for c in (0, 1) for n in (1, 2)}),
+}
 
 
-def stack_kernel_resources(lib_path, lib, nvcc_path):
-    """{mode: {"HMMA": n, ..., "registers": r, "shared_bytes": b,
-    "ctas_per_sm": c}} for pna_block_stack_kernel<MODE>: SASS counts from
-    ``cuobjdump -sass`` of the library, the rest from the CUDA runtime
-    (``gnnb_pna_block_info``)."""
+def tc_label(key):
+    """An instance's name: its mode, and for GAT its chunk width."""
+    mode = {v: k for k, v in STACK_MODES.items()}[key[0]]
+    return mode if len(key) == 1 else f"{mode} cw{64 * key[1]}"
+
+
+def tc_kernel_resources(lib_path, lib, nvcc_path):
+    """{kernel: {instance: {"HMMA": n, ..., "registers": r,
+    "shared_bytes": b, "ctas_per_sm": c}}} for every instance of
+    ``TC_KERNELS``: SASS counts from ``cuobjdump -sass`` of the library,
+    the rest from the CUDA runtime (the kernels' info entries)."""
     import ctypes
     import re
 
@@ -261,29 +297,35 @@ def stack_kernel_resources(lib_path, lib, nvcc_path):
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    out = {m: dict.fromkeys(TC_OPS, 0) for m in STACK_MODES}
-    code = {v: k for k, v in STACK_MODES.items()}
-    mode = None
+    out = {k: {tc_label(i): dict.fromkeys(TC_OPS, 0) for i in inst}
+           for k, (_, _, inst) in TC_KERNELS.items()}
+    cur = None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            inst = re.search(r"pna_block_stack_kernelILi(\d)E", fn.group(1))
-            mode = code.get(int(inst.group(1))) if inst else None
+            cur = None
+            for k, (pat, _, inst) in TC_KERNELS.items():
+                m = re.search(pat, fn.group(1))
+                if m and tuple(map(int, m.groups())) in inst:
+                    cur = out[k][tc_label(tuple(map(int, m.groups())))]
             continue
-        if mode is not None:
+        if cur is not None:
             for op in TC_OPS:
                 if re.search(rf"\b{op}\b", line):
-                    out[mode][op] += 1
-    info = lib.gnnb_pna_block_info
-    info.restype = ctypes.c_int
-    info.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
-    for m, c in STACK_MODES.items():
-        vals = [ctypes.c_int() for _ in range(3)]
-        err = info(c, *map(ctypes.byref, vals))
-        if err != 0:
-            raise RuntimeError(f"gnnb_pna_block_info({m}): cudaError {err}")
-        out[m].update(registers=vals[0].value, shared_bytes=vals[1].value,
-                      ctas_per_sm=vals[2].value)
+                    cur[op] += 1
+    for k, (_, entry, inst) in TC_KERNELS.items():
+        info = getattr(lib, entry)
+        info.restype = ctypes.c_int
+        info.argtypes = ([ctypes.c_int] * len(next(iter(inst)))
+                         + [ctypes.POINTER(ctypes.c_int)] * 3)
+        for key, iargs in inst.items():
+            vals = [ctypes.c_int() for _ in range(3)]
+            err = info(*iargs, *map(ctypes.byref, vals))
+            if err != 0:
+                raise RuntimeError(f"{entry}{iargs}: cudaError {err}")
+            out[k][tc_label(key)].update(registers=vals[0].value,
+                                         shared_bytes=vals[1].value,
+                                         ctas_per_sm=vals[2].value)
     return out
 
 
@@ -368,7 +410,8 @@ def split_device_time(prof, n_steps):
 
     parts = {"pna_layer kernel": 0.0, "pna_scatter_bwd kernel": 0.0,
              "mp_layer kernel": 0.0, "ell_gather_bwd kernel": 0.0,
-             "gat_layer kernel": 0.0, "gat_bwd kernel": 0.0,
+             "gat_proj_tc kernel": 0.0, "gat_attn kernel": 0.0,
+             "gat_block_tc kernel": 0.0, "gat_bwd kernel": 0.0,
              "gine_layer kernel": 0.0, "edge_block kernel": 0.0,
              "ell_agg kernel": 0.0,
              "readout kernel": 0.0, "Adam": 0.0, "torch matmul": 0.0,
@@ -396,8 +439,12 @@ def split_device_time(prof, n_steps):
             part = "ell_gather_bwd kernel"
         elif "gat_bwd" in name:
             part = "gat_bwd kernel"
-        elif "gat_proj" in name or "gat_attn" in name:
-            part = "gat_layer kernel"
+        elif "gat_proj_tc" in name:
+            part = "gat_proj_tc kernel"
+        elif "gat_attn" in name:
+            part = "gat_attn kernel"
+        elif "gat_block_tc" in name:
+            part = "gat_block_tc kernel"
         elif "readout_kernel" in name:
             part = "readout kernel"
         elif "adam" in name or "multi_tensor" in name:
@@ -737,6 +784,24 @@ def gat_layer_args(model, g, block):
     return layers
 
 
+def gat_staged(layers, key):
+    """``layers`` (of row 9 or 10, in any mode) with the kernel's staged
+    weights made once and passed as ``staged``, as the model's inference
+    cache passes them: timed launches then time the kernels alone."""
+    from gnnbuilder_tpu_torch.ops.cuda import gat_layer
+
+    out = []
+    for args, kw in layers:
+        mode = kw.get("mode", "f32")
+        if key == "gat_block":
+            st = gat_layer.stage_projection(args[-5], args[-1], mode,
+                                            kw.get("wa_src"), kw.get("wa_dst"))
+        else:
+            st = gat_layer.stage_projection(args[-5], args[-1], mode)
+        out.append((args, dict(kw, staged=st)))
+    return out
+
+
 def gat_work(layers, g, block):
     """(flops, bytes) of one forward's six row-9 or row-10 launches at the
     model's widths: the projection (2 Fin HC per row), the attention
@@ -758,6 +823,14 @@ def gat_work(layers, g, block):
         nbytes += 4 * (n * fin + table + fin * hc + 2 * hc + out_w
                        + n * out_w * (2 if kw["skip"] is not None else 1))
     return flops, nbytes
+
+
+def gat_products(layers, g):
+    """The projection's products of one forward's six launches of row 9
+    or 10 (2 Fin HC flops a row), the part of ``gat_work`` that runs on
+    the tensor cores."""
+    return sum(2 * g.num_nodes * args[0].shape[1] * args[-5].shape[1]
+               for args, _ in layers)
 
 
 def gat_bwd_work(bwd_args, g):
@@ -1070,16 +1143,18 @@ def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
                 gat_bwd.gat_scatter_backward_plain(*a[:7])
 
         torch.set_grad_enabled(False)
+        blk_staged = gat_staged(blk_layers, "gat_block")
+        std_staged = gat_staged(std_layers, "gat_layer")
         for name, fn, plain, work, per in (
                 ("gat_block",
                  lambda: run_layers(gat_block.fused_gat_block_layer,
-                                    blk_layers),
+                                    blk_staged),
                  lambda: run_layers(gat_block.gat_block_layer_plain,
                                     blk_layers),
                  gat_work(blk_layers, b0, True),
                  f"one block-packed b{BATCH_GRAPHS} forward (6 launches)"),
                 ("gat_layer",
-                 lambda: run_layers(gat_layer.fused_gat_layer, std_layers),
+                 lambda: run_layers(gat_layer.fused_gat_layer, std_staged),
                  lambda: run_layers(gat_layer.gat_layer_plain, std_layers),
                  gat_work(std_layers, tb, False),
                  f"one standard-packed b{BATCH_GRAPHS} forward (6 "
@@ -1089,7 +1164,14 @@ def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
                  run_bwd_plain, gat_bwd_work(bwd_args, tb),
                  f"one b{BATCH_GRAPHS} train step (6 launches, reverse "
                  f"table)")):
-            b_ms, b_by = bound(*work)
+            if name == "gat_bwd":
+                b_ms, b_by = bound(*work)
+            else:   # f32-accurate products at min(67 T, 3 x 495 T)
+                prod = gat_products(blk_layers if name == "gat_block"
+                                    else std_layers,
+                                    b0 if name == "gat_block" else tb)
+                b_ms, b_by = bound_f32_products(prod, work[0] - prod,
+                                                work[1])
             ms, ev = timed(fn, 10)
             pms, pev = timed(plain, 3)
             report[name].update(
@@ -1099,6 +1181,19 @@ def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
             log(f"{name} per {per}: device {ms:.4f} ms (events {ev:.4f}), "
                 f"plain {pms:.4f} ({pev:.4f}); bound {b_ms:.4f} ms by {b_by}"
                 f" ({b_ms / ms:.1%} of it)")
+        # row 10's two launches apart, and what a train step pays to lay
+        # out its six layers' live weights on each call
+        parts = kernel_split(lambda: run_layers(gat_layer.fused_gat_layer,
+                                                std_staged), 10)
+        proj = sum(v for k, v in parts.items() if "gat_proj" in k)
+        attn = sum(v for k, v in parts.items() if "gat_attn" in k)
+        report["gat_layer"].update(projection_ms=proj, attention_ms=attn)
+        stage_ms = time_ms(lambda: [gat_layer.stage_projection(
+            a[-5], a[-1], "f32") for a, _ in std_layers], 10)
+        out["staging_ms_per_step"] = stage_ms
+        log(f"gat_layer per standard forward: projection {proj:.4f} ms, "
+            f"attention {attn:.4f} ms (device); laying out the six layers' "
+            f"f32 weights {stage_ms:.4f} ms (events) on {smi}")
         ms, ev = timed(lambda: run_bwd(gat_bwd.fused_gat_scatter_backward,
                                        False), 10)
         report["gat_bwd"].update(csr_ms=ms, csr_event_ms=ev)
@@ -3065,10 +3160,10 @@ def serving_phases(report, *, dev, graphs, batches, b0, tb, counted,
             fn, plain = fns[key]
             terms, nbytes = gat_mode_work(ls, g, block, mode)
             b_ms, b_by = bound_mixed(terms, nbytes)
-            ms, ev = timed(run(fn, ls), 10)
+            ms, ev = timed(run(fn, gat_staged(ls, key)), 10)
             ms = ms or ev   # events where the profiler caught nothing
             pms, pev = timed(run(plain, ls), 3)
-            fms = timed(run(fn, f32), 10)[0]
+            fms = timed(run(fn, gat_staged(f32, key)), 10)[0]
             per = (f"one {'block' if block else 'standard'}-packed "
                    f"b{BATCH_GRAPHS} forward (6 launches)")
             report[f"{key}_{mode}"].update(
@@ -3134,7 +3229,10 @@ def edge_gat_work(layers, g, block, mode="f32"):
          else int(g.in_degree.sum()))
     if mode == "f32":
         flops, nbytes = gat_work(layers, g, block)
-        terms = [(flops, PEAK_F32_FLOPS)]
+        prod = gat_products(layers, g)
+        # f32-accurate products: the f32 rate or three TF32 passes
+        terms = [(prod, max(PEAK_F32_FLOPS, PEAK_TF32_FLOPS / 3)),
+                 (flops - prod, PEAK_F32_FLOPS)]
     else:
         terms, nbytes = gat_mode_work(layers, g, block, mode)
     for args, _ in layers:
@@ -3442,14 +3540,14 @@ def edge_gat_phases(report, *, dev, graphs, b0, tgraphs, tb, target,
             fn, plain = fns[key]
             terms, nbytes = edge_gat_work(ls, g, block, mode)
             b_ms, b_by = bound_mixed(terms, nbytes)
-            ms, ev = timed(run(fn, ls), 10)
+            ms, ev = timed(run(fn, gat_staged(ls, key)), 10)
             ms = ms or ev   # events where the profiler caught nothing
             pms, pev = timed(run(plain, ls), 3)
             # the same kernel without the edge terms, in the same call
             bare = [(a, {k: v for k, v in kw.items() if k not in (
                 "edge_table", "self_extra", "edge_logits",
                 "self_edge_logit")}) for a, kw in ls]
-            nms = timed(run(fn, bare), 10)[0]
+            nms = timed(run(fn, gat_staged(bare, key)), 10)[0]
             per = (f"one {'block' if block else 'standard'}-packed "
                    f"b{BATCH_GRAPHS} forward (6 launches)")
             row = dict(ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev,
@@ -3606,15 +3704,16 @@ def main():
         log(f"built in {time.time() - t:.2f}s: {lib}")
         print(f"--- ptxas\n{_build.build_log.strip()}", flush=True)
 
-    with phase("pna_block_stack: tensor-core instructions and resources of "
-               "each mode's instance"):
-        tc = stack_kernel_resources(lib, _build.load(), _build.nvcc())
-        for mode, v in tc.items():
-            log(f"pna_block_stack_kernel<{mode}>: "
-                + ", ".join(f"{k} {n}" for k, n in v.items()))
-            if not sum(v[op] for op in TC_OPS):
-                raise AssertionError(f"pna_block_stack_kernel<{mode}> has no "
-                                     f"tensor-core instruction")
+    with phase("tensor-core instructions and resources of each instance of "
+               "the PNA stack and the GAT projection and block kernels"):
+        tc = tc_kernel_resources(lib, _build.load(), _build.nvcc())
+        for kern, insts in tc.items():
+            for inst, v in insts.items():
+                log(f"{kern}_kernel<{inst}>: "
+                    + ", ".join(f"{k} {n}" for k, n in v.items()))
+                if not sum(v[op] for op in TC_OPS):
+                    raise AssertionError(f"{kern}_kernel<{inst}> has no "
+                                         f"tensor-core instruction")
 
     with phase("data and model"):
         graphs, batches = canonical_batches(
@@ -3652,7 +3751,8 @@ def main():
             raise AssertionError("pna_block_stack disagrees with its plain "
                                  "version")
         report["pna_block_stack"] = dict(max_abs_err=abs_err,
-                                         resources=tc["f32"])
+                                         resources=tc["pna_block_stack"][
+                                             "f32"])
 
         h = got[:, :model.gnn_output_dim].contiguous()
         aggrs = model.pooling_aggrs
@@ -4354,13 +4454,16 @@ def main():
                      tgraphs=tgraphs, tb=tb, target=target,
                      zero_counts=zero_counts, counts=counts, only=only,
                      fresh_step=fresh_step, smi=smi)
+    report["gat_layer"]["resources"] = tc["gat_proj_tc"]
+    report["gat_block"]["resources"] = tc["gat_block_tc"]
     edge_agg = edge_agg_phases(
         report, dev=dev, graphs=graphs, batches=batches, b0=b0,
         tgraphs=tgraphs, tb=tb, target=target, zero_counts=zero_counts,
         counts=counts, only=only, fresh_step=fresh_step, smi=smi)
     precision = precision_phases(
         report, dev=dev, graphs=graphs, batches=batches, b0=b0, tb=tb,
-        prog=prog, counted=counted, zero_counts=zero_counts, smi=smi, tc=tc)
+        prog=prog, counted=counted, zero_counts=zero_counts, smi=smi,
+        tc=tc["pna_block_stack"])
     slice_modes = slice_phases(
         report, dev=dev, graphs=graphs, b0=b0, tb=tb, counted=counted,
         zero_counts=zero_counts, smi=smi)

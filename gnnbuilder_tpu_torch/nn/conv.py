@@ -423,18 +423,25 @@ class GATConv(torch.nn.Module):
             else self.out_channels
 
     def mode_operands(self, mode: str):
-        """The weights the GAT kernels take in ``mode`` ("bf16" or
-        "int8"): {"block": (w, wa_src, wa_dst)} (bf16 only: the block
-        kernel has no int8 mode) and {"layer": (w, sw)}, from the float32
-        parameters (``gat_block.prepare_block``,
-        ``gat_layer.prepare_layer``)."""
+        """The weights the GAT kernels take in ``mode`` ("f32", "bf16" or
+        "int8"), from the float32 parameters: {"layer": (w, sw, staged)}
+        (``gat_layer.prepare_layer``, then ``stage_projection``) and,
+        except under int8 (the block kernel has no int8 mode), {"block":
+        (w, wa_src, wa_dst, staged)} (``gat_block.prepare_block``, then
+        ``stage_projection`` with the logit weights under bf16); under
+        f32 both share one staged layout."""
         from gnnbuilder_tpu_torch.ops.cuda import gat_block, gat_layer
 
-        w = self.lin.weight.t()
-        out = {"layer": gat_layer.prepare_layer(w, mode)}
-        if mode == "bf16":
-            out["block"] = gat_block.prepare_block(w, self.att_src,
-                                                   self.att_dst, mode)
+        w, H = self.lin.weight.t(), self.heads
+        wl, sw = gat_layer.prepare_layer(w, mode)
+        staged = gat_layer.stage_projection(wl, H, mode)
+        out = {"layer": (wl, sw, staged)}
+        if mode != "int8":
+            wb, wa_src, wa_dst = gat_block.prepare_block(
+                w, self.att_src, self.att_dst, mode)
+            out["block"] = (wb, wa_src, wa_dst, staged if mode == "f32" else
+                            gat_layer.stage_projection(wb, H, mode, wa_src,
+                                                       wa_dst))
         return out
 
     def _edge_logits(self, g: GraphBatch):
@@ -472,8 +479,12 @@ class GATConv(torch.nn.Module):
             )
 
             mode = cfg.get("mode", "f32")
-            wm, wa_src, wa_dst = (w, None, None) if mode == "f32" else (
-                operands or self.mode_operands(mode))["block"]
+            # the cached kernel operands; under f32 without them the
+            # wrapper lays the live weights out on the call
+            wm, wa_src, wa_dst, staged = (
+                operands["block"] if operands is not None
+                else (w, None, None, None) if mode == "f32"
+                else self.mode_operands(mode)["block"])
             ekw = {}
             if edge:
                 a_edge, a_self = self._edge_logits(g)
@@ -484,7 +495,7 @@ class GATConv(torch.nn.Module):
                 x, g.block_adj, wm, self.att_src, self.att_dst, self.bias, H,
                 neg_slope=ns, self_loops=loops, skip=skip, act=act,
                 concat=self.concat, mode=mode, wa_src=wa_src, wa_dst=wa_dst,
-                **ekw)
+                staged=staged, **ekw)
         cfg = dispatch.gat_layer_cfg(g, act, edge) if self.concat else None
         if cfg is not None:
             from gnnbuilder_tpu_torch.ops.cuda.gat_layer import (
@@ -492,8 +503,10 @@ class GATConv(torch.nn.Module):
             )
 
             mode = cfg.get("mode", "f32")
-            prepared = None if mode == "f32" or operands is None \
-                else operands["layer"]
+            prepared = staged = None
+            if operands is not None:
+                wl, sw, staged = operands["layer"]
+                prepared = None if mode == "f32" else (wl, sw)
             ekw = {}
             if edge:
                 a_edge, a_self = self._edge_logits(g)
@@ -503,7 +516,8 @@ class GATConv(torch.nn.Module):
                 x, g.nbr_nodes, g.in_degree, w, self.att_src, self.att_dst,
                 self.bias, H, neg_slope=ns, self_loops=loops, skip=skip,
                 act=act, rev_nbr_nodes=g.rev_nbr_nodes,
-                out_degree=g.out_degree, mode=mode, prepared=prepared, **ekw)
+                out_degree=g.out_degree, mode=mode, prepared=prepared,
+                staged=staged, **ekw)
         h = self.lin(x).reshape(n, H, C)
         a_src = (h * self.att_src).sum(-1)                     # [N, H]
         a_dst = (h * self.att_dst).sum(-1)

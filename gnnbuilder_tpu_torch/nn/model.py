@@ -312,16 +312,23 @@ class GNNModel(torch.nn.Module):
         return self._cached(f"{mode} staged", width, build)
 
     def _gat_operands(self):
-        """Each GAT layer's weights in the active policy's mode (bf16 or
-        int8, ``_mode_params``) under inference; None otherwise (float32,
-        a gradient, or another conv)."""
+        """Each GAT layer's kernel operands in the active policy's mode
+        (``GATConv.mode_operands``: the weights of the mode and their
+        staged layouts) under inference, cached like ``_kernel_params``
+        (under bf16 / int8 with ``_mode_params``); None otherwise (a
+        gradient, or another conv): a train step lays its live weights
+        out on every call."""
         from gnnbuilder_tpu_torch.ops import dispatch
 
         mode = dispatch.policy()
-        if (self.gnn_conv != "gat" or mode == "f32"
-                or torch.is_grad_enabled()):
+        if self.gnn_conv != "gat" or torch.is_grad_enabled():
             return None
-        return self._mode_params(self._stack_width(), mode)[2]
+        width = self._stack_width()
+        if mode == "f32":
+            return self._cached(
+                "f32 gat", width,
+                lambda: [c.mode_operands("f32") for c in self.gnn_convs])
+        return self._mode_params(width, mode)[2]
 
     def spec(self) -> dict:
         """The constructor's arguments, as plain JSON values: the model

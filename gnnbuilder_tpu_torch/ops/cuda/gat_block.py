@@ -29,7 +29,14 @@ differ, and the difference goes through exp); the weighted sum of h over
 the neighbours with both the softmax weights and h rounded to bf16,
 while the denominator, the self term and the bias stay float32.
 
-What bounds it on the H100: operations (the projection); see the source.
+What bounds it on the H100: operations (the projection, on the tensor
+cores: split TF32 in three passes under f32, bf16 MMAs under bf16, the
+logit terms as two more MMA columns); see the source.  The kernel is one
+launch: each CTA projects its 128-row block's h for one head into shared
+memory and attends from there.  It reads the weights in
+``gat_layer.stage_projection``'s layout (under bf16 with the logit
+weights' tile), made on the call or passed as ``staged`` (the model's
+inference cache).
 """
 
 from __future__ import annotations
@@ -41,7 +48,11 @@ import torch
 
 from gnnbuilder_tpu_torch.ops.activations import ACTIVATIONS
 from gnnbuilder_tpu_torch.ops.block import block_gat_attention
-from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
+from gnnbuilder_tpu_torch.ops.cuda.gat_layer import (
+    GAT_ACTS,
+    _staged_ok,
+    stage_projection,
+)
 from gnnbuilder_tpu_torch.ops.quant import to_bf16
 
 __all__ = ["fused_gat_block_layer", "gat_block_layer_plain",
@@ -173,7 +184,7 @@ def _check(x, block_adj, w, att_src, att_dst, bias, heads, skip, act,
 
 def _launch(x, block_adj, w, att_src, att_dst, bias, heads, neg_slope,
             self_loops, skip, act, concat, mode, wa_src, wa_dst, edge_table,
-            self_extra):
+            self_extra, staged):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -186,44 +197,35 @@ def _launch(x, block_adj, w, att_src, att_dst, bias, heads, neg_slope,
         raise ValueError(f"the CUDA GAT block layer takes float32 blocks of "
                          f"{rows} rows; got {tuple(block_adj.shape)} "
                          f"{block_adj.dtype}")
-    smem = lib.gnnb_gat_block_smem_bytes(heads)
-    smem_max = lib.gnnb_smem_per_block_optin(dev.index or 0)
-    if smem > smem_max:
-        raise ValueError(f"the CUDA GAT block layer takes heads within "
-                         f"{smem_max} bytes of shared memory; got heads="
-                         f"{heads} ({smem} bytes)")
+    if staged is None:
+        staged = stage_projection(w, heads, mode, wa_src, wa_dst)
+    _staged_ok(staged, Fin, heads, C, mode, mode == "bf16", dev)
     if edge_table is not None and self_extra is None:
         self_extra = x.new_zeros((N, heads))
-    ops = [t for t in (x, block_adj, w, att_src, att_dst, bias, skip,
-                       wa_src, wa_dst, edge_table, self_extra)
+    ops = [t for t in (x, block_adj, att_src, att_dst, bias, skip,
+                       edge_table, self_extra)
            if t is not None]
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("all inputs must be contiguous")
-    if block_adj.data_ptr() % 16:
-        raise ValueError("block_adj must be 16-byte aligned")
+    if block_adj.data_ptr() % 16 or staged.data_ptr() % 16:
+        raise ValueError("block_adj and staged must be 16-byte aligned")
     fn = lib.gnnb_gat_block
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 2 + [I] * 4 + [P] * 5 + \
-        [ctypes.c_float, I, I, I, I] + [P] * 9 + [I]
-    f = torch.float32
-    h = torch.empty((N, HC), dtype=f, device=dev)
-    a_src = torch.empty((N, heads), dtype=f, device=dev)
-    a_dst = torch.empty((N, heads), dtype=f, device=dev)
-    out = torch.empty((N, HC if concat else C), dtype=f, device=dev)
+    fn.argtypes = [P] * 2 + [I] * 4 + [P, ctypes.c_longlong] + [P] * 4 + \
+        [ctypes.c_float, I, I, I, I] + [P] * 4 + [I]
+    out = torch.empty((N, HC if concat else C), dtype=torch.float32,
+                      device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(x.data_ptr(), block_adj.data_ptr(), N, Fin, heads, C,
-             w.data_ptr(), att_src.data_ptr(), att_dst.data_ptr(),
+             staged.data_ptr(), staged.numel() * staged.element_size(),
+             att_src.data_ptr(), att_dst.data_ptr(),
              bias.data_ptr(), None if skip is None else skip.data_ptr(),
              float(neg_slope), int(bool(self_loops)), int(bool(concat)),
              GAT_ACTS[act], MODES[mode],
-             None if wa_src is None else wa_src.data_ptr(),
-             None if wa_dst is None else wa_dst.data_ptr(),
              None if edge_table is None else edge_table.data_ptr(),
              None if self_extra is None else self_extra.data_ptr(),
-             h.data_ptr(),
-             a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), stream,
-             dev.index or 0)
+             out.data_ptr(), stream, dev.index or 0)
     if err != 0:
         raise RuntimeError(f"gat_block launch failed: cudaError {err}")
     fused_gat_block_layer.launches += 1
@@ -238,7 +240,7 @@ def fused_gat_block_layer(x, block_adj, w, att_src, att_dst, bias,
                           self_loops: bool = True, skip=None,
                           act: Optional[str] = None, concat: bool = True,
                           mode: str = "f32", wa_src=None, wa_dst=None,
-                          edge_table=None, self_extra=None):
+                          edge_table=None, self_extra=None, staged=None):
     """One GAT layer (module docstring) on x [N, Fin] float32 over
     ``block_adj`` [N / 128, 128, 128] float32 edge counts, with w [Fin,
     H*C], att_src and att_dst [1, H, C], bias and skip of the output
@@ -247,7 +249,10 @@ def fused_gat_block_layer(x, block_adj, w, att_src, att_dst, bias,
     ``edge_table`` [N / 128, H, 128, 128] and ``self_extra`` [N, H] (0
     when None).  A CUDA ``x`` launches the kernel, which takes any width
     and raises on what it does not take (and on inputs that need a
-    gradient: it has no backward); a CPU ``x`` runs the plain version."""
+    gradient: it has no backward), on ``staged`` =
+    ``gat_layer.stage_projection(w, heads, mode, wa_src, wa_dst)`` (made
+    here when None; under "bf16" with the logit tile); a CPU ``x`` runs
+    the plain version."""
     ops = [None if t is None else t.contiguous()
            for t in (x, w, att_src, att_dst, bias, skip, edge_table,
                      self_extra)]
@@ -264,7 +269,7 @@ def fused_gat_block_layer(x, block_adj, w, att_src, att_dst, bias,
                              "run it under torch.no_grad()")
         return _launch(x, block_adj, w, att_src, att_dst, bias, heads,
                        neg_slope, self_loops, skip, act, concat, mode,
-                       wa_src, wa_dst, edge_table, self_extra)
+                       wa_src, wa_dst, edge_table, self_extra, staged)
     if x.device.type != "cpu":
         raise ValueError(f"no GAT block layer for device {x.device}")
     return gat_block_layer_plain(x, block_adj, w, att_src, att_dst, bias,

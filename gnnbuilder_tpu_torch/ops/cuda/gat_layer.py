@@ -40,8 +40,12 @@ the softmax, the exact gather and the weighted sum stay float32, as in
 the JAX kernel (whose gather rounds nothing to bf16 in any mode).
 ``prepare_layer`` brings a float32 ``w`` to a mode.
 
-What bounds the kernel on the H100: operations (the projection); see the
-source.
+What bounds the kernel on the H100: operations (the projection, which
+runs on the tensor cores: split TF32 in three passes in "f32", bf16 and
+s8 MMAs in the modes); see the source.  The kernel reads its weights in
+``stage_projection``'s layout: made from ``w`` on every call (so a train
+step always sees its live weights), or passed as ``staged`` (the model's
+inference cache, ``GATConv.mode_operands``).
 
 Operands (the JAX package's layout): x [N, Fin], w [Fin, H*C], att_src
 and att_dst [1, H, C], bias [H*C], skip [N, H*C].
@@ -50,6 +54,7 @@ and att_dst [1, H, C], bias [H*C], skip [N, H*C].
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -61,6 +66,10 @@ from gnnbuilder_tpu_torch.ops.cuda.mp_layer import (
     MODES,
     weight_dtype,
 )
+from gnnbuilder_tpu_torch.ops.cuda.pna_block import (
+    _fragment_index,
+    split_tf32,
+)
 from gnnbuilder_tpu_torch.ops.ell import (
     ell_gather,
     ell_mask,
@@ -71,6 +80,7 @@ from gnnbuilder_tpu_torch.ops.quant import qdot, quantize_weight, to_bf16
 
 __all__ = ["fused_gat_layer", "gat_layer_plain", "GATLayerFunction",
            "fused_gat_layer_vjp", "fused_gat_layer_auto", "prepare_layer",
+           "stage_projection", "unstage_projection", "projection_geometry",
            "GAT_ACTS", "SCATTER_ACTS", "scatter_ok"]
 
 # epilogue activations the GAT kernels take, with their codes in the
@@ -95,6 +105,137 @@ def prepare_layer(w, mode: str):
     if mode == "int8":
         return quantize_weight(w)
     return (w.to(torch.bfloat16) if mode == "bf16" else w), None
+
+
+# the projection's geometry (csrc/gat_common.cuh): k per tile, k depth of
+# one mma and values per fragment register in each mode
+_KC = 32
+_KDEPTH = {"f32": 8, "bf16": 16, "int8": 32}
+_PER_REG = {"f32": 1, "bf16": 2, "int8": 4}
+_LOGIT_COLS = 8      # the logit tile: one n8 tile (wa_src, wa_dst, zeros)
+
+
+def projection_geometry(Fin: int, C: int):
+    """(CW, n_chunks, Kp): the kernels' chunk width (64 for C <= 64, else
+    128), chunks per head and k padded to a multiple of 32."""
+    cw = 64 if C <= 64 else 128
+    return cw, -(-C // cw), -(-Fin // _KC) * _KC
+
+
+def _region_order(mode: str, Kp: int, CW: int, logit: bool):
+    """(index, half) of one region's stream: indices into the region's
+    [Kp, CW (+ 8 with the logit tile)] matrix flattened, and in "f32" the
+    TF32 half each holds (0 hi, 1 lo).  Per k-step of ``_KDEPTH[mode]``
+    rows: the CW / 16 pairs of n8 tiles in mma B-fragment order
+    (``pna_block._fragment_index``; in "f32" a pair's 128 hi values, then
+    its 128 lo values), then with ``logit`` the logit tile's 128 values
+    (one n8 tile: lane, register, value)."""
+    E, kd = _PER_REG[mode], _KDEPTH[mode]
+    wide = CW + (_LOGIT_COLS if logit else 0)
+    fi = _fragment_index(kd, CW, E)
+    step = fi // CW * wide + fi % CW
+    half = torch.zeros_like(step)
+    if mode == "f32":
+        pairs = step.numel() // 128
+        step = step.view(pairs, 1, 128).expand(pairs, 2, 128).reshape(-1)
+        half = torch.arange(2).view(1, 2, 1).expand(pairs, 2, 128).reshape(-1)
+    if logit:
+        li = _fragment_index(kd, 16, E).view(32, 2, 2 * E)[:, 0].reshape(-1)
+        step = torch.cat([step, li // 16 * wide + CW + li % 16])
+        half = torch.cat([half, torch.zeros_like(li)])
+    base = torch.arange(Kp // kd).view(-1, 1) * (kd * wide)
+    return (base + step).reshape(-1), half.repeat(Kp // kd)
+
+
+@functools.lru_cache(maxsize=64)
+def _stage_plan(Fin: int, heads: int, C: int, mode: str, logit: bool,
+                device: torch.device):
+    """(src, half) on ``device``: for each position of the staged stream,
+    the index of its value in the flat source [w (Fin x H*C), 0, wa_src
+    (Fin x H), wa_dst (Fin x H)], and in "f32" its TF32 half.  Per head,
+    per chunk of CW columns (a region of [Kp, CW (+ 8)] with zeros past
+    the head's C and past Fin, and with ``logit`` the columns wa_src[:,
+    hd], wa_dst[:, hd], then six zero columns), ``_region_order``."""
+    CW, nch, Kp = projection_geometry(Fin, C)
+    HC = heads * C
+    zero = Fin * HC                                 # the source's 0
+    w_idx = torch.arange(HC * Fin).view(Fin, heads, C).permute(1, 0, 2)
+    reg = torch.full((heads, Kp, nch * CW), zero)
+    reg[:, :Fin, :C] = w_idx
+    reg = reg.view(heads, Kp, nch, CW).permute(0, 2, 1, 3)
+    if logit:
+        lg = torch.full((heads, nch, Kp, _LOGIT_COLS), zero)
+        wa = zero + 1 + torch.arange(Fin * heads).view(Fin, heads).t()
+        lg[:, :, :Fin, 0] = wa[:, None, :]
+        lg[:, :, :Fin, 1] = wa[:, None, :] + Fin * heads
+        reg = torch.cat([reg, lg], dim=3)
+    index, half = _region_order(mode, Kp, CW, logit)
+    src = reg.reshape(heads * nch, -1)[:, index].reshape(-1)
+    half = half.repeat(heads * nch)
+    return src.to(device), half.to(device)
+
+
+def _source(w, wa_src=None, wa_dst=None):
+    parts = [w.detach().reshape(-1), w.new_zeros(1)]
+    if wa_src is not None:
+        parts += [wa_src.detach().reshape(-1).to(w.dtype),
+                  wa_dst.detach().reshape(-1).to(w.dtype)]
+    return torch.cat(parts)
+
+
+def stage_projection(w, heads: int, mode: str, wa_src=None, wa_dst=None):
+    """The projection weights ``w`` [Fin, H*C] (of ``mode``'s type, as
+    ``prepare_layer`` or ``gat_block.prepare_block`` give them) in the
+    layout the GAT kernels stream (csrc/gat_common.cuh): per head, per
+    chunk of CW columns, per tile of 32 k, ``_region_order``'s order; in
+    "f32" each weight as its ``split_tf32`` halves.  With the bf16 logit
+    weights ``wa_src`` / ``wa_dst`` [Fin, H] (the block kernel's bf16
+    mode) every k-step also carries the logit tile.  One flat tensor of
+    ``w``'s type: a cat, the split (f32) and one gather."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
+    if (wa_src is None) != (wa_dst is None) or (
+            wa_src is not None and mode != "bf16"):
+        raise ValueError("the logit weights wa_src and wa_dst go together, "
+                         "in mode 'bf16' only")
+    Fin, HC = w.shape
+    src, half = _stage_plan(Fin, heads, HC // heads, mode,
+                            wa_src is not None, w.device)
+    flat = _source(w, wa_src, wa_dst)
+    if mode == "f32":
+        return torch.stack(split_tf32(flat))[half, src]
+    return flat[src]
+
+
+def unstage_projection(staged, Fin: int, heads: int, C: int, mode: str,
+                       logit: bool = False):
+    """``stage_projection``'s inputs back: w [Fin, H*C] (in "f32" [2, Fin,
+    H*C], its TF32 halves hi, lo), and with ``logit`` also wa_src and
+    wa_dst [Fin, H]."""
+    src, half = _stage_plan(Fin, heads, C, mode, logit, staged.device)
+    n = Fin * heads * C
+    flat = staged.new_zeros((2 if mode == "f32" else 1,
+                             n + 1 + (2 * Fin * heads if logit else 0)))
+    flat[half, src] = staged
+    w = flat[:, :n].reshape(-1, Fin, heads * C)
+    w = w if mode == "f32" else w[0]
+    if not logit:
+        return w
+    wa = flat[0, n + 1:].view(2, Fin, heads)
+    return w, wa[0], wa[1]
+
+
+def _staged_ok(staged, Fin, heads, C, mode, logit, device):
+    """Raises unless ``staged`` has ``stage_projection``'s length and type
+    for these widths (keeping its values current is the caller's part)."""
+    CW, nch, Kp = projection_geometry(Fin, C)
+    step = CW * _KDEPTH[mode] * (2 if mode == "f32" else 1) + (
+        _LOGIT_COLS * _KDEPTH[mode] if logit else 0)
+    n = heads * nch * (Kp // _KDEPTH[mode]) * step
+    if (tuple(staged.shape) != (n,) or staged.dtype != weight_dtype(mode)
+            or staged.device != device or not staged.is_contiguous()):
+        raise ValueError(f"staged must be stage_projection's layout of the "
+                         f"weights: ({n},) {weight_dtype(mode)} on {device}")
 
 
 def _project(x, w, att_src, att_dst, heads, mode="f32", sw=None):
@@ -190,12 +331,13 @@ def _check(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads, skip,
 
 def _launch(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads,
             neg_slope, self_loops, skip, act, mode, sw, edge_logits,
-            self_edge_logit):
+            self_edge_logit, staged):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
     N, Fin = x.shape
     HC = w.shape[1]
+    C = HC // heads
     W = nbr_nodes.shape[1]
     dev = x.device
     smem = lib.gnnb_gat_layer_smem_bytes(W, heads)
@@ -206,33 +348,46 @@ def _launch(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads,
                          f"heads={heads} ({smem} bytes)")
     if nbr_nodes.dtype != torch.int32 or in_degree.dtype != torch.int32:
         raise ValueError("nbr_nodes and in_degree must be int32")
+    if staged is None:
+        staged = stage_projection(w, heads, mode)
+    _staged_ok(staged, Fin, heads, C, mode, False, dev)
     if edge_logits is not None and self_edge_logit is None:
         self_edge_logit = x.new_zeros((N, heads))
-    ops = [t for t in (x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
+    ops = [t for t in (x, nbr_nodes, in_degree, att_src, att_dst, bias,
                        skip, sw, edge_logits, self_edge_logit)
            if t is not None]
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("all inputs must be contiguous")
+    if staged.data_ptr() % 16:
+        raise ValueError("staged must be 16-byte aligned")
     fn = lib.gnnb_gat_layer
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 3 + [I] * 5 + [P] * 5 + [ctypes.c_float, I, I, I] \
-        + [P] * 8 + [I]
+    fn.argtypes = [P] * 3 + [I] * 5 + [P, ctypes.c_longlong] + [P] * 4 \
+        + [ctypes.c_float, I, I, I] + [P] * 10 + [I]
     f = torch.float32
+    xq = xs = None
+    if mode == "int8":   # the kernel's scratch: x quantized once per row
+        n128 = -(-N // 128) * 128
+        xq = torch.empty((n128, projection_geometry(Fin, C)[2]),
+                         dtype=torch.int8, device=dev)
+        xs = torch.empty((n128,), dtype=f, device=dev)
     h = torch.empty((N, HC), dtype=f, device=dev)
     a_src = torch.empty((N, heads), dtype=f, device=dev)
     a_dst = torch.empty((N, heads), dtype=f, device=dev)
     out = torch.empty((N, HC), dtype=f, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(x.data_ptr(), nbr_nodes.data_ptr(), in_degree.data_ptr(), N, W,
-             Fin, heads, HC // heads, w.data_ptr(), att_src.data_ptr(),
+             Fin, heads, C, staged.data_ptr(),
+             staged.numel() * staged.element_size(), att_src.data_ptr(),
              att_dst.data_ptr(), bias.data_ptr(),
              None if skip is None else skip.data_ptr(), float(neg_slope),
              int(bool(self_loops)), GAT_ACTS[act], MODES[mode],
              None if sw is None else sw.data_ptr(),
              None if edge_logits is None else edge_logits.data_ptr(),
              None if self_edge_logit is None else self_edge_logit.data_ptr(),
-             h.data_ptr(),
+             None if xq is None else xq.data_ptr(),
+             None if xs is None else xs.data_ptr(), h.data_ptr(),
              a_src.data_ptr(), a_dst.data_ptr(), out.data_ptr(), stream,
              dev.index or 0)
     if err != 0:
@@ -248,20 +403,21 @@ def fused_gat_layer(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                     heads: int, neg_slope: float = 0.2,
                     self_loops: bool = True, skip=None,
                     act: Optional[str] = None, mode: str = "f32", sw=None,
-                    edge_logits=None, self_edge_logit=None):
+                    edge_logits=None, self_edge_logit=None, staged=None):
     """One GAT layer (module docstring) on x [N, Fin] float32 over the ELL
     table ``nbr_nodes`` [N, W] / ``in_degree`` [N] int32, concatenated
     heads: out [N, H*C]; ``w`` and ``sw`` typed by ``mode``
     (``prepare_layer``); with edge features ``edge_logits`` [N, W, H]
     and ``self_edge_logit`` [N, H] (0 when None).  A CUDA ``x`` launches
     the kernel, which takes any width and raises on what it does not
-    take; a CPU ``x`` runs the plain version."""
+    take, on ``staged`` = ``stage_projection(w, heads, mode)`` (made here
+    when None); a CPU ``x`` runs the plain version."""
     _check(x, nbr_nodes, in_degree, w, att_src, att_dst, bias, heads, skip,
            act, mode, sw, edge_logits, self_edge_logit)
     if x.device.type == "cuda":
         return _launch(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                        heads, neg_slope, self_loops, skip, act, mode, sw,
-                       edge_logits, self_edge_logit)
+                       edge_logits, self_edge_logit, staged)
     if x.device.type != "cpu":
         raise ValueError(f"no GAT layer for device {x.device}")
     return gat_layer_plain(x, nbr_nodes, in_degree, w, att_src, att_dst,
@@ -273,6 +429,18 @@ fused_gat_layer.launches = 0
 fused_gat_layer.mode_launches = dict.fromkeys(MODES, 0)
 # the launches in the edge-logit mode, per mode (also in the counts above)
 fused_gat_layer.edge_launches = dict.fromkeys(MODES, 0)
+
+
+def _act_backward(ct, out, act):
+    """The cotangent before an activation in ``SCATTER_ACTS``, from its
+    saved output ``out``."""
+    if act is None:
+        return ct
+    if act == "relu":
+        return ct * (out > 0.0).to(ct.dtype)
+    if act == "sigmoid":
+        return ct * out * (1.0 - out)
+    return ct * (1.0 - out * out)    # tanh
 
 
 def scatter_ok(self_loops: bool, act) -> bool:
@@ -287,7 +455,9 @@ class GATLayerFunction(torch.autograd.Function):
     docstring): the hand-written one where ``scatter_ok`` holds and the
     layer has no edge-logit inputs ``le`` [N, W, H] / ``ae_self`` [N, H],
     else autograd of the plain version (with the edge terms: the JAX
-    package's ``_make_edge_vjp_fn``), which also gives their gradients.
+    package's ``_make_edge_vjp_fn``), which also gives their gradients;
+    either takes the derivative of an activation in ``SCATTER_ACTS``
+    from the kernel's saved output.
     That recompute gathers over the table with each pad slot pointing at
     its own row (``ell_own_pads``): the masked softmax gives the same
     values, and the gathers' backward then adds the pad slots' zero
@@ -313,30 +483,27 @@ class GATLayerFunction(torch.autograd.Function):
          bias, out) = ctx.saved_tensors
         H, ns, act = ctx.heads, ctx.neg_slope, ctx.act
         if le is not None or not scatter_ok(ctx.self_loops, act):
+            # the activation's derivative from the kernel's output where it
+            # gives one, as below: the decisions of the forward that ran
+            # (a recompute's own could take a ReLU near 0 the other way)
+            from_out = act in SCATTER_ACTS
             live = [x, skip, le, ae_self, w, att_src, att_dst, bias]
             with torch.enable_grad():
                 leaves = [None if t is None else t.detach().requires_grad_()
                           for t in live]
                 o = gat_layer_plain(leaves[0], ell_own_pads(nbr, deg), deg,
                                     *leaves[4:], H, ns, ctx.self_loops,
-                                    leaves[1], act, edge_logits=leaves[2],
+                                    leaves[1], None if from_out else act,
+                                    edge_logits=leaves[2],
                                     self_edge_logit=leaves[3])
                 got = iter(torch.autograd.grad(
-                    o, [t for t in leaves if t is not None], ct))
+                    o, [t for t in leaves if t is not None],
+                    _act_backward(ct, out, act) if from_out else ct))
             dx, dskip, dle, dae, dw, datt_src, datt_dst, dbias = [
                 None if t is None else next(got) for t in leaves]
             return (dx, None, None, None, None, dskip, dle, dae, dw,
                     datt_src, datt_dst, dbias, None, None, None, None)
-        # activation derivative from the saved post-activation output
-        if act is None:
-            dz = ct
-        elif act == "relu":
-            dz = ct * (out > 0.0).to(ct.dtype)
-        elif act == "sigmoid":
-            dz = ct * out * (1.0 - out)
-        else:   # tanh
-            dz = ct * (1.0 - out * out)
-        dz = dz.contiguous()
+        dz = _act_backward(ct, out, act).contiguous()
         N, HC = dz.shape
         C = HC // H
         h, a_src, a_dst = _project(x, w, att_src, att_dst, H)
@@ -399,11 +566,14 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                          self_loops: bool = True, skip=None,
                          act: Optional[str] = None, rev_nbr_nodes=None,
                          out_degree=None, mode: str = "f32", prepared=None,
-                         edge_logits=None, self_edge_logit=None):
+                         edge_logits=None, self_edge_logit=None,
+                         staged=None):
     """The layer as GATConv calls it: the differentiable path when grad
     mode is on and an input needs a gradient (mode "f32" only: an
-    inference mode raises there), else the kernel alone, in ``mode`` with
-    ``prepared`` = ``prepare_layer(w, mode)`` (made here when None).  The
+    inference mode raises there; the kernel then lays the live weights
+    out on every call), else the kernel alone, in ``mode`` with
+    ``prepared`` = ``prepare_layer(w, mode)`` and ``staged`` =
+    ``stage_projection`` of its weights (each made here when None).  The
     edge-logit terms go through either.  The kernel takes any width, so
     nothing is padded."""
     ops = [None if t is None else t.contiguous()
@@ -421,4 +591,4 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
               prepare_layer(ops[2], mode))
     return fused_gat_layer(ops[0], nbr_nodes, in_degree, wm, *ops[3:6],
                            heads, neg_slope, self_loops, ops[1], act,
-                           mode=mode, sw=sw, **ekw)
+                           mode=mode, sw=sw, staged=staged, **ekw)

@@ -1907,3 +1907,192 @@ def test_program_forward_edge_gat_through_kernels(cuda_device, precision):
             ref = progs[1].forward(b)
             assert _scaled_err(out.cpu()[b.graph_mask],
                                ref[b.graph_mask]) <= SLICE_CPU_TOL[precision]
+
+
+# ------------------------------- the tensor-core GAT kernels (rows 9, 10)
+# (Fin, H, C): the first layer's 11 and odd widths, chunk widths 64 and
+# 128, and a head of two chunks (200)
+GAT_TC_SHAPES = [(11, 4, 128), (24, 3, 20), (40, 8, 64), (512, 1, 128),
+                 (512, 4, 64), (40, 3, 200)]
+GAT_TOL = {"f32": 1e-4, **MODE_TOL}
+
+
+def _gat_tc_args(b, Fin, H, C, mode, edge, block, concat, seed):
+    """(args, kw) of row 9 (``block``) or 10 in ``mode`` on batch ``b``,
+    with random edge terms when ``edge``."""
+    dev = b.node_feat.device
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ops = _gat_operands(Fin, H, C, g, dev, concat)
+    x = torch.randn(b.num_nodes, Fin, generator=g).to(dev)
+    out_w = H * C if concat else C
+    kw = dict(act="relu", mode=mode, skip=torch.randn(
+        b.num_nodes, out_w, generator=g).to(dev))
+    if block:
+        w, wa_src, wa_dst = gat_block.prepare_block(
+            ops["w"], ops["att_src"], ops["att_dst"], mode)
+        kw.update(concat=concat, wa_src=wa_src, wa_dst=wa_dst)
+        table = (b.block_adj,)
+        if edge:
+            a_edge = torch.randn(b.num_edges, H, generator=g).to(dev)
+            kw.update(edge_table=gat_block.build_block_edge_logits(
+                b.senders, b.receivers, b.edge_mask, a_edge, b.num_nodes,
+                128), self_extra=torch.randn(b.num_nodes, H,
+                                             generator=g).to(dev))
+    else:
+        w, kw["sw"] = gat_layer.prepare_layer(ops["w"], mode)
+        table = (b.nbr_nodes, b.in_degree)
+        if edge:
+            kw.update(edge_logits=torch.randn(
+                b.num_nodes, b.nbr_nodes.shape[1], H, generator=g).to(dev),
+                self_edge_logit=torch.randn(b.num_nodes, H,
+                                            generator=g).to(dev))
+    args = (x, *table, w, ops["att_src"], ops["att_dst"], ops["bias"], H)
+    return args, kw
+
+
+def _hold_gat(fn, plain, b, args, kw, mode):
+    """Two launches the same bits, both within the mode's tolerance of the
+    plain version on real rows; returns the output."""
+    before = fn.launches
+    one = fn(*args, **kw)
+    two = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(one, two)
+    want = plain(*args, **{k: v for k, v in kw.items() if k != "staged"})
+    m = b.node_mask
+    assert torch.isfinite(one[m]).all()
+    assert _scaled_err(one[m], want[m]) <= GAT_TOL[mode]
+    return one
+
+
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("Fin,H,C", GAT_TC_SHAPES)
+def test_gat_layer_tc_matches_plain_every_shape(cuda_device, Fin, H, C,
+                                                mode, edge):
+    """Row 10 in each mode, with and without edge terms, at the widths
+    above on a standard-packed batch of 1,856 rows (not a multiple of the
+    projection's 128-row tile): within 1e-4 / 2e-3 / 5e-3 of max |value|
+    of the plain version, the same bits on two launches."""
+    _, (b,) = canonical_batches("qm9", n_graphs=100, batch_size=100,
+                                node_multiple=8, device=cuda_device)
+    assert b.num_nodes % 128
+    args, kw = _gat_tc_args(b, Fin, H, C, mode, edge, False, True, Fin + C)
+    _hold_gat(gat_layer.fused_gat_layer, gat_layer.gat_layer_plain, b, args,
+              kw, mode)
+
+
+@pytest.mark.parametrize("concat", [True, False])
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("Fin,H,C", GAT_TC_SHAPES)
+def test_gat_block_tc_matches_plain_every_shape(cuda_device, Fin, H, C,
+                                                mode, edge, concat):
+    """Row 9 in each mode, with and without edge terms, concatenated and
+    averaged heads, at the widths above on a block batch of simple QM9
+    graphs: within 1e-4 / 2e-3 of max |value| of the plain version, the
+    same bits on two launches."""
+    _, b = _simple_block_batch(device=cuda_device)
+    args, kw = _gat_tc_args(b, Fin, H, C, mode, edge, True, concat, Fin + H)
+    _hold_gat(gat_block.fused_gat_block_layer,
+              gat_block.gat_block_layer_plain, b, args, kw, mode)
+
+
+@pytest.mark.parametrize("blocks", [1, 132, 133, 160])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_gat_block_tc_at_block_counts(cuda_device, blocks, mode):
+    """Row 9 at the canonical widths on batches of 1, 132, 133 and 160
+    blocks (one wave of the card's 132 SMs, one over, b1024), concat with
+    edge terms and the head mean without: within tolerance, bitwise
+    twice."""
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+    from gnnbuilder_tpu_torch.data.datasets import (
+        drop_repeated_edges,
+        load_dataset,
+    )
+
+    gs = load_dataset("qm9", n=5 * blocks if blocks < 160 else 1024)
+    b = build_graph_batch(drop_repeated_edges(gs), block_size=128,
+                          node_multiple=128 * blocks, device=cuda_device)
+    assert b.num_nodes == 128 * blocks
+    for Fin, C, concat, edge in ((512, 128, True, True),
+                                 (512, 64, False, False)):
+        args, kw = _gat_tc_args(b, Fin, 4, C, mode, edge, True, concat,
+                                blocks)
+        _hold_gat(gat_block.fused_gat_block_layer,
+                  gat_block.gat_block_layer_plain, b, args, kw, mode)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("concat", [True, False])
+def test_gat_block_tc_hub_and_repeated_pairs(cuda_device, mode, concat):
+    """Row 9 on a block batch that repeats pairs (counts above 1) and on
+    one with a 70-in-degree hub, Fin 11 and 512, heads 3 and 4: within
+    tolerance, bitwise twice."""
+    for b in (_batch()[1].to(cuda_device), _hub_block_batch(cuda_device)[1]):
+        assert b.block_adj.max() > 1 or b.nbr_nodes is None
+        for Fin, H in ((11, 3), (512, 4)):
+            args, kw = _gat_tc_args(b, Fin, H, 128 if concat else 64, mode,
+                                    False, True, concat, Fin + H)
+            _hold_gat(gat_block.fused_gat_block_layer,
+                      gat_block.gat_block_layer_plain, b, args, kw, mode)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_gat_cached_layout_matches_the_layout_on_the_call(cuda_device,
+                                                          mode):
+    """Each kernel on weights staged beforehand (``stage_projection``,
+    the block kernel's with its logit weights: what
+    ``GATConv.mode_operands`` caches) gives the same bits as on weights
+    it lays out itself on the call."""
+    _, b = _std_batch(device=cuda_device)
+    args, kw = _gat_tc_args(b, 512, 4, 128, mode, False, False, True, 3)
+    staged = gat_layer.stage_projection(args[3], 4, mode)
+    assert torch.equal(gat_layer.fused_gat_layer(*args, **kw),
+                       gat_layer.fused_gat_layer(*args, **kw, staged=staged))
+    if mode == "int8":
+        return
+    _, bb = _simple_block_batch(device=cuda_device)
+    args, kw = _gat_tc_args(bb, 512, 4, 128, mode, True, True, True, 4)
+    staged = gat_layer.stage_projection(args[2], 4, mode, kw["wa_src"],
+                                        kw["wa_dst"])
+    assert torch.equal(
+        gat_block.fused_gat_block_layer(*args, **kw),
+        gat_block.fused_gat_block_layer(*args, **kw, staged=staged))
+
+
+def test_gat_train_step_after_adam_uses_the_updated_weights(cuda_device):
+    """A GAT model whose f32 inference cache was filled, then one Adam
+    step (lr 5e-3): the next ``Program.forward`` matches the plain path
+    on the updated weights within 1e-4 of max (the cache rebuilt, not
+    served stale; the pre-update output is more than 1e-3 off), and the
+    next train step's loss, on a forward that lays out its live weights,
+    matches the plain path's loss on them within 1e-4 relative (the
+    split-TF32 products sit ~1e-6 of max off the plain float32 ones)."""
+    gs, b = _std_batch(device=cuda_device)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    model = canonical_model("gat", "qm9", graphs=gs,
+                            conv_kwargs=dict(heads=4))
+    prog = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                   max_graphs=b.num_graphs, device="cuda", seed=9)
+    prog.init_params()
+    m = b.graph_mask
+    stale = prog.forward(b)
+    step = train.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=5e-3))
+    before = gat_layer.fused_gat_layer.launches
+    step(b, target)
+    fresh = prog.forward(b)
+    assert gat_layer.fused_gat_layer.launches == before + 12
+    dispatch.set_fused_mode("never")
+    try:
+        ref = prog.forward(b)
+        with torch.no_grad():
+            plain_loss = float(train.masked_mse_loss(model(b), target, m))
+    finally:
+        dispatch.set_fused_mode("auto")
+    assert _scaled_err(fresh[m], ref[m]) <= 1e-4
+    assert _scaled_err(stale[m], ref[m]) > 1e-3
+    loss = float(step(b, target))
+    assert abs(loss - plain_loss) <= 1e-4 * abs(plain_loss)
