@@ -259,17 +259,26 @@ def bound_f32_products(products, other, nbytes):
 
 # the tensor-core instructions of each instance of the kernels whose
 # products run on them, in the built library's SASS (sm_90: HGMMA for
-# wgmma, HMMA for f16 / bf16 / tf32 mma.sync, IMMA for int8)
-TC_OPS = ("HGMMA", "HMMA", "IMMA")
+# wgmma, HMMA for f16 / bf16 / tf32 mma.sync, IMMA for int8, DMMA for
+# f64)
+TC_OPS = ("HGMMA", "HMMA", "IMMA", "DMMA")
 STACK_MODES = {"f32": 0, "bf16": 1, "int8": 2}
 # kernel: (SASS name pattern, info entry, {instance: info arguments}).
 # The GAT instances are MODE x chunk width (64 * np); their edge-logit
 # modes are a runtime argument of the block kernel and live in row 10's
-# attention launch, which runs no product.
+# attention launch, which runs no product.  Row 5's projection (its x
+# products and its final Linear) has an instance per mode, its aggregate
+# launch f32 and bf16 (the int8 mode runs the f32 one), its v launch
+# (float64 products) one, for f32 and int8.
 TC_KERNELS = {
     "pna_block_stack": (r"pna_block_stack_kernelILi(\d)E",
                         "gnnb_pna_block_info",
                         {(c,): (c,) for c in STACK_MODES.values()}),
+    "pna_proj": (r"pna_proj_kernelILi(\d)E", "gnnb_pna_layer_info",
+                 {(c,): (0, c) for c in STACK_MODES.values()}),
+    "pna_agg": (r"pna_agg_kernelILi(\d)E", "gnnb_pna_layer_info",
+                {(c,): (1, c) for c in (0, 1)}),
+    "pna_v": (r"pna_v_kernel()", "gnnb_pna_layer_info", {(0,): (2, 0)}),
     "gat_proj_tc": (r"gat_proj_tc_kernelILi(\d)ELi(\d)E",
                     "gnnb_gat_proj_info",
                     {(c, n): (c, n) for c in (0, 1, 2) for n in (1, 2)}),
@@ -306,8 +315,11 @@ def tc_kernel_resources(lib_path, lib, nvcc_path):
             cur = None
             for k, (pat, _, inst) in TC_KERNELS.items():
                 m = re.search(pat, fn.group(1))
-                if m and tuple(map(int, m.groups())) in inst:
-                    cur = out[k][tc_label(tuple(map(int, m.groups())))]
+                # a kernel of one instance has an empty group
+                key = m and (tuple(int(x) for x in m.groups() if x)
+                             or next(iter(inst)))
+                if m and key in inst:
+                    cur = out[k][tc_label(key)]
             continue
         if cur is not None:
             for op in TC_OPS:
@@ -316,7 +328,7 @@ def tc_kernel_resources(lib_path, lib, nvcc_path):
     for k, (_, entry, inst) in TC_KERNELS.items():
         info = getattr(lib, entry)
         info.restype = ctypes.c_int
-        info.argtypes = ([ctypes.c_int] * len(next(iter(inst)))
+        info.argtypes = ([ctypes.c_int] * len(next(iter(inst.values())))
                          + [ctypes.POINTER(ctypes.c_int)] * 3)
         for key, iargs in inst.items():
             vals = [ctypes.c_int() for _ in range(3)]
@@ -429,7 +441,8 @@ def split_device_time(prof, n_steps):
             part = "edge_block kernel"
         elif "ell_agg" in name:
             part = "ell_agg kernel"
-        elif "pna_layer" in name:
+        elif any(k in name for k in ("pna_layer", "pna_proj", "pna_agg",
+                                       "pna_v_kernel")):
             part = "pna_layer kernel"
         elif "mp_layer" in name:
             part = "mp_layer kernel"
@@ -1812,7 +1825,7 @@ def rel_err(got, want):
 
 
 def precision_phases(report, *, dev, graphs, batches, b0, tb, prog,
-                     counted, zero_counts, smi, tc):
+                     counted, zero_counts, smi, tc, tcl):
     """Program(precision="bf16" | "int8") of canonical PNA: the bf16 and
     int8 modes of rows 1, 2 and 5 against their plain versions in every
     layer, the block-packed main path (3 x b1024, rows 1 and 2) and the
@@ -2118,16 +2131,24 @@ def precision_phases(report, *, dev, graphs, batches, b0, tb, prog,
                 bytes=r_by)
 
             largs = ops[mode]["layers"]
+            # the layouts the model caches for inference
+            lst = [pna_layer.stage_layer(a[3], a[5], a[7], mode)
+                   for a, _ in largs]
 
-            def run(fn, _largs=largs):
-                for a, k in _largs:
+            def run(fn, _largs=largs, _lst=lst):
+                for (a, k), st in zip(_largs, _lst):
+                    if fn is pna_layer.fused_pna_layer:
+                        k = dict(k, staged=st)
                     fn(*a, **k)
 
             lprod = sum(products(Nt, *w) for w in widths)
             # int8 quantizes the final Linear only: the rest at f32
             lin = sum(2 * Nt * w[2] * w[2] for w in widths)
+            # int8's f32 products at the faster of the FMA and 3 x TF32
             terms = ([(lprod, pk)] if mode == "bf16"
-                     else [(lin, pk), (lprod - lin, PEAK_F32_FLOPS)])
+                     else [(lin, pk), (lprod - lin,
+                                       max(PEAK_F32_FLOPS,
+                                           PEAK_TF32_FLOPS / 3))])
             lagg = sum(5 * Et * w[1] for w in widths)
             lq = (sum(Nt * w[2] * 4 + Nt * w[2] * 2 for w in widths)
                   if mode == "int8" else 0)
@@ -2144,6 +2165,10 @@ def precision_phases(report, *, dev, graphs, batches, b0, tb, prog,
             b_ms, b_by = bound_mixed(terms, l_by)
             dms, ems = timed(lambda: run(pna_layer.fused_pna_layer), 10)
             report[f"pna_layer_{mode}"].update(
+                resources=dict(
+                    proj=tcl["pna_proj"][mode],
+                    agg=tcl["pna_agg"]["bf16" if mode == "bf16" else "f32"],
+                    **({} if mode == "bf16" else {"v": tcl["pna_v"]["f32"]})),
                 ms=ems, device_ms=dms,
                 plain_ms=time_ms(lambda: run(pna_layer.pna_layer_plain), 3),
                 bound_ms=b_ms, bound_by=b_by,
@@ -3705,7 +3730,8 @@ def main():
         print(f"--- ptxas\n{_build.build_log.strip()}", flush=True)
 
     with phase("tensor-core instructions and resources of each instance of "
-               "the PNA stack and the GAT projection and block kernels"):
+               "the PNA stack, the PNA layer and the GAT projection and "
+               "block kernels"):
         tc = tc_kernel_resources(lib, _build.load(), _build.nvcc())
         for kern, insts in tc.items():
             for inst, v in insts.items():
@@ -3969,7 +3995,9 @@ def main():
                                      f"differ")
             cs_args.append(ca)
             g_args.append(ga)
-        report["pna_layer"] = dict(max_abs_err=err_layer)
+        report["pna_layer"] = dict(max_abs_err=err_layer, resources=dict(
+            proj=tc["pna_proj"]["f32"], agg=tc["pna_agg"]["f32"],
+            v=tc["pna_v"]["f32"]))
         report["pna_scatter_bwd"] = dict(max_abs_err=err_scatter)
         report["ell_gather_bwd"] = dict(max_abs_err=err_gather)
         report["ell_gather_bwd_csr"] = dict(max_abs_err=err_csr)
@@ -4463,7 +4491,7 @@ def main():
     precision = precision_phases(
         report, dev=dev, graphs=graphs, batches=batches, b0=b0, tb=tb,
         prog=prog, counted=counted, zero_counts=zero_counts, smi=smi,
-        tc=tc["pna_block_stack"])
+        tc=tc["pna_block_stack"], tcl=tc)
     slice_modes = slice_phases(
         report, dev=dev, graphs=graphs, b0=b0, tb=tb, counted=counted,
         zero_counts=zero_counts, smi=smi)
@@ -4524,10 +4552,47 @@ def main():
             flops=r_flops, bytes=r_bytes)
 
         # train kernels: the six launches of one step, at the shapes and on
-        # the operands of the canonical model's layers
+        # the operands of the canonical model's layers; the kernel timed on
+        # its weights laid out beforehand, the train step's operands (its
+        # live weights padded and laid out, every call) timed apart
+        l_staged = [pna_layer.stage_layer(a[3], a[5], a[7], "f32")
+                    for a, _ in layers]
+        live = [c._weights() for c in tmodel.gnn_convs]
+        with torch.enable_grad():
+            padded = [pna_layer._pad_weights(*w) for w in live]
+
+        def stage_all():
+            # the layout alone, of the padded live weights
+            return pna_layer.stage_layers(
+                [(w[0], w[2], w[4]) for w in padded], "f32")
+
+        def operands_all():
+            # what a train step makes: the live weights padded, laid out
+            with torch.enable_grad():
+                return pna_layer.layer_operands(live, "f32")
+
         def run_layers(fn):
-            for args, kw in layers:
+            for (args, kw), st in zip(layers, l_staged):
+                if fn is pna_layer.fused_pna_layer:
+                    kw = dict(kw, staged=st)
                 fn(*args, **kw, save_res=True)
+
+        for key, fn, what in (
+                ("train_layout", stage_all,
+                 "stage_layers of the 6 layers' padded live f32 weights"),
+                ("train_operands", operands_all,
+                 "layer_operands of the 6 layers' live f32 weights")):
+            lay_dev, lay_ev = timed(fn, 10)
+            lay_host = host_ms(fn, 10)
+            report["pna_layer"][key] = dict(
+                device_ms=lay_dev, event_ms=lay_ev, host_ms=lay_host,
+                per=what)
+            log(f"pna_layer: the train step's {what}: device {lay_dev:.4f} "
+                f"ms, events {lay_ev:.4f} ms, host {lay_host:.4f} ms a step "
+                f"({smi})")
+        am = pna_layer.agg_rows(tb.num_nodes, "f32", dev)
+        log(f"pna_layer aggregate launch: {am} rows a CTA, "
+            f"{-(-tb.num_nodes // am)} CTAs for N={tb.num_nodes}")
 
         def run_each(fn, arg_list):
             for a in arg_list:
@@ -4537,11 +4602,12 @@ def main():
         Nt, Wt = tb.num_nodes, tb.ell_width
         Wr = tb.rev_nbr_nodes.shape[1]
         l_flops = l_bytes = c_flops = c_bytes = l_pad = c_pad = 0
-        g_flops = g_bytes = g_pad = 0
+        g_flops = g_bytes = g_pad = l_gather = 0
         for (args, kw), (Fi, Fl, Fo) in zip(layers, pna_widths(tmodel)):
             # the five products, ~5 ops per gathered value (add,
             # square-add, max, min), 2 compares per gathered value for ties
             l_flops += layer_flops(Nt, E, Fi, Fl, Fo, 7)
+            l_gather += 7 * E * Fl
             l_pad += layer_flops(Nt, E, args[0].shape[1], args[3].shape[1],
                                  args[7].shape[1], 7)
             # x, the table, the weights and skip in; out, v, agg_cat, aux
@@ -4579,7 +4645,9 @@ def main():
                  lambda: run_each(ell_bwd.fused_gather_backward, g_args),
                  lambda: run_each(ell_bwd.ell_gather_backward_plain, g_args),
                  g_flops, g_bytes)):
-            b_ms, b_by = bound(fl, by)
+            # row 5's products run on the tensor cores: its bound restated
+            b_ms, b_by = (bound_f32_products(fl - l_gather, l_gather, by)
+                          if name == "pna_layer" else bound(fl, by))
             ent = dict(ms=time_ms(fn, 10), plain_ms=time_ms(plain, 3),
                        bound_ms=b_ms, bound_by=b_by, flops=fl,
                        padded_flops=pads[name], bytes=by,

@@ -1,6 +1,7 @@
 // Device code shared by the GAT kernels (gat_layer.cu, gat_block.cu,
 // gat_bwd.cu): the tensor-core projection, the warp reductions and the
-// epilogue activations.
+// epilogue activations.  pna_layer.cu runs its x products and its final
+// Linear through the same projection.
 //
 // The projection computes, for every row r of x [N, Fin] and every head
 // hd of H heads of C channels (HC = H * C):
@@ -54,7 +55,7 @@
 //   float32 the two orders agree to an ulp; in bf16 they do not, and the
 //   difference goes through exp.
 // * INT8 (inference): each row is quantized once with its own scale
-//   (gat_layer.cu's quantize_rows_kernel: quant.cuh quant_scale and
+//   (quantize_rows_kernel below: quant.cuh quant_scale and
 //   quant_level over the whole row, into levels padded to the tiles' k),
 //   W is int8 with per-column scales: h = (float)(exact s32 sum of s8 x
 //   s8 MMAs) * s_row * s_col (the JAX kernels' _qdot).  A row gets the
@@ -111,6 +112,32 @@ static __host__ cudaError_t optin_bytes(int device, size_t* out) {
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   *out = (size_t)optin;
   return err;
+}
+
+// INT8: each row of x quantized with its own scale (quant.cuh: s =
+// max(max |x| / 127, 1e-12), q = clip(rint(x / s), -127, 127), IEEE
+// division), once for every CTA that projects it (gat_layer.cu: every
+// head's; pna_layer.cu: the final Linear's, of mid); one warp per row,
+// rows past N and k in [Fin, Kp) zero.
+static __global__ void __launch_bounds__(THREADS)
+quantize_rows_kernel(const float* __restrict__ x, int n_rows, int Fin,
+                     int Kp, int n_pad, int8_t* __restrict__ q,
+                     float* __restrict__ s) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (r >= n_pad) return;
+  const float* xr = x + (size_t)r * Fin;
+  const bool real = r < n_rows;
+  float m = 0.f;
+  if (real)
+    for (int k = lane; k < Fin; k += 32) m = fmaxf(m, fabsf(__ldg(xr + k)));
+  m = warp_max(m);
+  const float sc = gnnb_quant::quant_scale(m);
+  for (int k = lane; k < Kp; k += 32)
+    q[(size_t)r * Kp + k] =
+        (int8_t)(real && k < Fin ? gnnb_quant::quant_level(__ldg(xr + k), sc)
+                                 : 0);
+  if (lane == 0) s[r] = sc;
 }
 
 // ------------------------------------------------ the tensor-core projection

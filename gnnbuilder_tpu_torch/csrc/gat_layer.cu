@@ -81,31 +81,6 @@ struct ProjArgs {
   int n_rows, Fin, H, C;
 };
 
-// INT8: each row of x quantized with its own scale (quant.cuh: s =
-// max(max |x| / 127, 1e-12), q = clip(rint(x / s), -127, 127), IEEE
-// division), once for every head's CTAs; one warp per row, rows past N
-// and k in [Fin, Kp) zero.
-__global__ void __launch_bounds__(THREADS)
-quantize_rows_kernel(const float* __restrict__ x, int n_rows, int Fin,
-                     int Kp, int n_pad, int8_t* __restrict__ q,
-                     float* __restrict__ s) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (r >= n_pad) return;
-  const float* xr = x + (size_t)r * Fin;
-  const bool real = r < n_rows;
-  float m = 0.f;
-  if (real)
-    for (int k = lane; k < Fin; k += 32) m = fmaxf(m, fabsf(__ldg(xr + k)));
-  m = warp_max(m);
-  const float sc = gnnb_quant::quant_scale(m);
-  for (int k = lane; k < Kp; k += 32)
-    q[(size_t)r * Kp + k] =
-        (int8_t)(real && k < Fin ? gnnb_quant::quant_level(__ldg(xr + k), sc)
-                                 : 0);
-  if (lane == 0) s[r] = sc;
-}
-
 template <int MODE, int NP>
 using ProjLayout = ProjSmem<MODE, NP, false, 0>;
 

@@ -145,6 +145,17 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a b on the float64 tensor cores, m8n8k4: lane l holds A's (row
+// l / 4, k l % 4), B's (k l % 4, column l / 4) and D's row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1
+__device__ __forceinline__ void mma_f64(double (&d)[2], double a,
+                                        double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1}, {%2}, {%3}, {%0,%1};"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
 // one product with both tf32 halves of a and b: lo*hi + hi*lo + hi*hi
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
                                            const uint32_t (&ah)[4],

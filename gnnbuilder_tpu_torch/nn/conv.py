@@ -1,7 +1,9 @@
 """Message-passing convs: GCN, GIN, GINE, SAGE, LG, Simple, PNA, GAT and
 EdgeConv (the JAX package's ``nn/conv.py``, PyG semantics).  Each takes
 ``(g, x, act, skip)`` and returns ``[N, out_channels]``; the skip is
-added before the activation.
+added before the activation.  Each takes the reference's parallelism
+factors ``p_in`` / ``p_out`` (default 1) as metadata; they change no
+computation.
 
 GCN, GIN, SAGE, LG and Simple (sum, mean) run their layer through
 ``ops.cuda.mp_layer.fused_mp_layer_auto`` (the CUDA kernel on the card,
@@ -154,8 +156,10 @@ def _sum(g: GraphBatch, x):
 
 
 class GCNConv(torch.nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, p_in: int = 1,
+                 p_out: int = 1):
         super().__init__()
+        self.p_in, self.p_out = p_in, p_out
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.lin = Linear(in_channels, out_channels, bias=False)
@@ -179,8 +183,9 @@ class GCNConv(torch.nn.Module):
 
 class GINConv(torch.nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
-                 eps: float = 0.0):
+                 eps: float = 0.0, p_in: int = 1, p_out: int = 1):
         super().__init__()
+        self.p_in, self.p_out = p_in, p_out
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.eps = float(eps)
@@ -198,8 +203,10 @@ class GINConv(torch.nn.Module):
 
 
 class SAGEConv(torch.nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, p_in: int = 1,
+                 p_out: int = 1):
         super().__init__()
+        self.p_in, self.p_out = p_in, p_out
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.lin_l = Linear(in_channels, out_channels)
@@ -218,8 +225,10 @@ class SAGEConv(torch.nn.Module):
 class _SameWidth(torch.nn.Module):
     """A parameter-free conv whose output width is its input width."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, p_in: int = 1,
+                 p_out: int = 1):
         super().__init__()
+        self.p_in, self.p_out = p_in, p_out
         if in_channels != out_channels:
             raise ValueError(f"{type(self).__name__} requires in_channels "
                              f"== out_channels")
@@ -240,8 +249,8 @@ class LGConv(_SameWidth):
 
 class SimpleConv(_SameWidth):
     def __init__(self, in_channels: int, out_channels: int,
-                 aggregation: str = "sum"):
-        super().__init__(in_channels, out_channels)
+                 aggregation: str = "sum", p_in: int = 1, p_out: int = 1):
+        super().__init__(in_channels, out_channels, p_in, p_out)
         if aggregation not in ("sum", "add", "mean", "max", "min"):
             raise ValueError(f"unknown aggregation {aggregation}")
         self.aggregation = aggregation
@@ -281,8 +290,10 @@ class PNAConv(torch.nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  delta: float = 1.0,
                  aggregators: Sequence[str] = PNA_AGGREGATORS,
-                 scalers: Sequence[str] = PNA_SCALERS):
+                 scalers: Sequence[str] = PNA_SCALERS, p_in: int = 1,
+                 p_out: int = 1):
         super().__init__()
+        self.p_in, self.p_out = p_in, p_out
         for a in aggregators:
             if a not in ("sum", "mean", "std", "max", "min"):
                 raise ValueError(f"unknown aggregator {a}")
@@ -300,7 +311,19 @@ class PNAConv(torch.nn.Module):
             F + len(self.aggregators) * len(self.scalers) * F, out_channels)
         self.lin = Linear(out_channels, out_channels)
 
-    def forward(self, g: GraphBatch, x, act=None, skip=None):
+    def _weights(self):
+        """(w_pre, b_pre, k_post, b_post, w_lin, b_lin) in [in, out]
+        layout, as the layer kernel takes them."""
+        return (self.pre_nn.weight.t(), self.pre_nn.bias,
+                self.post_nn.weight.t(), self.post_nn.bias,
+                self.lin.weight.t(), self.lin.bias)
+
+    def forward(self, g: GraphBatch, x, act=None, skip=None, operands=None):
+        """``operands``: ``pna_layer.layer_operands`` of this layer's
+        ``_weights()`` in the active policy's mode, made by the caller
+        (``GNNModel``: for all layers at once, from the live weights in a
+        train step, cached under inference); without them the kernel path
+        lays its weights out on the call."""
         if (self.aggregators == PNA_AGGREGATORS
                 and self.scalers == PNA_SCALERS):
             cfg = dispatch.pna_layer_cfg(g, act)
@@ -309,13 +332,14 @@ class PNAConv(torch.nn.Module):
                     fused_pna_layer_auto,
                 )
 
+                mode = cfg.get("mode", "f32")
+                if operands is not None and operands["mode"] != mode:
+                    operands = None
                 return fused_pna_layer_auto(
-                    x, g.nbr_nodes, g.in_degree, self.pre_nn.weight.t(),
-                    self.pre_nn.bias, self.post_nn.weight.t(),
-                    self.post_nn.bias, self.lin.weight.t(), self.lin.bias,
+                    x, g.nbr_nodes, g.in_degree, *self._weights(),
                     self.delta, skip=skip, act=act,
                     rev_nbr_nodes=g.rev_nbr_nodes, out_degree=g.out_degree,
-                    mode=cfg.get("mode", "f32"))
+                    mode=mode, operands=operands)
         u, v = self.pre_nn(x, x)
         if dispatch.block_cfg(g) is not None \
                 and dispatch.agg_cfg(g) is not None:
@@ -395,8 +419,10 @@ class GATConv(torch.nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
                  concat: bool = True, negative_slope: float = 0.2,
-                 add_self_loops: bool = True, edge_dim=None):
+                 add_self_loops: bool = True, edge_dim=None, p_in: int = 1,
+                 p_out: int = 1):
         super().__init__()
+        self.p_in, self.p_out = p_in, p_out
         self.edge_dim = None if edge_dim is None else int(edge_dim)
         self.in_channels = in_channels
         self.out_channels = out_channels
@@ -575,8 +601,10 @@ class GINEConv(torch.nn.Module):
     features; ``lin_edge`` maps them to ``in_channels``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 edge_dim=None, eps: float = 0.0):
+                 edge_dim=None, eps: float = 0.0, p_in: int = 1,
+                 p_out: int = 1):
         super().__init__()
+        self.p_in, self.p_out = p_in, p_out
         if edge_dim is None:
             raise ValueError("GINEConv needs edge_dim, the width of the "
                              "edge features")
@@ -622,8 +650,9 @@ class EdgeConv(torch.nn.Module):
     concat, so the message is ``(u - v)_i + v_j``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 aggregation: str = "max"):
+                 aggregation: str = "max", p_in: int = 1, p_out: int = 1):
         super().__init__()
+        self.p_in, self.p_out = p_in, p_out
         if aggregation not in ("sum", "add", "mean", "max"):
             raise ValueError(f"unknown aggregation {aggregation}")
         self.in_channels = in_channels

@@ -41,7 +41,8 @@ Under a precision policy (``compile.precision``, entered by
 kernels and the readout; the cache then also holds, per mode, the
 stacked weights as bfloat16 or as int8 with their scales, rebuilt when a
 parameter changes (the per-layer kernels bring their weights to the mode
-per call).  Every ``Linear`` learns its
+per call, but for PNA's and GAT's, whose weights and staged layouts the
+cache holds per mode under inference).  Every ``Linear`` learns its
 ``site``, its name in the model, the key of its int8 calibration.
 """
 
@@ -100,6 +101,12 @@ class GNNModel(torch.nn.Module):
         mlp_out_dim: int = 1,
         mlp_activation: str = "relu",
         output_activation: Optional[str] = None,
+        gnn_p_in: int = 1,
+        gnn_p_hidden: int = 1,
+        gnn_p_out: int = 1,
+        mlp_p_in: int = 1,
+        mlp_p_hidden: int = 1,
+        mlp_p_out: int = 1,
         conv_kwargs: Optional[dict] = None,
     ):
         super().__init__()
@@ -144,6 +151,12 @@ class GNNModel(torch.nn.Module):
         self.mlp_out_dim = mlp_out_dim
         self.mlp_activation = mlp_activation
         self.output_activation = output_activation
+        self.gnn_p_in = gnn_p_in
+        self.gnn_p_hidden = gnn_p_hidden
+        self.gnn_p_out = gnn_p_out
+        self.mlp_p_in = mlp_p_in
+        self.mlp_p_hidden = mlp_p_hidden
+        self.mlp_p_out = mlp_p_out
         self.conv_kwargs = dict(conv_kwargs or {})
 
         conv_cls = SUPPORTED_GNN_CONVS[gnn_conv]
@@ -151,8 +164,8 @@ class GNNModel(torch.nn.Module):
         if gnn_conv in _EDGE_CONVS:
             conv_kw["edge_dim"] = graph_input_edge_dim
         self.gnn_convs = torch.nn.ModuleList(
-            conv_cls(in_dim, out_dim, **conv_kw)
-            for in_dim, out_dim in self._layer_dims()
+            conv_cls(in_dim, out_dim, p_in=p_in, p_out=p_out, **conv_kw)
+            for in_dim, out_dim, p_in, p_out in self._layer_dims()
         )
         self.global_pooling = GlobalPooling(self.pooling_aggrs)
         self.mlp_head = MLP(
@@ -161,6 +174,9 @@ class GNNModel(torch.nn.Module):
             hidden_dim=mlp_hidden_dim,
             hidden_layers=mlp_hidden_layers,
             activation=mlp_activation,
+            p_in=mlp_p_in,
+            p_hidden=mlp_p_hidden,
+            p_out=mlp_p_out,
         )
         # mode -> (key, cached kernel operands); see _kernel_params
         self._kernel_cache = {}
@@ -178,22 +194,40 @@ class GNNModel(torch.nn.Module):
         return channels
 
     def _layer_dims(self):
-        """(in_dim, out_dim) per conv layer — models.py:509-549; in_dim
-        is the width the layer takes (``_width`` of the layer before)."""
+        """(in_dim, out_dim, p_in, p_out) per conv layer — models.py:509-549;
+        in_dim is the width the layer takes (``_width`` of the layer
+        before)."""
         L = self.gnn_num_layers
         if L == 1:
-            return [(self.graph_input_feature_dim, self.gnn_output_dim)]
+            return [(self.graph_input_feature_dim, self.gnn_output_dim,
+                     self.gnn_p_in, self.gnn_p_out)]
         dims = []
         for i in range(L):
-            in_dim = (self.graph_input_feature_dim if i == 0
+            first, last = i == 0, i == L - 1
+            in_dim = (self.graph_input_feature_dim if first
                       else self._width(self.gnn_hidden_dim))
-            out_dim = self.gnn_output_dim if i == L - 1 else self.gnn_hidden_dim
-            dims.append((in_dim, out_dim))
+            out_dim = self.gnn_output_dim if last else self.gnn_hidden_dim
+            dims.append((in_dim, out_dim,
+                         self.gnn_p_in if first else self.gnn_p_hidden,
+                         self.gnn_p_out if last else self.gnn_p_hidden))
         return dims
 
     @property
     def gnn_layer_sizes(self):
-        return self._layer_dims()
+        return [d[:2] for d in self._layer_dims()]
+
+    # --- introspection mirroring the reference (models.py:577-634) ---
+    @property
+    def input_node_features_dim(self):
+        return self.graph_input_feature_dim
+
+    @property
+    def input_edge_features_dim(self):
+        return self.graph_input_edge_dim
+
+    @property
+    def output_features_dim(self):
+        return self.mlp_out_dim
 
     def forward(self, g: GraphBatch, x=None):
         """Returns [G, mlp_out_dim] per-graph predictions (ghost graph row
@@ -204,11 +238,11 @@ class GNNModel(torch.nn.Module):
         if stacked is not None:
             h = stacked
         else:
-            gat_ops = self._gat_operands()
+            ops = self._gat_operands() or self._pna_operands(g)
             for i, conv in enumerate(self.gnn_convs):
                 skip = (h if self.gnn_skip_connection and 0 < i < L - 1
                         else None)
-                kw = {} if gat_ops is None else {"operands": gat_ops[i]}
+                kw = {} if ops is None else {"operands": ops[i]}
                 h = conv(g, h, self.gnn_activation, skip, **kw)
         fused = self._fused_readout(g, h)
         if fused is not None:
@@ -311,6 +345,38 @@ class GNNModel(torch.nn.Module):
 
         return self._cached(f"{mode} staged", width, build)
 
+    def _pna_operands(self, g: GraphBatch):
+        """Each PNA layer's kernel operands (None: the layers make their
+        own): ``pna_layer.layer_operands`` of all layers at once, the
+        padded weights of the mode and their staged layout, for layers
+        with the default aggregators and scalers (the kernel's).  Under
+        inference in the active policy's mode, cached like
+        ``_kernel_params`` (rebuilt after ``set_params`` or an optimizer
+        step).  With a gradient, where the layer kernel runs (a card and
+        its gate), from the live weights on every call."""
+        from gnnbuilder_tpu_torch.ops import dispatch
+        from gnnbuilder_tpu_torch.ops.cuda.pna_layer import layer_operands
+
+        if (self.gnn_conv != "pna" or not self.gnn_convs
+                or any(tuple(c.aggregators) != PNA_AGGREGATORS
+                       or tuple(c.scalers) != PNA_SCALERS
+                       for c in self.gnn_convs)):
+            return None
+        mode = dispatch.policy()
+
+        def layers():
+            return layer_operands([c._weights() for c in self.gnn_convs],
+                                  mode)
+
+        if not torch.is_grad_enabled():
+            return self._cached(f"{mode} pna layers", self._stack_width(),
+                                layers)
+        if (mode != "f32" or self.gnn_convs[0].lin.weight.device.type
+                != "cuda" or dispatch.pna_layer_cfg(g, self.gnn_activation)
+                is None):
+            return None
+        return layers()
+
     def _gat_operands(self):
         """Each GAT layer's kernel operands in the active policy's mode
         (``GATConv.mode_operands``: the weights of the mode and their
@@ -348,6 +414,12 @@ class GNNModel(torch.nn.Module):
             mlp_out_dim=self.mlp_out_dim,
             mlp_activation=self.mlp_activation,
             output_activation=self.output_activation,
+            gnn_p_in=self.gnn_p_in,
+            gnn_p_hidden=self.gnn_p_hidden,
+            gnn_p_out=self.gnn_p_out,
+            mlp_p_in=self.mlp_p_in,
+            mlp_p_hidden=self.mlp_p_hidden,
+            mlp_p_out=self.mlp_p_out,
             conv_kwargs={k: list(v) if isinstance(v, tuple) else v
                          for k, v in self.conv_kwargs.items()},
         )

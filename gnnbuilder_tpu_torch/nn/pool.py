@@ -33,6 +33,10 @@ class GlobalPooling(torch.nn.Module):
                 )
         self.aggrs = tuple(aggrs)
 
+    @property
+    def num_of_aggrs(self) -> int:
+        return len(self.aggrs)
+
     def forward(self, g: GraphBatch, x):
         G = g.num_graphs
         seg = g.node_graph

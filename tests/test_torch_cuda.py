@@ -309,10 +309,10 @@ def test_program_forward_through_kernels(cuda_device):
                                atol=5e-4, rtol=1e-3)
 
 
-def _std_batch(n_graphs=128, device="cpu"):
+def _std_batch(n_graphs=128, device="cpu", node_multiple=256):
     gs, (b,) = canonical_batches("qm9", n_graphs=n_graphs,
-                                 batch_size=n_graphs, node_multiple=256,
-                                 device=device)
+                                 batch_size=n_graphs,
+                                 node_multiple=node_multiple, device=device)
     return gs, b
 
 
@@ -320,16 +320,23 @@ def _scaled_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("Fin,Fout,act,skip", [
-    (128, 128, "relu", True), (256, 128, "tanh", False),
-    (128, 256, "gelu", True), (128, 128, None, False),
-    (384, 384, "relu", True)])
-def test_pna_layer_kernel_matches_plain(cuda_device, Fin, Fout, act, skip):
+@pytest.mark.parametrize("Fin,Fout,act,skip,mult", [
+    (128, 128, "relu", True, 256), (256, 128, "tanh", False, 256),
+    (128, 256, "gelu", True, 256), (128, 128, None, False, 256),
+    (384, 384, "relu", True, 256), (1024, 1024, "relu", True, 256),
+    (128, 128, "relu", True, 1), (384, 128, "tanh", True, 1)])
+def test_pna_layer_kernel_matches_plain(cuda_device, Fin, Fout, act, skip,
+                                        mult):
     """Every output and residual on a standard-packed QM9 batch, tie
     counts and empty-row extrema exactly; the rest to 1e-4 of max |value|
-    (products summed in another order).  Hidden 384 needs more shared
-    memory than 32 rows per CTA allow and runs 16."""
-    _, b = _std_batch(device=cuda_device)
+    (products summed in another order).  Widths up to 1024 (the widest
+    the kernel took before it ran on the tensor cores); ``mult`` 1 packs a
+    row count that is no multiple of the aggregate launch's rows per CTA
+    (checked)."""
+    _, b = _std_batch(device=cuda_device, node_multiple=mult)
+    if mult == 1:
+        am = pna_layer.agg_rows(b.num_nodes, "f32", cuda_device)
+        assert b.num_nodes % am, (b.num_nodes, am)
     g = torch.Generator(device="cpu").manual_seed(1)
     F = Fin
 
@@ -361,6 +368,29 @@ def test_pna_layer_kernel_matches_plain(cuda_device, Fin, Fout, act, skip):
             a, w = a[ok], w[ok]
         assert _scaled_err(a, w) <= 1e-4, name
     assert (got[3][:, 3 * F:] > 1).any()
+
+
+@pytest.mark.parametrize("Fin", [128, 1024])
+def test_pna_layer_v_is_the_correctly_rounded_product(cuda_device, Fin):
+    """The v the f32 layer stores, whose values its tie counts and the
+    backward's max / min routing compare, is x Wj summed in float64 and
+    rounded once: bit for bit the float64 product rounded to float32 (two
+    float64 sums differ by ~1e-16, which moves a float32 rounding almost
+    never)."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    F = Fout = 128
+
+    def r(fan_in, *s):
+        return (torch.randn(*s, generator=g) / fan_in ** 0.5).to(cuda_device)
+
+    p = (r(2 * Fin, 2 * Fin, F), r(2 * Fin, F), r(13 * F, Fin + 12 * F, Fout),
+         r(13 * F, Fout), r(Fout, Fout, Fout), r(Fout, Fout))
+    x = torch.randn(b.num_nodes, Fin, generator=g).to(cuda_device)
+    v = pna_layer.fused_pna_layer(x, b.nbr_nodes, b.in_degree, *p, 1.8,
+                                  act="relu", save_res=True)[1]
+    want = (x.double() @ p[0][Fin:].double()).float()
+    assert torch.equal(v, want), int((v != want).sum())
 
 
 def _scatter_case(cuda_device, F):
@@ -406,15 +436,20 @@ def test_scatter_bwd_kernel_wide_matches_plain(cuda_device):
     _scatter_case(cuda_device, 384)
 
 
-def test_train_step_through_kernels(cuda_device):
+@pytest.mark.parametrize("rev", [True, False])
+def test_train_step_through_kernels(cuda_device, rev):
     """One Adam step of the canonical model on a 128-graph standard-packed
-    batch: the kernel path launches the layer and scatter kernels once per
-    layer and the readout once, and its loss (1e-5 relative) and every
-    parameter's gradient (1e-4 of its max |value|) match the plain path
-    run in float64.  The float32 plain path is no reference here: its std
-    over u + v cancels on near-constant rows and lands ~3.6e-4 of max
-    |value| off the float64 gradient, where the kernels land ~2.4e-5."""
+    batch, with and without its reverse table: the kernel path launches
+    the layer and scatter kernels once per layer (and the reverse-table
+    gather, where the table is there) and the readout once, and its loss
+    (1e-5 relative) and every parameter's gradient (1e-4 of its max
+    |value|) match the plain path run in float64.  The float32 plain path
+    is no reference here: its std over u + v cancels on near-constant rows
+    and lands ~3.6e-4 of max |value| off the float64 gradient, where the
+    kernels land ~2.4e-5."""
     gs, b = _std_batch(device=cuda_device)
+    if not rev:
+        b = b.replace(rev_nbr_nodes=None, out_degree=None)
     target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
     torch.manual_seed(0)
     model = canonical_model("pna", "qm9", graphs=gs).to(cuda_device)
@@ -424,7 +459,7 @@ def test_train_step_through_kernels(cuda_device):
     counts = _counts()
     loss = float(step(b, target).detach())
     torch.cuda.synchronize()
-    assert _delta(counts) == (6, 6, 6, 1)
+    assert _delta(counts) == (6, 6, 6 if rev else 0, 1)
     ref = canonical_model("pna", "qm9", graphs=gs).to(cuda_device).double()
     ref.load_state_dict({k: v.double() for k, v in state.items()})
     dispatch.set_fused_mode("never")
@@ -469,9 +504,10 @@ def test_wide_model_trains_through_kernels(cuda_device):
     parameter against float64: on this batch a max/min decision whose
     candidates lie within float32 rounding of each other goes the other
     way in float64 and sends that gradient to another neighbour, which
-    moves layer 4's pre_nn gradient ~4e-4 of its max: the kernel path on
-    the card, its plain version on the CPU and the float32 per-layer
-    plain path on the CPU all show it (``python -m
+    moves layer 4's pre_nn gradient ~4e-4 of its max: the float32 plain
+    path and the kernels' plain versions on the CPU show it; the kernel
+    path on the card, whose v is summed in float64 and rounded once,
+    decides every one as float64 does on this batch (``python -m
     gnnbuilder_tpu_torch.bench.grad_precision --graphs 64 --hidden 384
     --output 384`` names the rows)."""
     widths = dict(gnn_hidden_dim=384, gnn_output_dim=384)
@@ -2096,3 +2132,103 @@ def test_gat_train_step_after_adam_uses_the_updated_weights(cuda_device):
     assert _scaled_err(stale[m], ref[m]) > 1e-3
     loss = float(step(b, target))
     assert abs(loss - plain_loss) <= 1e-4 * abs(plain_loss)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_pna_layer_cached_layout_matches_layout_on_the_call(cuda_device,
+                                                             mode):
+    """The layer on weights staged beforehand (``layer_operands``: what
+    ``GNNModel`` caches for inference) gives the same bits as on weights
+    it lays out itself on the call, and two calls give the same bits."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(8)
+
+    def r(fan_in, *s):
+        return (torch.randn(*s, generator=g) / fan_in ** 0.5).to(cuda_device)
+
+    F = 128
+    p = (r(2 * F, 2 * F, F), r(2 * F, F), r(13 * F, 13 * F, F), r(13 * F, F),
+         r(F, F, F), r(F, F))
+    x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+    ops = pna_layer.layer_operands([p], mode)[0]
+    args = (x, b.nbr_nodes, b.in_degree, *ops["weights"], 1.8)
+    kw = dict(act="relu", mode=mode, s_lin=ops["s_lin"])
+    on_call = pna_layer.fused_pna_layer(*args, **kw)
+    cached = pna_layer.fused_pna_layer(*args, **kw, staged=ops["staged"])
+    again = pna_layer.fused_pna_layer(*args, **kw, staged=ops["staged"])
+    assert torch.equal(on_call, cached) and torch.equal(cached, again)
+
+
+@pytest.mark.parametrize("n_rows", [1, 47, 1000, 18688, 18701])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_pna_layer_at_row_counts(cuda_device, n_rows, mode):
+    """A random ELL table (width 6, degrees 0..6, repeated neighbours) at
+    row counts that fill the aggregate launch's tiles or leave a part
+    tile: the kernel against the plain version (f32 1e-4 of max with the
+    residuals, tie counts and empty-row extrema exact; the modes 2e-3 /
+    5e-3)."""
+    g = torch.Generator(device="cpu").manual_seed(n_rows)
+    W, F = 6, 128
+    nbr = torch.randint(0, n_rows, (n_rows, W), generator=g,
+                        dtype=torch.int32)
+    deg = torch.randint(0, W + 1, (n_rows,), generator=g, dtype=torch.int32)
+    nbr[:, 1] = nbr[:, 0]
+
+    def r(fan_in, *s):
+        return (torch.randn(*s, generator=g) / fan_in ** 0.5).to(cuda_device)
+
+    p = (r(2 * F, 2 * F, F), r(2 * F, F), r(13 * F, 13 * F, F), r(13 * F, F),
+         r(F, F, F), r(F, F))
+    x = torch.randn(n_rows, F, generator=g).to(cuda_device)
+    w_pre, k_post, w_lin, s_lin = pna_layer.prepare_layer(p[0], p[2], p[4],
+                                                          mode)
+    args = (x, nbr.to(cuda_device), deg.to(cuda_device), w_pre, p[1],
+            k_post, p[3], w_lin, p[5], 1.8)
+    kw = dict(act="relu", mode=mode, s_lin=s_lin,
+              save_res=mode == "f32")
+    got = pna_layer.fused_pna_layer(*args, **kw)
+    torch.cuda.synchronize()
+    want = pna_layer.pna_layer_plain(*args, **kw)
+    if mode != "f32":
+        assert _scaled_err(got, want) <= MODE_TOL[mode]
+        return
+    for name, a, w in zip(("out", "v", "agg_cat", "aux", "mid"), got, want):
+        if name == "aux":
+            torch.testing.assert_close(a[:, 3 * F:], w[:, 3 * F:], rtol=0,
+                                       atol=0)
+            a, w = a[:, :3 * F], w[:, :3 * F]
+            ok = deg.to(cuda_device) > 0
+            torch.testing.assert_close(a[~ok], w[~ok], rtol=0, atol=0)
+            a, w = a[ok], w[ok]
+            if not ok.any():   # one empty row: nothing left to compare
+                continue
+        assert _scaled_err(a, w) <= 1e-4, name
+
+
+def test_pna_step_after_adam_uses_the_updated_weights(cuda_device):
+    """A PNA model whose f32 inference cache was filled on a
+    standard-packed batch, then one Adam step (lr 5e-3): the next
+    ``Program.forward`` matches the plain path on the updated weights
+    within 1e-4 of max (the cached layer layouts rebuilt, not served
+    stale; the pre-update output is more than 1e-3 off)."""
+    gs, b = _std_batch(device=cuda_device)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    model = canonical_model("pna", "qm9", graphs=gs)
+    prog = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                   max_graphs=b.num_graphs, device="cuda", seed=9)
+    prog.init_params()
+    m = b.graph_mask
+    stale = prog.forward(b)
+    step = train.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=5e-3))
+    before = pna_layer.fused_pna_layer.launches
+    step(b, target)
+    fresh = prog.forward(b)
+    assert pna_layer.fused_pna_layer.launches == before + 12
+    dispatch.set_fused_mode("never")
+    try:
+        ref = prog.forward(b)
+    finally:
+        dispatch.set_fused_mode("auto")
+    assert _scaled_err(fresh[m], ref[m]) <= 1e-4
+    assert _scaled_err(stale[m], ref[m]) > 1e-3
