@@ -285,12 +285,24 @@ TC_KERNELS = {
     "gat_block_tc": (r"gat_block_tc_kernelILi(\d)ELi(\d)E",
                      "gnnb_gat_block_info",
                      {(c, n): (c, n) for c in (0, 1) for n in (1, 2)}),
+    # mode x where H and T live (1: shared memory, F = 128)
+    "mp_block_stack": (r"mp_block_stack_kernelILi(\d)ELb(\d)E",
+                       "gnnb_mp_block_info",
+                       {(c, ht): (c, ht) for c in STACK_MODES.values()
+                        for ht in (1, 0)}),
+    # f32 only; its resources at d_mid 128 wide, 128 rows a CTA (the
+    # launcher's choice there)
+    "pna_scatter_bwd": (r"pna_scatter_bwd_kernel()", "gnnb_scatter_bwd_info",
+                        {(0,): (128, 128)}),
 }
 
 
-def tc_label(key):
-    """An instance's name: its mode, and for GAT its chunk width."""
+def tc_label(kern, key):
+    """An instance's name: its mode, for GAT its chunk width, for the mp
+    stack where H and T live."""
     mode = {v: k for k, v in STACK_MODES.items()}[key[0]]
+    if kern == "mp_block_stack":
+        return f"{mode} {'H in shared' if key[1] else 'H in device'}"
     return mode if len(key) == 1 else f"{mode} cw{64 * key[1]}"
 
 
@@ -306,7 +318,7 @@ def tc_kernel_resources(lib_path, lib, nvcc_path):
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    out = {k: {tc_label(i): dict.fromkeys(TC_OPS, 0) for i in inst}
+    out = {k: {tc_label(k, i): dict.fromkeys(TC_OPS, 0) for i in inst}
            for k, (_, _, inst) in TC_KERNELS.items()}
     cur = None
     for line in sass.splitlines():
@@ -319,7 +331,7 @@ def tc_kernel_resources(lib_path, lib, nvcc_path):
                 key = m and (tuple(int(x) for x in m.groups() if x)
                              or next(iter(inst)))
                 if m and key in inst:
-                    cur = out[k][tc_label(key)]
+                    cur = out[k][tc_label(k, key)]
             continue
         if cur is not None:
             for op in TC_OPS:
@@ -335,7 +347,7 @@ def tc_kernel_resources(lib_path, lib, nvcc_path):
             err = info(*iargs, *map(ctypes.byref, vals))
             if err != 0:
                 raise RuntimeError(f"{entry}{iargs}: cudaError {err}")
-            out[k][tc_label(key)].update(registers=vals[0].value,
+            out[k][tc_label(k, key)].update(registers=vals[0].value,
                                          shared_bytes=vals[1].value,
                                          ctas_per_sm=vals[2].value)
     return out
@@ -365,6 +377,13 @@ MP_CONVS = ("gcn", "gin", "sage")
 def mp_widths(model):
     """(Fin, Fout) of each conv layer at the model's own widths."""
     return [(c.in_channels, c.out_channels) for c in model.gnn_convs]
+
+
+def mp_products(conv, n, widths):
+    """The flops of the stack's products alone (2 per multiply-add)."""
+    per = {"gcn": 1, "gin": None, "sage": 2}[conv]
+    return sum(2 * n * fin * fo * per if per else
+               2 * n * fin * fo + 2 * n * fo * fo for fin, fo in widths)
 
 
 def mp_flops(conv, n, edges, widths):
@@ -3730,8 +3749,8 @@ def main():
         print(f"--- ptxas\n{_build.build_log.strip()}", flush=True)
 
     with phase("tensor-core instructions and resources of each instance of "
-               "the PNA stack, the PNA layer and the GAT projection and "
-               "block kernels"):
+               "the PNA stack, the PNA layer, the GAT projection and block, "
+               "the mp stack and the PNA scatter backward kernels"):
         tc = tc_kernel_resources(lib, _build.load(), _build.nvcc())
         for kern, insts in tc.items():
             for inst, v in insts.items():
@@ -3998,7 +4017,16 @@ def main():
         report["pna_layer"] = dict(max_abs_err=err_layer, resources=dict(
             proj=tc["pna_proj"]["f32"], agg=tc["pna_agg"]["f32"],
             v=tc["pna_v"]["f32"]))
-        report["pna_scatter_bwd"] = dict(max_abs_err=err_scatter)
+        # ks_t changes every step: the wrapper lays it out on every call
+        ks_dev = device_ms(lambda: [scatter_bwd.stage_ks_t(a[4])
+                                    for a in cs_args], 10)
+        rows = _build.load().gnnb_scatter_bwd_rows(cs_args[0][0].shape[1])
+        log(f"pna_scatter_bwd: {rows} rows a CTA at N={tb.num_nodes}; the "
+            f"six layers' ks_t staging {ks_dev:.4f} ms device a step")
+        report["pna_scatter_bwd"] = dict(
+            max_abs_err=err_scatter, rows_per_cta=rows,
+            ks_t_staging_device_ms=ks_dev,
+            resources=tc["pna_scatter_bwd"]["f32"])
         report["ell_gather_bwd"] = dict(max_abs_err=err_gather)
         report["ell_gather_bwd_csr"] = dict(max_abs_err=err_csr)
 
@@ -4186,14 +4214,16 @@ def main():
         ok, abs_err, rel_err = close_enough(
             got[real], mp_block.mp_stack_plain(*wargs, **wkw)[real])
         err_mp = max(err_mp, abs_err)
-        wide_ms = time_ms(lambda: mp_block.fused_mp_block_stack(*wargs,
-                                                                **wkw), 3)
+        wstaged = mp_block.stage_mp_stack(wargs[3:7], "f32")
+        wide_ms = time_ms(lambda: mp_block.fused_mp_block_stack(
+            *wargs, **wkw, staged=wstaged), 3)
         log(f"mp_block_stack sage at hidden 384: max abs {abs_err:.3e}, "
             f"{rel_err:.3e} of max |value| (tol {TOL}); {wide_ms:.4f} ms")
         if not ok:
             raise AssertionError("mp_block_stack at hidden 384 disagrees")
-        report["mp_block_stack"] = dict(max_abs_err=err_mp,
-                                        sage_hidden_384_ms=wide_ms)
+        report["mp_block_stack"] = dict(
+            max_abs_err=err_mp, sage_hidden_384_ms=wide_ms,
+            resources=tc["mp_block_stack"]["f32 H in shared"])
 
     with phase(f"main path: Program.forward of canonical GCN, GIN and SAGE "
                f"on {N_BATCHES} x {BATCH_GRAPHS}-graph batches"):
@@ -4601,7 +4631,7 @@ def main():
         E = int(tb.in_degree.sum())
         Nt, Wt = tb.num_nodes, tb.ell_width
         Wr = tb.rev_nbr_nodes.shape[1]
-        l_flops = l_bytes = c_flops = c_bytes = l_pad = c_pad = 0
+        l_flops = l_bytes = c_flops = c_bytes = l_pad = c_pad = c_other = 0
         g_flops = g_bytes = g_pad = l_gather = 0
         for (args, kw), (Fi, Fl, Fo) in zip(layers, pna_widths(tmodel)):
             # the five products, ~5 ops per gathered value (add,
@@ -4619,6 +4649,7 @@ def main():
             # ~10 ops per row and feature for the coefficients; d_mid, aux,
             # the std block, the degrees and ks_t in, cstk [N, 7F] out
             c_flops += 2 * Nt * 3 * Fo * 4 * Fl + 10 * Nt * Fl
+            c_other += 10 * Nt * Fl
             c_pad += (2 * Nt * 3 * args[7].shape[1] * 4 * args[3].shape[1]
                       + 10 * Nt * args[3].shape[1])
             c_bytes += 4 * (Nt * Fo + Nt * 5 * Fl + Nt * Fl + Nt
@@ -4645,9 +4676,13 @@ def main():
                  lambda: run_each(ell_bwd.fused_gather_backward, g_args),
                  lambda: run_each(ell_bwd.ell_gather_backward_plain, g_args),
                  g_flops, g_bytes)):
-            # row 5's products run on the tensor cores: its bound restated
-            b_ms, b_by = (bound_f32_products(fl - l_gather, l_gather, by)
-                          if name == "pna_layer" else bound(fl, by))
+            # rows 5 and 6 run their products on the tensor cores: their
+            # bounds restated
+            b_ms, b_by = (
+                bound_f32_products(fl - l_gather, l_gather, by)
+                if name == "pna_layer" else
+                bound_f32_products(fl - c_other, c_other, by)
+                if name == "pna_scatter_bwd" else bound(fl, by))
             ent = dict(ms=time_ms(fn, 10), plain_ms=time_ms(plain, 3),
                        bound_ms=b_ms, bound_by=b_by, flops=fl,
                        padded_flops=pads[name], bytes=by,
@@ -4678,10 +4713,14 @@ def main():
             # x, the block adjacency, the degrees and the weights in, h out
             by = 4 * (Nb * widths[0][0] + b0.block_adj.numel() + Nb
                       + mp_weights(conv, widths) + Nb * widths[-1][1])
-            b_ms, b_by = bound(fl, by)
+            # the products run on the tensor cores: the bound restated
+            prod = mp_products(conv, Nb, widths)
+            b_ms, b_by = bound_f32_products(prod, fl - prod, by)
+            # on weights laid out beforehand, as the model caches them
+            staged = mp_block.stage_mp_stack(margs[3:7], "f32")
             by_conv[conv] = dict(
                 ms=time_ms(lambda: mp_block.fused_mp_block_stack(
-                    *margs, **mkw), 10),
+                    *margs, **mkw, staged=staged), 10),
                 plain_ms=time_ms(lambda: mp_block.mp_stack_plain(
                     *margs, **mkw), 3),
                 bound_ms=b_ms, bound_by=b_by, flops=fl, padded_flops=pad,

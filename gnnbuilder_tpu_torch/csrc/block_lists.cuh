@@ -1,5 +1,6 @@
-// Per-row neighbour lists of a block adjacency, shared by the kernels that
-// aggregate from block_adj (mp_block.cu, mp_layer.cu).
+// Per-row neighbour lists of a block adjacency, for the kernels that
+// aggregate from block_adj on the CUDA cores (mp_layer.cu, and
+// mp_block.cu in its int8 mode).
 //
 // A block-packed batch ships A [T, 128, 128] with A[t, i, j] the number of
 // edges (t*128 + j) -> (t*128 + i), small integers exact in f32.  A QM9

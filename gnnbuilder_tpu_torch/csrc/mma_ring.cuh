@@ -1,11 +1,13 @@
 // The tensor-core building blocks shared by the kernels whose products run
 // on mma.sync with their weights streamed through shared memory
-// (pna_block.cu, and the GAT projection in gat_common.cuh): the swizzled
-// row layouts of the A operands, the mbarrier and cp.async.bulk
-// primitives, the consumers' side of a ring of weight tiles, and the
-// mma.sync wrappers (m16n8k8 tf32, split TF32 in three passes, m16n8k16
-// bf16, m16n8k32 s8).  Device functions only: every kernel that includes
-// this header keeps its own launch geometry and shared-memory carve-up.
+// (pna_block.cu, mp_block.cu, scatter_bwd.cu, and the GAT projection in
+// gat_common.cuh): the swizzled row layouts of the A operands, the
+// mbarrier and cp.async.bulk primitives, the consumers' side of a ring of
+// weight tiles, a warp's accumulator tile of a 4 x 2 warp grid and its
+// epilogue walk, and the mma.sync wrappers (m16n8k8 tf32, split TF32 in
+// three passes, m16n8k16 bf16, m16n8k32 s8).  Device functions only:
+// every kernel that includes this header keeps its own launch geometry
+// and shared-memory carve-up.
 
 #pragma once
 
@@ -107,6 +109,41 @@ template <int S, int TB> struct Ring {
     ++it;
   }
 };
+
+// ---------------------------------------------- a warp's accumulator tile
+
+// acc[2][8][4]: a warp's 32 x 64 share of a [128, 128] product tile in a
+// 4 x 2 grid of warps, as mma C fragments: acc[mt][nt][2 hh + i] is row
+// 16 mt + g + 8 hh, column 8 nt + 2 t + i of the share (g = lane / 4,
+// t = lane % 4).
+template <typename T> using Acc = T[2][8][4];
+
+template <typename T>
+__device__ __forceinline__ void zero(Acc<T>& acc) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+}
+
+// Calls f(mt, nt, hh, r, c) for each pair of accumulators acc[mt][nt][2hh],
+// acc[mt][nt][2hh + 1] at tile row r and columns c, c + 1 of warp (wr,
+// wc).  The positions are worked out anew at each call: hoisted out of a
+// layer loop, the 32 addresses of each epilogue would stay live and spill.
+template <typename Fn>
+__device__ __forceinline__ void each_pair(int wr, int wc, int lane, Fn f) {
+  asm volatile("" : "+r"(lane));
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        f(mt, nt, hh, 32 * wr + 16 * mt + g + 8 * hh, 64 * wc + 8 * nt + 2 * t);
+}
 
 // ------------------------------------------------------------ tensor cores
 

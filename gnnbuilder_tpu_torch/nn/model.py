@@ -333,15 +333,18 @@ class GNNModel(torch.nn.Module):
         return self._cached(mode, width, build)
 
     def _staged_stack(self, width: int, mode: str):
-        """The PNA stack's weights in ``mode`` laid out as its kernel
-        streams them (``pna_block.stage_stack``), cached like
-        ``_kernel_params``."""
+        """The stack kernel's weights in ``mode`` laid out as it streams
+        them (PNA: ``pna_block.stage_stack``; GCN, GIN, SAGE:
+        ``mp_block.stage_mp_stack``), cached like ``_kernel_params``
+        (rebuilt after ``set_params`` or an optimizer step)."""
         def build():
+            from gnnbuilder_tpu_torch.ops.cuda.mp_block import stage_mp_stack
             from gnnbuilder_tpu_torch.ops.cuda.pna_block import stage_stack
 
             stacked = (self._kernel_params(width)[0] if mode == "f32"
                        else self._mode_params(width, mode)[0][0])
-            return stage_stack(stacked, mode)
+            stage = stage_stack if self.gnn_conv == "pna" else stage_mp_stack
+            return stage(stacked, mode)
 
         return self._cached(f"{mode} staged", width, build)
 
@@ -489,6 +492,8 @@ class GNNModel(torch.nn.Module):
             stacked, scales = self._kernel_params(width)[0], None
         else:
             stacked, scales = self._mode_params(width, mode)[0]
+        staged = (self._staged_stack(width, mode) if h.device.type == "cuda"
+                  else None)
         return mp_block_stack_auto(
             h, g.block_adj, g.in_degree, self.gnn_conv, stacked,
             epss=[getattr(c, "eps", 0.0) for c in self.gnn_convs],
@@ -496,6 +501,7 @@ class GNNModel(torch.nn.Module):
                    for i in range(L)],
             act=self.gnn_activation, out_dim=self.gnn_output_dim,
             block_size=cfg["block_size"], mode=mode, scales=scales,
+            staged=staged,
         )
 
     def _fused_readout(self, g: GraphBatch, h):

@@ -24,7 +24,9 @@ it forms d_agg = dy ks_t and the per-receiver coefficients.
   added atomically and dv is the same bits on every run.
 
 What bounds the kernel on the H100: operations (d_agg, 2 * 3Fout * 4F
-flops per row, run as f32 FMAs).
+flops per row), run on the tensor cores in three TF32 passes.  The kernel
+reads ks_t in its own layout (``stage_ks_t``), which the wrapper lays out
+on the card on every call: ks_t changes with every optimizer step.
 """
 
 from __future__ import annotations
@@ -38,11 +40,73 @@ from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import (
     fused_gather_backward_csr,
     n_blocks,
 )
+from gnnbuilder_tpu_torch.ops.cuda.pna_block import (
+    _fragment_index,
+    split_tf32,
+)
 from gnnbuilder_tpu_torch.ops.ell import ell_mask, reverse_csr
 
 __all__ = ["fused_pna_scatter_backward", "pna_scatter_backward_plain",
            "fused_pna_scatter_cstk", "pna_scatter_cstk_plain",
-           "fused_scatter_backward", "scatter_backward_plain"]
+           "fused_scatter_backward", "scatter_backward_plain",
+           "stage_ks_t", "unstage_ks_t"]
+
+# features of one CTA's column group in the kernel
+_GROUP = 32
+# (K, F, device) -> the device's copy of _stream_order(K, F)
+_ORDERS = {}
+
+
+def _f32_dot(a, w):
+    """d_agg's product in the plain version."""
+    return a @ w
+
+
+def _stream_order(K: int, F: int):
+    """(index, half): the positions of ``stage_ks_t``'s stream as flat
+    indices into ks_t [K, 4F], and the TF32 half each holds (0 hi, 1 lo:
+    a pair of n8 tiles' 128 hi values, then its 128 lo values).  Per group
+    of 32 features, 128 staged columns (the features' four blocks: column
+    s holds block (s % 64) // 8 % 4 of feature 32 group + 16 (s // 64) +
+    8 ((s % 64) // 32) + s % 8, so that each thread's accumulators hold
+    the four blocks of its features), in ``_fragment_index`` order (k-steps
+    of 8)."""
+    frag = _fragment_index(K, 128, 1)
+    k, s = frag // 128, frag % 128
+    nt = (s % 64) // 8
+    feat = 16 * (s // 64) + 8 * (nt // 4) + s % 8
+    col = (nt % 4) * F + feat
+    index = torch.cat([k * 4 * F + col + _GROUP * cg
+                       for cg in range(F // _GROUP)])
+    pairs = index.numel() // 128
+    index = index.view(pairs, 1, 128).expand(pairs, 2, 128).reshape(-1)
+    half = torch.arange(2).view(1, 2, 1).expand(pairs, 2, 128).reshape(-1)
+    return index, half
+
+
+def _order(K: int, F: int, device):
+    key = (K, F, str(device))
+    if key not in _ORDERS:
+        _ORDERS[key] = tuple(t.to(device) for t in _stream_order(K, F))
+    return _ORDERS[key]
+
+
+def stage_ks_t(ks_t):
+    """ks_t [3Fout, 4F] float32 in the layout the kernel streams
+    (``_stream_order``): one flat float32 tensor of 2 x 3Fout x 4F values,
+    each weight's ``split_tf32`` halves, made with torch ops on ks_t's
+    device."""
+    K, F4 = ks_t.shape
+    index, half = _order(K, F4 // 4, ks_t.device)
+    return torch.stack(split_tf32(ks_t.reshape(-1)))[half, index]
+
+
+def unstage_ks_t(staged, K: int, F: int):
+    """ks_t's TF32 halves [2, K, 4F] back from ``stage_ks_t``'s layout."""
+    index, half = _order(K, F, staged.device)
+    flat = staged.new_empty((2, K * 4 * F))
+    flat[half, index] = staged
+    return flat.view(2, K, 4 * F)
 
 
 def scatter_backward_plain(cstk, nbr_nodes, in_degree, v, has_lin=True,
@@ -85,7 +149,7 @@ def _coefficients(d_mid, aux, agg_cat, in_degree, ks_t, delta):
     log_deg = torch.log(denom + 1.0)
     dy = torch.cat([d_mid, (log_deg / delta) * d_mid,
                     (delta / log_deg) * d_mid], dim=1)
-    d_agg = dy @ ks_t                                       # [N, 4F]
+    d_agg = _f32_dot(dy, ks_t)                              # [N, 4F]
     zero = d_mid.new_zeros(())
     ct_mx = torch.where(nonempty, d_agg[:, :F], zero)
     ct_mn = torch.where(nonempty, d_agg[:, F:2 * F], zero)
@@ -173,16 +237,19 @@ def _launch(d_mid, aux, agg_cat, in_degree, ks_t, delta):
         raise ValueError("all inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("all inputs must be 16-byte aligned")
+    staged = stage_ks_t(ks_t)
     fn = lib.gnnb_pna_scatter_bwd
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 5 + [I] * 3 + [ctypes.c_float, P, P, I]
+    fn.argtypes = ([P] * 5 + [I] * 3 + [ctypes.c_float, P, P, I, P,
+                                        ctypes.c_longlong])
     dev = d_mid.device
     cstk = torch.empty((N, 7 * F), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(d_mid.data_ptr(), aux.data_ptr(), agg_cat.data_ptr(),
              in_degree.data_ptr(), ks_t.data_ptr(), N, F, Fout, float(delta),
-             cstk.data_ptr(), stream, dev.index or 0)
+             cstk.data_ptr(), stream, dev.index or 0, staged.data_ptr(),
+             staged.numel() * staged.element_size())
     if err != 0:
         raise RuntimeError(f"pna_scatter_bwd launch failed: cudaError {err}")
     return cstk

@@ -580,16 +580,32 @@ def _hub_block_batch(device, n_graphs=120):
     return gs, b
 
 
+def _dense_block_batch(device):
+    """The 128-graph block batch with its first block's adjacency dense
+    (an edge between every ordered pair, in-degree 128): the most list
+    entries a block holds."""
+    _, b = _batch()
+    adj = b.block_adj.clone()
+    adj[0] = 1.0
+    deg = b.in_degree.clone()
+    deg[:128] = 128
+    return b.replace(block_adj=adj, in_degree=deg).to(device)
+
+
 @pytest.mark.parametrize("conv", ["gcn", "gin", "sage"])
 @pytest.mark.parametrize("F", [128, 384])
 def test_mp_block_kernel_matches_plain(cuda_device, conv, F):
     """6 layers at width F with skips on the 128-graph block batch, and at
     128 on a batch with a 70-in-degree hub and no ELL table (the kernel
-    aggregates from block_adj); 1e-4 of max |value| on real rows (sums in
-    another order).  F = 384 keeps H and T in device memory."""
+    aggregates from block_adj), on a batch whose first block is dense and
+    on the 1024-graph batch (160 blocks, more than the card's SMs); 1e-4
+    of max |value| on real rows (sums in another order).  F = 384 keeps
+    H and T in device memory."""
     batches = [_batch()[1].to(cuda_device)]
     if F == 128:
-        batches.append(_hub_block_batch(cuda_device)[1])
+        batches += [_hub_block_batch(cuda_device)[1],
+                    _dense_block_batch(cuda_device),
+                    _batch(1024)[1].to(cuda_device)]
     g = torch.Generator(device="cpu").manual_seed(3)
     L = 6
     w0, w1 = [(torch.randn(L, F, F, generator=g) / F ** 0.5).to(cuda_device)
@@ -2132,6 +2148,41 @@ def test_gat_train_step_after_adam_uses_the_updated_weights(cuda_device):
     assert _scaled_err(stale[m], ref[m]) > 1e-3
     loss = float(step(b, target))
     assert abs(loss - plain_loss) <= 1e-4 * abs(plain_loss)
+
+
+@pytest.mark.parametrize("conv", ["gcn", "sage"])
+def test_mp_stack_after_adam_uses_the_updated_weights(cuda_device, conv):
+    """A block-packed GCN or SAGE model whose f32 stack layout was cached
+    by an inference forward, then one Adam step (lr 5e-3) on the standard
+    batch: the next block forward launches the stack kernel again and
+    matches the per-layer plain path on the updated weights within 1e-4
+    of max (the cached layout rebuilt, not served stale; the pre-update
+    output is more than 1e-3 off)."""
+    gs, b = _batch(256)
+    b = b.to(cuda_device)
+    gs_std, sb = _std_batch(device=cuda_device)
+    target = train.stack_targets(gs_std, sb.num_graphs, device=cuda_device)
+    model = canonical_model(conv, "qm9", graphs=gs)
+    prog = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                   max_graphs=b.num_graphs, block_size=128, device="cuda",
+                   seed=9)
+    prog.init_params()
+    m = b.graph_mask
+    stale = prog.forward(b)
+    step = train.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=5e-3))
+    step(sb, target)
+    before = mp_block.fused_mp_block_stack.launches
+    fresh = prog.forward(b)
+    torch.cuda.synchronize()
+    assert mp_block.fused_mp_block_stack.launches == before + 1
+    dispatch.set_fused_mode("never")
+    try:
+        ref = prog.forward(b)
+    finally:
+        dispatch.set_fused_mode("auto")
+    assert _scaled_err(fresh[m], ref[m]) <= 1e-4
+    assert _scaled_err(stale[m], ref[m]) > 1e-3
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
