@@ -294,6 +294,26 @@ TC_KERNELS = {
     # launcher's choice there)
     "pna_scatter_bwd": (r"pna_scatter_bwd_kernel()", "gnnb_scatter_bwd_info",
                         {(0,): (128, 128)}),
+    # row 4's gin / sage kernel, mode x block mode x rows a CTA (128; 64
+    # where 128 do not fit: hidden 384); its resources at 128 wide in,
+    # hidden and out (384 for 64 rows), for gin and for sage (their shared
+    # memory differs), the same SASS
+    "mp_layer_tc gin": (r"mp_layer_tc_kernelILi(\d)ELb(\d)ELi(\d+)E",
+                        "gnnb_mp_layer_info",
+                        {(c, b, r): (c, b, 0, r, 128 if r == 128 else 384)
+                         for c in STACK_MODES.values() for b in (0, 1)
+                         for r in (128, 64)}),
+    "mp_layer_tc sage": (r"mp_layer_tc_kernelILi(\d)ELb(\d)ELi(\d+)E",
+                         "gnnb_mp_layer_info",
+                         {(c, b, r): (c, b, 1, r, 128 if r == 128 else 384)
+                          for c in STACK_MODES.values() for b in (0, 1)
+                          for r in (128, 64)}),
+    # row 13's projection and slot launches (the slot launch's instance
+    # for F % 4 == 0), f32 and bf16, at 128 wide
+    "edge_proj_tc": (r"edge_proj_tc_kernelILb(\d)E", "gnnb_edge_block_info",
+                     {(c,): (0, c) for c in (0, 1)}),
+    "edge_slot_tc": (r"edge_slot_tc_kernelILb(\d)ELi4E", "gnnb_edge_block_info",
+                     {(c,): (1, c) for c in (0, 1)}),
 }
 
 
@@ -303,6 +323,8 @@ def tc_label(kern, key):
     mode = {v: k for k, v in STACK_MODES.items()}[key[0]]
     if kern == "mp_block_stack":
         return f"{mode} {'H in shared' if key[1] else 'H in device'}"
+    if kern.startswith("mp_layer_tc"):
+        return f"{mode} {'block' if key[1] else 'ELL'} {key[2]} rows"
     return mode if len(key) == 1 else f"{mode} cw{64 * key[1]}"
 
 
@@ -320,23 +342,23 @@ def tc_kernel_resources(lib_path, lib, nvcc_path):
                           timeout=300).stdout
     out = {k: {tc_label(k, i): dict.fromkeys(TC_OPS, 0) for i in inst}
            for k, (_, _, inst) in TC_KERNELS.items()}
-    cur = None
+    cur = []   # every entry whose pattern names this function
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            cur = None
+            cur = []
             for k, (pat, _, inst) in TC_KERNELS.items():
                 m = re.search(pat, fn.group(1))
                 # a kernel of one instance has an empty group
                 key = m and (tuple(int(x) for x in m.groups() if x)
                              or next(iter(inst)))
                 if m and key in inst:
-                    cur = out[k][tc_label(k, key)]
+                    cur.append(out[k][tc_label(k, key)])
             continue
-        if cur is not None:
-            for op in TC_OPS:
-                if re.search(rf"\b{op}\b", line):
-                    cur[op] += 1
+        for op in TC_OPS:
+            if cur and re.search(rf"\b{op}\b", line):
+                for c in cur:
+                    c[op] += 1
     for k, (_, entry, inst) in TC_KERNELS.items():
         info = getattr(lib, entry)
         info.restype = ctypes.c_int
@@ -643,7 +665,11 @@ def mp_times(report, *, tb, mp_modes, g_args, sc_args, mp_models,
             H = ops["w0"].shape[1] if conv == "gin" else 0
             fl, by = mp_layer_work(conv, n_, e_, words, 128, H, Fout,
                                    sk is not None, act is not None, save_s)
-            b_ms, b_by = bound(fl, by)
+            # gin's and sage's products run on the tensor cores
+            prod = {"gin": 2 * n_ * (128 * H + H * Fout),
+                    "sage": 4 * n_ * 128 * Fout}.get(conv)
+            b_ms, b_by = (bound(fl, by) if prod is None else
+                          bound_f32_products(prod, fl - prod, by))
             ms, ev = timed(lambda: mp_layer.fused_mp_layer(
                 x_, g_.nbr_nodes, g_.in_degree, conv, **kw), 20)
             pms, pev = timed(lambda: mp_layer.mp_layer_plain(
@@ -1386,6 +1412,15 @@ def edge_work(layers, g):
     return flops, nbytes
 
 
+def edge_products(layers, g):
+    """The products of ``edge_work``: lin0's two per row and lin1 per real
+    edge (the valid slots only)."""
+    n, e = g.num_nodes, int(g.in_degree.sum())
+    return sum(4 * n * args[0].shape[1] * kw["w_pair"].shape[1]
+               + 2 * e * kw["w_pair"].shape[1] * kw["w1"].shape[1]
+               for args, kw in layers)
+
+
 def agg_work(layers, g):
     """(flops, bytes) of row-8 launches: per real edge and feature the
     shift add (with u), one add for sum / mean / std, two more for std's
@@ -1693,8 +1728,12 @@ def edge_agg_phases(report, *, dev, graphs, batches, b0, tgraphs, tb,
                     fn(*args, **kw)
             return go
 
-        def entry(name, key, fn, plain, ls, g_, work, per, lib=None):
-            b_ms, b_by = bound(*work)
+        def entry(name, key, fn, plain, ls, g_, work, per, lib=None,
+                  products=None):
+            # row 13's products run on the tensor cores: 3 x TF32 bound
+            b_ms, b_by = (bound(*work) if products is None else
+                          bound_f32_products(products, work[0] - products,
+                                             work[1]))
             ms, ev = timed(run(fn, ls), 10)
             pms, pev = timed(run(plain, ls), 3)
             lms, lev = timed(lib, 10) if lib is not None else (None, None)
@@ -1722,7 +1761,8 @@ def edge_agg_phases(report, *, dev, graphs, batches, b0, tgraphs, tb,
             "edge_block", "block", edge_block.fused_edge_block_layer,
             edge_block.edge_block_layer_plain, layers["edge_block"], b0,
             edge_work(layers["edge_block"], b0),
-            f"one block-packed b{BATCH_GRAPHS} forward (6 launches)"))
+            f"one block-packed b{BATCH_GRAPHS} forward (6 launches)",
+            products=edge_products(layers["edge_block"], b0)))
         # row 8's library yardsticks: the max of the neighbour rows as one
         # scatter_reduce over the edge list (sources gathered outside the
         # timing; include_self=False on zeros keeps 0 on an empty row), and
@@ -3750,7 +3790,8 @@ def main():
 
     with phase("tensor-core instructions and resources of each instance of "
                "the PNA stack, the PNA layer, the GAT projection and block, "
-               "the mp stack and the PNA scatter backward kernels"):
+               "the mp stack, the PNA scatter backward, the mp layer's gin "
+               "/ sage and the EdgeConv kernels"):
         tc = tc_kernel_resources(lib, _build.load(), _build.nvcc())
         for kern, insts in tc.items():
             for inst, v in insts.items():

@@ -1,7 +1,8 @@
-// Device code shared by the mp, GINE and EdgeConv layer kernels
-// (mp_layer.cu, gine_layer.cu, edge_block.cu): rows of a product X W with
-// X in shared memory and W streaming from device memory, and the epilogue
-// activations.
+// Device code of the GINE layer kernel (gine_layer.cu) and of the mp
+// layer kernel's elementwise convs (mp_layer.cu: act_fn, THREADS): rows of
+// a product X W with X in shared memory and W streaming from device
+// memory, and the epilogue activations.  The mp layer's gin / sage and the
+// EdgeConv kernel run on tc_rows.cuh's tensor-core product.
 //
 // A CTA of THREADS threads owns R rows; each thread owns one output column
 // of a CB-column pass and R / GROUPS rows, so every weight read (L2

@@ -17,21 +17,35 @@
 //   out   = act(o [+ skip])                (skip added before the act)
 //
 // What bounds it on the H100: operations (2 Fin F per row for each half
-// of lin0, and for max 2 F Fout per valid slot), run as plain f32 FMAs.
+// of lin0, and for max 2 F Fout per valid slot), run on the tensor cores
+// (tc_rows.cuh: 3 x TF32, or bf16).
 //
-// Design: the first launch forms v and w for every row (dense_rows.cuh:
-// x's rows in shared memory, one output column per thread) and writes
-// them to device memory (L2 resident at the canonical batch), because
-// every receiver reads its neighbours' v, which another CTA forms.  The
-// second launch gives a CTA R = 32 consecutive rows; per slot it builds
-// the rows' t in shared memory with indexed loads of v (slots up to the
-// CTA's largest in-degree only), then runs the lin1 product per thread
-// column and keeps the running max in registers; for sum and mean it sums
-// t first and runs lin1 once.  The TPU kernel's block-local one-hot
-// gathers (hi/lo bf16 passes) existed because Mosaic has no dynamic row
-// gather; an indexed load is exact and needs no block locality, so the
-// kernel takes any ELL table, though EdgeConv sends it block-packed
-// batches only, as the JAX package does.
+// Design.  Both launches run tc_rows.cuh's product of rows in shared
+// memory by the caller's row-major weights, streamed by k-chunks.  The
+// first launch (128 rows a CTA) forms v and w for every row: x W_self +
+// b0 into w, then x W_diff into v and w - v into w, each element by the
+// thread that wrote it (one pass of both matrices would hold 128
+// accumulators a thread).  They go to device memory (L2 resident at the
+// canonical batch), because every receiver reads its neighbours' v, which
+// another CTA forms.  The second launch gives a CTA 64 receiver rows.  For
+// sum and mean it sums t over the valid slots first, as the TPU kernel
+// does, and runs lin1 once (the 64-row product).  For max it runs lin1 on
+// the valid (row, slot) pairs only: their slots are numbered row by row
+// (a prefix sum of the degrees), 128 at a time a chunk (a QM9 row has ~2
+// in-neighbours: one chunk a CTA); a chunk's t rows are built in shared
+// memory with indexed loads of v (four pairs' loads in flight a thread),
+// the product runs over the chunk's m-tiles that hold pairs, its rows go
+// to shared memory, and each thread folds the pairs of its (row, column)
+// elements into a running maximum, in slot order (a CTA of more pairs
+// keeps its maxima in `out` between chunks).  The FMA kernel before built
+// t for every row at every slot up to the CTA's largest in-degree and
+// multiplied all of them, about half thrown away on QM9; a variant that
+// runs per slot over all rows with the empty trailing m-tiles skipped
+// measured no faster (PERF.md §6).  The TPU kernel's block-local
+// one-hot gathers (hi/lo bf16 passes) existed because Mosaic has no
+// dynamic row gather; an indexed load is exact and needs no block
+// locality, so the kernel takes any ELL table, though EdgeConv sends it
+// block-packed batches only, as the JAX package does.
 //
 // The bf16 mode (a template argument; the JAX kernel's gather_mode
 // "bf16" with mm="bf16", inference only): w_pair and w1 are bf16, x's
@@ -39,15 +53,22 @@
 // gathered v_j is rounded to bf16, and t (or its sum, or mean) is stored
 // rounded for the lin1 product; sums stay float32.  There is no int8 mode,
 // as in the JAX package (its gate declines under int8).
+//
+// No float is added atomically: every launch gives the same bits.
 
-#include "dense_rows.cuh"
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "tc_rows.cuh"
 
 namespace {
 
-using namespace gnnb_dense;
+namespace tc = gnnb_tc;
 using gnnb_quant::bf16r;
 
-constexpr int SLOT_R = 32;   // rows per CTA of the slot launch
+constexpr int PR = 128;   // rows of a projection CTA; pairs of a max chunk
+constexpr int RR = 64;    // receiver rows of a slot CTA
+constexpr int NC = tc::NC;
 
 enum Aggr { MAX = 0, SUM = 1, MEAN = 2 };
 
@@ -65,200 +86,462 @@ struct EdgeArgs {
   float* w;              // [N, F] scratch
   float* out;            // [N, Fout]
   int n_rows, W, Fin, F, Fout, aggr, act;
+  int stages;            // weight stages in shared memory
+  bool xvec;             // Fin % 4 == 0 and x 16-byte aligned
 };
 
-// v and w of R rows.
-template <int R, bool BF16>
-__global__ void __launch_bounds__(THREADS) edge_proj_kernel(EdgeArgs a) {
-  using TW = typename gnnb_quant::WeightOf<BF16 ? gnnb_quant::BF16
-                                                : gnnb_quant::F32>::T;
-  constexpr int RG = R / GROUPS;
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);   // [R, ldFin]
-  const int Fin = a.Fin, F = a.F, ldX = rup4(Fin);
-  const int row0 = blockIdx.x * R;
-  for (int e = threadIdx.x; e < R * ldX; e += THREADS) {
-    const int i = e / ldX, c = e % ldX, r = row0 + i;
-    const float x = (c < Fin && r < a.n_rows) ? a.x[(size_t)r * Fin + c]
-                                              : 0.f;
-    X[e] = BF16 ? bf16r(x) : x;
-  }
-  __syncthreads();
-  const int col = threadIdx.x % CB;
-  const int i0 = (threadIdx.x / CB) * RG;
-  for (int c = col; c < F; c += CB) {
-    float av[RG], au[RG];
-#pragma unroll
-    for (int i = 0; i < RG; ++i) av[i] = au[i] = 0.f;
-    dot_rows<RG>(av, X, ldX, i0, static_cast<const TW*>(a.w_diff), F, c,
-                 Fin);
-    dot_rows<RG>(au, X, ldX, i0, static_cast<const TW*>(a.w_self), F, c,
-                 Fin);
-    const float b = a.b0[c];
-#pragma unroll
-    for (int i = 0; i < RG; ++i) {
-      const int r = row0 + i0 + i;
-      if (r >= a.n_rows) continue;
-      a.v[(size_t)r * F + c] = av[i];
-      a.w[(size_t)r * F + c] = (au[i] + b) - av[i];
-    }
-  }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// shared memory (bytes) of the projection launch: the stages, then x's
+// rows
+__host__ __device__ inline int proj_x_offset(int mode, int stages) {
+  return stages * tc::chunk_bytes(mode);
+}
+__host__ __device__ inline int proj_bytes(int Fin, int mode, int stages) {
+  return proj_x_offset(mode, stages) + PR * tc::lda_of(Fin, mode) * 4;
 }
 
-// relu(w_i + v_j) of slot s for the CTA's rows into T (0 where s is not a
-// valid slot of the row), or their sum over the valid slots (s < 0); with
-// BF16 each v_j and each stored value rounded to bf16.
+// the slot launch: the stages, the t rows (PR pairs of a max chunk, whose
+// product rows go over them; RR receiver rows' sums), the degrees, the
+// row offsets of the pairs and a chunk's pair rows
+struct SlotLayout {
+  int ldT, T, DEG, OFF, CROW, bytes;
+};
+__host__ __device__ inline SlotLayout slot_layout(int F, int mode,
+                                                  int stages) {
+  SlotLayout L;
+  L.ldT = tc::lda_of(F, mode);
+  L.T = stages * tc::chunk_bytes(mode);
+  L.DEG = tc::align16(L.T + PR * imax(L.ldT, tc::LDY) * 4);
+  L.OFF = L.DEG + RR * 4;
+  L.CROW = L.OFF + (RR + 1) * 4;
+  L.bytes = L.CROW + PR * 4;
+  return L;
+}
+
+// v and w of 128 rows: x W_self + b0 into w, then x W_diff into v and
+// w - v into w (each element by the thread that wrote it).
 template <bool BF16>
-__device__ __forceinline__ void build_t(const EdgeArgs& a, float* T,
-                                        const int* s_deg, int row0, int s) {
-  auto vj = [&](int j, int c) {
-    const float x = a.v[(size_t)j * a.F + c];
-    return BF16 ? bf16r(x) : x;
+__global__ void __launch_bounds__(tc::THREADS, 2)
+edge_proj_tc_kernel(EdgeArgs a) {
+  constexpr int MODE = BF16 ? gnnb_quant::BF16 : gnnb_quant::F32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Fin = a.Fin, F = a.F;
+  const int ldX = tc::lda_of(Fin, MODE), kX = tc::kpad(Fin, MODE);
+  float* X = reinterpret_cast<float*>(smem + proj_x_offset(MODE, a.stages));
+  const int row0 = blockIdx.x * PR;
+  const int rows = min(PR, a.n_rows - row0);
+  // pass 2 n + m: matrix m (0 self, 1 diff), column tile n
+  auto pass = [&](int i) {
+    tc::Pass p;
+    p.w = i % 2 ? a.w_diff : a.w_self;
+    p.ldw = p.N = F;
+    p.K = Fin;
+    p.n0 = i / 2 * NC;
+    return p;
   };
-  const int F = a.F, ldF = rup4(F);
-  for (int e = threadIdx.x; e < SLOT_R * ldF; e += THREADS) {
-    const int i = e / ldF, c = e % ldF, r = row0 + i;
-    float t = 0.f;
-    if (c < F && r < a.n_rows) {
-      const float wi = a.w[(size_t)r * F + c];
-      const int* nb = a.nbr + (size_t)r * a.W;
-      if (s >= 0) {
-        if (s < s_deg[i]) t = fmaxf(wi + vj(nb[s], c), 0.f);
-      } else {
-        for (int q = 0; q < s_deg[i]; ++q) t += fmaxf(wi + vj(nb[q], c), 0.f);
-        if (a.aggr == MEAN) t /= fmaxf((float)s_deg[i], 1.f);
-      }
+  const int npass = 2 * ((F + NC - 1) / NC);
+  tc::Stream<MODE, PR> ws{smem, a.stages, 0};
+  ws.prefetch(pass(0));
+  if (a.xvec) {   // four columns a thread (one at a time it waited)
+    const float4* x4 = reinterpret_cast<const float4*>(a.x);
+    const int F4 = Fin / 4, K4 = kX / 4;
+    for (int e = threadIdx.x; e < PR * K4; e += tc::THREADS) {
+      const int i = e / K4, c4 = e % K4;
+      float4 x = i < rows && c4 < F4 ? __ldg(x4 + (size_t)(row0 + i) * F4 + c4)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (BF16) x = make_float4(bf16r(x.x), bf16r(x.y), bf16r(x.z), bf16r(x.w));
+      *reinterpret_cast<float4*>(X + (size_t)i * ldX + 4 * c4) = x;
     }
-    T[e] = BF16 ? bf16r(t) : t;
+  } else {
+    for (int e = threadIdx.x; e < PR * kX; e += tc::THREADS) {
+      const int i = e / kX, c = e % kX;
+      const float x =
+          i < rows && c < Fin ? a.x[(size_t)(row0 + i) * Fin + c] : 0.f;
+      X[(size_t)i * ldX + c] = BF16 ? bf16r(x) : x;
+    }
   }
-}
-
-template <bool BF16>
-__global__ void __launch_bounds__(THREADS) edge_slot_kernel(EdgeArgs a) {
-  using TW = typename gnnb_quant::WeightOf<BF16 ? gnnb_quant::BF16
-                                                : gnnb_quant::F32>::T;
-  const TW* W1 = static_cast<const TW*>(a.w1);
-  constexpr int RG = SLOT_R / GROUPS;
-  extern __shared__ float4 smem4[];
-  __shared__ int s_deg[SLOT_R];
-  __shared__ int s_max;
-  float* T = reinterpret_cast<float*>(smem4);   // [SLOT_R, ldF]
-  const int F = a.F, Fout = a.Fout, ldF = rup4(F);
-  const int row0 = blockIdx.x * SLOT_R;
-  if (threadIdx.x == 0) s_max = 0;
+  ws.stage_prefetched();
   __syncthreads();
-  for (int i = threadIdx.x; i < SLOT_R; i += THREADS) {
-    s_deg[i] = row0 + i < a.n_rows ? a.deg[row0 + i] : 0;
-    atomicMax(&s_max, s_deg[i]);
-  }
-  __syncthreads();
-  const int col = threadIdx.x % CB;
-  const int i0 = (threadIdx.x / CB) * RG;
-  const bool is_max = a.aggr == MAX;
-  if (!is_max) {
-    build_t<BF16>(a, T, s_deg, row0, -1);
-    __syncthreads();
-  }
-  for (int c0 = 0; c0 < Fout; c0 += CB) {
-    const int c = c0 + col;
-    float acc[RG];
-    if (is_max) {
-      float mx[RG];
+  for (int i = 0; i < npass; ++i) {
+    const int n0 = i / 2 * NC;
+    tc::Acc<MODE, PR> acc;
+    tc::zero<MODE, PR>(acc);
+    ws.run(acc, X, ldX, pass(i), rows, pass(i + 1), i + 1 < npass);
+    // four n-tiles' loads (w's u + b0 in the second pass) issued together
+    using G = tc::Geo<PR>;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int cb = n0 + 8 * G::NT * (warp / G::WR) + 2 * (lane & 3);
 #pragma unroll
-      for (int i = 0; i < RG; ++i) mx[i] = -INFINITY;
-      for (int s = 0; s < s_max; ++s) {
-        __syncthreads();   // the last slot's T is read by every thread
-        build_t<BF16>(a, T, s_deg, row0, s);
-        __syncthreads();
-        if (c < Fout) {
+    for (int mt = 0; mt < tc::MT; ++mt)
 #pragma unroll
-          for (int i = 0; i < RG; ++i) acc[i] = 0.f;
-          dot_rows<RG>(acc, T, ldF, i0, W1, Fout, c, F);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 32 * (warp % G::WR) + 16 * mt + (lane >> 2) + 8 * hh;
+        if (r >= rows) continue;
+        const size_t orow = (size_t)(row0 + r) * F;
 #pragma unroll
-          for (int i = 0; i < RG; ++i)
-            if (s < s_deg[i0 + i]) mx[i] = fmaxf(mx[i], acc[i]);
+        for (int j0 = 0; j0 < G::NT; j0 += 4) {
+          float pre[4][2];   // b0, or u + b0
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+              const int c = cb + 8 * (j0 + j) + k;
+              pre[j][k] = c >= F         ? 0.f
+                          : i % 2 == 0 ? __ldg(a.b0 + c)
+                                       : a.w[orow + c];
+            }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+              const int c = cb + 8 * (j0 + j) + k;
+              if (c >= F) continue;
+              const float y = acc[mt][j0 + j][2 * hh + k];
+              if (i % 2 == 0) {   // u = x W_self + b0
+                a.w[orow + c] = __fadd_rn(y, pre[j][k]);
+              } else {            // v, and w = u - v
+                a.v[orow + c] = y;
+                a.w[orow + c] = __fsub_rn(pre[j][k], y);
+              }
+            }
         }
       }
+  }
+}
+
+// n consecutive floats of row-major src at offset o (n = 4: one 16-byte
+// load), and their store into T, rounded to bf16 with BF16
+template <int n>
+__device__ __forceinline__ void load_cols(float (&x)[n], const float* src,
+                                          size_t o) {
+  if constexpr (n == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(src + o));
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
 #pragma unroll
-      for (int i = 0; i < RG; ++i) acc[i] = mx[i];
-    } else if (c < Fout) {
+    for (int k = 0; k < n; ++k) x[k] = src[o + k];
+  }
+}
+template <int n, bool BF16>
+__device__ __forceinline__ void store_cols(float* dst, const float (&t)[n]) {
+  float y[n];
 #pragma unroll
-      for (int i = 0; i < RG; ++i) acc[i] = 0.f;
-      dot_rows<RG>(acc, T, ldF, i0, W1, Fout, c, F);
+  for (int k = 0; k < n; ++k) y[k] = BF16 ? bf16r(t[k]) : t[k];
+  if constexpr (n == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+  else
+#pragma unroll
+    for (int k = 0; k < n; ++k) dst[k] = y[k];
+}
+
+// VW: columns a thread builds t for (4 where F % 4 == 0, else 1)
+template <bool BF16, int VW>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+edge_slot_tc_kernel(EdgeArgs a) {
+  constexpr int MODE = BF16 ? gnnb_quant::BF16 : gnnb_quant::F32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int F = a.F, Fout = a.Fout;
+  const SlotLayout L = slot_layout(F, MODE, a.stages);
+  float* T = reinterpret_cast<float*>(smem + L.T);
+  float* Y = T;   // a max chunk's product rows, once T is read
+  int* s_deg = reinterpret_cast<int*>(smem + L.DEG);
+  int* s_off = reinterpret_cast<int*>(smem + L.OFF);
+  int* s_crow = reinterpret_cast<int*>(smem + L.CROW);
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * RR;
+  const int rows = min(RR, a.n_rows - row0);
+  const int kF = tc::kpad(F, MODE);
+  auto pass = [&](int n0) {
+    tc::Pass p;
+    p.w = a.w1;
+    p.ldw = p.N = Fout;
+    p.K = F;
+    p.n0 = n0;
+    return p;
+  };
+  // max: products over PR pairs a chunk; sum, mean: over the RR rows
+  const bool is_max = a.aggr == MAX;
+  tc::Stream<MODE, PR> wm{smem, a.stages, 0};
+  tc::Stream<MODE, RR> ws{smem, a.stages, 0};
+  if (is_max)
+    wm.prefetch(pass(0));
+  else
+    ws.prefetch(pass(0));
+  for (int i = tid; i < RR; i += tc::THREADS)
+    s_deg[i] = i < rows ? a.deg[row0 + i] : 0;
+  __syncthreads();
+  if (tid < 32) {   // the pairs' row offsets: a warp's prefix sum, RR / 32
+                    // consecutive rows a lane
+    constexpr int PER = RR / 32;
+    int part = 0;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) part += s_deg[PER * tid + q];
+    int incl = part;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (tid >= o) incl += t;
     }
-    if (c >= Fout) continue;
-    const float b = a.b1[c];
+    int off = incl - part;
 #pragma unroll
-    for (int i = 0; i < RG; ++i) {
-      const int r = row0 + i0 + i;
-      if (r >= a.n_rows) continue;
-      const int d = s_deg[i0 + i];
-      float o;
-      if (a.aggr == SUM)
-        o = acc[i] + (float)d * b;
-      else
-        o = d > 0 ? acc[i] + b : 0.f;
-      const size_t o_idx = (size_t)r * Fout + c;
-      if (a.skip != nullptr) o += a.skip[o_idx];
-      a.out[o_idx] = act_fn(o, a.act);
+    for (int q = 0; q < PER; ++q) {
+      s_off[PER * tid + q] = off;
+      off += s_deg[PER * tid + q];
+    }
+    if (tid == 31) s_off[RR] = incl;
+  }
+
+  if (!is_max) {
+    // T = sum_s relu(w_i + v_j) over the valid slots (mean: / deg), in
+    // slot order; four columns a thread where F % 4 == 0
+    for (int e = tid; e < RR * (kF / VW); e += tc::THREADS) {
+      const int i = e / (kF / VW), c = VW * (e % (kF / VW)), r = row0 + i;
+      float t[VW] = {};
+      if (i < rows && c < F) {
+        float wi[VW];
+        load_cols<VW>(wi, a.w, (size_t)r * F + c);
+        const int* nb = a.nbr + (size_t)r * a.W;
+        const int d = s_deg[i];
+        for (int q = 0; q < d; ++q) {
+          float x[VW];
+          load_cols<VW>(x, a.v, (size_t)nb[q] * F + c);
+#pragma unroll
+          for (int k = 0; k < VW; ++k)
+            t[k] += fmaxf(wi[k] + (BF16 ? bf16r(x[k]) : x[k]), 0.f);
+        }
+        if (a.aggr == MEAN)
+#pragma unroll
+          for (int k = 0; k < VW; ++k) t[k] /= fmaxf((float)d, 1.f);
+      }
+      store_cols<VW, BF16>(T + (size_t)i * L.ldT + c, t);
+    }
+    ws.stage_prefetched();
+    __syncthreads();
+    for (int n0 = 0; n0 < Fout; n0 += NC) {
+      tc::Acc<MODE, RR> acc;
+      tc::zero<MODE, RR>(acc);
+      ws.run(acc, T, L.ldT, pass(n0), rows, pass(n0 + NC), n0 + NC < Fout);
+      tc::each_pair<RR>([&](int mt, int j, int hh, int r, int cc) {
+        if (r >= rows) return;
+        const float d = (float)s_deg[r];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = n0 + cc + i;
+          if (c >= Fout) break;
+          const float y = acc[mt][j][2 * hh + i], b = __ldg(a.b1 + c);
+          float o = a.aggr == SUM ? __fadd_rn(y, __fmul_rn(d, b))
+                    : d > 0.f     ? __fadd_rn(y, b)
+                                  : 0.f;
+          const size_t oi = (size_t)(row0 + r) * Fout + c;
+          if (a.skip != nullptr) o = __fadd_rn(o, a.skip[oi]);
+          a.out[oi] = tc::act(o, a.act);
+        }
+      });
+    }
+    return;
+  }
+
+  // max: lin1 on the valid (row, slot) pairs, PR a chunk, folded per
+  // (row, column) in slot order; this thread's elements are column tid %
+  // 128 of rows tid / 128 + 2 q.  The running maximum lives in registers
+  // only while a chunk is folded, so it is not live beside the product's
+  // accumulators (it spilled there); a CTA of more than PR pairs keeps it
+  // in `out` between its chunks.
+  __syncthreads();   // s_off
+  const int E = s_off[RR];
+  const int col = tid % NC, rq = tid / NC;
+  constexpr int IQ = 4;   // pairs' loads issued together a thread
+  const int items = PR * (kF / VW);
+  bool first = true;
+  for (int n0 = 0; n0 < Fout; n0 += NC) {
+    const bool cok = n0 + col < Fout;
+    const float b = cok ? __ldg(a.b1 + n0 + col) : 0.f;
+    for (int e0 = 0; e0 < E; e0 += PR) {
+      const int ne = min(PR, E - e0);
+      if (!first) wm.prefetch(pass(n0));
+      for (int i = tid; i < RR; i += tc::THREADS) {   // the pairs' rows
+        const int lo = max(s_off[i], e0), hi = min(s_off[i + 1], e0 + PR);
+        for (int e = lo; e < hi; ++e) s_crow[e - e0] = i;
+      }
+      __syncthreads();
+      // t of each pair, VW columns an item, IQ items a thread at a time
+      for (int f0 = tid; f0 < items; f0 += IQ * tc::THREADS) {
+        float wi[IQ][VW], x[IQ][VW];
+        bool ok[IQ];
+#pragma unroll
+        for (int q = 0; q < IQ; ++q) {
+          const int f = f0 + q * tc::THREADS;
+          const int p = f / (kF / VW), c = VW * (f % (kF / VW));
+          ok[q] = f < items && p < ne && c < F;
+          if (ok[q]) {
+            const int i = s_crow[p], r = row0 + i;
+            const int j = a.nbr[(size_t)r * a.W + e0 + p - s_off[i]];
+            load_cols<VW>(wi[q], a.w, (size_t)r * F + c);
+            load_cols<VW>(x[q], a.v, (size_t)j * F + c);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < IQ; ++q) {
+          const int f = f0 + q * tc::THREADS;
+          if (f >= items) break;
+          const int p = f / (kF / VW), c = VW * (f % (kF / VW));
+          float t[VW] = {};
+          if (ok[q])
+#pragma unroll
+            for (int k = 0; k < VW; ++k)
+              t[k] = fmaxf(wi[q][k] + (BF16 ? bf16r(x[q][k]) : x[q][k]), 0.f);
+          store_cols<VW, BF16>(T + (size_t)p * L.ldT + c, t);
+        }
+      }
+      wm.stage_prefetched();
+      first = false;
+      __syncthreads();
+      {
+        tc::Acc<MODE, PR> acc;
+        tc::zero<MODE, PR>(acc);
+        wm.run(acc, T, L.ldT, pass(n0), ne, pass(n0), false);
+        tc::each_pair<PR>([&](int mt, int j, int hh, int r, int cc) {
+          *reinterpret_cast<float2*>(Y + (size_t)r * tc::LDY + cc) =
+              make_float2(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
+        });
+      }
+      __syncthreads();
+      const bool last = e0 + PR >= E;
+      if (cok) {
+        // four rows at a time: their earlier maxima or skips loaded together
+        constexpr int QG = 4;
+        for (int q0 = 0; q0 < RR / 2; q0 += QG) {
+          float prev[QG];
+#pragma unroll
+          for (int g = 0; g < QG; ++g) {
+            const int i = rq + 2 * (q0 + g);
+            const size_t oi = (size_t)(row0 + i) * Fout + n0 + col;
+            prev[g] = i >= rows           ? 0.f
+                      : e0 != 0           ? a.out[oi]
+                      : last && a.skip    ? a.skip[oi]
+                                          : 0.f;
+          }
+#pragma unroll
+          for (int g = 0; g < QG; ++g) {
+            const int i = rq + 2 * (q0 + g);
+            if (i >= rows) continue;
+            const size_t oi = (size_t)(row0 + i) * Fout + n0 + col;
+            float mx = e0 == 0 ? -INFINITY : prev[g];
+            const int lo = max(s_off[i], e0), hi = min(s_off[i + 1], e0 + PR);
+            for (int e = lo; e < hi; ++e)
+              mx = fmaxf(mx, Y[(size_t)(e - e0) * tc::LDY + col]);
+            if (!last) {
+              a.out[oi] = mx;   // this CTA's pairs go on in the next chunk
+              continue;
+            }
+            float o = s_deg[i] > 0 ? __fadd_rn(mx, b) : 0.f;
+            if (a.skip != nullptr)
+              o = __fadd_rn(o, e0 == 0 ? prev[g] : a.skip[oi]);
+            a.out[oi] = tc::act(o, a.act);
+          }
+        }
+      }
+      __syncthreads();   // Y is read: the next chunk's t goes over it
+    }
+    if (E == 0 && cok) {   // no pair: every row's o is 0
+      for (int q = 0; q < RR / 2; ++q) {
+        const int i = rq + 2 * q;
+        if (i >= rows) continue;
+        const size_t oi = (size_t)(row0 + i) * Fout + n0 + col;
+        a.out[oi] = tc::act(a.skip != nullptr ? a.skip[oi] : 0.f, a.act);
+      }
     }
   }
 }
 
-size_t proj_smem_bytes(int R, int Fin) {
-  return (size_t)R * rup4(Fin) * sizeof(float);
+int stages_for(int bytes2, int bytes1, size_t optin) {
+  return (size_t)bytes2 <= optin ? 2 : (size_t)bytes1 <= optin ? 1 : 0;
 }
 
-size_t slot_smem_bytes(int F) {
-  return (size_t)SLOT_R * rup4(F) * sizeof(float);
-}
-
-template <int R, bool BF16>
-cudaError_t launch_proj(const EdgeArgs& a, cudaStream_t s) {
-  const size_t smem = proj_smem_bytes(R, a.Fin);
-  cudaError_t err = cudaFuncSetAttribute(
-      edge_proj_kernel<R, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  edge_proj_kernel<R, BF16><<<(a.n_rows + R - 1) / R, THREADS, smem, s>>>(
-      a);
-  return cudaGetLastError();
-}
-
-// The two launches: projection, then slots.
 template <bool BF16>
-cudaError_t launch_layer(const EdgeArgs& a, size_t fits, cudaStream_t st) {
-  cudaError_t err;
-  if (proj_smem_bytes(32, a.Fin) <= fits)
-    err = launch_proj<32, BF16>(a, st);
-  else if (proj_smem_bytes(16, a.Fin) <= fits)
-    err = launch_proj<16, BF16>(a, st);
-  else if (proj_smem_bytes(MIN_R, a.Fin) <= fits)
-    err = launch_proj<MIN_R, BF16>(a, st);
-  else
-    return cudaErrorInvalidValue;
+cudaError_t launch_layer(EdgeArgs a, size_t optin, cudaStream_t st) {
+  constexpr int MODE = BF16 ? gnnb_quant::BF16 : gnnb_quant::F32;
+  const int pgrid = (a.n_rows + PR - 1) / PR;
+  const int sgrid = (a.n_rows + RR - 1) / RR;
+  a.stages = stages_for(proj_bytes(a.Fin, MODE, 2),
+                        proj_bytes(a.Fin, MODE, 1), optin);
+  if (a.stages == 0) return cudaErrorInvalidValue;
+  int smem = proj_bytes(a.Fin, MODE, a.stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_proj_tc_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  const size_t smem = slot_smem_bytes(a.F);
-  if (smem + (SLOT_R + 1) * sizeof(int) > fits) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(edge_slot_kernel<BF16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  edge_proj_tc_kernel<BF16><<<pgrid, tc::THREADS, smem, st>>>(a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  edge_slot_kernel<BF16>
-      <<<(a.n_rows + SLOT_R - 1) / SLOT_R, THREADS, smem, st>>>(a);
+  a.stages = stages_for(slot_layout(a.F, MODE, 2).bytes,
+                        slot_layout(a.F, MODE, 1).bytes, optin);
+  if (a.stages == 0) return cudaErrorInvalidValue;
+  smem = slot_layout(a.F, MODE, a.stages).bytes;
+  // 16-byte rows of v and w (the wrapper allocates them) where F % 4 == 0
+  auto slot = a.F % 4 == 0 ? edge_slot_tc_kernel<BF16, 4>
+                           : edge_slot_tc_kernel<BF16, 1>;
+  err = cudaFuncSetAttribute(slot, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  slot<<<sgrid, tc::THREADS, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <typename K>
+cudaError_t kernel_info(K kernel, int smem, int* regs, int* smem_bytes,
+                        int* ctas) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  *regs = fa.numRegs;
+  *smem_bytes = (int)fa.sharedSizeBytes + smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel,
+                                                       tc::THREADS, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of the slot launch (the larger of the two at equal
-// widths), in bytes.
-int gnnb_edge_block_smem_bytes(int Fin, int F) {
-  const size_t p = proj_smem_bytes(MIN_R, Fin);
-  const size_t s = slot_smem_bytes(F) + (SLOT_R + 1) * sizeof(int);
-  return (int)(p > s ? p : s);
+// Shared memory of the larger launch with one weight stage (the launcher
+// takes two where they fit), in bytes.
+int gnnb_edge_block_smem_bytes(int Fin, int F, int mode) {
+  const int p = proj_bytes(Fin, mode, 1);
+  const int s = slot_layout(F, mode, 1).bytes;
+  return p > s ? p : s;
+}
+
+// Registers per thread, shared memory per CTA (bytes) and resident CTAs
+// per SM of the projection (kernel 0) or slot (kernel 1) launch's
+// instance for `mode` (0 f32, 1 bf16) at Fin = F = Fout = 128, on the
+// current device.
+int gnnb_edge_block_info(int kernel, int mode, int* regs, int* smem_bytes,
+                         int* ctas_per_sm) {
+  if (mode != gnnb_quant::F32 && mode != gnnb_quant::BF16)
+    return (int)cudaErrorInvalidValue;
+  const int st = 2;
+  if (kernel == 0)
+    return (int)(mode ? kernel_info(edge_proj_tc_kernel<true>,
+                                    proj_bytes(128, mode, st), regs,
+                                    smem_bytes, ctas_per_sm)
+                      : kernel_info(edge_proj_tc_kernel<false>,
+                                    proj_bytes(128, mode, st), regs,
+                                    smem_bytes, ctas_per_sm));
+  if (kernel == 1)
+    return (int)(mode ? kernel_info(edge_slot_tc_kernel<true, 4>,
+                                    slot_layout(128, mode, st).bytes, regs,
+                                    smem_bytes, ctas_per_sm)
+                      : kernel_info(edge_slot_tc_kernel<false, 4>,
+                                    slot_layout(128, mode, st).bytes, regs,
+                                    smem_bytes, ctas_per_sm));
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the layer on `stream` of `device`: the projection into the
@@ -307,6 +590,8 @@ int gnnb_edge_block(const void* x, const void* nbr, const void* deg,
   a.Fout = Fout;
   a.aggr = aggr;
   a.act = act;
+  a.stages = 0;
+  a.xvec = Fin % 4 == 0 && (uintptr_t)x % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (mode == gnnb_quant::BF16)
     return (int)launch_layer<true>(a, (size_t)optin, st);

@@ -1,7 +1,7 @@
 // The tensor-core building blocks shared by the kernels whose products run
 // on mma.sync with their weights streamed through shared memory
-// (pna_block.cu, mp_block.cu, scatter_bwd.cu, and the GAT projection in
-// gat_common.cuh): the swizzled row layouts of the A operands, the
+// (pna_block.cu, mp_block.cu, scatter_bwd.cu, the GAT projection in
+// gat_common.cuh, and tc_rows.cuh for mp_layer.cu and edge_block.cu): the swizzled row layouts of the A operands, the
 // mbarrier and cp.async.bulk primitives, the consumers' side of a ring of
 // weight tiles, a warp's accumulator tile of a 4 x 2 warp grid and its
 // epilogue walk, and the mma.sync wrappers (m16n8k8 tf32, split TF32 in

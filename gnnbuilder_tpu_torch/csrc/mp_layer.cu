@@ -30,47 +30,63 @@
 //        stays float32; gin's and sage's products take bf16-rounded
 //        operands ((1 + eps) v + s, the mean, v, Z) and bf16 weights.
 //   INT8 (2), gin and sage only: every epilogue product quantizes its
-//        operand rows (one scale per row, quant.cuh quantize_rows) against
-//        int8 weights with per-column scales, an exact int32 sum
-//        (__dp4a) times s_row * s_col: _qdot; the aggregation stays exact.
+//        operand rows (one scale per row, quant.cuh's formulas) against
+//        int8 weights with per-column scales, an exact int32 sum times
+//        s_row * s_col: _qdot; the aggregation stays exact.  sage's
+//        order is (qdot(mean, W0) + b0) + qdot(v, W1), as in JAX.
 //
 // What bounds it on the H100: bytes for gcn, lg and simple (a few
 // operations per element against v, the table, skip, out and s moved
-// once); operations for gin and sage at width 128 (2 F H + 2 H Fout, or
-// 4 F Fout, flops per row against ~1 KB of row data), run as plain f32
-// FMAs (bf16 operands unpacked to f32, int8 through __dp4a).
+// once); for gin and sage at width 128 the products' 2 F H + 2 H Fout (or
+// 4 F Fout) flops a row take ~7 us at the TF32 tensor-core rate on the
+// train batch (three passes), under the ~10 us its v, s, skip and out
+// take at the memory rate: bytes, once the products run on the tensor
+// cores.
 //
-// Design: a CTA owns R consecutive rows (R divides 128, so in block mode
-// they lie in one block).  In block mode it first compacts its R
-// adjacency rows into per-row (neighbour, count) lists in shared memory
-// (block_lists.cuh, shared with mp_block.cu); in ELL mode it reads the
-// table's slots with indexed loads.  The TPU kernel's count-matrix
-// one-hot products, hi/lo bf16 passes and window DMAs existed because
-// Mosaic has no dynamic row gather; here an indexed load is exact.
-// * gcn, lg, simple: each thread takes elements (row, column) of the
-//   CTA's rows, consecutive threads on consecutive columns, forms s and
-//   the epilogue in registers and writes out (and s) once.
-// * gin, sage: the aggregate-derived rows T ((1 + eps) v + s, or the
-//   mean) and, for sage, the v rows sit in shared memory at a row stride
-//   rounded up to 4 floats with zeroed pad columns, so any width works
-//   (the first layer has F = 11).  The products then run with one thread
-//   per output column and R / 2 rows (dense_rows.cuh), weights streaming
-//   from device memory (L2 resident, coalesced along the column), each
-//   read feeding R / 2 FMAs; GIN's hidden layer Z goes through shared
-//   memory too.  In the bf16 mode those rows are stored rounded (they feed
-//   only products); in the int8 mode their levels and scales sit beside
-//   them.  R is 32, or 16 or 8 where 32 rows do not fit the card's shared
-//   memory.
+// Design.  The TPU kernel's count-matrix one-hot products, hi/lo bf16
+// passes and window DMAs existed because Mosaic has no dynamic row
+// gather; here an indexed load is exact.  In block mode a CTA first
+// compacts its adjacency rows into per-row (neighbour, count) lists in
+// shared memory (block_lists.cuh, shared with mp_block.cu); in ELL mode
+// it reads the table's slots with indexed loads.
+// * gcn, lg, simple (mp_layer_ew_kernel): each thread takes elements (row,
+//   column) of the CTA's 32 rows, consecutive threads on consecutive
+//   columns, forms s and the epilogue in registers and writes out (and s)
+//   once.
+// * gin, sage (mp_layer_tc_kernel): a CTA owns 128 rows (64 where 128 do
+//   not fit shared memory: hidden 384; and BF16 gin, below): the train
+//   batch's 18,688 rows are 146 CTAs, one round at two CTAs an SM.  Their
+//   T ((1 + eps) v + s, or the mean) is formed in shared memory (four
+//   columns an item and four items a thread at a time where F % 4 == 0,
+//   the adds in slot order), then the products run on the tensor cores
+//   through tc_rows.cuh: the caller's row-major weights streamed by
+//   k-chunks into shared memory (TF32 halves split once per CTA), the
+//   first chunk's loads in flight during the gather.  gin's Z = relu(T W0
+//   + b0) goes over T where one column tile of W0 makes T dead by then (H
+//   <= 128, and always in INT8, whose products read T's levels), else to
+//   U; sage's v rows go over T once T W0 has read T (one column tile),
+//   else to U, and its two products chain into one accumulator (f32,
+//   bf16).  INT8 quantizes T, v's rows and Z once each.  In BF16, gin's
+//   T W0 runs on the float64 tensor cores instead (gin_z_f64): Z is
+//   rounded to bf16 next, and only a correctly rounded product rounds as
+//   the plain version's does.  The epilogues issue their skip and bias
+//   loads in groups.
+//
+// No float is added atomically and no sum depends on the schedule: every
+// launch gives the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "block_lists.cuh"
 #include "dense_rows.cuh"
+#include "tc_rows.cuh"
 
 namespace {
 
+namespace tc = gnnb_tc;
 using namespace gnnb_dense;
+static_assert(THREADS == tc::THREADS, "both kernels' CTAs");
 using gnnb_quant::bf16r;
 using gnnb_quant::BF16;
 using gnnb_quant::F32;
@@ -98,6 +114,8 @@ struct LayerArgs {
   float* s;            // [N, F] or null (save_s)
   int n_rows, W, F, H, Fout, conv, act;
   float eps;
+  int stages;          // weight stages in shared memory (gin, sage)
+  bool vec;            // F % 4 == 0 and v, s 16-byte aligned
 };
 
 // s of global row r (row i of the CTA, in-degree d) at column c: over the
@@ -177,145 +195,562 @@ __host__ __device__ __forceinline__ int imax(int a, int b) {
   return a > b ? a : b;
 }
 
-// gin and sage: T (and sage's v rows, or gin's Z) in shared memory, then
-// the products; in the INT8 mode the levels of T and U (two buffers of R
-// rows at the wider row stride) and their row scales follow them.
-template <int R, bool BLOCK, int MODE>
-__global__ void __launch_bounds__(THREADS)
-mp_layer_mm_kernel(LayerArgs a) {
-  constexpr int RG = R / GROUPS;       // rows per thread
-  constexpr bool RND = MODE == BF16;   // rows stored bf16-rounded
-  extern __shared__ float4 smem4[];
-  __shared__ int s_deg[R], s_cnt[R], s_ptr[R + 1];
-  __shared__ int s_ent[BLOCK ? R * BB : 1];
-  __shared__ float s_q[MODE == INT8 ? 2 * R : 1];   // row scales of QT, QU
-  const int F = a.F, H = a.H, Fout = a.Fout;
-  const int ldF = rup4(F), ldH = rup4(H), ldU = imax(ldF, ldH);
-  const bool gin = a.conv == GIN;
-  float* T = reinterpret_cast<float*>(smem4);   // [R, ldF]
-  float* U = T + R * ldF;   // sage v [R, ldF]; gin Z [R, ldH]
-  int8_t* QT = reinterpret_cast<int8_t*>(U + R * ldU);   // [R, ldU]
-  int8_t* QU = QT + R * ldU;                             // [R, ldF]
-  float* sT = s_q;
-  float* sU = s_q + R;
-  const int row0 = blockIdx.x * R;
-  const int col = threadIdx.x % CB;
-  const int i0 = (threadIdx.x / CB) * RG;
-  load_rows<R, BLOCK>(a, row0, s_deg, s_cnt, s_ptr, s_ent);
-  const float* vb = a.v + (size_t)(row0 / BB) * BB * F;
+// Byte offsets of a gin (H > 0) or sage (H = 0) launch's shared memory:
+// the weight stages at 0, T (gin's Z over it where z_over_t, sage's v rows
+// where u_over_t), U (sage's v rows, gin's Z otherwise) with the block
+// mode's adjacency lists over it (they are read only while T is formed),
+// the int8 levels QT (T's, then Z's) and QU (sage's v), INT8 sage's first
+// product YS (over T where T is as wide), the row scales and the degrees.
+struct MMLayout {
+  int ldT, ldZ, ldqT, ldqZ, T, U, QT, QU, YS, SQ, DEG, CNT, PTR, ENT, bytes;
+  bool z_over_t, u_over_t, qu_sep;
+};
 
+// Fout <= 128 (one column tile): sage's v rows go over T once the T W0
+// product has read T (in INT8 their levels over T's), and gin's Z likewise
+// where H <= 128; R rows a CTA
+__host__ __device__ inline MMLayout mm_layout(int F, int H, int Fout,
+                                              bool block, int mode,
+                                              int stages, int R) {
+  MMLayout L;
+  const bool gin = H > 0;
+  L.ldT = tc::lda_of(F, mode);
+  L.ldZ = gin ? tc::lda_of(H, mode) : 0;
+  L.ldqT = tc::ldq_of(F);
+  L.ldqZ = gin ? tc::ldq_of(H) : 0;
+  L.z_over_t = gin && (mode == INT8 || H <= tc::NC);
+  L.u_over_t = !gin && (mode == INT8 || Fout <= tc::NC);
+  L.qu_sep = mode == INT8 && !gin && Fout > tc::NC;
+  L.T = stages * tc::chunk_bytes(mode);
+  const int t_floats = L.z_over_t ? imax(L.ldT, L.ldZ) : L.ldT;
+  L.U = tc::align16(L.T + R * t_floats * 4);
+  const int u_floats = gin ? (L.z_over_t ? 0 : L.ldZ)
+                           : (L.u_over_t ? 0 : L.ldT);
+  L.ENT = L.U;
+  L.QT = tc::align16(L.U + imax(R * u_floats * 4, block ? R * BB * 4 : 0));
+  const bool q = mode == INT8;
+  L.QU = tc::align16(L.QT + (q ? R * imax(L.ldqT, L.ldqZ) : 0));
+  // INT8 sage's qdot(T, W0) + b0 (a [R, 128] tile) while qdot(v, W1)
+  // runs: over T's floats, dead once v's levels are made, where they are
+  // as wide
+  const bool ys = q && !gin;
+  const bool ys_sep = ys && L.ldT < tc::LDY;
+  L.YS = ys_sep ? tc::align16(L.QU + (L.qu_sep ? R * L.ldqT : 0)) : L.T;
+  L.SQ = tc::align16(ys_sep ? L.YS + R * tc::LDY * 4
+                            : L.QU + (L.qu_sep ? R * L.ldqT : 0));
+  L.DEG = L.SQ + (q ? 2 * R * 4 : 0);
+  L.CNT = L.DEG + R * 4;
+  L.PTR = L.CNT + (block ? R * 4 : 0);
+  L.bytes = L.PTR + (block ? (R + 1) * 4 : 0);
+  return L;
+}
+
+// T[i, :] (and U[i, :] = v[r] with `with_u`) of the CTA's rows, zero past
+// `rows` and in the pad columns up to kp; s to a.s with save_s.  gin's T is
+// (1 + eps) x + s rounded twice, as the plain version forms it (a fused
+// multiply-add moves an ulp, and an ulp before a bf16 rounding or an int8
+// quantization moves a value); sage's the IEEE quotient s / max(d, 1).
+// ELL rows with a.vec take four columns an item and four items a thread
+// at a time; the adds stay in slot order.
+template <bool BLOCK, int MODE, int R>
+__device__ __forceinline__ void form_rows(const LayerArgs& a, int row0,
+                                          int rows, const int* s_deg,
+                                          const int* s_ptr, const int* s_ent,
+                                          float* T, float* U, int ldT,
+                                          int kp, bool with_u) {
+  constexpr bool RND = MODE == BF16;
+  const int F = a.F;
+  const bool gin = a.conv == GIN;
   const float ope = 1.f + a.eps;
-  for (int e = threadIdx.x; e < R * ldF; e += THREADS) {
-    const int i = e / ldF, c = e % ldF, r = row0 + i;
+  auto fin = [&](float x, float s, int d) {
+    const float t =
+        gin ? __fadd_rn(__fmul_rn(ope, x), s) : s / fmaxf((float)d, 1.f);
+    return RND ? bf16r(t) : t;
+  };
+  if (!BLOCK && a.vec) {
+    // four items (row, 4 columns) a thread at a time: their slots' loads
+    // issued together (one item's chain of dependent loads at a time left
+    // the gather latency-bound at 16 warps an SM); each item's adds stay
+    // in slot order
+    const float4* v4 = reinterpret_cast<const float4*>(a.v);
+    const int F4 = F / 4, K4 = kp / 4;
+    constexpr int IQ = 4;
+    for (int e0 = threadIdx.x; e0 < R * K4; e0 += IQ * tc::THREADS) {
+      int d[IQ], i_[IQ], c4[IQ], most = 0;
+      const int* nb[IQ];
+      float4 s[IQ];
+#pragma unroll
+      for (int q = 0; q < IQ; ++q) {
+        const int e = e0 + q * tc::THREADS;
+        i_[q] = e / K4;
+        c4[q] = e % K4;
+        const bool ok = e < R * K4 && i_[q] < rows && c4[q] < F4;
+        d[q] = ok ? s_deg[i_[q]] : 0;
+        nb[q] = a.nbr + (size_t)(row0 + (ok ? i_[q] : 0)) * a.W;
+        s[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        most = max(most, d[q]);
+      }
+      for (int w = 0; w < most; ++w) {
+        int j[IQ];
+#pragma unroll
+        for (int q = 0; q < IQ; ++q) j[q] = w < d[q] ? nb[q][w] : -1;
+        float4 y[IQ];
+#pragma unroll
+        for (int q = 0; q < IQ; ++q)
+          if (j[q] >= 0) y[q] = __ldg(v4 + (size_t)j[q] * F4 + c4[q]);
+#pragma unroll
+        for (int q = 0; q < IQ; ++q) {
+          if (j[q] < 0) continue;
+          float4 x = y[q];
+          if (RND) {
+            x.x = bf16r(x.x);
+            x.y = bf16r(x.y);
+            x.z = bf16r(x.z);
+            x.w = bf16r(x.w);
+          }
+          s[q].x += x.x;
+          s[q].y += x.y;
+          s[q].z += x.z;
+          s[q].w += x.w;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < IQ; ++q) {
+        const int e = e0 + q * tc::THREADS;
+        if (e >= R * K4) break;
+        const int i = i_[q], r = row0 + i;
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f), x = t;
+        if (i < rows && c4[q] < F4) {
+          if (a.s != nullptr)
+            reinterpret_cast<float4*>(a.s)[(size_t)r * F4 + c4[q]] = s[q];
+          x = __ldg(v4 + (size_t)r * F4 + c4[q]);
+          const int dq = d[q];
+          t = make_float4(fin(x.x, s[q].x, dq), fin(x.y, s[q].y, dq),
+                          fin(x.z, s[q].z, dq), fin(x.w, s[q].w, dq));
+          if (RND) {
+            x.x = bf16r(x.x);
+            x.y = bf16r(x.y);
+            x.z = bf16r(x.z);
+            x.w = bf16r(x.w);
+          }
+        }
+        *reinterpret_cast<float4*>(T + (size_t)i * ldT + 4 * c4[q]) = t;
+        if (with_u)
+          *reinterpret_cast<float4*>(U + (size_t)i * ldT + 4 * c4[q]) = x;
+      }
+    }
+    return;
+  }
+  const float* vb = a.v + (size_t)(row0 / BB) * BB * F;
+  for (int e = threadIdx.x; e < R * kp; e += tc::THREADS) {
+    const int i = e / kp, c = e % kp, r = row0 + i;
     float t = 0.f, x = 0.f;
-    if (c < F && r < a.n_rows) {
+    if (i < rows && c < F) {
       const int d = s_deg[i];
       const float s =
           neighbour_sum<BLOCK, MODE>(a, r, i, d, s_ent, s_ptr, vb, c);
       if (a.s != nullptr) a.s[(size_t)r * F + c] = s;
       x = a.v[(size_t)r * F + c];
-      // (1 + eps) x + s rounded twice, as the plain version forms it (a
-      // fused multiply-add moves an ulp, and an ulp before a bf16 rounding
-      // or an int8 quantization moves a value)
-      t = gin ? __fadd_rn(__fmul_rn(ope, x), s) : s / fmaxf((float)d, 1.f);
+      t = fin(x, s, d);
     }
-    T[e] = RND ? bf16r(t) : t;
-    if (!gin) U[e] = RND ? bf16r(x) : x;
+    T[(size_t)i * ldT + c] = t;
+    if (with_u) U[(size_t)i * ldT + c] = RND ? bf16r(x) : x;
   }
-  __syncthreads();
-  if constexpr (MODE == INT8) {
-    gnnb_quant::quantize_rows<THREADS>(T, ldF, R, QT, sT);
-    if (!gin) gnnb_quant::quantize_rows<THREADS>(U, ldF, R, QU, sU);
-    __syncthreads();
-  }
+}
 
-  if (gin) {   // Z = relu(T W0 + b0)
-    for (int c = col; c < ldH; c += CB) {
-      float acc[RG];
+// out[row0 + r, n0 + c] = act(o [+ skip]) for this thread's accumulator
+// pairs, o = o_of(mt, j, 2 hh + i, r, column) for the valid rows and
+// columns; four n-tiles' skip loads issued together (one at a time, the
+// epilogue waited on each).
+template <int R, typename Fn>
+__device__ __forceinline__ void store_out(const LayerArgs& a, int row0,
+                                          int rows, int n0, Fn o_of) {
+  using G = tc::Geo<R>;
+  const int Fout = a.Fout;
+  const bool pair = (Fout & 1) == 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % G::WR, wc = warp / G::WR;
 #pragma unroll
-      for (int i = 0; i < RG; ++i) acc[i] = 0.f;
-      if (c < H)
-        prod_rows<MODE, RG>(acc, T, QT, sT, ldF, i0, a.w0, a.sw0, H, c, F);
-      const float b = c < H ? a.b0[c] : 0.f;
+  for (int mt = 0; mt < tc::MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < RG; ++i) {
-        const float z = c < H ? fmaxf(acc[i] + b, 0.f) : 0.f;
-        U[(size_t)(i0 + i) * ldH + c] = RND ? bf16r(z) : z;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 32 * wr + 16 * mt + (lane >> 2) + 8 * hh;
+      if (r >= rows) continue;
+      const size_t orow = (size_t)(row0 + r) * Fout;
+#pragma unroll
+      for (int j0 = 0; j0 < G::NT; j0 += 4) {
+        float2 sk[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + 8 * G::NT * wc + 8 * (j0 + j) + 2 * (lane & 3);
+          sk[j] = make_float2(0.f, 0.f);
+          if (a.skip == nullptr || c >= Fout) continue;
+          if (pair)
+            sk[j] = *reinterpret_cast<const float2*>(a.skip + orow + c);
+          else
+            sk[j] = make_float2(a.skip[orow + c],
+                                c + 1 < Fout ? a.skip[orow + c + 1] : 0.f);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + 8 * G::NT * wc + 8 * (j0 + j) + 2 * (lane & 3);
+          if (c >= Fout) continue;
+          float o[2] = {o_of(mt, j0 + j, 2 * hh, r, c),
+                        c + 1 < Fout ? o_of(mt, j0 + j, 2 * hh + 1, r, c + 1)
+                                     : 0.f};
+          if (a.skip != nullptr) {
+            o[0] = __fadd_rn(o[0], sk[j].x);
+            o[1] = __fadd_rn(o[1], sk[j].y);
+          }
+          o[0] = tc::act(o[0], a.act);
+          o[1] = tc::act(o[1], a.act);
+          if (pair) {
+            *reinterpret_cast<float2*>(a.out + orow + c) =
+                make_float2(o[0], o[1]);
+          } else {
+            a.out[orow + c] = o[0];
+            if (c + 1 < Fout) a.out[orow + c + 1] = o[1];
+          }
+        }
       }
     }
+}
+
+// gin's Z pre-activation columns n0 .. n0 + 127 in the BF16 mode, 64 rows
+// a CTA: T W0 on the float64 tensor cores (m8n8k4: the products of bf16
+// values are exact in double and their sums float64, exact for any K a
+// layer has), rounded to float32 once, as the plain version forms it (a
+// float64 product).  Z is rounded to bf16 next, so its pre-rounding value
+// must be the plain version's: a float32 chain in another order than the
+// plain version's flips a bf16 rounding now and then (2^-8 of a value;
+// 3.4e-3 of max off plain at F = 128 on the bf16 tensor cores' chains,
+// over the mode's 2e-3).  W0 comes through the stream's bf16 chunks (32 k
+// each, fragment order: unit (ks 16 + nt) 32 + 4 g + t holds k 16 ks + 4
+// t .. + 3 of column 8 nt + g).  Each warp takes its 32 rows and 32
+// columns; z[m][j][i] is row 32 wr + 8 m + lane / 4, column 32 wc + 8 j +
+// 2 (lane % 4) + i of the tile.
+__device__ __forceinline__ void gin_z_f64(tc::Stream<BF16, 64>& ws,
+                                          const float* T, int ldT,
+                                          const tc::Pass p,
+                                          const tc::Pass next,
+                                          float (&z)[4][4][2]) {
+  using G = tc::Geo<64>;
+  static_assert(G::NT == 4, "32 columns a warp");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % G::WR, wc = warp / G::WR;
+  const int l4 = lane >> 2, lm = lane & 3;
+  double d[4][4][2];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[m][j][0] = d[m][j][1] = 0.0;
+  ws.walk(p, next, true, [&](int kc, const unsigned char* st) {
+    const uint2* w2 = reinterpret_cast<const uint2*>(st);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {   // 4 k at a time
+      const int k = kc * 32 + 4 * q + lm;   // T's columns past K are zero
+      double av[4], bv[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        av[m] = (double)T[(32 * wr + 8 * m + l4) * ldT + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint2 u =
+            w2[((q >> 2) * 16 + G::NT * wc + j) * 32 + 4 * l4 + (q & 3)];
+        const uint32_t h = ((lm < 2 ? u.x : u.y) >> (16 * (lm & 1))) & 0xffffu;
+        bv[j] = (double)__uint_as_float(h << 16);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gnnb_mma::mma_f64(d[m][j], av[m], bv[j]);
+    }
+  });
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) z[m][j][i] = (float)d[m][j][i];
+}
+
+// gin and sage on the tensor cores (header, tc_rows.cuh), R rows a CTA.
+template <int MODE, bool BLOCK, int R>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+mp_layer_tc_kernel(LayerArgs a) {
+  constexpr bool RND = MODE == BF16;
+  constexpr int NC = tc::NC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool gin = a.conv == GIN;
+  const int F = a.F, H = a.H, Fout = a.Fout;
+  const MMLayout L = mm_layout(F, gin ? H : 0, Fout, BLOCK, MODE, a.stages, R);
+  float* T = reinterpret_cast<float*>(smem + L.T);
+  float* U = reinterpret_cast<float*>(smem + L.U);
+  int8_t* QT = reinterpret_cast<int8_t*>(smem + L.QT);
+  int8_t* QU = reinterpret_cast<int8_t*>(smem + L.QU);
+  float* sT = reinterpret_cast<float*>(smem + L.SQ);
+  float* sU = sT + R;
+  int* s_deg = reinterpret_cast<int*>(smem + L.DEG);
+  int* s_cnt = reinterpret_cast<int*>(smem + L.CNT);
+  int* s_ptr = reinterpret_cast<int*>(smem + L.PTR);
+  int* s_ent = reinterpret_cast<int*>(smem + L.ENT);
+  const int row0 = blockIdx.x * R;
+  const int rows = min(R, a.n_rows - row0);
+  const int kF = tc::kpad(F, MODE);
+
+  auto pass0 = [&](int n0) {   // W0: [F, H] gin, [F, Fout] sage
+    tc::Pass p;
+    p.w = a.w0;
+    p.ldw = p.N = gin ? H : Fout;
+    p.K = F;
+    p.n0 = n0;
+    return p;
+  };
+  auto pass1 = [&](int n0) {   // W1: [H, Fout] gin, [F, Fout] sage
+    tc::Pass p;
+    p.w = a.w1;
+    p.ldw = p.N = Fout;
+    p.K = gin ? H : F;
+    p.n0 = n0;
+    return p;
+  };
+  // v's rows (rounded to bf16 in BF16) into dst, zero past rows and F;
+  // four columns a thread where a.vec (one at a time it took 12 us a CTA)
+  auto load_v = [&](float* dst) {
+    if (a.vec) {
+      const int F4 = F / 4, K4 = kF / 4;
+      const float4* v4 = reinterpret_cast<const float4*>(a.v);
+      for (int e = threadIdx.x; e < R * K4; e += tc::THREADS) {
+        const int i = e / K4, c4 = e % K4;
+        float4 x = i < rows && c4 < F4
+                       ? __ldg(v4 + (size_t)(row0 + i) * F4 + c4)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        if (RND) x = make_float4(bf16r(x.x), bf16r(x.y), bf16r(x.z),
+                                 bf16r(x.w));
+        *reinterpret_cast<float4*>(dst + (size_t)i * L.ldT + 4 * c4) = x;
+      }
+      return;
+    }
+    for (int e = threadIdx.x; e < R * kF; e += tc::THREADS) {
+      const int i = e / kF, c = e % kF;
+      const float x =
+          i < rows && c < F ? a.v[(size_t)(row0 + i) * F + c] : 0.f;
+      dst[(size_t)i * L.ldT + c] = RND ? bf16r(x) : x;
+    }
+  };
+  // BF16 gin forms Z on the float64 tensor cores (gin_z_f64)
+  constexpr bool Z64 = MODE == BF16;
+  tc::Stream<MODE, R> ws{smem, a.stages, 0};
+  ws.prefetch(pass0(0));
+  load_rows<R, BLOCK>(a, row0, s_deg, s_cnt, s_ptr, s_ent);
+  const bool sep_u = !gin && !L.u_over_t;   // sage's v rows in U
+  form_rows<BLOCK, MODE, R>(a, row0, rows, s_deg, s_ptr, s_ent, T, U, L.ldT,
+                         kF, !BLOCK && sep_u);
+  ws.stage_prefetched();
+  __syncthreads();
+  if (BLOCK && sep_u) {   // U over the lists, now unread
+    load_v(U);
     __syncthreads();
-    if constexpr (MODE == INT8) {   // QT is free again: Z's levels
-      gnnb_quant::quantize_rows<THREADS>(U, ldH, R, QT, sT);
+  }
+  if constexpr (MODE == INT8) {
+    tc::quantize_rows<R>(T, L.ldT, kF, QT, L.ldqT, sT);
+    if (L.qu_sep) {   // v's rows over T, once T's levels are made
+      __syncthreads();
+      load_v(T);
+      __syncthreads();
+      tc::quantize_rows<R>(T, L.ldT, kF, QU, L.ldqT, sU);
+    }
+    __syncthreads();
+  }
+
+  if (gin) {
+    // Z = relu(T W0 + b0), zero in Z's pad columns
+    const void* A = MODE == INT8 ? static_cast<const void*>(QT) : T;
+    const int lda = MODE == INT8 ? L.ldqT : L.ldT;
+    float* Z = L.z_over_t ? T : U;
+    const int kH = tc::kpad(H, MODE);
+    if constexpr (Z64 && R == 64) {
+      for (int n0 = 0; n0 < H; n0 += NC) {
+        float z[4][4][2];
+        gin_z_f64(ws, T, L.ldT, pass0(n0), n0 + NC < H ? pass0(n0 + NC)
+                                                       : pass1(0), z);
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        const int wr = warp % 2, wc = warp / 2;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int r = 32 * wr + 8 * m + (lane >> 2);
+              const int c = n0 + 32 * wc + 8 * j + 2 * (lane & 3) + i;
+              if (c >= kH) continue;
+              const float zz =
+                  c < H ? fmaxf(__fadd_rn(z[m][j][i], __ldg(a.b0 + c)), 0.f)
+                        : 0.f;
+              Z[(size_t)r * L.ldZ + c] = bf16r(zz);
+            }
+      }
+    } else if constexpr (Z64) {
+      __trap();   // the launcher runs BF16 gin at 64 rows a CTA
+    }
+    for (int n0 = 0; n0 < H && !Z64; n0 += NC) {
+      tc::Acc<MODE, R> acc;
+      tc::zero<MODE, R>(acc);
+      ws.run(acc, A, lda, pass0(n0), rows,
+             n0 + NC < H ? pass0(n0 + NC) : pass1(0), true);
+      // this thread's columns' biases (and INT8 column scales) first
+      constexpr int NT = tc::Geo<R>::NT;
+      const int cb = n0 + 8 * NT * ((threadIdx.x >> 5) / tc::Geo<R>::WR) +
+                     2 * (threadIdx.x & 3);
+      float bz[NT][2], sz[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = cb + 8 * j + i;
+          bz[j][i] = c < H ? __ldg(a.b0 + c) : 0.f;
+          sz[j][i] = MODE == INT8 && c < H ? __ldg(a.sw0 + c) : 0.f;
+        }
+      tc::each_pair<R>([&](int mt, int j, int hh, int r, int cc) {
+        const float sr = MODE == INT8 ? sT[r] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = n0 + cc + i;
+          if (c >= kH) continue;
+          const float y =
+              MODE == INT8
+                  ? __fmul_rn(__fmul_rn((float)acc[mt][j][2 * hh + i], sr),
+                              sz[j][i])
+                  : (float)acc[mt][j][2 * hh + i];
+          const float z = c < H ? fmaxf(__fadd_rn(y, bz[j][i]), 0.f) : 0.f;
+          Z[(size_t)r * L.ldZ + c] = RND ? bf16r(z) : z;
+        }
+      });
+    }
+    __syncthreads();
+    if constexpr (MODE == INT8) {   // QT is free: Z's levels
+      tc::quantize_rows<R>(Z, L.ldZ, kH, QT, L.ldqZ, sT);
       __syncthreads();
     }
+    const void* A2 = MODE == INT8 ? static_cast<const void*>(QT) : Z;
+    const int lda2 = MODE == INT8 ? L.ldqZ : L.ldZ;
+    for (int n0 = 0; n0 < Fout; n0 += NC) {   // o = Z W1 + b1
+      tc::Acc<MODE, R> acc;
+      tc::zero<MODE, R>(acc);
+      ws.run(acc, A2, lda2, pass1(n0), rows, pass1(n0 + NC),
+             n0 + NC < Fout);
+      store_out<R>(a, row0, rows, n0, [&](int mt, int j, int k, int r, int c) {
+        const float sr = MODE == INT8 ? sT[r] : 0.f;
+        return __fadd_rn(tc::value<MODE>(acc[mt][j][k], sr, a.sw1, c),
+                         __ldg(a.b1 + c));
+      });
+    }
+    return;
   }
 
-  for (int c = col; c < Fout; c += CB) {   // o, skip, act
-    float acc[RG];
-    float b;
-    if (gin) {
-      prod_rows<MODE, RG>(acc, U, QT, sT, ldH, i0, a.w1, a.sw1, Fout, c, H);
-      b = a.b1[c];
-#pragma unroll
-      for (int i = 0; i < RG; ++i) acc[i] += b;
-    } else if constexpr (MODE == INT8) {
-      // qdot(mean, W0) + b0 + qdot(v, W1), in the JAX order
-      float acc1[RG];
-      prod_rows<MODE, RG>(acc, T, QT, sT, ldF, i0, a.w0, a.sw0, Fout, c, F);
-      prod_rows<MODE, RG>(acc1, U, QU, sU, ldF, i0, a.w1, a.sw1, Fout, c,
-                          F);
-      b = a.b0[c];
-#pragma unroll
-      for (int i = 0; i < RG; ++i) acc[i] = (acc[i] + b) + acc1[i];
+  // sage: o = T W0 + U W1 + b0, or in INT8 (qdot(T, W0) + b0) + qdot(U, W1)
+  for (int n0 = 0; n0 < Fout; n0 += NC) {
+    const bool more = n0 + NC < Fout;
+    tc::Acc<MODE, R> acc;
+    tc::zero<MODE, R>(acc);
+    if constexpr (MODE != INT8) {
+      ws.run(acc, T, L.ldT, pass0(n0), rows, pass1(n0), true);
+      if (L.u_over_t) {   // one column tile: T is read, v's rows over it
+        load_v(T);
+        __syncthreads();
+      }
+      ws.run(acc, L.u_over_t ? T : U, L.ldT, pass1(n0), rows,
+             pass0(n0 + NC), more);
+      store_out<R>(a, row0, rows, n0, [&](int mt, int j, int k, int, int c) {
+        return __fadd_rn(acc[mt][j][k], __ldg(a.b0 + c));
+      });
     } else {
-      using TW = typename gnnb_quant::WeightOf<MODE>::T;
+      ws.run(acc, QT, L.ldqT, pass0(n0), rows, pass1(n0), true);
+      // y = qdot(T, W0) + b0, kept in shared memory (YS) while qdot(v,
+      // W1) runs: in registers beside its accumulators it spilled
+      float* Y = reinterpret_cast<float*>(smem + L.YS);
+      float y[tc::MT][tc::Geo<R>::NT][4];
+      tc::each_pair<R>([&](int mt, int j, int hh, int r, int cc) {
 #pragma unroll
-      for (int i = 0; i < RG; ++i) acc[i] = 0.f;
-      dot_rows<RG>(acc, T, ldF, i0, static_cast<const TW*>(a.w0), Fout, c,
-                   F);
-      dot_rows<RG>(acc, U, ldF, i0, static_cast<const TW*>(a.w1), Fout, c,
-                   F);
-      b = a.b0[c];
-#pragma unroll
-      for (int i = 0; i < RG; ++i) acc[i] += b;
-    }
-#pragma unroll
-    for (int i = 0; i < RG; ++i) {
-      const int r = row0 + i0 + i;
-      if (r >= a.n_rows) continue;
-      const size_t o_idx = (size_t)r * Fout + c;
-      float o = acc[i];
-      if (a.skip != nullptr) o += a.skip[o_idx];
-      a.out[o_idx] = act_fn(o, a.act);
+        for (int i = 0; i < 2; ++i) {
+          const int c = n0 + cc + i, k = 2 * hh + i;
+          y[mt][j][k] = c < Fout ? __fadd_rn(tc::value<MODE>(acc[mt][j][k],
+                                                             sT[r], a.sw0, c),
+                                             __ldg(a.b0 + c))
+                                 : 0.f;
+        }
+      });
+      if (!L.qu_sep) {   // one column tile: v's levels over T's
+        load_v(T);
+        __syncthreads();
+        tc::quantize_rows<R>(T, L.ldT, kF, QT, L.ldqT, sU);
+        __syncthreads();
+      }
+      tc::each_pair<R>([&](int mt, int j, int hh, int r, int cc) {
+        *reinterpret_cast<float2*>(Y + (size_t)r * tc::LDY + cc) =
+            make_float2(y[mt][j][2 * hh], y[mt][j][2 * hh + 1]);
+      });
+      tc::zero<MODE, R>(acc);
+      ws.run(acc, L.qu_sep ? QU : QT, L.ldqT, pass1(n0), rows,
+             pass0(n0 + NC), more);
+      store_out<R>(a, row0, rows, n0, [&](int mt, int j, int k, int r, int c) {
+        return __fadd_rn(Y[(size_t)r * tc::LDY + c - n0],
+                         tc::value<MODE>(acc[mt][j][k], sU[r], a.sw1, c));
+      });
     }
   }
 }
 
-// Dynamic shared memory of a gin / sage launch with R rows (sage: H = 0)
-// in `mode`.
-size_t mm_smem_bytes(int R, int F, int H, int mode) {
-  const int ldF = rup4(F), ldU = imax(ldF, rup4(H));
-  size_t b = (size_t)R * (ldF + ldU) * sizeof(float);
-  if (mode == INT8) b += (size_t)R * (ldU + ldF);
-  return b;
+// Dynamic shared memory of a gin (H > 0) or sage (H = 0) launch in `mode`
+// with `stages` weight stages and R rows a CTA.
+size_t mm_smem_bytes(int F, int H, int Fout, bool block, int mode,
+                     int stages, int R) {
+  return (size_t)mm_layout(F, H, Fout, block, mode, stages, R).bytes;
 }
 
-// The kernel's static shared memory with R rows.
-size_t static_bytes(int R, bool block, int mode) {
-  return (size_t)(3 * R + 1 + (block ? R * BB : 1)) * sizeof(int) +
-         (mode == INT8 ? 2 * R : 1) * sizeof(float);
+// The CTA's rows and weight stages of a launch: 128 rows where they fit
+// the card's shared memory, else 64 (hidden 384; BF16 gin and the block
+// mode always); two stages where they fit beside them, else one.  {0, 0}
+// where nothing fits.
+struct Shape {
+  int R, stages;
+};
+Shape mm_shape(int F, int H, int Fout, bool block, int mode, size_t optin) {
+  // BF16 gin's float64 Z (gin_z_f64) holds a 32 x 32 warp tile: 64 rows;
+  // the block mode's lists of 128 rows (64 KB) leave one CTA an SM, and a
+  // block batch's 160 CTAs two rounds: 64 rows (PERF.md §6, row 4)
+  const bool z64 = mode == BF16 && H > 0;
+  for (int R : {128, 64}) {
+    if ((z64 || block) && R == 128) continue;
+    for (int st : {2, 1})
+      if (mm_smem_bytes(F, H, Fout, block, mode, st, R) <= optin)
+        return {R, st};
+  }
+  return {0, 0};
 }
 
-template <int R, bool BLOCK, int MODE>
-cudaError_t launch_mm(const LayerArgs& a, cudaStream_t s) {
-  const size_t smem = mm_smem_bytes(R, a.F, a.H, MODE);
+template <int MODE, bool BLOCK, int R>
+cudaError_t launch_rows(const LayerArgs& a, size_t smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      mp_layer_mm_kernel<R, BLOCK, MODE>,
+      mp_layer_tc_kernel<MODE, BLOCK, R>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mp_layer_mm_kernel<R, BLOCK, MODE><<<(a.n_rows + R - 1) / R, THREADS,
-                                       smem, s>>>(a);
+  mp_layer_tc_kernel<MODE, BLOCK, R>
+      <<<(a.n_rows + R - 1) / R, tc::THREADS, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <int MODE, bool BLOCK>
+cudaError_t launch_mm(LayerArgs a, size_t optin, cudaStream_t s) {
+  const int H = a.conv == GIN ? a.H : 0;
+  const Shape sh = mm_shape(a.F, H, a.Fout, BLOCK, MODE, optin);
+  if (sh.R == 0) return cudaErrorInvalidValue;
+  a.stages = sh.stages;
+  const size_t smem =
+      mm_smem_bytes(a.F, H, a.Fout, BLOCK, MODE, sh.stages, sh.R);
+  return sh.R == 128 ? launch_rows<MODE, BLOCK, 128>(a, smem, s)
+                     : launch_rows<MODE, BLOCK, 64>(a, smem, s);
 }
 
 template <bool BLOCK, int MODE>
@@ -329,16 +764,7 @@ cudaError_t launch(const LayerArgs& a, size_t optin, cudaStream_t s) {
       return cudaGetLastError();
     }
   }
-  if (mm_smem_bytes(32, a.F, a.H, MODE) + static_bytes(32, BLOCK, MODE) <=
-      optin)
-    return launch_mm<32, BLOCK, MODE>(a, s);
-  if (mm_smem_bytes(16, a.F, a.H, MODE) + static_bytes(16, BLOCK, MODE) <=
-      optin)
-    return launch_mm<16, BLOCK, MODE>(a, s);
-  if (mm_smem_bytes(MIN_R, a.F, a.H, MODE) +
-          static_bytes(MIN_R, BLOCK, MODE) <= optin)
-    return launch_mm<MIN_R, BLOCK, MODE>(a, s);
-  return cudaErrorInvalidValue;
+  return launch_mm<MODE, BLOCK>(a, optin, s);
 }
 
 template <int MODE>
@@ -346,6 +772,44 @@ cudaError_t launch_mode(const LayerArgs& a, bool block, size_t optin,
                         cudaStream_t s) {
   return block ? launch<true, MODE>(a, optin, s)
                : launch<false, MODE>(a, optin, s);
+}
+
+template <int MODE, bool BLOCK, int R>
+cudaError_t info_rows(size_t smem, int* regs, int* smem_bytes, int* ctas) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mp_layer_tc_kernel<MODE, BLOCK, R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, mp_layer_tc_kernel<MODE, BLOCK, R>);
+  if (err != cudaSuccess) return err;
+  *regs = fa.numRegs;
+  *smem_bytes = (int)(fa.sharedSizeBytes + smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, mp_layer_tc_kernel<MODE, BLOCK, R>, tc::THREADS, smem);
+}
+
+// The resources of the instance a launch at F = H = Fout = w takes (H = 0:
+// sage) with R rows a CTA (0: the launcher's choice).
+template <int MODE, bool BLOCK>
+cudaError_t info(int w, int H, int R, int* regs, int* smem_bytes, int* ctas,
+                 size_t optin) {
+  Shape sh = mm_shape(w, H, w, BLOCK, MODE, optin);
+  if (R != 0 && R != sh.R) {
+    sh.R = R;
+    sh.stages = mm_smem_bytes(w, H, w, BLOCK, MODE, 2, R) <= optin ? 2 : 1;
+  }
+  if (sh.R == 0) return cudaErrorInvalidValue;
+  const size_t smem = mm_smem_bytes(w, H, w, BLOCK, MODE, sh.stages, sh.R);
+  return sh.R == 128 ? info_rows<MODE, BLOCK, 128>(smem, regs, smem_bytes, ctas)
+                     : info_rows<MODE, BLOCK, 64>(smem, regs, smem_bytes, ctas);
+}
+
+template <int MODE>
+cudaError_t info_mode(bool block, int w, int H, int R, int* regs,
+                      int* smem_bytes, int* ctas, size_t optin) {
+  return block ? info<MODE, true>(w, H, R, regs, smem_bytes, ctas, optin)
+               : info<MODE, false>(w, H, R, regs, smem_bytes, ctas, optin);
 }
 
 }  // namespace
@@ -356,11 +820,36 @@ extern "C" {
 int gnnb_mp_layer_block_rows() { return BB; }
 
 // Shared memory a gin (H > 0) or sage (H = 0) launch in `mode` needs at
-// the fewest rows per CTA, in bytes (the launcher takes more rows where
-// they fit).
+// the fewest rows and weight stages, in bytes (the launcher takes more
+// where they fit), at the widest Fout of the kernel's layouts (Fout > 128).
 int gnnb_mp_layer_smem_bytes(int F, int H, int block, int mode) {
-  return (int)(mm_smem_bytes(MIN_R, F, H, mode) +
-               static_bytes(MIN_R, block != 0, mode));
+  return (int)mm_smem_bytes(F, H, 1 << 20, block != 0, mode, 1, 64);
+}
+
+// Registers per thread, shared memory per CTA (bytes) and resident CTAs
+// per SM of the gin / sage kernel's instance for `mode`, `block` and R
+// rows a CTA (128 or 64), at F = H = Fout = w (conv 0 gin, 1 sage; w =
+// 128 takes 128 rows, 384 takes 64), on the current device.
+int gnnb_mp_layer_info(int mode, int block, int conv, int rows, int w,
+                       int* regs, int* smem_bytes, int* ctas_per_sm) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (rows != 128 && rows != 64) return (int)cudaErrorInvalidValue;
+  const int H = conv == GIN ? w : 0;
+  const bool b = block != 0;
+  const size_t o = (size_t)optin;
+  int* c = ctas_per_sm;
+  if (mode == BF16)
+    return (int)info_mode<BF16>(b, w, H, rows, regs, smem_bytes, c, o);
+  if (mode == INT8)
+    return (int)info_mode<INT8>(b, w, H, rows, regs, smem_bytes, c, o);
+  if (mode == F32)
+    return (int)info_mode<F32>(b, w, H, rows, regs, smem_bytes, c, o);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the layer on `stream` of `device`.  `adj` non-null selects the
@@ -421,6 +910,8 @@ int gnnb_mp_layer(const void* v, const void* nbr, const void* adj,
   a.conv = conv;
   a.act = act;
   a.eps = eps;
+  a.stages = 0;
+  a.vec = F % 4 == 0 && (uintptr_t)v % 16 == 0 && (uintptr_t)s % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t fits = (size_t)optin;
   if (mode == BF16) return (int)launch_mode<BF16>(a, block, fits, st);

@@ -23,7 +23,11 @@ block-packed batches only (``dispatch.edge_block_cfg``), as the JAX
 package does; the kernel itself reads neighbour rows with indexed loads
 and needs no block locality.
 
-What bounds the kernel on the H100: operations; see the source.
+What bounds the kernel on the H100: operations, run on the tensor cores
+(3 x TF32 or bf16 ``mma.sync`` on the caller's weights as they are;
+for max only over the valid slots); see the source.  The plain
+version's float32 products go through ``_f32_dot``, the seam through
+which the CPU tests put the kernel's chain order.
 Operands are in the JAX package's [in, out] layout: w_pair [2 Fin, F],
 b0 [F], w1 [F, Fout], b1 [Fout].
 
@@ -69,6 +73,11 @@ def _aggr(aggregation: str) -> str:
     return name
 
 
+def _f32_dot(a, w):
+    """The f32 mode's product in the plain version."""
+    return a @ w
+
+
 def edge_block_layer_plain(x, nbr_nodes, in_degree, w_pair, b0, w1, b1,
                            aggregation: str = "max", skip=None,
                            act: Optional[str] = None, mode: str = "f32"):
@@ -99,10 +108,11 @@ def edge_block_layer_plain(x, nbr_nodes, in_degree, w_pair, b0, w1, b1,
                 y = to_bf16(t_sum / deg.clamp(min=1.0)) @ w1f
                 out = torch.where(nonempty, y + b1, zero)
     else:
-        u = x @ w_pair[:Fin] + b0
-        v = x @ w_pair[Fin:]
+        u = _f32_dot(x, w_pair[:Fin]) + b0
+        v = _f32_dot(x, w_pair[Fin:])
         table = torch.relu((u - v)[:, None, :] + ell_gather(v, nbr_nodes))
-        y = table @ w1 + b1                               # [N, W, Fout]
+        y = _f32_dot(table.reshape(-1, table.shape[-1]), w1).view(
+            *table.shape[:2], -1) + b1                    # [N, W, Fout]
         out = ell_multi_table(y, in_degree, (name,),
                               ell_mask(nbr_nodes, in_degree))[name]
     if skip is not None:
@@ -147,7 +157,7 @@ def _launch(x, nbr_nodes, in_degree, w_pair, b0, w1, b1, name, skip, act,
     N, Fin = x.shape
     F, Fout = w_pair.shape[1], w1.shape[1]
     dev = x.device
-    smem = lib.gnnb_edge_block_smem_bytes(Fin, F)
+    smem = lib.gnnb_edge_block_smem_bytes(Fin, F, MODES[mode])
     smem_max = lib.gnnb_smem_per_block_optin(dev.index or 0)
     if smem > smem_max:
         raise ValueError(f"the CUDA EdgeConv layer takes widths within "

@@ -20,8 +20,13 @@ same gather over ``ops.ell.reverse_csr`` of the forward table (where the
 JAX package runs XLA's VJP of its reference).  Every route gives the same
 bits on every run.
 
-What bounds the kernel on the H100: bytes for gcn, lg and simple,
-operations for gin and sage at width 128; see the source.
+What bounds the kernel on the H100: bytes, for gcn, lg and simple and,
+since gin's and sage's products run on the tensor cores (3 x TF32,
+bf16, s8 ``mma.sync`` on the caller's weights as they are), for gin and
+sage at width 128 too; see the source.  The plain version's float32
+products go through ``_f32_dot``, the seam through which the CPU tests
+put the kernel's chain order; sage's two are one product of [mean | v]
+with [w0; w1] there, as the kernel chains them.
 
 Operands per conv (the JAX package's [in, out] layout): gin ``w0`` [F, H],
 ``b0`` [H], ``w1`` [H, Fout], ``b1`` [Fout]; sage ``w0`` [F, Fout] (lin_l),
@@ -32,7 +37,9 @@ simple none.  gcn, lg and simple keep the width: Fout = F.
 Inference modes (``mode``; the JAX kernel's ``gather_mode="bf16"`` with
 ``mm="bf16"``, and ``quant``; no s output, no backward): "bf16" rounds
 each gathered v to bf16 (the sum stays float32) and, for gin and sage,
-the products' operands, with bfloat16 ``w0`` / ``w1``; "int8" (gin and
+the products' operands, with bfloat16 ``w0`` / ``w1`` (gin's first
+product, whose result is rounded to bf16 next, a float64 product rounded
+once in both the kernel and the plain version); "int8" (gin and
 sage only, as in the JAX kernel) quantizes every epilogue product
 (``ops.quant.qdot``: per-row scales, int8 ``w0`` / ``w1`` with column
 scales ``s0`` / ``s1``, an exact sum) and keeps the aggregation exact.
@@ -99,6 +106,11 @@ def prepare_layer(w0, w1, mode: str):
     return q0, q1, s0, s1
 
 
+def _f32_dot(a, w):
+    """The f32 mode's product in the plain version."""
+    return a @ w
+
+
 def _epilogue(conv, s, v, in_degree, w0, b0, w1, b1, eps, skip, act,
               mode="f32", s0=None, s1=None):
     """The conv's epilogue on the aggregate s (``_mp_epilogue``), then the
@@ -110,11 +122,19 @@ def _epilogue(conv, s, v, in_degree, w0, b0, w1, b1, eps, skip, act,
             return qdot(a, w, sw)
         if mode == "bf16":
             return to_bf16(a) @ w.float()
-        return a @ w
+        return _f32_dot(a, w)
 
     if conv == "gin":
-        o = dot(torch.relu(dot((1.0 + eps) * v + s, w0, s0) + b0), w1,
-                s1) + b1
+        t = (1.0 + eps) * v + s
+        # bf16: Z is rounded to bf16 next, so T W0 is the float64 product
+        # rounded once, as the kernel forms it (any float32 order flips a
+        # bf16 rounding now and then)
+        z = ((to_bf16(t).double() @ w0.double()).float() if mode == "bf16"
+             else dot(t, w0, s0))
+        o = dot(torch.relu(z + b0), w1, s1) + b1
+    elif conv == "sage" and mode == "f32":
+        o = _f32_dot(torch.cat([s / degf.clamp(min=1.0), v], 1),
+                     torch.cat([w0, w1], 0)) + b0
     elif conv == "sage":
         o = dot(s / degf.clamp(min=1.0), w0, s0) + b0 + dot(v, w1, s1)
     elif conv == "gcn":

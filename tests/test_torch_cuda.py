@@ -580,6 +580,18 @@ def _hub_block_batch(device, n_graphs=120):
     return gs, b
 
 
+def _hub_ell_batch(device):
+    """``_hub_block_batch``'s graphs with an ELL table 72 slots wide, so
+    the hub's 70 in-neighbours sit in one row of it."""
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+
+    gs, _ = _hub_block_batch("cpu")
+    b = build_graph_batch(gs, block_size=128, node_multiple=128,
+                          ell_width=72, device=device)
+    assert int(b.in_degree.max()) == 70
+    return b
+
+
 def _dense_block_batch(device):
     """The 128-graph block batch with its first block's adjacency dense
     (an edge between every ordered pair, in-degree 128): the most list
@@ -754,18 +766,18 @@ def test_pna_dv_and_train_step_are_bitwise_reproducible(cuda_device):
 MP_LAYER_CONVS = ("gin", "sage", "gcn", "lg", "simple_sum", "simple_mean")
 
 
-def _mp_operands(conv, F, g, device):
-    """(v, operands) of one layer at input width F (128 out for gin and
-    sage, F for the rest)."""
+def _mp_operands(conv, F, g, device, H=128):
+    """(v, operands) of one layer at input width F (H hidden and out for
+    gin and sage, F for the rest)."""
     def r(*s, sc=None):
         sc = 1.0 / s[0] ** 0.5 if sc is None else sc
         return (torch.randn(*s, generator=g) * sc).to(device)
 
     if conv == "gin":
-        return dict(w0=r(F, 128), b0=r(128, sc=.1), w1=r(128, 128),
-                    b1=r(128, sc=.1), eps=0.2)
+        return dict(w0=r(F, H), b0=r(H, sc=.1), w1=r(H, H),
+                    b1=r(H, sc=.1), eps=0.2)
     if conv == "sage":
-        return dict(w0=r(F, 128), b0=r(128, sc=.1), w1=r(F, 128))
+        return dict(w0=r(F, H), b0=r(H, sc=.1), w1=r(F, H))
     if conv == "gcn":
         return dict(b0=r(F, sc=.1))
     return {}
@@ -777,30 +789,39 @@ def test_mp_layer_kernel_matches_plain(cuda_device, conv, mode):
     """Row 4 in both modes at input widths 11 and 128, with a skip and
     relu and without them (tanh), and its saved s: 1e-4 of max |value| on
     real rows (sums in another order); the block mode also on a batch
-    with a 70-in-degree hub (no ELL table)."""
+    with a 70-in-degree hub (no ELL table).  gin and sage (the tensor-core
+    kernel, 64 rows a CTA) also at hidden 384 throughout (gelu) and on
+    the 1024-graph batch (292 CTAs in ELL mode, over the card's 132
+    SMs)."""
     batches = ([_std_batch(device=cuda_device)[1]] if mode == "ell" else
                [_batch()[1].to(cuda_device), _hub_block_batch(cuda_device)[1]])
+    cases = [(b, F, 128, act, sk) for b in batches
+             for F, act, sk in ((11, "relu", True), (128, "tanh", False))]
+    if conv in ("gin", "sage"):
+        big = (_std_batch(1024, device=cuda_device)[1] if mode == "ell" else
+               _batch(1024)[1].to(cuda_device))
+        cases += [(batches[0], 384, 384, "gelu", True),
+                  (big, 128, 128, "relu", True), (big, 11, 128, None, False)]
     g = torch.Generator(device="cpu").manual_seed(9)
-    for b in batches:
-        for F, act, with_skip in ((11, "relu", True), (128, "tanh", False)):
-            ops = _mp_operands(conv, F, g, cuda_device)
-            x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
-            Fout = 128 if conv in ("gin", "sage") else F
-            skip = (torch.randn(b.num_nodes, Fout, generator=g)
-                    .to(cuda_device) if with_skip else None)
-            kw = dict(ops, skip=skip, act=act, save_s=True,
-                      block_adj=b.block_adj if mode == "block" else None)
-            before = mp_layer.fused_mp_layer.launches
-            out, s = mp_layer.fused_mp_layer(x, b.nbr_nodes, b.in_degree,
-                                             conv, **kw)
-            torch.cuda.synchronize()
-            assert mp_layer.fused_mp_layer.launches == before + 1
-            want, want_s = mp_layer.mp_layer_plain(
-                x, b.nbr_nodes, b.in_degree, conv, **kw)
-            m = b.node_mask
-            assert torch.isfinite(out[m]).all()
-            assert _scaled_err(out[m], want[m]) <= 1e-4, (F, act)
-            assert _scaled_err(s[m], want_s[m]) <= 1e-4, (F, act)
+    for b, F, H, act, with_skip in cases:
+        ops = _mp_operands(conv, F, g, cuda_device, H)
+        x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+        Fout = H if conv in ("gin", "sage") else F
+        skip = (torch.randn(b.num_nodes, Fout, generator=g)
+                .to(cuda_device) if with_skip else None)
+        kw = dict(ops, skip=skip, act=act, save_s=True,
+                  block_adj=b.block_adj if mode == "block" else None)
+        before = mp_layer.fused_mp_layer.launches
+        out, s = mp_layer.fused_mp_layer(x, b.nbr_nodes, b.in_degree,
+                                         conv, **kw)
+        torch.cuda.synchronize()
+        assert mp_layer.fused_mp_layer.launches == before + 1
+        want, want_s = mp_layer.mp_layer_plain(
+            x, b.nbr_nodes, b.in_degree, conv, **kw)
+        m = b.node_mask
+        assert torch.isfinite(out[m]).all()
+        assert _scaled_err(out[m], want[m]) <= 1e-4, (F, act)
+        assert _scaled_err(s[m], want_s[m]) <= 1e-4, (F, act)
 
 
 def test_csr_gather_is_bitwise_stable(cuda_device):
@@ -1243,12 +1264,16 @@ def test_gine_train_step_is_bitwise_reproducible(cuda_device, rev):
 def test_edge_block_kernel_matches_plain(cuda_device, aggr):
     """Row 13 at Fin = 11 and 128 (F = Fout = 128) and at 384 throughout,
     with skip and relu, without them (tanh), and gelu, on the 128-graph
-    block batch: within 1e-5 of max |value| on real rows."""
-    b = _batch()[1].to(cuda_device)
+    block batch, and (max) at 128 on a batch whose 70-in-degree hub sits
+    in an ELL table 72 wide (a CTA with 70 slots of one row): within
+    1e-5 of max |value| on real rows."""
+    b0 = _batch()[1].to(cuda_device)
+    cases = [(b0, 11, 128, "relu", True), (b0, 128, 128, "tanh", False),
+             (b0, 384, 384, "gelu", True)]
+    if aggr == "max":
+        cases.append((_hub_ell_batch(cuda_device), 128, 128, "relu", True))
     g = torch.Generator(device="cpu").manual_seed(13)
-    for Fin, F, act, with_skip in ((11, 128, "relu", True),
-                                   (128, 128, "tanh", False),
-                                   (384, 384, "gelu", True)):
+    for b, Fin, F, act, with_skip in cases:
         x = torch.randn(b.num_nodes, Fin, generator=g).to(cuda_device)
         sc = 1.0 / (2 * Fin) ** 0.5
         ops = dict(w_pair=(torch.randn(2 * Fin, F, generator=g) * sc),
