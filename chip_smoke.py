@@ -17,7 +17,8 @@ weights):
   standard-packed 1024-graph QM9 batch (``node_multiple=256``, as the JAX
   package's benchmark trains), each step through the PNA layer kernel,
   the scatter kernel in its cstk mode and the reverse-table gather in all
-  six layers and the readout kernel; gradients against the float64 plain
+  six layers (each gather the bits of the slot-ordered loop
+  ``ell_bwd.ell_gather_backward_ordered``) and the readout kernel; gradients against the float64 plain
   path, bitwise-equal gradients from two steps off one state, a 5-step
   loss curve against the plain path on the card, and a small batch's step
   against the plain path on the CPU; then ``Program.forward`` on that
@@ -44,7 +45,9 @@ weights):
 * GINE (edge features, row 12), EdgeConv (max, row 13) and the
   multi-aggregate (row 8) under Simple max / min (128 wide) and PNA with
   all five aggregators: each kernel against its plain version in every
-  layer, row 8's backward on both u-free routes against float64 and
+  layer (row 12 on its weights' Ring layout, as the model launches it,
+  and on the caller's weights; its instances' HMMA / IMMA / DMMA counted
+  in the SASS, bf16's float64 Z checked), row 8's backward on both u-free routes against float64 and
   bitwise on two runs; ``Program.forward`` of GINE (block-packed and
   standard-packed), EdgeConv (block-packed), Simple max and min
   (standard-packed) and five-aggregator PNA (both packings) against the
@@ -116,6 +119,7 @@ has a timeout, and each server is closed); every subprocess has a
 timeout.
 """
 
+import ctypes
 import gc
 import json
 import math
@@ -314,6 +318,18 @@ TC_KERNELS = {
                      {(c,): (0, c) for c in (0, 1)}),
     "edge_slot_tc": (r"edge_slot_tc_kernelILb(\d)ELi4E", "gnnb_edge_block_info",
                      {(c,): (1, c) for c in (0, 1)}),
+    # row 12, mode x rows a CTA x weight path (1: the Ring layout, 0: the
+    # caller's weights) x CTAs an SM (the launch bounds); at 128 wide in,
+    # hidden and out, but the caller's-weights path at 64 rows in f32 and
+    # int8 at 384 (hidden 384, where it takes over)
+    "gine_layer": (r"gine_layer_kernelILi(\d)ELi(\d+)ELb(\d)ELi(\d)E",
+                   "gnnb_gine_layer_info",
+                   {k: k + (384 if k[1:3] == (64, 0) and k[0] != 1
+                            else 128,)
+                    for k in [(c, 64, 1, 3) for c in (0, 2)]
+                    + [(c, 64, 1, 2) for c in (0, 1, 2)]
+                    + [(c, 128, 0, 2) for c in (0, 2)]
+                    + [(c, 64, 0, 2) for c in (0, 1, 2)]}),
 }
 
 
@@ -325,6 +341,9 @@ def tc_label(kern, key):
         return f"{mode} {'H in shared' if key[1] else 'H in device'}"
     if kern.startswith("mp_layer_tc"):
         return f"{mode} {'block' if key[1] else 'ELL'} {key[2]} rows"
+    if kern == "gine_layer":
+        return (f"{mode} {key[1]} rows, {'ring' if key[2] else 'caller'}"
+                f"'s weights, {key[3]} CTAs an SM")
     return mode if len(key) == 1 else f"{mode} cw{64 * key[1]}"
 
 
@@ -713,6 +732,11 @@ def mp_times(report, *, tb, mp_modes, g_args, sc_args, mp_models,
         for a in arg_list:
             fn(*a)
 
+    for a in lin:   # the slot-ordered loop's bits (lin-only, F 128 and 64)
+        if not torch.equal(ell_bwd.fused_gather_backward(*a),
+                           ell_bwd.ell_gather_backward_ordered(*a)):
+            raise AssertionError("ell_gather_bwd lin-only: not the bits of "
+                                 "the slot-ordered loop")
     ms, ev = timed(lambda: each(ell_bwd.fused_gather_backward, lin), 20)
     pms, pev = timed(lambda: each(ell_bwd.ell_gather_backward_plain, lin), 5)
     lms, lev = timed(lambda: [torch.sparse.mm(at_csr, d) for d in dss], 20)
@@ -751,6 +775,9 @@ def mp_times(report, *, tb, mp_modes, g_args, sc_args, mp_models,
             scatter_bwd.pna_scatter_backward_plain, sc_args), 3))
     for k in ("ell_gather_bwd", "ell_gather_bwd_csr"):
         r = report[k]
+        r["achieved_bytes_per_s"] = r["bytes"] / (r["ms"] * 1e-3)
+        log(f"{k} ({r['per']}): {r['achieved_bytes_per_s'] / 1e12:.3f} TB/s "
+            f"of the bound's bytes")
         log(f"{k} ({r['per']}), device ms (event ms): {r['ms']:.4f} "
             f"({r['event_ms']:.4f}), plain {r['plain_ms']:.4f} "
             f"({r['plain_event_ms']:.4f})"
@@ -1319,14 +1346,25 @@ def plain_layer_inputs(model, g):
 
 
 def gine_args(model, g):
-    """Row 12's ((x, pe, nbr_nodes, nbr_edges, in_degree), kw) per layer."""
+    """Row 12's ((x, pe, nbr_nodes, nbr_edges, in_degree), kw) per layer as
+    the model launches it: with its weights' Ring layout (``staged``,
+    ``gine_layer.layer_operands`` of all layers at once)."""
+    from gnnbuilder_tpu_torch.ops.cuda.gine_layer import layer_operands
+
     t = lambda w: w.t().contiguous()
+    staged = [o[4] for o in layer_operands(
+        [(c.lin0.weight.t(), c.lin1.weight.t()) for c in model.gnn_convs])]
     return [((h, c.lin_edge(g.edge_feat).contiguous(), g.nbr_nodes,
               g.nbr_edges, g.in_degree),
              dict(w0=t(c.lin0.weight), b0=c.lin0.bias, w1=t(c.lin1.weight),
                   b1=c.lin1.bias, eps=c.eps, skip=sk,
-                  act=model.gnn_activation))
-            for c, h, sk in plain_layer_inputs(model, g)]
+                  act=model.gnn_activation, staged=st))
+            for (c, h, sk), st in zip(plain_layer_inputs(model, g), staged)]
+
+
+def caller_weights(fn):
+    """``fn`` (row 12's wrapper) on the caller's weights: no layout."""
+    return lambda *args, **kw: fn(*args, **dict(kw, staged=None))
 
 
 def edge_args(model, g):
@@ -1410,6 +1448,14 @@ def edge_work(layers, g):
         nbytes += 4 * (n * fin + n * w + n + 2 * fin * f + f + f * fo + fo
                        + n * fo * (2 if kw["skip"] is not None else 1))
     return flops, nbytes
+
+
+def gine_products(layers, g):
+    """The products of ``gine_work``: both MLP products per row."""
+    n = g.num_nodes
+    return sum(2 * n * (args[0].shape[1] * kw["w0"].shape[1]
+                        + kw["w0"].shape[1] * kw["w1"].shape[1])
+               for args, kw in layers)
 
 
 def edge_products(layers, g):
@@ -1500,10 +1546,13 @@ def edge_agg_phases(report, *, dev, graphs, batches, b0, tgraphs, tb,
             "pna5_std": agg_args(pna5_m, tb),
             "pna5_block": agg_args(pna5_m, b0, block=True),
         }
-        err_g = max(hold_layers(f"gine_layer ({k})",
-                                gine_layer.fused_gine_layer,
+        err_g = max(hold_layers(f"gine_layer ({k}{path})", fn,
                                 gine_layer.gine_layer_plain, layers[k], g_)
-                    for k, g_ in (("gine_std", tb), ("gine_block", b0)))
+                    for k, g_ in (("gine_std", tb), ("gine_block", b0))
+                    for path, fn in (
+                        (", the Ring layout", gine_layer.fused_gine_layer),
+                        (", the caller's weights",
+                         caller_weights(gine_layer.fused_gine_layer))))
         err_e = hold_layers("edge_block", edge_block.fused_edge_block_layer,
                             edge_block.edge_block_layer_plain,
                             layers["edge_block"], b0)
@@ -1747,16 +1796,31 @@ def edge_agg_phases(report, *, dev, graphs, batches, b0, tgraphs, tb,
                 f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it)")
             return ent
 
+        # row 12's products run on the tensor cores: 3 x TF32 bound; the
+        # main path reads the Ring layout, timed beside the caller's
+        # weights and the layout's own device time
         report["gine_layer"].update(entry(
             "gine_layer", "standard", gine_layer.fused_gine_layer,
             gine_layer.gine_layer_plain, layers["gine_std"], tb,
             gine_work(layers["gine_std"], tb),
-            f"one standard-packed b{BATCH_GRAPHS} forward (6 launches)"))
+            f"one standard-packed b{BATCH_GRAPHS} forward (6 launches)",
+            products=gine_products(layers["gine_std"], tb)))
         report["gine_layer"]["block"] = entry(
             "gine_layer", "block", gine_layer.fused_gine_layer,
             gine_layer.gine_layer_plain, layers["gine_block"], b0,
             gine_work(layers["gine_block"], b0),
-            f"one block-packed b{BATCH_GRAPHS} forward (6 launches)")
+            f"one block-packed b{BATCH_GRAPHS} forward (6 launches)",
+            products=gine_products(layers["gine_block"], b0))
+        for k, g_ in (("gine_std", tb), ("gine_block", b0)):
+            cw, cwev = timed(run(caller_weights(gine_layer.fused_gine_layer),
+                                 layers[k]), 10)
+            wts = [(kw["w0"], kw["w1"]) for _, kw in layers[k]]
+            st_ms, st_ev = timed(lambda: gine_layer.layer_operands(wts), 10)
+            report["gine_layer"].setdefault("caller_weights_ms", {})[k] = cw
+            report["gine_layer"].setdefault("layout_ms", {})[k] = st_ms
+            log(f"gine_layer {k}: the caller's weights {cw:.4f} ms device "
+                f"(events {cwev:.4f}); the six layers' Ring layout "
+                f"{st_ms:.4f} ms device (events {st_ev:.4f}) on {smi}")
         report["edge_block"].update(entry(
             "edge_block", "block", edge_block.fused_edge_block_layer,
             edge_block.edge_block_layer_plain, layers["edge_block"], b0,
@@ -2344,12 +2408,19 @@ def mp_args(model, g, block):
 def in_mode(layers, key, mode):
     """The (args, kw) of ``layers`` with their float32 weights brought to
     ``mode`` as the call sites bring them."""
+    from gnnbuilder_tpu_torch.ops.cuda.gine_layer import layer_operands
     from gnnbuilder_tpu_torch.ops.cuda.mp_layer import prepare_layer
 
+    if key == "gine_layer":   # all layers' Ring layouts in one gather
+        ops = layer_operands([(kw["w0"], kw["w1"]) for _, kw in layers],
+                             mode)
+        return [(args, dict(kw, mode=mode, w0=w0, w1=w1, s0=s0, s1=s1,
+                            staged=st))
+                for (args, kw), (w0, w1, s0, s1, st) in zip(layers, ops)]
     out = []
     for args, kw in layers:
         kw = dict(kw, mode=mode)
-        if key in ("mp_layer", "gine_layer") and "w0" in kw:
+        if key == "mp_layer" and "w0" in kw:
             w0, w1, s0, s1 = prepare_layer(kw["w0"], kw["w1"], mode)
             kw.update(w0=w0, w1=w1, s0=s0, s1=s1)
         if key == "edge_block":
@@ -3791,7 +3862,8 @@ def main():
     with phase("tensor-core instructions and resources of each instance of "
                "the PNA stack, the PNA layer, the GAT projection and block, "
                "the mp stack, the PNA scatter backward, the mp layer's gin "
-               "/ sage and the EdgeConv kernels"):
+               "/ sage, the EdgeConv and the GINE kernels; row 7's "
+               "registers"):
         tc = tc_kernel_resources(lib, _build.load(), _build.nvcc())
         for kern, insts in tc.items():
             for inst, v in insts.items():
@@ -3800,6 +3872,33 @@ def main():
                 if not sum(v[op] for op in TC_OPS):
                     raise AssertionError(f"{kern}_kernel<{inst}> has no "
                                          f"tensor-core instruction")
+        for kern, inst in (("gine_layer", "bf16 64 rows, ring's weights, "
+                            "2 CTAs an SM"),
+                           ("gine_layer", "bf16 64 rows, caller's weights, "
+                            "2 CTAs an SM")):
+            if not tc[kern][inst]["DMMA"]:
+                raise AssertionError(f"{kern} {inst}: bf16's T W0 runs on "
+                                     "no float64 tensor core")
+        g7 = _build.load().gnnb_ell_gather_bwd_info
+        g7.restype = ctypes.c_int
+        row7_res = {}
+        for csr in (0, 1):
+            for ts, tname in enumerate(("run-time terms", "lin-only", "PNA",
+                                        "cmp-only")):
+                for vec in (1, 0):
+                    regs, ctas = ctypes.c_int(), ctypes.c_int()
+                    err = g7(csr, ts, vec, ctypes.byref(regs),
+                             ctypes.byref(ctas))
+                    if err:
+                        raise RuntimeError(f"gnnb_ell_gather_bwd_info: "
+                                           f"cudaError {err}")
+                    key = (f"{'CSR' if csr else 'table'} {tname} "
+                           f"{'float4' if vec else 'scalar'}")
+                    row7_res[key] = dict(registers=regs.value,
+                                         ctas_per_sm=ctas.value)
+        log("ell_gather_bwd_kernel instances (registers, CTAs an SM): "
+            + "; ".join(f"{k} {v['registers']}, {v['ctas_per_sm']}"
+                        for k, v in row7_res.items()))
 
     with phase("data and model"):
         graphs, batches = canonical_batches(
@@ -4039,6 +4138,9 @@ def main():
             dv1 = ell_bwd.fused_gather_backward(*ga)
             dv2 = ell_bwd.fused_gather_backward(*ga)
             torch.cuda.synchronize()
+            if not torch.equal(dv1, ell_bwd.ell_gather_backward_ordered(*ga)):
+                raise AssertionError(f"ell_gather_bwd {i}: not the bits of "
+                                     f"the slot-ordered loop")
             ok, abs_g, rel_g = close_enough(
                 dv1, ell_bwd.ell_gather_backward_plain(*ga))
             err_gather = max(err_gather, abs_g)
@@ -4047,7 +4149,7 @@ def main():
                 f"ell_gather_bwd: {rel_g:.3e} of max |value| against its "
                 f"plain version, {rel_s:.3e} against the scatter route's "
                 f"plain dv (tol {TOL}); bitwise equal on two launches: "
-                f"{torch.equal(dv1, dv2)}")
+                f"{torch.equal(dv1, dv2)}; the slot-ordered loop's bits")
             if not (ok and ok_s):
                 raise AssertionError(f"ell_gather_bwd {i} disagrees")
             if not torch.equal(dv1, dv2):
@@ -4068,7 +4170,8 @@ def main():
             max_abs_err=err_scatter, rows_per_cta=rows,
             ks_t_staging_device_ms=ks_dev,
             resources=tc["pna_scatter_bwd"]["f32"])
-        report["ell_gather_bwd"] = dict(max_abs_err=err_gather)
+        report["ell_gather_bwd"] = dict(max_abs_err=err_gather,
+                                        resources=row7_res)
         report["ell_gather_bwd_csr"] = dict(max_abs_err=err_csr)
 
     torch.set_grad_enabled(True)
@@ -4381,6 +4484,11 @@ def main():
                 one = ell_bwd.fused_gather_backward_csr(*ga)
                 two = ell_bwd.fused_gather_backward_csr(*ga)
                 torch.cuda.synchronize()
+                if not torch.equal(
+                        one, ell_bwd.ell_gather_backward_csr_ordered(*ga)):
+                    raise AssertionError(f"ell_gather_bwd_csr on {label} "
+                                         f"({terms}): not the bits of the "
+                                         f"slot-ordered loop")
                 ok, abs_err, rel_err = close_enough(
                     one, ell_bwd.ell_gather_backward_csr_plain(*ga))
                 report["ell_gather_bwd_csr"]["max_abs_err"] = max(
@@ -4559,6 +4667,7 @@ def main():
         report, dev=dev, graphs=graphs, batches=batches, b0=b0,
         tgraphs=tgraphs, tb=tb, target=target, zero_counts=zero_counts,
         counts=counts, only=only, fresh_step=fresh_step, smi=smi)
+    report["gine_layer"]["resources"] = tc["gine_layer"]
     precision = precision_phases(
         report, dev=dev, graphs=graphs, batches=batches, b0=b0, tb=tb,
         prog=prog, counted=counted, zero_counts=zero_counts, smi=smi,

@@ -77,6 +77,7 @@
 
 #include "dense_rows.cuh"
 #include "mma_ring.cuh"
+#include "quant.cuh"
 
 namespace gnnb_gat {
 

@@ -358,122 +358,6 @@ __device__ __forceinline__ void form_rows(const LayerArgs& a, int row0,
   }
 }
 
-// out[row0 + r, n0 + c] = act(o [+ skip]) for this thread's accumulator
-// pairs, o = o_of(mt, j, 2 hh + i, r, column) for the valid rows and
-// columns; four n-tiles' skip loads issued together (one at a time, the
-// epilogue waited on each).
-template <int R, typename Fn>
-__device__ __forceinline__ void store_out(const LayerArgs& a, int row0,
-                                          int rows, int n0, Fn o_of) {
-  using G = tc::Geo<R>;
-  const int Fout = a.Fout;
-  const bool pair = (Fout & 1) == 0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp % G::WR, wc = warp / G::WR;
-#pragma unroll
-  for (int mt = 0; mt < tc::MT; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = 32 * wr + 16 * mt + (lane >> 2) + 8 * hh;
-      if (r >= rows) continue;
-      const size_t orow = (size_t)(row0 + r) * Fout;
-#pragma unroll
-      for (int j0 = 0; j0 < G::NT; j0 += 4) {
-        float2 sk[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = n0 + 8 * G::NT * wc + 8 * (j0 + j) + 2 * (lane & 3);
-          sk[j] = make_float2(0.f, 0.f);
-          if (a.skip == nullptr || c >= Fout) continue;
-          if (pair)
-            sk[j] = *reinterpret_cast<const float2*>(a.skip + orow + c);
-          else
-            sk[j] = make_float2(a.skip[orow + c],
-                                c + 1 < Fout ? a.skip[orow + c + 1] : 0.f);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = n0 + 8 * G::NT * wc + 8 * (j0 + j) + 2 * (lane & 3);
-          if (c >= Fout) continue;
-          float o[2] = {o_of(mt, j0 + j, 2 * hh, r, c),
-                        c + 1 < Fout ? o_of(mt, j0 + j, 2 * hh + 1, r, c + 1)
-                                     : 0.f};
-          if (a.skip != nullptr) {
-            o[0] = __fadd_rn(o[0], sk[j].x);
-            o[1] = __fadd_rn(o[1], sk[j].y);
-          }
-          o[0] = tc::act(o[0], a.act);
-          o[1] = tc::act(o[1], a.act);
-          if (pair) {
-            *reinterpret_cast<float2*>(a.out + orow + c) =
-                make_float2(o[0], o[1]);
-          } else {
-            a.out[orow + c] = o[0];
-            if (c + 1 < Fout) a.out[orow + c + 1] = o[1];
-          }
-        }
-      }
-    }
-}
-
-// gin's Z pre-activation columns n0 .. n0 + 127 in the BF16 mode, 64 rows
-// a CTA: T W0 on the float64 tensor cores (m8n8k4: the products of bf16
-// values are exact in double and their sums float64, exact for any K a
-// layer has), rounded to float32 once, as the plain version forms it (a
-// float64 product).  Z is rounded to bf16 next, so its pre-rounding value
-// must be the plain version's: a float32 chain in another order than the
-// plain version's flips a bf16 rounding now and then (2^-8 of a value;
-// 3.4e-3 of max off plain at F = 128 on the bf16 tensor cores' chains,
-// over the mode's 2e-3).  W0 comes through the stream's bf16 chunks (32 k
-// each, fragment order: unit (ks 16 + nt) 32 + 4 g + t holds k 16 ks + 4
-// t .. + 3 of column 8 nt + g).  Each warp takes its 32 rows and 32
-// columns; z[m][j][i] is row 32 wr + 8 m + lane / 4, column 32 wc + 8 j +
-// 2 (lane % 4) + i of the tile.
-__device__ __forceinline__ void gin_z_f64(tc::Stream<BF16, 64>& ws,
-                                          const float* T, int ldT,
-                                          const tc::Pass p,
-                                          const tc::Pass next,
-                                          float (&z)[4][4][2]) {
-  using G = tc::Geo<64>;
-  static_assert(G::NT == 4, "32 columns a warp");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp % G::WR, wc = warp / G::WR;
-  const int l4 = lane >> 2, lm = lane & 3;
-  double d[4][4][2];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) d[m][j][0] = d[m][j][1] = 0.0;
-  ws.walk(p, next, true, [&](int kc, const unsigned char* st) {
-    const uint2* w2 = reinterpret_cast<const uint2*>(st);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {   // 4 k at a time
-      const int k = kc * 32 + 4 * q + lm;   // T's columns past K are zero
-      double av[4], bv[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        av[m] = (double)T[(32 * wr + 8 * m + l4) * ldT + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint2 u =
-            w2[((q >> 2) * 16 + G::NT * wc + j) * 32 + 4 * l4 + (q & 3)];
-        const uint32_t h = ((lm < 2 ? u.x : u.y) >> (16 * (lm & 1))) & 0xffffu;
-        bv[j] = (double)__uint_as_float(h << 16);
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) gnnb_mma::mma_f64(d[m][j], av[m], bv[j]);
-    }
-  });
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) z[m][j][i] = (float)d[m][j][i];
-}
-
 // gin and sage on the tensor cores (header, tc_rows.cuh), R rows a CTA.
 template <int MODE, bool BLOCK, int R>
 __global__ void __launch_bounds__(tc::THREADS, 2)
@@ -538,7 +422,7 @@ mp_layer_tc_kernel(LayerArgs a) {
       dst[(size_t)i * L.ldT + c] = RND ? bf16r(x) : x;
     }
   };
-  // BF16 gin forms Z on the float64 tensor cores (gin_z_f64)
+  // BF16 gin forms Z on the float64 tensor cores (tc::gin_z_f64)
   constexpr bool Z64 = MODE == BF16;
   tc::Stream<MODE, R> ws{smem, a.stages, 0};
   ws.prefetch(pass0(0));
@@ -572,7 +456,7 @@ mp_layer_tc_kernel(LayerArgs a) {
     if constexpr (Z64 && R == 64) {
       for (int n0 = 0; n0 < H; n0 += NC) {
         float z[4][4][2];
-        gin_z_f64(ws, T, L.ldT, pass0(n0), n0 + NC < H ? pass0(n0 + NC)
+        tc::gin_z_f64(ws, T, L.ldT, pass0(n0), n0 + NC < H ? pass0(n0 + NC)
                                                        : pass1(0), z);
         const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
         const int wr = warp % 2, wc = warp / 2;
@@ -640,7 +524,7 @@ mp_layer_tc_kernel(LayerArgs a) {
       tc::zero<MODE, R>(acc);
       ws.run(acc, A2, lda2, pass1(n0), rows, pass1(n0 + NC),
              n0 + NC < Fout);
-      store_out<R>(a, row0, rows, n0, [&](int mt, int j, int k, int r, int c) {
+      tc::store_out<R>(a, row0, rows, n0, [&](int mt, int j, int k, int r, int c) {
         const float sr = MODE == INT8 ? sT[r] : 0.f;
         return __fadd_rn(tc::value<MODE>(acc[mt][j][k], sr, a.sw1, c),
                          __ldg(a.b1 + c));
@@ -662,7 +546,7 @@ mp_layer_tc_kernel(LayerArgs a) {
       }
       ws.run(acc, L.u_over_t ? T : U, L.ldT, pass1(n0), rows,
              pass0(n0 + NC), more);
-      store_out<R>(a, row0, rows, n0, [&](int mt, int j, int k, int, int c) {
+      tc::store_out<R>(a, row0, rows, n0, [&](int mt, int j, int k, int, int c) {
         return __fadd_rn(acc[mt][j][k], __ldg(a.b0 + c));
       });
     } else {
@@ -694,7 +578,7 @@ mp_layer_tc_kernel(LayerArgs a) {
       tc::zero<MODE, R>(acc);
       ws.run(acc, L.qu_sep ? QU : QT, L.ldqT, pass1(n0), rows,
              pass0(n0 + NC), more);
-      store_out<R>(a, row0, rows, n0, [&](int mt, int j, int k, int r, int c) {
+      tc::store_out<R>(a, row0, rows, n0, [&](int mt, int j, int k, int r, int c) {
         return __fadd_rn(Y[(size_t)r * tc::LDY + c - n0],
                          tc::value<MODE>(acc[mt][j][k], sU[r], a.sw1, c));
       });

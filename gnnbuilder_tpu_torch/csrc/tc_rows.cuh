@@ -1,8 +1,11 @@
 // The tensor-core rows product shared by the mp layer kernel (mp_layer.cu,
-// gin and sage) and the EdgeConv kernel (edge_block.cu): a CTA's R = 128
-// rows, held in shared memory, times a weight matrix that the kernel reads
-// row-major from device memory as the caller passes it, one 128-column
-// tile of the output at a time, on mma.sync.
+// gin and sage), the EdgeConv kernel (edge_block.cu) and the GINE kernel
+// (gine_layer.cu): a CTA's R = 128 rows, held in shared memory, times a
+// weight matrix that the kernel reads row-major from device memory as the
+// caller passes it (Stream), or as the caller has laid it out on the card
+// (Ring, below), one 128-column tile of the output at a time, on
+// mma.sync; with the epilogue's store (store_out) and gin's bf16 Z on the
+// float64 tensor cores (gin_z_f64).
 //
 // Geometry.  256 threads, 8 warps in a 4 x 2 grid (mp_block.cu's): warp
 // (wr, wc) owns rows 32 wr .. 32 wr + 31 (two m16 tiles) and columns 64 wc
@@ -332,6 +335,30 @@ __device__ __forceinline__ void mma_step(Acc<MODE, R>& acc, const void* A,
   }
 }
 
+// acc += A[0:R, 0:K] W[0:K, p.n0 + 0:128] through the weight stream ws
+// (Stream or Ring: ws.walk(p, next, has_next, step) calls step(kc, stage)
+// on each chunk of p and ends with a barrier).  rows: the valid rows of A
+// (m-tiles past them skipped).  Every thread calls it.  Inlined: acc
+// passed by reference to a call would live in local memory.
+template <int MODE, int R, class WS>
+__device__ __forceinline__ void product(WS& ws, Acc<MODE, R>& acc,
+                                        const void* A, int lda, const Pass p,
+                                        int rows, const Pass next,
+                                        bool has_next) {
+  using G = Geo<R>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % G::WR, wc = warp / G::WR;
+  const int mts = min(max((rows - 32 * wr + 15) / 16, 0), MT);
+  const int nts = min(max((p.N - p.n0 - 8 * G::NT * wc + 7) / 8, 0), G::NT);
+  const bool full = mts == MT && nts == G::NT;
+  ws.walk(p, next, has_next, [&](int kc, const unsigned char* st) {
+    if (full)
+      mma_step<MODE, R, true>(acc, A, lda, kc, st, wr, wc, lane, mts, nts);
+    else
+      mma_step<MODE, R, false>(acc, A, lda, kc, st, wr, wc, lane, mts, nts);
+  });
+}
+
 // The weight stream of a kernel: `wbuf` holds `stages` (1 or 2) chunk
 // stages; `cur` is the stage that holds the next pass's first chunk.
 template <int MODE, int R> struct Stream {
@@ -350,26 +377,11 @@ template <int MODE, int R> struct Stream {
 
   // acc += A[0:R, 0:K] W[0:K, p.n0 + 0:128], the first chunk already
   // staged at `cur`; with has_next, next's first chunk is staged during
-  // the last chunk.  rows: the valid rows of A (m-tiles past them
-  // skipped).  Every thread calls it; it ends with a barrier.  Inlined:
-  // acc passed by reference to a call would live in local memory.
+  // the last chunk (product()).
   __device__ __forceinline__ void run(Acc<MODE, R>& acc, const void* A,
                                       int lda, const Pass p, int rows,
                                       const Pass next, bool has_next) {
-    using G = Geo<R>;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wr = warp % G::WR, wc = warp / G::WR;
-    const int mts = min(max((rows - 32 * wr + 15) / 16, 0), MT);
-    const int nts =
-        min(max((p.N - p.n0 - 8 * G::NT * wc + 7) / 8, 0), G::NT);
-    const bool full = mts == MT && nts == G::NT;
-    walk(p, next, has_next, [&](int kc, const unsigned char* st) {
-      if (full)
-        mma_step<MODE, R, true>(acc, A, lda, kc, st, wr, wc, lane, mts, nts);
-      else
-        mma_step<MODE, R, false>(acc, A, lda, kc, st, wr, wc, lane, mts,
-                                 nts);
-    });
+    product<MODE, R>(*this, acc, A, lda, p, rows, next, has_next);
   }
 
   // The chunk loop of run(): step(kc, stage) on each staged chunk of p,
@@ -395,6 +407,82 @@ template <int MODE, int R> struct Stream {
       }
       __syncthreads();
     }
+  }
+};
+
+// The weight stream of a kernel whose weights the caller has laid out on
+// the card in the order the kernel walks its chunks: each pass's column
+// tiles in turn, each tile's k-chunks in turn, each chunk as Chunk::store
+// lays a stage out (fragment order, f32 split into TF32 halves;
+// ops/cuda/gine_layer.py stage_weights), chunk i at src + i
+// chunk_bytes(MODE).  `stages` (>= 2) stages in shared memory are filled
+// by cp.async.bulk, each counted on an mbarrier (full); every warp marks a
+// stage read on a second one (empty), and thread 0, one of the consumers
+// (no producer warp: 256 threads keep their registers), refills a stage
+// once every warp has read it: with three stages or more the stage of the
+// chunk before the one its warp has just read (stages - 2 chunks in
+// flight during a chunk's products, warps up to a chunk apart), with two
+// that of the chunk just read (one in flight; the refill waits for the
+// slowest warp).  No CTA-wide barrier runs per chunk: one ends each pass,
+// where a caller may overwrite the pass's A.
+template <int MODE, int R> struct Ring {
+  unsigned char* wbuf;          // stages x chunk_bytes(MODE)
+  uint32_t bar;                 // full[s] at bar + 8 s, empty[s] after them
+  const unsigned char* src;     // the laid-out chunks
+  int stages, n, it;            // stages; chunks in all; chunks read
+
+  __device__ __forceinline__ uint32_t full(int s) const { return bar + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bar + 8 * (stages + s);
+  }
+  __device__ __forceinline__ void issue(int i) const {
+    constexpr int CB = chunk_bytes(MODE);
+    const int s = i % stages;
+    gnnb_mma::mbar_expect_tx(full(s), CB);
+    gnnb_mma::bulk_copy(gnnb_mma::smem_addr(wbuf + s * CB),
+                        src + (size_t)i * CB, CB, full(s));
+  }
+  // thread 0 sets the barriers up and issues the first chunks; a barrier
+  // of the caller's (after its gather) comes before the first wait
+  __device__ __forceinline__ void start() const {
+    if (threadIdx.x != 0) return;
+    for (int s = 0; s < stages; ++s) {
+      gnnb_mma::mbar_init(full(s), 1);
+      gnnb_mma::mbar_init(empty(s), WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < min(stages, n); ++i) issue(i);
+  }
+
+  // step(kc, stage) on each chunk of p, in the sequence's order; ends
+  // with a barrier.  (next, has_next: Stream's; the sequence holds them.)
+  template <typename Step>
+  __device__ __forceinline__ void walk(const Pass p, const Pass, bool,
+                                       Step step) {
+    const int nk = kpad(p.K, MODE) / kchunk(MODE);
+    const int lane = threadIdx.x & 31;
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % stages;
+      gnnb_mma::mbar_wait(full(s), (it / stages) & 1);
+      step(kc, wbuf + s * chunk_bytes(MODE));
+      // the stage's next fill is an async-proxy write over these reads
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (lane == 0) gnnb_mma::mbar_arrive(empty(s));
+      const int q = stages >= 3 ? it - 1 : it;   // the stage to refill
+      if (threadIdx.x == 0 && q >= 0 && q + stages < n) {
+        gnnb_mma::mbar_wait(empty(q % stages), (q / stages) & 1);
+        issue(q + stages);
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+
+  __device__ __forceinline__ void run(Acc<MODE, R>& acc, const void* A,
+                                      int lda, const Pass p, int rows,
+                                      const Pass next, bool has_next) {
+    product<MODE, R>(*this, acc, A, lda, p, rows, next, has_next);
   }
 };
 
@@ -469,6 +557,122 @@ static __device__ __noinline__ float act_call(float x, int act) {
 // act: 0 none, 1 relu, 2 gelu (erf), 3 sigmoid, 4 tanh
 __device__ __forceinline__ float act(float x, int a) {
   return a == 1 ? fmaxf(x, 0.f) : a == 0 ? x : act_call(x, a);
+}
+
+// out[row0 + r, n0 + c] = act(o [+ skip]) for this thread's accumulator
+// pairs, o = o_of(mt, j, 2 hh + i, r, column) for the valid rows and
+// columns; four n-tiles' skip loads issued together (one at a time, the
+// epilogue waited on each).  a: a kernel's arguments (out, skip, Fout,
+// act).
+template <int R, class Args, typename Fn>
+__device__ __forceinline__ void store_out(const Args& a, int row0, int rows,
+                                          int n0, Fn o_of) {
+  using G = Geo<R>;
+  const int Fout = a.Fout;
+  const bool pair = (Fout & 1) == 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % G::WR, wc = warp / G::WR;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 32 * wr + 16 * mt + (lane >> 2) + 8 * hh;
+      if (r >= rows) continue;
+      const size_t orow = (size_t)(row0 + r) * Fout;
+#pragma unroll
+      for (int j0 = 0; j0 < G::NT; j0 += 4) {
+        float2 sk[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + 8 * G::NT * wc + 8 * (j0 + j) + 2 * (lane & 3);
+          sk[j] = make_float2(0.f, 0.f);
+          if (a.skip == nullptr || c >= Fout) continue;
+          if (pair)
+            sk[j] = *reinterpret_cast<const float2*>(a.skip + orow + c);
+          else
+            sk[j] = make_float2(a.skip[orow + c],
+                                c + 1 < Fout ? a.skip[orow + c + 1] : 0.f);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + 8 * G::NT * wc + 8 * (j0 + j) + 2 * (lane & 3);
+          if (c >= Fout) continue;
+          float o[2] = {o_of(mt, j0 + j, 2 * hh, r, c),
+                        c + 1 < Fout ? o_of(mt, j0 + j, 2 * hh + 1, r, c + 1)
+                                     : 0.f};
+          if (a.skip != nullptr) {
+            o[0] = __fadd_rn(o[0], sk[j].x);
+            o[1] = __fadd_rn(o[1], sk[j].y);
+          }
+          o[0] = act(o[0], a.act);
+          o[1] = act(o[1], a.act);
+          if (pair) {
+            *reinterpret_cast<float2*>(a.out + orow + c) =
+                make_float2(o[0], o[1]);
+          } else {
+            a.out[orow + c] = o[0];
+            if (c + 1 < Fout) a.out[orow + c + 1] = o[1];
+          }
+        }
+      }
+    }
+}
+
+// GIN's Z pre-activation columns n0 .. n0 + 127 in the BF16 mode, 64 rows
+// a CTA: T W0 on the float64 tensor cores (m8n8k4: the products of bf16
+// values are exact in double and their sums float64, exact for any K a
+// layer has), rounded to float32 once, as the plain versions form it (a
+// float64 product).  Z is rounded to bf16 next, so its pre-rounding value
+// must be the plain version's: a float32 chain in another order than the
+// plain version's flips a bf16 rounding now and then (2^-8 of a value;
+// 3.4e-3 of max off plain at F = 128 on the bf16 tensor cores' chains,
+// over the mode's 2e-3).  W0 comes through the stream's bf16 chunks (32 k
+// each, fragment order: unit (ks 16 + nt) 32 + 4 g + t holds k 16 ks + 4
+// t .. + 3 of column 8 nt + g).  Each warp takes its 32 rows and 32
+// columns; z[m][j][i] is row 32 wr + 8 m + lane / 4, column 32 wc + 8 j +
+// 2 (lane % 4) + i of the tile.  ws: a Stream or a Ring of 64 rows.
+template <class WS>
+__device__ __forceinline__ void gin_z_f64(WS& ws, const float* T, int ldT,
+                                          const Pass p, const Pass next,
+                                          float (&z)[4][4][2]) {
+  using G = Geo<64>;
+  static_assert(G::NT == 4, "32 columns a warp");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % G::WR, wc = warp / G::WR;
+  const int l4 = lane >> 2, lm = lane & 3;
+  double d[4][4][2];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[m][j][0] = d[m][j][1] = 0.0;
+  ws.walk(p, next, true, [&](int kc, const unsigned char* st) {
+    const uint2* w2 = reinterpret_cast<const uint2*>(st);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {   // 4 k at a time
+      const int k = kc * 32 + 4 * q + lm;   // T's columns past K are zero
+      double av[4], bv[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        av[m] = (double)T[(32 * wr + 8 * m + l4) * ldT + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint2 u =
+            w2[((q >> 2) * 16 + G::NT * wc + j) * 32 + 4 * l4 + (q & 3)];
+        const uint32_t h = ((lm < 2 ? u.x : u.y) >> (16 * (lm & 1))) & 0xffffu;
+        bv[j] = (double)__uint_as_float(h << 16);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gnnb_mma::mma_f64(d[m][j], av[m], bv[j]);
+    }
+  });
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) z[m][j][i] = (float)d[m][j][i];
 }
 
 }  // namespace gnnb_tc

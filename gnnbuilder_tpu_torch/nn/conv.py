@@ -616,7 +616,10 @@ class GINEConv(torch.nn.Module):
         self.lin0 = Linear(in_channels, out_channels)
         self.lin1 = Linear(out_channels, out_channels)
 
-    def forward(self, g: GraphBatch, x, act=None, skip=None):
+    def forward(self, g: GraphBatch, x, act=None, skip=None, operands=None):
+        """``operands``: this layer's ``gine_layer.layer_operands`` (the
+        weights of the mode and their Ring layout) from the model, or
+        None."""
         if g.edge_feat is None:
             raise ValueError("GINEConv requires edge features")
         e = self.lin_edge(g.edge_feat)
@@ -630,7 +633,7 @@ class GINEConv(torch.nn.Module):
                 x, e, g.nbr_nodes, g.nbr_edges, g.in_degree,
                 self.lin0.weight.t(), self.lin0.bias, self.lin1.weight.t(),
                 self.lin1.bias, eps=self.eps, skip=skip, act=act,
-                mode=cfg.get("mode", "f32"))
+                mode=cfg.get("mode", "f32"), operands=operands)
         if g.nbr_nodes is not None:
             table = torch.relu(ell.ell_gather(x, g.nbr_nodes)
                                + ell.ell_gather(e, g.nbr_edges))

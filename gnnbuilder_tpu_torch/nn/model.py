@@ -238,7 +238,8 @@ class GNNModel(torch.nn.Module):
         if stacked is not None:
             h = stacked
         else:
-            ops = self._gat_operands() or self._pna_operands(g)
+            ops = (self._gat_operands() or self._pna_operands(g)
+                   or self._gine_operands(g))
             for i, conv in enumerate(self.gnn_convs):
                 skip = (h if self.gnn_skip_connection and 0 < i < L - 1
                         else None)
@@ -379,6 +380,34 @@ class GNNModel(torch.nn.Module):
                 is None):
             return None
         return layers()
+
+    def _gine_operands(self, g: GraphBatch):
+        """Each GINE layer's kernel operands in the mode its gate gives
+        (``gine_layer.layer_operands`` of all layers at once: the weights
+        of the mode and their Ring layout, laid out on the card in one
+        gather), where the layer kernel runs (a card and its gate); None
+        otherwise.  Under inference cached like ``_kernel_params``
+        (rebuilt after ``set_params`` or an optimizer step); with a
+        gradient, from the live weights on every call."""
+        from gnnbuilder_tpu_torch.ops import dispatch
+        from gnnbuilder_tpu_torch.ops.cuda.gine_layer import layer_operands
+
+        if (self.gnn_conv != "gine" or not self.gnn_convs
+                or self.gnn_convs[0].lin0.weight.device.type != "cuda"):
+            return None
+        cfg = dispatch.gine_layer_cfg(g, self.gnn_activation)
+        if cfg is None:
+            return None
+        mode = cfg.get("mode", "f32")
+
+        def layers():
+            return layer_operands([(c.lin0.weight.t(), c.lin1.weight.t())
+                                   for c in self.gnn_convs], mode)
+
+        if not torch.is_grad_enabled():
+            return self._cached(f"{mode} gine layers", self._stack_width(),
+                                layers)
+        return layers() if mode == "f32" else None
 
     def _gat_operands(self):
         """Each GAT layer's kernel operands in the active policy's mode

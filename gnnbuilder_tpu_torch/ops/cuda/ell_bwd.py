@@ -18,8 +18,13 @@ has_lin + 2*has_dev + 2*n_cmp, and the terms per slot are ``c_lin[i]``,
 degree-1 receiver cancels exactly) and ``[v[j] == ref_k[i]] * coef_k[i]``.
 The caller divides each extremum coefficient by its tie count.
 
+``ell_gather_backward_ordered`` / ``ell_gather_backward_csr_ordered``
+form the same sums as the kernel does, slot by slot in slot order and,
+within a slot, term by term (each element's float32 sum in the kernel's
+order), so on the card the kernel's dv equals them bit for bit.
+
 What bounds it on the H100: bytes (a few operations per gathered
-coefficient); see the source.
+coefficient); see the source.  The kernel takes N * K * F below 2^31.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from gnnbuilder_tpu_torch.ops.segment import segment_sum
 
 __all__ = ["fused_gather_backward", "ell_gather_backward_plain",
            "fused_gather_backward_csr", "ell_gather_backward_csr_plain",
+           "ell_gather_backward_ordered", "ell_gather_backward_csr_ordered",
            "n_blocks"]
 
 
@@ -88,6 +94,46 @@ def ell_gather_backward_csr_plain(cstk, rev_ptr, rev_idx, v=None,
     return segment_sum(t, send, N)
 
 
+def ell_gather_backward_ordered(cstk, rev_nbr_nodes, out_degree, v=None,
+                                has_lin=True, has_dev=False, n_cmp=0):
+    """The gather as the kernel sums it: for r = 0, 1, .. each row's r-th
+    valid slot adds its terms one at a time (c_lin, then v d1 - d2 with
+    each operation rounded, then each hit coefficient) into a float32
+    accumulator, which a term that does not apply leaves untouched."""
+    F = cstk.shape[1] // n_blocks(has_lin, has_dev, n_cmp)
+    acc = cstk.new_zeros((cstk.shape[0], F))
+    for r in range(rev_nbr_nodes.shape[1]):
+        on = (r < out_degree)[:, None]
+        g = cstk[rev_nbr_nodes[:, r].long()]
+        o = 0
+        if has_lin:
+            acc = torch.where(on, acc + g[:, :F], acc)
+            o = F
+        if has_dev:
+            acc = torch.where(on, acc + (v * g[:, o:o + F]
+                                         - g[:, o + F:o + 2 * F]), acc)
+            o += 2 * F
+        for _ in range(n_cmp):
+            hit = on & (v == g[:, o:o + F])
+            acc = torch.where(hit, acc + g[:, o + F:o + 2 * F], acc)
+            o += 2 * F
+    return acc
+
+
+def ell_gather_backward_csr_ordered(cstk, rev_ptr, rev_idx, v=None,
+                                    has_lin=True, has_dev=False, n_cmp=0):
+    """``ell_gather_backward_ordered`` over the reverse CSR: the CSR laid
+    out as a table of each sender's slots in order."""
+    counts = rev_ptr[1:] - rev_ptr[:-1]
+    width = max(int(counts.max()) if counts.numel() else 0, 1)
+    r = torch.arange(width, device=rev_ptr.device)
+    table = torch.zeros((counts.shape[0], width), dtype=rev_idx.dtype,
+                        device=rev_idx.device)
+    table[r < counts[:, None]] = rev_idx   # row-major: the CSR's order
+    return ell_gather_backward_ordered(cstk, table, counts, v, has_lin,
+                                       has_dev, n_cmp)
+
+
 def _check(cstk, v, has_lin, has_dev, n_cmp, named_ints):
     """Shapes, types and devices; ``named_ints`` are the table or CSR
     arrays, (name, tensor, shape) with None for a free extent."""
@@ -104,6 +150,10 @@ def _check(cstk, v, has_lin, has_dev, n_cmp, named_ints):
     F = cstk.shape[1] // K
     if (has_dev or n_cmp) and v is None:
         raise ValueError("dev and cmp terms need the local rows v")
+    if cstk.numel() >= 2 ** 31 or n_cmp > 4:
+        raise ValueError(f"the gather takes N * K * F below 2^31 and at "
+                         f"most 4 compares; got {cstk.numel()} coefficients"
+                         f", {n_cmp} compares")
     if v is not None and (tuple(v.shape) != (N, F)
                           or v.dtype != torch.float32):
         raise ValueError(f"v must be ({N}, {F}) float32")

@@ -24,9 +24,16 @@ order is fixed, so every step gives the same bits.  (Autograd of the
 [N, W] gathers would accumulate every pad slot into the ghost row, one
 hot spot that costs hundreds of ms on the card at b1024.)
 
-What bounds the kernel on the H100: operations at width 128; see the
-source.  Operands are in the JAX package's [in, out] layout: w0 [F, H],
-b0 [H], w1 [H, Fout], b1 [Fout].
+What bounds the kernel on the H100: bytes at width 128; see the source.
+Operands are in the JAX package's [in, out] layout: w0 [F, H], b0 [H],
+w1 [H, Fout], b1 [Fout].  The kernel runs both products on the tensor
+cores; ``staged`` (``layer_operands`` / ``stage_weights``: W0 and W1 laid
+out on the card in the order its CTAs stream them, made in one gather
+for all of a model's layers) lets it stream them by bulk copies, else it
+reads the caller's weights.  The plain version's f32 products go through
+``_f32_dot`` (the CPU tests' seam for the kernel's order); in the bf16
+mode its T w0 is the float64 product rounded once, as the kernel forms it
+(Z is rounded to bf16 next).
 
 Inference modes (``mode``; the JAX kernel's ``gather_mode="bf16"`` with
 ``mm="bf16"``, and ``quant``; no backward): "bf16" rounds both gathered
@@ -51,11 +58,22 @@ from gnnbuilder_tpu_torch.ops.cuda.mp_layer import (
     prepare_layer,
     weight_dtype,
 )
+from gnnbuilder_tpu_torch.ops.cuda.pna_block import split_tf32
 from gnnbuilder_tpu_torch.ops.ell import ell_gather, ell_mask
 from gnnbuilder_tpu_torch.ops.quant import qdot, to_bf16
 
 __all__ = ["fused_gine_layer", "gine_layer_plain", "GINELayerFunction",
-           "fused_gine_layer_vjp", "fused_gine_layer_auto"]
+           "fused_gine_layer_vjp", "fused_gine_layer_auto", "stage_weights",
+           "unstage_weight", "layer_operands", "ring_chunks"]
+
+# the Ring's layout (csrc/tc_rows.cuh): a chunk is 2 k-steps x 16 n-tiles
+# x 32 lanes, a unit per lane: its two registers of the mode's values
+# (_UNIT of them; f32 then splits each into TF32 halves, four words);
+# per mode the k of a k-step and a chunk's bytes
+_KSTEP = {"f32": 8, "bf16": 16, "int8": 32}
+_UNIT = {"f32": 2, "bf16": 4, "int8": 8}
+RING_CHUNK = {"f32": 1024 * 16, "bf16": 1024 * 8, "int8": 1024 * 8}
+_index_cache: dict = {}
 
 
 def _messages(x, pe, nbr_nodes, nbr_edges, in_degree, mode="f32"):
@@ -67,15 +85,25 @@ def _messages(x, pe, nbr_nodes, nbr_edges, in_degree, mode="f32"):
     return pre, ell_mask(nbr_nodes, in_degree)[..., None]
 
 
+def _f32_dot(a, w):
+    """The f32 mode's product in the plain version."""
+    return a @ w
+
+
 def _mlp(h, w0, b0, w1, b1, skip, act, mode="f32", s0=None, s1=None):
     def dot(a, w, sw):
         if mode == "int8":
             return qdot(a, w, sw)
         if mode == "bf16":
             return to_bf16(a) @ w.float()
-        return a @ w
+        return _f32_dot(a, w)
 
-    o = dot(torch.relu(dot(h, w0, s0) + b0), w1, s1) + b1
+    # bf16: Z is rounded to bf16 next, so h w0 is the float64 product
+    # rounded once, as the kernel forms it (any float32 order flips a
+    # bf16 rounding now and then)
+    z = ((to_bf16(h).double() @ w0.double()).float() if mode == "bf16"
+         else dot(h, w0, s0))
+    o = dot(torch.relu(z + b0), w1, s1) + b1
     if skip is not None:
         o = o + skip
     return o if act is None else ACTIVATIONS[act](o)
@@ -84,12 +112,123 @@ def _mlp(h, w0, b0, w1, b1, skip, act, mode="f32", s0=None, s1=None):
 def gine_layer_plain(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1,
                      b1, eps: float = 0.0, skip=None,
                      act: Optional[str] = None, mode: str = "f32", s0=None,
-                     s1=None):
-    """The layer in plain torch (``gine_layer_reference``), in ``mode``."""
+                     s1=None, staged=None):
+    """The layer in plain torch (``gine_layer_reference``), in ``mode``;
+    it takes ``fused_gine_layer``'s arguments and has no use for the
+    weights' layout ``staged``."""
     pre, m = _messages(x, pe, nbr_nodes, nbr_edges, in_degree, mode)
     s = torch.where(m, torch.relu(pre), x.new_zeros(())).sum(1)
     return _mlp((1.0 + eps) * x + s, w0, b0, w1, b1, skip, act, mode, s0,
                 s1)
+
+
+def _ring_index(K: int, N: int, mode: str,
+                transposed: bool = False) -> torch.Tensor:
+    """[chunks, 1024, E] positions in a [K, N] weight's flat values (K N:
+    a zero; ``transposed``: the values of its contiguous transpose, [N,
+    K]) of its chunks in the Ring's order: its 128-column tiles in turn,
+    each tile's k-chunks in turn, unit u of a chunk (lane u % 32, n-tile
+    u / 32 % 16, k-step u / 512) lane's E values: column 8 nt + lane / 4
+    of the tile, k = chunk 2 KS + k-step KS + E (lane % 4) + 0 .. E - 1
+    (KS: the mode's k-step), mma_step's fragment order."""
+    E, KS = _UNIT[mode], _KSTEP[mode]
+    u = torch.arange(1024)
+    lane, nt, ks = u & 31, (u >> 5) & 15, u >> 9
+    n = (torch.arange(-(-N // 128)) * 128)[:, None, None, None] \
+        + (8 * nt + (lane >> 2))[None, None, :, None]
+    kchunks = -(-K // (2 * KS))
+    k = (torch.arange(kchunks) * 2 * KS)[None, :, None, None] \
+        + (ks * KS + E * (lane & 3))[None, None, :, None] \
+        + torch.arange(E)[None, None, None, :]
+    at = n * K + k if transposed else k * N + n
+    idx = torch.where((k >= K) | (n >= N), K * N, at)
+    return idx.reshape(-1, 1024, E)
+
+
+def ring_chunks(F: int, H: int, Fout: int, mode: str) -> int:
+    """Chunks of a layer's Ring layout (W0 [F, H] then W1 [H, Fout])."""
+    kc = 2 * _KSTEP[mode]
+    return (-(-H // 128) * -(-F // kc) + -(-Fout // 128) * -(-H // kc))
+
+
+def stage_weights(layers, mode: str = "f32"):
+    """Each layer's (w0, w1) in ``mode``'s type (float32, bfloat16, int8:
+    ``mp_layer.prepare_layer``) laid out as the kernel's Ring streams them
+    (``_ring_index``; f32 split into TF32 halves, as Chunk::store splits
+    them), made on the weights' device in one gather for all layers: a
+    list of uint8 tensors, one a layer, views of one buffer,
+    ``ring_chunks`` x ``RING_CHUNK[mode]`` bytes each."""
+    ws = [w.detach() for pair in layers for w in pair]
+    # a weight's values in place: a Linear's [in, out] view of its [out,
+    # in] parameter is read through that parameter, with no copy
+    srcs = [(w, False) if w.is_contiguous() else
+            (w.t(), True) if w.t().is_contiguous() else (w.contiguous(), False)
+            for w in ws]
+    dev = ws[0].device
+    key = (tuple((tuple(w.shape), tr) for w, (_, tr) in zip(ws, srcs)), mode,
+           dev)
+    idx = _index_cache.get(key)
+    if idx is None:
+        parts, off = [], 0
+        for w, (_, tr) in zip(ws, srcs):
+            K, N = w.shape
+            i = _ring_index(K, N, mode, tr)
+            parts.append(torch.where(i == K * N, -1, i + off))
+            off += K * N
+        idx = torch.cat(parts).to(dev)
+        idx = torch.where(idx < 0, off, idx)
+        _index_cache[key] = idx
+    flat = torch.cat([src.reshape(-1) for src, _ in srcs]
+                     + [ws[0].new_zeros(1)])
+    units = flat[idx]
+    if mode == "f32":   # each unit: tf32(f0), tf32(f1), then the lows
+        units = torch.cat(split_tf32(units), dim=-1)
+    staged = units.reshape(-1).view(torch.uint8)
+    out, at, cb = [], 0, RING_CHUNK[mode]
+    for w0, w1 in layers:
+        n = ring_chunks(w0.shape[0], w0.shape[1], w1.shape[1], mode)
+        out.append(staged[at:at + n * cb])
+        at += n * cb
+    return out
+
+
+def unstage_weight(staged, K: int, N: int, mode: str, first: int = 0):
+    """The [K, N] weight whose chunks start at chunk ``first`` of a
+    layer's layout (0: w0; ``ring_chunks`` of w0 alone: w1), back from
+    ``stage_weights``' bytes; in f32 its TF32 halves, [2, K, N]."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "int8": torch.int8}[mode]
+    idx = _ring_index(K, N, mode).to(staged.device).reshape(-1)
+    vals = staged[first * RING_CHUNK[mode]:].view(dt)
+    if mode == "f32":   # each unit: hi0, hi1, lo0, lo1
+        vals = vals[:idx.numel() * 2].reshape(-1, 2, 2).transpose(0, 1)
+    else:
+        vals = vals[:idx.numel()][None]
+    flat = torch.zeros((vals.shape[0], K * N + 1), dtype=dt,
+                       device=staged.device)
+    flat[:, idx] = vals.reshape(vals.shape[0], -1)
+    out = flat[:, :K * N].reshape(-1, K, N)
+    return out if mode == "f32" else out[0]
+
+
+def layer_operands(weights, mode: str = "f32"):
+    """Each layer's kernel operands in ``mode`` from its float32 (w0, w1)
+    [in, out]: (w0, w1, s0, s1) of the mode (``mp_layer.prepare_layer``;
+    in f32 the weights as given, which the caller makes contiguous) and
+    the Ring layout of all layers at once (``stage_weights``), or None
+    for a layer whose Ring does not fit the card (``ring_chunks`` of the
+    library: 0)."""
+    from gnnbuilder_tpu_torch.ops.cuda._build import load
+
+    lib = load()
+    prepared = [prepare_layer(w0.detach(), w1.detach(), mode) if mode == "f32"
+                else prepare_layer(w0.detach().contiguous(),
+                                   w1.detach().contiguous(), mode)
+                for w0, w1 in weights]
+    staged = stage_weights([(p[0], p[1]) for p in prepared], mode)
+    return [p + (st if lib.gnnb_gine_layer_ring_chunks(
+        p[0].shape[0], p[0].shape[1], p[1].shape[1], MODES[mode]) else None,)
+            for p, st in zip(prepared, staged)]
 
 
 def _check(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1, b1, skip,
@@ -134,7 +273,7 @@ def _check(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1, b1, skip,
 
 
 def _launch(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1, b1, eps,
-            skip, act, mode, s0, s1):
+            skip, act, mode, s0, s1, staged=None):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -158,7 +297,13 @@ def _launch(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1, b1, eps,
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([P] * 5 + [I] * 5 + [P] * 5 + [ctypes.c_float, I, I]
-                   + [P] * 4 + [I])
+                   + [P] * 4 + [I, P, ctypes.c_longlong])
+    if staged is not None:
+        want = ring_chunks(F, H, Fout, mode) * RING_CHUNK[mode]
+        if (staged.dtype != torch.uint8 or staged.dim() != 1
+                or staged.numel() != want or staged.device != dev):
+            raise ValueError(f"staged must be ({want},) uint8 on {dev} "
+                             "(stage_weights)")
     out = torch.empty((N, Fout), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(x.data_ptr(), pe.data_ptr(), nbr_nodes.data_ptr(),
@@ -169,7 +314,8 @@ def _launch(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1, b1, eps,
              LAYER_ACTS[act], MODES[mode],
              None if s0 is None else s0.data_ptr(),
              None if s1 is None else s1.data_ptr(), out.data_ptr(), stream,
-             dev.index or 0)
+             dev.index or 0, None if staged is None else staged.data_ptr(),
+             0 if staged is None else staged.numel())
     if err != 0:
         raise RuntimeError(f"gine_layer launch failed: cudaError {err}")
     fused_gine_layer.launches += 1
@@ -180,18 +326,19 @@ def _launch(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1, b1, eps,
 def fused_gine_layer(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1,
                      b1, eps: float = 0.0, skip=None,
                      act: Optional[str] = None, mode: str = "f32", s0=None,
-                     s1=None):
+                     s1=None, staged=None):
     """One GINE layer (module docstring) on x [N, F] and pe [E, F] float32
     over the ELL table ``nbr_nodes`` / ``nbr_edges`` [N, W] and
     ``in_degree`` [N] (int32), weights typed by ``mode``
-    (``mp_layer.prepare_layer``).  A CUDA ``x`` launches the kernel, which
+    (``mp_layer.prepare_layer``), with their Ring layout ``staged``
+    (``stage_weights``) or None.  A CUDA ``x`` launches the kernel, which
     takes any width within shared memory and raises on what it does not
     take; a CPU ``x`` runs the plain version."""
     _check(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1, b1, skip,
            act, mode, s0, s1)
     if x.device.type == "cuda":
         return _launch(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1,
-                       b1, eps, skip, act, mode, s0, s1)
+                       b1, eps, skip, act, mode, s0, s1, staged)
     if x.device.type != "cpu":
         raise ValueError(f"no GINE layer for device {x.device}")
     return gine_layer_plain(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0,
@@ -208,12 +355,12 @@ class GINELayerFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, pe, nbr_nodes, nbr_edges, in_degree, skip, w0, b0,
-                w1, b1, eps, act):
+                w1, b1, eps, act, staged=None):
         ctx.save_for_backward(x, pe, nbr_nodes, nbr_edges, in_degree, skip,
                               w0, b0, w1, b1)
         ctx.eps, ctx.act = eps, act
         return fused_gine_layer(x, pe, nbr_nodes, nbr_edges, in_degree, w0,
-                                b0, w1, b1, eps, skip, act)
+                                b0, w1, b1, eps, skip, act, staged=staged)
 
     @staticmethod
     def backward(ctx, ct):
@@ -239,38 +386,47 @@ class GINELayerFunction(torch.autograd.Function):
                                                accumulate=True)
         dpe = torch.zeros_like(pe).index_put_((nbre[valid].long(),), dmsg)
         return (dx, dpe, None, None, None, dskip, dw0, db0, dw1, db1, None,
-                None)
+                None, None)
 
 
 def fused_gine_layer_vjp(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1,
                          b1, eps: float = 0.0, skip=None,
-                         act: Optional[str] = None, mode: str = "f32"):
-    """Differentiable ``fused_gine_layer``: the kernel forward and the
-    plain-recompute backward.  Mode "f32" only: the bf16 and int8 modes
-    are inference modes and raise here."""
+                         act: Optional[str] = None, mode: str = "f32",
+                         staged=None):
+    """Differentiable ``fused_gine_layer``: the kernel forward (on the Ring
+    layout ``staged`` of these weights, if given) and the plain-recompute
+    backward.  Mode "f32" only: the bf16 and int8 modes are inference
+    modes and raise here."""
     if mode != "f32":
         raise ValueError(f"mode {mode!r} is an inference mode: no backward")
     return GINELayerFunction.apply(x, pe, nbr_nodes, nbr_edges, in_degree,
-                                   skip, w0, b0, w1, b1, float(eps), act)
+                                   skip, w0, b0, w1, b1, float(eps), act,
+                                   staged)
 
 
 def fused_gine_layer_auto(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0,
                           w1, b1, eps: float = 0.0, skip=None,
-                          act: Optional[str] = None, mode: str = "f32"):
+                          act: Optional[str] = None, mode: str = "f32",
+                          operands=None):
     """The layer as GINEConv calls it: the differentiable path when grad
     mode is on and an input needs a gradient (mode "f32" only), else the
-    kernel alone, with float32 weights brought to ``mode`` here.  The
-    kernel takes any width, so nothing is padded."""
+    kernel alone.  ``operands``: this layer's ``layer_operands`` in
+    ``mode`` (the weights of the mode and their Ring layout), else float32
+    weights are brought to ``mode`` here and the kernel reads them as
+    they are.  The kernel takes any width, so nothing is padded."""
     ops = [None if t is None else t.contiguous()
            for t in (x, pe, skip, w0, b0, w1, b1)]
     x, pe, skip, w0, b0, w1, b1 = ops
+    staged = None if operands is None else operands[4]
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in ops):
         return fused_gine_layer_vjp(x, pe, nbr_nodes, nbr_edges, in_degree,
-                                    w0, b0, w1, b1, eps, skip, act, mode)
-    if mode == "f32":
-        return fused_gine_layer(x, pe, nbr_nodes, nbr_edges, in_degree, w0,
-                                b0, w1, b1, eps, skip, act)
-    w0, w1, s0, s1 = prepare_layer(w0, w1, mode)
+                                    w0, b0, w1, b1, eps, skip, act, mode,
+                                    staged)
+    if operands is not None and mode != "f32":
+        w0, w1, s0, s1 = operands[:4]
+    else:
+        w0, w1, s0, s1 = prepare_layer(w0, w1, mode)
     return fused_gine_layer(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0,
-                            w1, b1, eps, skip, act, mode=mode, s0=s0, s1=s1)
+                            w1, b1, eps, skip, act, mode=mode, s0=s0, s1=s1,
+                            staged=staged)

@@ -689,28 +689,77 @@ def test_pna_without_ell_table_on_the_card(cuda_device):
     assert _scaled_err(out[m], ref[m]) <= 1e-4
 
 
+# row 7's term sets: each one the kernel instantiates (lin-only, PNA's,
+# cmp-only) and one it takes at run time
+GATHER_TERMS = [(True, False, 0), (True, True, 2), (False, False, 1),
+                (True, True, 1)]
+
+
+def _gather_case(b, F, terms, seed, device):
+    """(cstk, v) with K blocks of width F on batch b, half the extremum
+    refs hitting v (exact ties), v None for lin-only."""
+    has_lin, has_dev, n_cmp = terms
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    N = b.num_nodes
+    K = ell_bwd.n_blocks(*terms)
+    v = torch.randn(N, F, generator=g).to(device)
+    cstk = torch.randn(N, K * F, generator=g).to(device)
+    o = int(has_lin) + 2 * int(has_dev)
+    first = v[b.nbr_nodes[:, 0].long()]
+    for k in range(n_cmp):
+        hit = torch.rand(N, F, generator=g).to(device) < 0.5
+        blk = cstk[:, (o + 2 * k) * F:(o + 2 * k + 1) * F]
+        blk.copy_(torch.where(hit, first, blk))
+    return cstk, (v if has_dev or n_cmp else None)
+
+
+def _reverse_table(b):
+    """The batch's reverse table, or one laid out from ``reverse_csr``
+    where it carries none."""
+    if b.rev_nbr_nodes is not None:
+        return b.rev_nbr_nodes, b.out_degree
+    ptr, idx = ell.reverse_csr(b.nbr_nodes, b.in_degree)
+    odeg = (ptr[1:] - ptr[:-1]).to(torch.int32)
+    r = torch.arange(int(odeg.max()), device=odeg.device)
+    rev = torch.zeros((odeg.shape[0], r.shape[0]), dtype=torch.int32,
+                      device=odeg.device)
+    rev[r < odeg[:, None]] = idx
+    return rev, odeg
+
+
+def _gather_batches(device):
+    """The 128-graph train batch, and a batch whose 70-out-degree hub
+    sits in an ELL table 72 slots wide."""
+    return {"train": _std_batch(device=device)[1],
+            "hub": _hub_ell_batch(device)}
+
+
 def test_ell_gather_kernel_matches_plain_bitwise_stable(cuda_device):
-    """The reverse-table gather on the 128-graph train batch with PNA's
-    seven coefficient blocks (half the extremum refs hit): within 1e-6 of
-    max |value| of the plain version (another sum order), and the same
-    bits on two launches."""
-    _, b = _std_batch(device=cuda_device)
-    g = torch.Generator(device="cpu").manual_seed(4)
-    N, F = b.num_nodes, 128
-    v = torch.randn(N, F, generator=g).to(cuda_device)
-    cstk = torch.randn(N, 7 * F, generator=g).to(cuda_device)
-    hit = torch.rand(N, F, generator=g).to(cuda_device) < 0.5
-    first = v[b.rev_nbr_nodes[:, 0].long()]
-    cstk[:, 3 * F:4 * F] = torch.where(hit, first, cstk[:, 3 * F:4 * F])
-    args = (cstk, b.rev_nbr_nodes, b.out_degree, v, True, True, 2)
-    before = ell_bwd.fused_gather_backward.launches
-    one = ell_bwd.fused_gather_backward(*args)
-    two = ell_bwd.fused_gather_backward(*args)
-    torch.cuda.synchronize()
-    assert ell_bwd.fused_gather_backward.launches == before + 2
-    assert torch.equal(one, two)
-    want = ell_bwd.ell_gather_backward_plain(*args)
-    assert _scaled_err(one, want) <= 1e-6
+    """The reverse-table gather on the 128-graph train batch and on the
+    hub batch (a sender of out-degree 70), at F = 11, 128 and 384, for each
+    term set (half the extremum refs hit): the same bits as the
+    slot-ordered loop (``ell_gather_backward_ordered``: the kernel's own
+    sum order), within 1e-6 of max |value| of the plain version (another
+    sum order), and the same bits on two launches."""
+    for name, b in _gather_batches(cuda_device).items():
+        rev, odeg = _reverse_table(b)
+        if name == "hub":
+            assert int(odeg.max()) == 70
+        for F in (11, 128, 384):
+            for i, terms in enumerate(GATHER_TERMS):
+                cstk, v = _gather_case(b, F, terms, 4 + i, cuda_device)
+                args = (cstk, rev, odeg, v, *terms)
+                before = ell_bwd.fused_gather_backward.launches
+                one = ell_bwd.fused_gather_backward(*args)
+                two = ell_bwd.fused_gather_backward(*args)
+                torch.cuda.synchronize()
+                what = (name, F, terms)
+                assert ell_bwd.fused_gather_backward.launches == before + 2
+                assert torch.equal(one, two), what
+                assert torch.equal(
+                    one, ell_bwd.ell_gather_backward_ordered(*args)), what
+                want = ell_bwd.ell_gather_backward_plain(*args)
+                assert _scaled_err(one, want) <= 1e-6, what
 
 
 def test_pna_dv_and_train_step_are_bitwise_reproducible(cuda_device):
@@ -825,31 +874,33 @@ def test_mp_layer_kernel_matches_plain(cuda_device, conv, mode):
 
 
 def test_csr_gather_is_bitwise_stable(cuda_device):
-    """The gather's CSR mode over ``reverse_csr`` of the train batch's
-    forward table, with PNA's seven coefficient blocks: within 1e-6 of
-    max |value| of the plain version and of the table mode, and the same
-    bits on two launches."""
-    _, b = _std_batch(device=cuda_device)
-    g = torch.Generator(device="cpu").manual_seed(5)
-    N, F = b.num_nodes, 128
-    v = torch.randn(N, F, generator=g).to(cuda_device)
-    cstk = torch.randn(N, 7 * F, generator=g).to(cuda_device)
-    hit = torch.rand(N, F, generator=g).to(cuda_device) < 0.5
-    first = v[b.rev_nbr_nodes[:, 0].long()]
-    cstk[:, 3 * F:4 * F] = torch.where(hit, first, cstk[:, 3 * F:4 * F])
-    ptr, idx = ell.reverse_csr(b.nbr_nodes, b.in_degree)
-    args = (cstk, ptr, idx, v, True, True, 2)
-    before = ell_bwd.fused_gather_backward_csr.launches
-    one = ell_bwd.fused_gather_backward_csr(*args)
-    two = ell_bwd.fused_gather_backward_csr(*args)
-    torch.cuda.synchronize()
-    assert ell_bwd.fused_gather_backward_csr.launches == before + 2
-    assert torch.equal(one, two)
-    assert _scaled_err(one, ell_bwd.ell_gather_backward_csr_plain(
-        *args)) <= 1e-6
-    table = ell_bwd.fused_gather_backward(cstk, b.rev_nbr_nodes,
-                                          b.out_degree, v, True, True, 2)
-    assert _scaled_err(one, table) <= 1e-6
+    """The gather's CSR mode over ``reverse_csr`` of the forward table, on
+    the train batch and the hub batch, at F = 11, 128 and 384, for each
+    term set: the same bits as the slot-ordered loop over the CSR, within
+    1e-6 of max |value| of the plain version and of the table mode, and
+    the same bits on two launches."""
+    for name, b in _gather_batches(cuda_device).items():
+        ptr, idx = ell.reverse_csr(b.nbr_nodes, b.in_degree)
+        rev, odeg = _reverse_table(b)
+        for F in (11, 128, 384):
+            for i, terms in enumerate(GATHER_TERMS):
+                cstk, v = _gather_case(b, F, terms, 5 + i, cuda_device)
+                args = (cstk, ptr, idx, v, *terms)
+                before = ell_bwd.fused_gather_backward_csr.launches
+                one = ell_bwd.fused_gather_backward_csr(*args)
+                two = ell_bwd.fused_gather_backward_csr(*args)
+                torch.cuda.synchronize()
+                what = (name, F, terms)
+                assert (ell_bwd.fused_gather_backward_csr.launches
+                        == before + 2)
+                assert torch.equal(one, two), what
+                assert torch.equal(
+                    one, ell_bwd.ell_gather_backward_csr_ordered(*args)), what
+                assert _scaled_err(one, ell_bwd.ell_gather_backward_csr_plain(
+                    *args)) <= 1e-6, what
+                table = ell_bwd.fused_gather_backward(cstk, rev, odeg, v,
+                                                      *terms)
+                assert _scaled_err(one, table) <= 1e-6, what
 
 
 @pytest.mark.parametrize("conv", ["gcn", "gin", "sage"])
@@ -1194,30 +1245,71 @@ def _gine_operands(F, g, device, H=128, Fout=128):
 
 @pytest.mark.parametrize("block", [False, True])
 def test_gine_layer_kernel_matches_plain(cuda_device, block):
-    """Row 12 at F = 11, 128 and 384 (hidden 384: 16 rows per CTA where
-    32 do not fit shared memory), pe nonzero on pad edges, as lin_edge's
-    bias puts it there, with skip and relu, without them (tanh), and
-    gelu, on a standard and a block batch: within 1e-5 of max |value| on
-    real rows."""
+    """Row 12 at F = 11, 128 and 384 (hidden 384: the caller's weights at
+    64 rows a CTA, where the Ring's stages do not fit), pe nonzero on pad
+    edges, as lin_edge's bias puts it there, with skip and relu, without
+    them (tanh), and gelu, on a standard and a block batch, and at F =
+    128 on the b1024 train batch (292 CTAs of 64 rows: more than the card
+    has SMs), each on the caller's weights and on their Ring layout
+    (``layer_operands``): within 1e-5 of max |value| on real rows."""
     b = (_batch()[1] if block else _std_batch()[1]).to(cuda_device)
+    big = _std_batch(n_graphs=1024)[1].to(cuda_device)
     g = torch.Generator(device="cpu").manual_seed(12)
-    for F, H, act, with_skip in ((11, 128, "relu", True),
-                                 (128, 128, "tanh", False),
-                                 (384, 384, "gelu", True)):
-        x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
-        pe = torch.randn(b.num_edges, F, generator=g).to(cuda_device)
+    for bb, F, H, act, with_skip in ((b, 11, 128, "relu", True),
+                                     (b, 128, 128, "tanh", False),
+                                     (b, 384, 384, "gelu", True),
+                                     (big, 128, 128, "relu", True)):
+        x = torch.randn(bb.num_nodes, F, generator=g).to(cuda_device)
+        pe = torch.randn(bb.num_edges, F, generator=g).to(cuda_device)
         ops = _gine_operands(F, g, cuda_device, H=H, Fout=H)
-        skip = (torch.randn(b.num_nodes, H, generator=g).to(cuda_device)
+        skip = (torch.randn(bb.num_nodes, H, generator=g).to(cuda_device)
                 if with_skip else None)
-        args = (x, pe, b.nbr_nodes, b.nbr_edges, b.in_degree)
+        args = (x, pe, bb.nbr_nodes, bb.nbr_edges, bb.in_degree)
         kw = dict(ops, eps=0.1, skip=skip, act=act)
-        before = gine_layer.fused_gine_layer.launches
-        got = gine_layer.fused_gine_layer(*args, **kw)
-        torch.cuda.synchronize()
-        assert gine_layer.fused_gine_layer.launches == before + 1
+        (staged,) = [o[4] for o in gine_layer.layer_operands(
+            [(ops["w0"], ops["w1"])])]
+        assert (staged is None) == (F == 384), F
         want = gine_layer.gine_layer_plain(*args, **kw)
-        m = b.node_mask
-        assert _scaled_err(got[m], want[m]) <= 1e-5, (F, act)
+        m = bb.node_mask
+        for st in (None, staged):
+            before = gine_layer.fused_gine_layer.launches
+            got = gine_layer.fused_gine_layer(*args, **kw, staged=st)
+            torch.cuda.synchronize()
+            assert gine_layer.fused_gine_layer.launches == before + 1
+            assert _scaled_err(got[m], want[m]) <= 1e-5, (F, act, st is None)
+
+
+def test_gine_cached_layout_follows_an_optimizer_step(cuda_device):
+    """Under inference the model caches its GINE layers' Ring layout; after
+    an Adam step the next forward lays the new weights out and matches the
+    plain path on them (1e-4 of max on real graphs), where the forward
+    before the step does not."""
+    gs, b = _std_batch(device=cuda_device)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    torch.manual_seed(0)
+    model = canonical_model("gine", "qm9", graphs=gs).to(cuda_device)
+    m = b.graph_mask
+
+    def forward(fused=True):
+        dispatch.set_fused_mode("auto" if fused else "never")
+        try:
+            with torch.no_grad():
+                return model(b)
+        finally:
+            dispatch.set_fused_mode("auto")
+
+    before = forward()
+    assert model._kernel_cache.get("f32 gine layers") is not None
+    step = train.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-2))
+    step(b, target)
+    launches = gine_layer.fused_gine_layer.launches
+    after = forward()
+    torch.cuda.synchronize()
+    assert gine_layer.fused_gine_layer.launches == launches + 6
+    want = forward(fused=False)
+    assert _scaled_err(after[m], want[m]) <= 1e-4
+    assert _scaled_err(before[m], want[m]) > 1e-3
 
 
 @pytest.mark.parametrize("rev", [True, False])
