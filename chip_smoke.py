@@ -31,7 +31,9 @@ weights):
 * GAT with 4 heads (layers 11 -> 4 x 128 -> ... -> 4 x 64): the block
   attention kernel (row 9) and the windowed layer kernel (row 10)
   against their plain versions in each layer, row 11 (the softmax
-  backward) in both of its modes; ``Program.forward`` on the three
+  backward) in both of its modes, bitwise on two launches, with its
+  instances' registers, shared memory and CTAs an SM and the rate at
+  which it moves its bound's bytes; ``Program.forward`` on the three
   block-packed batches (row 9 in every layer) and on the standard-packed
   train batch (row 10); the train step (row 10 forward, row 11
   backward): gradients against the float64 plain path taken on the
@@ -47,7 +49,10 @@ weights):
   all five aggregators: each kernel against its plain version in every
   layer (row 12 on its weights' Ring layout, as the model launches it,
   and on the caller's weights; its instances' HMMA / IMMA / DMMA counted
-  in the SASS, bf16's float64 Z checked), row 8's backward on both u-free routes against float64 and
+  in the SASS, bf16's float64 Z checked), row 8 in f32 and bf16 the
+  bits of the slot-ordered loop ``ell_agg.ell_aggregate_ordered`` in
+  every layer of every path (its instances' registers and CTAs an SM
+  logged), row 8's backward on both u-free routes against float64 and
   bitwise on two runs; ``Program.forward`` of GINE (block-packed and
   standard-packed), EdgeConv (block-packed), Simple max and min
   (standard-packed) and five-aggregator PNA (both packings) against the
@@ -935,6 +940,61 @@ def gat_bwd_work(bwd_args, g):
     return flops, nbytes
 
 
+def gat_bwd_resources(g):
+    """Registers, shared memory and CTAs an SM of each row-11 instance at
+    the batch's table widths and 4 heads (``gnnb_gat_bwd_info``), logged;
+    {name: {...}}."""
+    from gnnbuilder_tpu_torch.ops.cuda import _build
+
+    info = _build.load().gnnb_gat_bwd_info
+    info.restype = ctypes.c_int
+    out = {}
+    W, H = g.ell_width, GAT_HEADS
+    for cph, cname in ((32, "C = 128"), (16, "C = 64"), (0, "general")):
+        for kind, kname in ((0, "receiver (table)"), (3, "receiver (CSR)"),
+                            (1, "sender (table)"), (2, "sender (CSR)")):
+            if cph == 0 and kind == 3:
+                continue   # the general receiver serves both modes
+            regs, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            err = info(kind, cph, W, H, ctypes.byref(regs),
+                       ctypes.byref(smem), ctypes.byref(ctas))
+            if err:
+                raise RuntimeError(f"gnnb_gat_bwd_info: cudaError {err}")
+            out[f"{cname} {kname}"] = dict(
+                registers=regs.value, shared_bytes=smem.value,
+                ctas_per_sm=ctas.value)
+    log("gat_bwd instances (registers, shared bytes, CTAs an SM): "
+        + "; ".join(f"{k} {v['registers']}, {v['shared_bytes']}, "
+                    f"{v['ctas_per_sm']}" for k, v in out.items()))
+    return out
+
+
+def ell_agg_resources():
+    """Registers and CTAs an SM of each row-8 instance
+    (``gnnb_ell_agg_info``), logged; {name: {...}}."""
+    from gnnbuilder_tpu_torch.ops.cuda import _build
+
+    info = _build.load().gnnb_ell_agg_info
+    info.restype = ctypes.c_int
+    out = {}
+    for set_, sname in enumerate(("run-time codes", "max", "min", "mean",
+                                  "sum", "min max", "PNA five")):
+        for bf16 in (0, 1):
+            for vec in (1, 0):
+                regs, ctas = ctypes.c_int(), ctypes.c_int()
+                err = info(set_, bf16, vec, ctypes.byref(regs),
+                           ctypes.byref(ctas))
+                if err:
+                    raise RuntimeError(f"gnnb_ell_agg_info: cudaError {err}")
+                out[f"{sname} {'bf16' if bf16 else 'f32'} "
+                    f"{'float4' if vec else 'scalar'}"] = dict(
+                        registers=regs.value, ctas_per_sm=ctas.value)
+    log("ell_agg instances (registers, CTAs an SM): "
+        + "; ".join(f"{k} {v['registers']}, {v['ctas_per_sm']}"
+                    for k, v in out.items()))
+    return out
+
+
 def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
                zero_counts, counts, only, fresh_step, smi):
     """GAT (heads 4, concat): rows 9, 10 and 11 against their plain
@@ -953,7 +1013,7 @@ def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
         conv_output_masks,
         grads_on_relu_pattern,
     )
-    from gnnbuilder_tpu_torch.ops import dispatch
+    from gnnbuilder_tpu_torch.ops import dispatch, ell
     from gnnbuilder_tpu_torch.ops.cuda import gat_block, gat_bwd, gat_layer
 
     kw_gat = dict(conv_kwargs=dict(heads=GAT_HEADS))
@@ -1078,7 +1138,8 @@ def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
             want = gat_bwd.gat_scatter_backward_plain(*a)
             for label, rkw in (("reverse table", dict(
                     rev_nbr_nodes=tb.rev_nbr_nodes,
-                    out_degree=tb.out_degree)), ("reverse CSR", {})):
+                    out_degree=tb.out_degree)),
+                               ("reverse CSR", dict(rev_csr=tb.rev_csr))):
                 one = gat_bwd.fused_gat_scatter_backward(*a, **rkw)
                 two = gat_bwd.fused_gat_scatter_backward(*a, **rkw)
                 torch.cuda.synchronize()
@@ -1096,7 +1157,8 @@ def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
                         raise AssertionError(f"gat_bwd layer {i} ({label}) "
                                              f"{name}: two launches differ")
             bwd_args.append(a + (tb.rev_nbr_nodes, tb.out_degree))
-        report["gat_bwd"] = dict(max_abs_err=err)
+        report["gat_bwd"] = dict(max_abs_err=err,
+                                 instances=gat_bwd_resources(tb))
         log(f"gat_bwd: six outputs of all 6 layers within tol ({TOL}) in "
             f"both modes, max abs {err:.3e}; bitwise equal on two launches")
 
@@ -1219,9 +1281,14 @@ def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
                 fn(*args, **kw)
 
         def run_bwd(fn, rev):
+            # a step on a new batch without a reverse table builds its
+            # reverse CSR once (GraphBatch.rev_csr)
+            kw = (dict(rev_nbr_nodes=tb.rev_nbr_nodes,
+                       out_degree=tb.out_degree) if rev else
+                  dict(rev_csr=ell.reverse_csr(tb.nbr_nodes, tb.in_degree,
+                                               positions=True)))
             for a in bwd_args:
-                fn(*a[:7], rev_nbr_nodes=a[7] if rev else None,
-                   out_degree=a[8] if rev else None)
+                fn(*a[:7], **kw)
 
         def run_bwd_plain():
             for a in bwd_args:
@@ -1281,9 +1348,12 @@ def gat_phases(report, *, dev, graphs, batches, b0, tgraphs, tb, target,
             f"f32 weights {stage_ms:.4f} ms (events) on {smi}")
         ms, ev = timed(lambda: run_bwd(gat_bwd.fused_gat_scatter_backward,
                                        False), 10)
-        report["gat_bwd"].update(csr_ms=ms, csr_event_ms=ev)
-        log(f"gat_bwd over the reverse CSR (reverse_csr included): device "
-            f"{ms:.4f} ms (events {ev:.4f}) per step")
+        rate = report["gat_bwd"]["bytes"] / report["gat_bwd"]["ms"] / 1e9
+        report["gat_bwd"].update(csr_ms=ms, csr_event_ms=ev,
+                                 tb_per_s_of_bound_bytes=rate)
+        log(f"gat_bwd over the reverse CSR (reverse_csr included, once a "
+            f"step): device {ms:.4f} ms (events {ev:.4f}) per step; the "
+            f"table mode moves the bound's bytes at {rate:.2f} TB/s")
         fb = prog.benchmark(b0, iters=20, warmup=3)
         out["forward_block"] = dict(ms=fb["latency_s"] * 1e3,
                                     graphs_per_s=fb["graphs_per_s"])
@@ -1562,9 +1632,25 @@ def edge_agg_phases(report, *, dev, graphs, batches, b0, tgraphs, tb,
                     for k, g_ in (("simple_max", tb128),
                                   ("simple_min", tb128), ("pna5_std", tb),
                                   ("pna5_block", b0)))
+        # row 8 forms each element as the slot-ordered loop does: the
+        # same bits, in both modes, in every layer of every path
+        for k, g_ in (("simple_max", tb128), ("simple_min", tb128),
+                      ("pna5_std", tb), ("pna5_block", b0)):
+            for mode in ("f32", "bf16"):
+                for i, (args, kw) in enumerate(layers[k]):
+                    got = ell_agg.fused_ell_aggregate(*args, mode=mode, **kw)
+                    want = ell_agg.ell_aggregate_ordered(*args, mode=mode,
+                                                         **kw)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"ell_agg ({k}, {mode}) layer {i}: not the "
+                            f"slot-ordered loop's bits")
+        log("ell_agg: every layer of simple_max, simple_min, pna5_std and "
+            "pna5_block in f32 and bf16 the slot-ordered loop's bits")
         report["gine_layer"] = dict(max_abs_err=err_g)
         report["edge_block"] = dict(max_abs_err=err_e)
-        report["ell_agg"] = dict(max_abs_err=err_a)
+        report["ell_agg"] = dict(max_abs_err=err_a, equals_ordered=True,
+                                 instances=ell_agg_resources())
 
     with phase("row 8's backward (tie counts and row 7's gather) over the "
                "reverse table and the reverse CSR against float64, twice"):
@@ -1789,11 +1875,12 @@ def edge_agg_phases(report, *, dev, graphs, batches, b0, tgraphs, tb,
             ent = dict(ms=ms, event_ms=ev, plain_ms=pms, plain_event_ms=pev,
                        bound_ms=b_ms, bound_by=b_by, flops=work[0],
                        bytes=work[1], library_ms=lms, library_event_ms=lev,
-                       per=per)
+                       per=per, tb_per_s_of_bound_bytes=work[1] / ms / 1e9)
             libs = "" if lms is None else f", library {lms:.4f} ({lev:.4f})"
             log(f"{name} {key} per {per}: device {ms:.4f} ms (events "
                 f"{ev:.4f}), plain {pms:.4f} ({pev:.4f}){libs}; bound "
-                f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it)")
+                f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it; "
+                f"{work[1] / ms / 1e9:.2f} TB/s of its bytes)")
             return ent
 
         # row 12's products run on the tensor cores: 3 x TF32 bound; the

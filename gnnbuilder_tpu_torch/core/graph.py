@@ -12,6 +12,7 @@ on the device the caller names.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -106,6 +107,18 @@ class GraphBatch:
     @property
     def device(self) -> torch.device:
         return self.node_feat.device
+
+    @functools.cached_property
+    def rev_csr(self):
+        """``ops.ell.reverse_csr(nbr_nodes, in_degree, positions=True)``:
+        (rev_ptr, rev_idx, rev_pos), the reverse CSR of the ELL table with
+        each forward slot's CSR position, built on the table's device at
+        first use and kept with the batch, so a train step's layers and
+        later steps on the batch share one.  A batch made by ``replace``
+        or ``to`` builds its own."""
+        from gnnbuilder_tpu_torch.ops.ell import reverse_csr
+
+        return reverse_csr(self.nbr_nodes, self.in_degree, positions=True)
 
     def replace(self, **kw) -> "GraphBatch":
         return dataclasses.replace(self, **kw)

@@ -543,7 +543,7 @@ class GATConv(torch.nn.Module):
                 self.bias, H, neg_slope=ns, self_loops=loops, skip=skip,
                 act=act, rev_nbr_nodes=g.rev_nbr_nodes,
                 out_degree=g.out_degree, mode=mode, prepared=prepared,
-                staged=staged, **ekw)
+                staged=staged, rev_csr=lambda: g.rev_csr, **ekw)
         h = self.lin(x).reshape(n, H, C)
         a_src = (h * self.att_src).sum(-1)                     # [N, H]
         a_dst = (h * self.att_dst).sum(-1)

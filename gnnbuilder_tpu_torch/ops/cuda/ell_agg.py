@@ -23,7 +23,11 @@ torch autograd of the plain version (over ``ops.ell.ell_own_pads`` of
 the table), as the JAX package's is of its reference.  Every route
 gives the same bits on every run.
 
-What bounds the kernel on the H100: bytes; see the source.
+What bounds the kernel on the H100: bytes; see the source.  The kernel
+forms each output element with the same operations in the same order as
+``ell_aggregate_ordered``, a slot-ordered loop in torch, so on the card
+its outputs are that loop's bits (the card tests check it); the plain
+version sums in another order.
 
 The bf16 mode (``mode="bf16"``; the JAX kernel's ``gather_mode="bf16"``,
 inference only: no backward) rounds each gathered v to bf16, reduces
@@ -53,8 +57,9 @@ from gnnbuilder_tpu_torch.ops.ell import (
 from gnnbuilder_tpu_torch.ops.quant import to_bf16
 
 __all__ = ["fused_ell_aggregate", "ell_aggregate_plain",
-           "ell_aggregate_cstk", "ELLAggregateFunction",
-           "fused_ell_aggregate_vjp", "AGGREGATORS", "MODES"]
+           "ell_aggregate_ordered", "ell_aggregate_cstk",
+           "ELLAggregateFunction", "fused_ell_aggregate_vjp", "AGGREGATORS",
+           "MODES"]
 
 # the aggregators the kernel takes, with their codes in the source
 AGGREGATORS = {"sum": 0, "mean": 1, "max": 2, "min": 3, "std": 4}
@@ -84,6 +89,61 @@ def ell_aggregate_plain(v, nbr_nodes, in_degree, aggregators, u=None,
         table = u[:, None, :] + table
     d = ell_multi_table(table, in_degree, aggregators, mask)
     return torch.cat([d[a] for a in aggregators], dim=-1)
+
+
+def _ieee(op, a, b=None):
+    """a / b or sqrt(a) as the IEEE float32 operation rounds it: formed in
+    float64 and rounded to float32, which for float32 operands gives the
+    correctly rounded result (53 >= 2 x 24 + 2 bits)."""
+    a = a.double()
+    return (a.sqrt() if op == "sqrt" else a / b.double()).to(torch.float32)
+
+
+def ell_aggregate_ordered(v, nbr_nodes, in_degree, aggregators, u=None,
+                          mode: str = "f32"):
+    """The multi-aggregate as the kernel forms it: for w = 0, 1, .. each
+    row's w-th valid slot adds t (``u + v`` in f32 with u; the bf16-rounded
+    v alone in bf16) into float32 accumulators, each sum and product
+    rounded on its own (s + t, q + t * t, max, min), then each aggregator
+    from them in the kernel's order, with IEEE divisions and square root.
+    On the card the kernel's outputs are these bits."""
+    N, F = v.shape
+    s = v.new_zeros((N, F))
+    q = v.new_zeros((N, F))
+    mx = v.new_full((N, F), float("-inf"))
+    mn = v.new_full((N, F), float("inf"))
+    for w in range(nbr_nodes.shape[1]):
+        on = (w < in_degree)[:, None]
+        t = v[nbr_nodes[:, w].long()]
+        if mode == "bf16":
+            t = to_bf16(t)
+        elif u is not None:
+            t = u + t
+        s = torch.where(on, s + t, s)
+        q = torch.where(on, q + t * t, q)
+        mx = torch.where(on, torch.maximum(mx, t), mx)
+        mn = torch.where(on, torch.minimum(mn, t), mn)
+    deg = in_degree.to(v.dtype)[:, None]
+    denom = deg.clamp(min=1.0)
+    has = in_degree[:, None] > 0
+    shift = mode == "bf16" and u is not None
+    zero = v.new_zeros(())
+    out = []
+    for a in aggregators:
+        if a == "sum":
+            val = s + deg * u if shift else s
+        elif a == "mean":
+            mean = _ieee("div", s, denom)
+            val = torch.where(has, u + mean, zero) if shift else mean
+        elif a in ("max", "min"):
+            ext = mx if a == "max" else mn
+            val = torch.where(has, u + ext if shift else ext, zero)
+        else:
+            mean = _ieee("div", s, denom)
+            var = (_ieee("div", q, denom) - mean * mean).clamp(min=0.0)
+            val = _ieee("sqrt", var + 1e-5)
+        out.append(val)
+    return torch.cat(out, dim=-1)
 
 
 def _check(v, nbr_nodes, in_degree, aggregators, u, mode):

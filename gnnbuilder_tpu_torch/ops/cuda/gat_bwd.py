@@ -20,11 +20,18 @@ and returns what that returns: ``(dh_val [N, HC], da_src_nbr [N, H], dsum
 The kernel gathers over each sender's reverse slots instead of
 scattering: over the batch's reverse table ``rev_nbr_nodes`` /
 ``out_degree`` when both are given, else over ``ops.ell.reverse_csr`` of
-the forward table.  No float is added atomically, so the results are the
-same bits on every run.
+the forward table with each forward slot's CSR position (the caller's
+``rev_csr``, as ``GraphBatch.rev_csr`` keeps it, else built on the
+call).  Its receiver pass writes each edge's
+(alpha, dpre) at the edge's reverse position, in a scratch the wrapper
+allocates (2 H floats an edge), and its sender pass sums them there; the
+two tables must hold the same edges, as the packer's and
+``reverse_csr``'s do.  No float is added atomically, so the results are
+the same bits on every run.
 
 What bounds it on the H100: bytes (a gathered dz and h row per edge for
-~4 HC flops); see the source.
+~4 HC flops); see the source.  The kernel's index math is 32-bit: it
+takes N x HC (and N times either table's width) below 2^31.
 """
 
 from __future__ import annotations
@@ -84,7 +91,8 @@ def gat_scatter_backward_plain(dz, h, a_src, a_dst, nbr_nodes, in_degree,
     return dh_val, da_src, dsum, s, m, den
 
 
-def _check(dz, h, a_src, a_dst, nbr_nodes, in_degree, heads, rev, odeg):
+def _check(dz, h, a_src, a_dst, nbr_nodes, in_degree, heads, rev, odeg,
+           rev_csr):
     if dz.dim() != 2 or dz.dtype != torch.float32:
         raise ValueError(f"dz must be [N, HC] float32, got "
                          f"{tuple(dz.shape)} {dz.dtype}")
@@ -103,14 +111,24 @@ def _check(dz, h, a_src, a_dst, nbr_nodes, in_degree, heads, rev, odeg):
     if (rev is None) != (odeg is None):
         raise ValueError("pass both rev_nbr_nodes and out_degree, or "
                          "neither")
+    if rev_csr is not None:
+        ptr, idx, pos = rev_csr
+        if (tuple(ptr.shape) != (N + 1,) or idx.dim() != 1
+                or pos.shape != nbr_nodes.shape):
+            raise ValueError("rev_csr must be reverse_csr(nbr_nodes, "
+                             "in_degree, positions=True)")
+    widest = max(HC, nbr_nodes.shape[1], 0 if rev is None else rev.shape[1])
+    if N * widest >= 2 ** 31:
+        raise ValueError(f"the GAT backward takes N x HC and N x the table "
+                         f"widths under 2^31 elements; got N={N} x {widest}")
     devs = {t.device for t in (dz, h, a_src, a_dst, nbr_nodes, in_degree,
-                               rev, odeg) if t is not None}
+                               rev, odeg, *(rev_csr or ())) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
 
 
 def _launch(dz, h, a_src, a_dst, nbr_nodes, in_degree, heads, neg_slope,
-            self_loops, rev, odeg):
+            self_loops, rev, odeg, rev_csr):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
 
     lib = load()
@@ -118,10 +136,14 @@ def _launch(dz, h, a_src, a_dst, nbr_nodes, in_degree, heads, neg_slope,
     H = heads
     csr = rev is None
     if csr:
-        # (rev_ptr, rev_idx): the gnnb_gat_bwd_csr argument order
-        ints = (nbr_nodes, in_degree) + reverse_csr(nbr_nodes, in_degree)
+        # (rev_ptr, rev_idx, rev_pos): the gnnb_gat_bwd_csr argument order
+        if rev_csr is None:
+            rev_csr = reverse_csr(nbr_nodes, in_degree, positions=True)
+        ints = (nbr_nodes, in_degree, *rev_csr)
+        positions = ints[3].shape[0]
     else:
         ints = (nbr_nodes, in_degree, rev, odeg)
+        positions = N * rev.shape[1]
     if any(t.dtype != torch.int32 for t in ints):
         raise ValueError("the neighbour tables and degrees must be int32")
     if not all(t.is_contiguous() for t in (dz, h, a_src, a_dst) + ints):
@@ -132,17 +154,19 @@ def _launch(dz, h, a_src, a_dst, nbr_nodes, in_degree, heads, neg_slope,
             for _ in range(4)]                       # dsum, s, m, den
     dh_val = torch.empty((N, HC), dtype=f, device=dz.device)
     da_src = torch.empty((N, H), dtype=f, device=dz.device)
+    # scratch: (alpha, dpre) of every edge at its reverse position
+    ev = torch.empty((max(positions, 1), H, 2), dtype=f, device=dz.device)
     stream = torch.cuda.current_stream(dz.device).cuda_stream
     ptrs = [t.data_ptr() for t in (dz, h, a_src, a_dst) + ints]
-    tail = [t.data_ptr() for t in outs + [dh_val, da_src]]
+    tail = [t.data_ptr() for t in outs + [dh_val, da_src, ev]]
     W = nbr_nodes.shape[1]
     if csr:
         fn = lib.gnnb_gat_bwd_csr
-        fn.argtypes = [P] * 8 + [I] * 4 + [Fl, I] + [P] * 7 + [I]
+        fn.argtypes = [P] * 9 + [I] * 4 + [Fl, I] + [P] * 8 + [I]
         sizes = [N, W, H, HC // H]
     else:
         fn = lib.gnnb_gat_bwd
-        fn.argtypes = [P] * 8 + [I] * 5 + [Fl, I] + [P] * 7 + [I]
+        fn.argtypes = [P] * 8 + [I] * 5 + [Fl, I] + [P] * 8 + [I]
         sizes = [N, W, rev.shape[1], H, HC // H]
     fn.restype = ctypes.c_int
     err = fn(*ptrs, *sizes, float(neg_slope), int(bool(self_loops)), *tail,
@@ -157,19 +181,22 @@ def _launch(dz, h, a_src, a_dst, nbr_nodes, in_degree, heads, neg_slope,
 def fused_gat_scatter_backward(dz, h, a_src, a_dst, nbr_nodes, in_degree,
                                heads: int, neg_slope: float = 0.2,
                                self_loops: bool = True, rev_nbr_nodes=None,
-                               out_degree=None):
+                               out_degree=None, rev_csr=None):
     """The GAT softmax backward (module docstring) for the cotangent dz
     [N, HC] of the pre-bias output, the projected features h [N, HC] and
     the logit halves a_src, a_dst [N, H], over the forward ELL table
     ``nbr_nodes`` [N, W] / ``in_degree`` [N] (int32).  A CUDA ``dz``
     launches the kernel (its sender pass over the reverse table when
     ``rev_nbr_nodes`` and ``out_degree`` are given, else over the
-    reverse CSR); a CPU one runs the plain version."""
+    reverse CSR: ``rev_csr`` = ``reverse_csr(nbr_nodes, in_degree,
+    positions=True)`` when given, else built here); a CPU one runs the
+    plain version."""
     _check(dz, h, a_src, a_dst, nbr_nodes, in_degree, heads, rev_nbr_nodes,
-           out_degree)
+           out_degree, rev_csr)
     if dz.device.type == "cuda":
         return _launch(dz, h, a_src, a_dst, nbr_nodes, in_degree, heads,
-                       neg_slope, self_loops, rev_nbr_nodes, out_degree)
+                       neg_slope, self_loops, rev_nbr_nodes, out_degree,
+                       rev_csr)
     if dz.device.type != "cpu":
         raise ValueError(f"no GAT backward for device {dz.device}")
     return gat_scatter_backward_plain(dz, h, a_src, a_dst, nbr_nodes,

@@ -466,7 +466,7 @@ class GATLayerFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
                 skip, le, ae_self, w, att_src, att_dst, bias, heads,
-                neg_slope, self_loops, act):
+                neg_slope, self_loops, act, rev_csr):
         out = fused_gat_layer(x, nbr_nodes, in_degree, w, att_src, att_dst,
                               bias, heads, neg_slope, self_loops, skip, act,
                               edge_logits=le, self_edge_logit=ae_self)
@@ -475,6 +475,7 @@ class GATLayerFunction(torch.autograd.Function):
                               att_dst, bias, out)
         ctx.heads, ctx.neg_slope = heads, float(neg_slope)
         ctx.self_loops, ctx.act = bool(self_loops), act
+        ctx.rev_csr = rev_csr
         return out
 
     @staticmethod
@@ -502,7 +503,7 @@ class GATLayerFunction(torch.autograd.Function):
             dx, dskip, dle, dae, dw, datt_src, datt_dst, dbias = [
                 None if t is None else next(got) for t in leaves]
             return (dx, None, None, None, None, dskip, dle, dae, dw,
-                    datt_src, datt_dst, dbias, None, None, None, None)
+                    datt_src, datt_dst, dbias, None, None, None, None, None)
         dz = _act_backward(ct, out, act).contiguous()
         N, HC = dz.shape
         C = HC // H
@@ -510,7 +511,9 @@ class GATLayerFunction(torch.autograd.Function):
         dv_val, da_src_nbr, dsum, s, m, den = fused_gat_scatter_backward(
             dz, h.reshape(N, HC).contiguous(), a_src.contiguous(),
             a_dst.contiguous(), nbr, deg, H, neg_slope=ns, self_loops=True,
-            rev_nbr_nodes=rev, out_degree=odeg)
+            rev_nbr_nodes=rev, out_degree=odeg,
+            rev_csr=(ctx.rev_csr() if rev is None and ctx.rev_csr is not None
+                     else None))
         # the receiver's self-slot terms, with the same m and den
         dzv = dz.view(N, H, C)
         pre_s = a_src + a_dst
@@ -531,7 +534,7 @@ class GATLayerFunction(torch.autograd.Function):
         dbias = dz.sum(0)
         dskip = dz if skip is not None else None
         return (dx, None, None, None, None, dskip, None, None, dw, datt_src,
-                datt_dst, dbias, None, None, None, None)
+                datt_dst, dbias, None, None, None, None, None)
 
 
 def fused_gat_layer_vjp(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
@@ -539,11 +542,15 @@ def fused_gat_layer_vjp(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                         self_loops: bool = True, skip=None,
                         act: Optional[str] = None, rev_nbr_nodes=None,
                         out_degree=None, mode: str = "f32",
-                        edge_logits=None, self_edge_logit=None):
+                        edge_logits=None, self_edge_logit=None,
+                        rev_csr=None):
     """Differentiable ``fused_gat_layer``: the kernel forward and the
     backward of ``GATLayerFunction``, whose softmax backward gathers over
     the reverse table when both ``rev_nbr_nodes`` and ``out_degree`` are
-    given, else over the reverse CSR of ``nbr_nodes``; with
+    given, else over the reverse CSR of ``nbr_nodes`` (``rev_csr()``'s
+    when ``rev_csr`` is given: a callable returning ``reverse_csr(
+    nbr_nodes, in_degree, positions=True)``, as ``GraphBatch.rev_csr``
+    keeps it, called only by that backward; else built there); with
     ``edge_logits`` (and ``self_edge_logit``, 0 when None) autograd of
     the plain layer.  Mode "f32" only: the bf16 and int8 modes are
     inference modes and raise here (the JAX package's int8
@@ -558,7 +565,7 @@ def fused_gat_layer_vjp(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                                   out_degree, skip, edge_logits,
                                   self_edge_logit, w, att_src, att_dst,
                                   bias, int(heads), float(neg_slope),
-                                  bool(self_loops), act)
+                                  bool(self_loops), act, rev_csr)
 
 
 def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
@@ -567,14 +574,15 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                          act: Optional[str] = None, rev_nbr_nodes=None,
                          out_degree=None, mode: str = "f32", prepared=None,
                          edge_logits=None, self_edge_logit=None,
-                         staged=None):
+                         staged=None, rev_csr=None):
     """The layer as GATConv calls it: the differentiable path when grad
     mode is on and an input needs a gradient (mode "f32" only: an
     inference mode raises there; the kernel then lays the live weights
     out on every call), else the kernel alone, in ``mode`` with
     ``prepared`` = ``prepare_layer(w, mode)`` and ``staged`` =
     ``stage_projection`` of its weights (each made here when None).  The
-    edge-logit terms go through either.  The kernel takes any width, so
+    edge-logit terms go through either; ``rev_csr`` as
+    ``fused_gat_layer_vjp`` takes it.  The kernel takes any width, so
     nothing is padded."""
     ops = [None if t is None else t.contiguous()
            for t in (x, skip, w, att_src, att_dst, bias, edge_logits,
@@ -585,7 +593,7 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
         return fused_gat_layer_vjp(
             ops[0], nbr_nodes, in_degree, *ops[2:6], heads, neg_slope,
             self_loops, ops[1], act, rev_nbr_nodes, out_degree, mode=mode,
-            **ekw)
+            rev_csr=rev_csr, **ekw)
     wm, sw = ((ops[2], None) if mode == "f32" else
               prepared if prepared is not None else
               prepare_layer(ops[2], mode))

@@ -107,14 +107,16 @@ def ell_multi(x, nbr_nodes, in_degree, aggregators, mask=None):
                            m)
 
 
-def reverse_csr(nbr_nodes, in_degree):
+def reverse_csr(nbr_nodes, in_degree, positions: bool = False):
     """The transpose of the forward ELL table as a CSR, built on the
     table's device: (rev_ptr [N + 1] int32, rev_idx [E] int32), where
     ``rev_idx[rev_ptr[j]:rev_ptr[j + 1]]`` are the receivers i of sender j
     over the valid slots (i, w), w < in_degree[i], in row-major slot order
     (a stable sort by sender).  Every edge of a batch that carries the
     ELL table is in it, so this serves batches whose reverse table was
-    not built (an out-degree over 64, or ``rev_ell_width=0``)."""
+    not built (an out-degree over 64, or ``rev_ell_width=0``).  With
+    ``positions``, also rev_pos [N, W] int32: the CSR position of each
+    valid forward slot (-1 on the others)."""
     N, W = nbr_nodes.shape
     m = ell_mask(nbr_nodes, in_degree)
     recv = torch.arange(N, device=nbr_nodes.device)[:, None].expand(N, W)
@@ -122,7 +124,14 @@ def reverse_csr(nbr_nodes, in_degree):
     rev_idx = recv[m][order].to(torch.int32)
     bounds = torch.arange(N + 1, device=nbr_nodes.device)
     rev_ptr = torch.searchsorted(send, bounds).to(torch.int32)
-    return rev_ptr, rev_idx
+    if not positions:
+        return rev_ptr, rev_idx
+    slot = torch.arange(N * W, device=nbr_nodes.device).view(N, W)[m]
+    rev_pos = torch.full((N * W,), -1, dtype=torch.int32,
+                         device=nbr_nodes.device)
+    rev_pos[slot[order]] = torch.arange(order.shape[0], dtype=torch.int32,
+                                        device=nbr_nodes.device)
+    return rev_ptr, rev_idx, rev_pos.view(N, W)
 
 
 def ell_multi_table(g, in_degree, aggregators, mask):

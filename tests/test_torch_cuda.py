@@ -1047,31 +1047,38 @@ def test_gat_block_kernel_matches_plain(cuda_device, concat, Fin,
 
 
 @pytest.mark.parametrize("rev", [True, False])
-@pytest.mark.parametrize("H,C", [(4, 128), (3, 20)])
+@pytest.mark.parametrize("H,C", [(4, 128), (4, 64), (3, 20), (2, 4)])
 def test_gat_bwd_kernel_matches_plain(cuda_device, rev, H, C):
-    """Row 11's six outputs on the standard-packed batch, over the
-    reverse table or the reverse CSR: 1e-4 of max |value|, and the same
-    bits on two launches."""
-    _, b = _std_batch(device=cuda_device)
+    """Row 11's six outputs on the standard-packed batch and on the hub
+    batch (a receiver of in-degree 70 in a 72-wide table, and a sender of
+    out-degree 70), over the reverse table or the reverse CSR: 1e-4 of
+    max |value|, and the same bits on two launches.  (4, 128) and (4, 64)
+    are the main path's row instances, (3, 20) and (2, 4) the general
+    one."""
     g = torch.Generator(device="cpu").manual_seed(23)
-    N = b.num_nodes
-    dz, h = [torch.randn(N, H * C, generator=g).to(cuda_device)
-             for _ in range(2)]
-    a_src, a_dst = [torch.randn(N, H, generator=g).to(cuda_device)
-                    for _ in range(2)]
-    args = (dz, h, a_src, a_dst, b.nbr_nodes, b.in_degree, H)
-    kw = dict(rev_nbr_nodes=b.rev_nbr_nodes if rev else None,
-              out_degree=b.out_degree if rev else None)
-    before = gat_bwd.fused_gat_scatter_backward.launches
-    one = gat_bwd.fused_gat_scatter_backward(*args, **kw)
-    two = gat_bwd.fused_gat_scatter_backward(*args, **kw)
-    torch.cuda.synchronize()
-    assert gat_bwd.fused_gat_scatter_backward.launches == before + 2
-    want = gat_bwd.gat_scatter_backward_plain(*args)
-    for name, a, c, w in zip(("dh_val", "da_src", "dsum", "s", "m", "den"),
-                             one, two, want):
-        assert torch.equal(a, c), name
-        assert _scaled_err(a, w) <= 1e-4, name
+    for name, b in (("train", _std_batch(device=cuda_device)[1]),
+                    ("hub", _hub_ell_batch(cuda_device))):
+        N = b.num_nodes
+        dz, h = [torch.randn(N, H * C, generator=g).to(cuda_device)
+                 for _ in range(2)]
+        a_src, a_dst = [torch.randn(N, H, generator=g).to(cuda_device)
+                        for _ in range(2)]
+        args = (dz, h, a_src, a_dst, b.nbr_nodes, b.in_degree, H)
+        rt, od = _reverse_table(b) if rev else (None, None)
+        if name == "hub":
+            assert int(b.in_degree.max()) == 70
+            assert not rev or int(od.max()) == 70
+        kw = dict(rev_nbr_nodes=rt, out_degree=od)
+        before = gat_bwd.fused_gat_scatter_backward.launches
+        one = gat_bwd.fused_gat_scatter_backward(*args, **kw)
+        two = gat_bwd.fused_gat_scatter_backward(*args, **kw)
+        torch.cuda.synchronize()
+        assert gat_bwd.fused_gat_scatter_backward.launches == before + 2
+        want = gat_bwd.gat_scatter_backward_plain(*args)
+        for what, a, c, w in zip(("dh_val", "da_src", "dsum", "s", "m",
+                                  "den"), one, two, want):
+            assert torch.equal(a, c), (name, what)
+            assert _scaled_err(a, w) <= 1e-4, (name, what)
 
 
 @pytest.mark.parametrize("rev", [True, False])
@@ -1164,19 +1171,29 @@ AGG_SETS = [("sum",), ("mean",), ("max",), ("min",), ("std",),
 
 @pytest.mark.parametrize("with_u", [False, True])
 def test_ell_agg_kernel_matches_plain(cuda_device, with_u):
-    """Row 8 for each aggregator alone, PNA's four and all five, with and
-    without u, at F = 11, 128 and 384, on the 128-graph standard batch with
-    values rounded to halves (ties): within 1e-5 of max |value| per
-    aggregator (std's E[t^2] - E[t]^2 formed as the plain version forms
-    it), empty rows exactly."""
+    """Row 8 for each aggregator alone, PNA's four and all five, and PNA's
+    block min / max, with and without u, at F = 11, 128 and 384 and at
+    the widths a row needs fewer than four lanes for (F = 1, 2 scalar, 4,
+    8 float4), on the 128-graph standard batch with values rounded to
+    halves (ties): within 1e-5 of max |value| per aggregator (std's
+    E[t^2] - E[t]^2 formed as the plain version forms it), empty rows
+    exactly; in f32 and bf16 the same bits as the slot-ordered loop
+    (``ell_aggregate_ordered``), also on the hub batch (an in-degree of
+    70 in a 72-wide table)."""
     _, b = _std_batch(device=cuda_device)
+    hub = _hub_ell_batch(cuda_device)
+    assert int(b.in_degree.max()) >= 3
     g = torch.Generator(device="cpu").manual_seed(3)
-    for F in (11, 128, 384):
+    for F in (11, 128, 384, 1, 2, 4, 8):
         v = (torch.randn(b.num_nodes, F, generator=g) * 2).round().div(2)
         v = v.to(cuda_device)
         u = (torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
              if with_u else None)
-        for aggs in AGG_SETS:
+        hv = (torch.randn(hub.num_nodes, F, generator=g) * 2).round().div(2)
+        hv = hv.to(cuda_device)
+        hu = (torch.randn(hub.num_nodes, F, generator=g).to(cuda_device)
+              if with_u else None)
+        for aggs in AGG_SETS + [("min", "max")]:
             before = ell_agg.fused_ell_aggregate.launches
             got = ell_agg.fused_ell_aggregate(v, b.nbr_nodes, b.in_degree,
                                               aggs, u=u)
@@ -1190,6 +1207,12 @@ def test_ell_agg_kernel_matches_plain(cuda_device, with_u):
             for i, a in enumerate(aggs):
                 sl = slice(i * F, (i + 1) * F)
                 assert _scaled_err(got[m, sl], want[m, sl]) <= 1e-5, (F, a)
+            for mode in ("f32", "bf16"):
+                for bb, vv, uu in ((b, v, u), (hub, hv, hu)):
+                    args = (vv, bb.nbr_nodes, bb.in_degree, aggs, uu)
+                    got = ell_agg.fused_ell_aggregate(*args, mode=mode)
+                    assert torch.equal(got, ell_agg.ell_aggregate_ordered(
+                        *args, mode=mode)), (F, aggs, mode)
 
 
 @pytest.mark.parametrize("rev", [True, False])

@@ -6,7 +6,13 @@ on the CPU.
   outputs against the Pallas ``fused_gat_scatter_backward(...,
   interpret=True)`` on the JAX test's banded geometry (tests/
   test_gat_bwd.py: N 512, ELL width 4, 128-row tiles, slack 16, empty
-  and degree-1 rows), heads 1 x 128 and 4 x 32, self loops on and off.
+  and degree-1 rows), heads 1 x 128, 4 x 32 and the main path's last
+  layer's 4 x 64, self loops on and off; its entry refuses what 32-bit
+  index math does not take (N x HC from 2^31).
+* ``ops.ell.reverse_csr(..., positions=True)``: each forward slot's CSR
+  position, where the kernel's sender pass finds the slot's edge; a
+  train step without a reverse table hands every layer's backward the
+  one that the batch keeps (``GraphBatch.rev_csr``).
 * ``GATLayerFunction``'s gradients (x, skip, W, att_src, att_dst, bias)
   against ``jax.grad`` of the Pallas ``fused_gat_layer_vjp`` (interpret
   mode) and of ``gat_layer_reference``, and against autograd of the
@@ -57,7 +63,7 @@ def _rel(ours, ref):
                                                  1e-30)
 
 
-@pytest.mark.parametrize("heads,C", [(1, 128), (4, 32)])
+@pytest.mark.parametrize("heads,C", [(1, 128), (4, 32), (4, 64)])
 @pytest.mark.parametrize("self_loops", [True, False])
 def test_scatter_backward_matches_jax_kernel(heads, C, self_loops):
     nbr, deg, rng = _banded(11, N=N_BAND, W=W_BAND, SL=SL_BAND)
@@ -82,6 +88,83 @@ def test_scatter_backward_matches_jax_kernel(heads, C, self_loops):
             o, r = o[live], r[live]
         assert _rel(o, r) <= TOL_BWD, (name, _rel(o, r))
 
+
+def test_entry_refuses_what_32_bit_indices_do_not_take():
+    N, H, C = 2 ** 16, 4, 2 ** 13
+    f = dict(device="meta")
+    dz, h = torch.empty((N, H * C), **f), torch.empty((N, H * C), **f)
+    a_s, a_d = torch.empty((N, H), **f), torch.empty((N, H), **f)
+    nbr = torch.empty((N, 4), dtype=torch.int32, **f)
+    deg = torch.empty((N,), dtype=torch.int32, **f)
+    with pytest.raises(ValueError, match="2\\^31"):
+        gat_bwd.fused_gat_scatter_backward(dz, h, a_s, a_d, nbr, deg, H)
+
+
+@pytest.mark.parametrize("case", ["rev", "star"])
+def test_reverse_csr_positions_point_at_each_slots_edge(case):
+    """The CSR position of every valid forward slot (i, w) lies in its
+    sender's segment and holds receiver i; the positions are a
+    permutation of the CSR (a pair's repeats take distinct positions);
+    the other slots hold -1."""
+    nbr, deg, *_ = _table(case)
+    ptr, idx, pos = reverse_csr(nbr, deg, positions=True)
+    m = torch.arange(nbr.shape[1])[None, :] < deg[:, None].long()
+    p = pos[m].long()
+    assert (pos[~m] == -1).all() and pos.dtype == torch.int32
+    assert torch.equal(torch.sort(p).values, torch.arange(idx.shape[0]))
+    recv = torch.arange(nbr.shape[0])[:, None].expand_as(nbr)[m]
+    send = nbr[m].long()
+    assert torch.equal(idx[p].long(), recv)
+    assert ((ptr[send] <= p) & (p < ptr[send + 1])).all()
+
+
+
+@pytest.mark.parametrize("case", ["rev", "csr"])
+def test_train_steps_share_the_batch_reverse_csr(case):
+    """Two Adam steps of a 3-layer GAT model on one batch: without a
+    reverse table every layer's backward gets the batch's one reverse
+    CSR (``GraphBatch.rev_csr``: ``reverse_csr(..., positions=True)``,
+    built at first use and kept); with one, none is built.  A batch made
+    by ``replace`` builds its own."""
+    from gnnbuilder_tpu_torch import train
+    from gnnbuilder_tpu_torch.bench.canonical import (
+        canonical_batches,
+        canonical_model,
+    )
+
+    gs, (tb,) = canonical_batches("qm9", n_graphs=12, batch_size=12,
+                                  device="cpu")
+    if case == "csr":
+        tb = tb.replace(rev_nbr_nodes=None, out_degree=None)
+    model = canonical_model("gat", "qm9", graphs=gs, gnn_num_layers=3,
+                            gnn_hidden_dim=16, gnn_output_dim=8,
+                            conv_kwargs=dict(heads=2))
+    step = train.make_train_step(model, torch.optim.Adam(
+        model.parameters(), lr=1e-3))
+    target = train.stack_targets(gs, tb.num_graphs, 1, device="cpu")
+    got = []
+    orig = gat_layer.fused_gat_scatter_backward
+
+    def spy(*a, **k):
+        got.append(k.get("rev_csr"))
+        return orig(*a, **k)
+
+    gat_layer.fused_gat_scatter_backward = spy
+    try:
+        for _ in range(2):
+            step(tb, target)
+    finally:
+        gat_layer.fused_gat_scatter_backward = orig
+    assert len(got) == 6
+    if case == "rev":
+        assert got == [None] * 6 and "rev_csr" not in vars(tb)
+        return
+    assert all(c is tb.rev_csr for c in got)
+    for a, b in zip(tb.rev_csr, reverse_csr(tb.nbr_nodes, tb.in_degree,
+                                            positions=True)):
+        assert torch.equal(a, b)
+    other = tb.replace()
+    assert other.rev_csr is not tb.rev_csr
 
 def _graphs():
     gs = FakeDataset(num_graphs=24, avg_num_nodes=12, node_dim=11, seed=4)
