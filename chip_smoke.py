@@ -2329,10 +2329,19 @@ def precision_phases(report, *, dev, graphs, batches, b0, tb, prog,
                     + (4 * sum(s.numel() for s in hsc) if hsc else 0))
             b_ms, b_by = bound_mixed(
                 [(mlp, pk), (pool + rq, PEAK_F32_FLOPS)], r_by)
-            fn = lambda: readout.fused_readout(hs, b0.n_node, hd, **rkw)
+            packed = readout.pack_head(hd, hsc, mode)
+            pkw = {k: v for k, v in rkw.items() if k != "scales"}
+            fn = lambda: readout.fused_readout(hs, b0.n_node, packed, **pkw)
             dms, ems = timed(fn, 50)
+            sm_dms, sm_ems = timed(lambda: segment.contiguous_segment_max(
+                hs, b0.graph_starts, b0.n_node, b0.max_graph_nodes_static),
+                50)
+            log(f"readout {mode} (packed head), device ms (event ms): "
+                f"{dms:.4f} ({ems:.4f}); contiguous_segment_max "
+                f"{sm_dms:.4f} ({sm_ems:.4f})")
             report[f"readout_{mode}"].update(
-                ms=ems, device_ms=dms,
+                ms=ems, device_ms=dms, segment_max_ms=sm_ems,
+                segment_max_device_ms=sm_dms,
                 plain_ms=time_ms(lambda: readout.readout_plain(
                     hs, b0.n_node, b0.graph_starts, hd, aggrs, mx,
                     model.mlp_activation, model.output_activation, mode,
@@ -4810,13 +4819,28 @@ def main():
         r_bytes = 4 * (h.numel() + mx.numel() + 2 * G + n_params
                        + G * model.mlp_out_dim)
         r_bound, r_by = bound(r_flops, r_bytes)
+        # the head packed once, as the model caches it for inference
+        packed = readout.pack_head(head)
+        r_fn = lambda: readout.fused_readout(h, b0.n_node, packed, **rkw)
+        r_dms, r_ems = timed(r_fn, 50)
+        sm_fn = lambda: segment.contiguous_segment_max(
+            h, b0.graph_starts, b0.n_node, b0.max_graph_nodes_static)
+        sm_dms, sm_ems = timed(sm_fn, 50)
         report["readout"].update(
-            ms=time_ms(lambda: readout.fused_readout(*rargs, **rkw), 50),
+            ms=r_ems, device_ms=r_dms,
+            pairs_ms=time_ms(lambda: readout.fused_readout(*rargs, **rkw),
+                             50),
             plain_ms=time_ms(lambda: readout.readout_plain(
                 h, b0.n_node, b0.graph_starts, head, aggrs, mx,
                 model.mlp_activation, model.output_activation), 20),
             bound_ms=r_bound, bound_by=r_by,
-            flops=r_flops, bytes=r_bytes)
+            flops=r_flops, bytes=r_bytes,
+            segment_max_ms=sm_ems, segment_max_device_ms=sm_dms)
+        log(f"readout f32 (packed head), device ms (event ms): {r_dms:.4f} "
+            f"({r_ems:.4f}); with (w, b) pairs packed per call "
+            f"{report['readout']['pairs_ms']:.4f} events; the plain max "
+            f"pooling before it (contiguous_segment_max) {sm_dms:.4f} "
+            f"({sm_ems:.4f})")
 
         # train kernels: the six launches of one step, at the shapes and on
         # the operands of the canonical model's layers; the kernel timed on

@@ -16,8 +16,17 @@
 * ``Program.forward`` b1024 of standard-packed GIN and SAGE under f32,
   bf16 and int8 and of block-packed EdgeConv under f32 and bf16; the GIN
   and SAGE train steps (Adam 1e-3) with their device time by part.
+* Row 4's elementwise instances (gcn, lg, simple_sum, simple_mean): one
+  launch each at 128 wide (skip, relu; f32 with s saved, bf16 without)
+  in ELL mode on the train batch and in block mode on the first b1024
+  block batch, with the SHA-256 of out and s, and each instance's
+  registers and CTAs an SM (``gnnb_mp_layer_ew_info``); the GCN train
+  step with its device time by part (six row-4 launches);
+  ``Program.forward`` of LG, Simple-sum and Simple-mean on the block
+  batch (input 128 wide, six row-4 launches each).  ``--ew`` runs this
+  part alone.
 
-    python gnnbuilder_tpu_torch/bench/mp_edge_rows.py [--root DIR]
+    python gnnbuilder_tpu_torch/bench/mp_edge_rows.py [--root DIR] [--ew]
 
 ``--root`` imports ``gnnbuilder_tpu_torch`` from DIR (default: this
 file's tree), so one call can time an older tree beside this one (a
@@ -136,10 +145,132 @@ def _t(w):
     return w.detach().t().contiguous()
 
 
+EW_CONVS = ("gcn", "lg", "simple_sum", "simple_mean")
+SAME_WIDTH = (("lg", "lg", {}),
+              ("simple_sum", "simple", {"aggregation": "sum"}),
+              ("simple_mean", "simple", {"aggregation": "mean"}))
+
+
+def _elementwise(report, tgraphs, std):
+    """Row 4's elementwise instances, the GCN train step and the LG /
+    Simple block forwards into ``report``."""
+    import hashlib
+
+    import torch
+
+    from gnnbuilder_tpu_torch import Program, train
+    from gnnbuilder_tpu_torch.bench.canonical import (
+        canonical_batches,
+        canonical_model,
+    )
+    from gnnbuilder_tpu_torch.ops.cuda import mp_layer
+
+    def sha(t):
+        torch.cuda.synchronize()
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+    dev = std.nbr_nodes.device
+    bgraphs, (blk, *_) = canonical_batches(
+        "qm9", n_graphs=3072, batch_size=1024, block_size=128,
+        node_multiple=1024, node_dim=128, device=dev)
+    report.update(ew={}, ew_sha256={}, block_rows=blk.num_nodes)
+    for packing, g in (("ell", std), ("block", blk)):
+        gen = torch.Generator(device=dev).manual_seed(43)
+        x = torch.randn(g.num_nodes, 128, generator=gen, device=dev)
+        skip = torch.randn(g.num_nodes, 128, generator=gen, device=dev)
+        b0 = torch.randn(128, generator=gen, device=dev) * .1
+        badj = g.block_adj if packing == "block" else None
+        for conv in EW_CONVS:
+            for mode in ("f32", "bf16"):
+                kw = dict(skip=skip, act="relu", block_adj=badj, mode=mode,
+                          save_s=mode == "f32",
+                          b0=b0 if conv == "gcn" else None)
+
+                def run(kw=kw, conv=conv):
+                    return mp_layer.fused_mp_layer(x, g.nbr_nodes,
+                                                   g.in_degree, conv, **kw)
+
+                key = f"{conv} {packing} {mode}"
+                res = _timed(run)
+                report["ew"][key] = res
+                got = run()
+                out, s = got if mode == "f32" else (got, None)
+                report["ew_sha256"][key] = dict(
+                    out=sha(out), s=None if s is None else sha(s))
+                print(f"row 4 {key} [N={g.num_nodes}, 128 wide]: "
+                      f"{res['ms']:.4f} ms (events), device "
+                      f"{res['device_ms']:.4f}", flush=True)
+
+    # every elementwise instance's registers and CTAs an SM
+    import ctypes
+
+    from gnnbuilder_tpu_torch.ops.cuda import _build
+
+    lib = _build.load()
+    if hasattr(lib, "gnnb_mp_layer_ew_info"):
+        res = {}
+        for block in (0, 1):
+            for mode in ("f32", "bf16"):
+                for conv in EW_CONVS:
+                    for relu in (1, 0):
+                        for vec in (1, 0):
+                            vals = [ctypes.c_int() for _ in range(2)]
+                            err = lib.gnnb_mp_layer_ew_info(
+                                block, mp_layer.MODES[mode],
+                                mp_layer.MP_CONVS[conv], relu, vec,
+                                *map(ctypes.byref, vals))
+                            if err:
+                                raise RuntimeError(
+                                    f"gnnb_mp_layer_ew_info: cudaError {err}")
+                            res[f"{'block' if block else 'ell'} {mode} "
+                                f"{conv} {'relu' if relu else 'any act'} "
+                                f"{'float4' if vec else 'scalar'}"] = dict(
+                                    registers=vals[0].value,
+                                    ctas_per_sm=vals[1].value)
+        report["ew_instances"] = res
+        print("row 4 elementwise instances (registers, CTAs an SM): "
+              + "; ".join(f"{k} {v['registers']}, {v['ctas_per_sm']}"
+                          for k, v in res.items() if "relu float4" in k),
+              flush=True)
+
+    torch.set_grad_enabled(True)
+    model = canonical_model("gcn", "qm9", graphs=tgraphs)
+    Program(model, device=dev, seed=41).init_params()
+    target = train.stack_targets(tgraphs[:1024], std.num_graphs, device=dev)
+    step = train.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    ms = _events(lambda: step(std, target), warmup=3)
+    split = _device_split(lambda: step(std, target), _step_part)
+    report["train"]["gcn"] = dict(ms=ms, device_ms=sum(split.values()),
+                                  split=split)
+    print(f"gcn train step: {ms:.4f} ms (events), device busy "
+          f"{sum(split.values()):.4f}: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    torch.set_grad_enabled(False)
+    for name, conv, ckw in SAME_WIDTH:
+        p = Program(canonical_model(conv, "qm9", graphs=bgraphs,
+                                    conv_kwargs=ckw),
+                    max_nodes=blk.num_nodes, max_edges=blk.num_edges,
+                    max_graphs=blk.num_graphs, block_size=128, device=dev,
+                    seed=23)
+        p.init_params()
+        fn = lambda: p.forward(blk)
+        split = _device_split(fn, _step_part)
+        report["forward_ms"][f"{name} block"] = dict(
+            ms=_events(fn, warmup=3), device_ms=sum(split.values()),
+            split=split)
+        print(f"Program.forward {name} block: "
+              f"{report['forward_ms'][name + ' block']['ms']:.4f} ms "
+              f"(events), busy {sum(split.values()):.4f}: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(pathlib.Path(__file__)
                                           .resolve().parents[2]))
+    ap.add_argument("--ew", action="store_true",
+                    help="time row 4's elementwise instances only")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -177,6 +308,10 @@ def main(argv=None) -> int:
                                         device=dev)
     n = std.num_nodes
     report["train_rows"] = n
+    if args.ew:
+        _elementwise(report, tgraphs, std)
+        print(json.dumps(report), flush=True)
+        return 0
     gen = torch.Generator(device=dev).manual_seed(29)
 
     def r(*shape, sc=None):

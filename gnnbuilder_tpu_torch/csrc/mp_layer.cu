@@ -49,10 +49,16 @@
 // compacts its adjacency rows into per-row (neighbour, count) lists in
 // shared memory (block_lists.cuh, shared with mp_block.cu); in ELL mode
 // it reads the table's slots with indexed loads.
-// * gcn, lg, simple (mp_layer_ew_kernel): each thread takes elements (row,
-//   column) of the CTA's 32 rows, consecutive threads on consecutive
-//   columns, forms s and the epilogue in registers and writes out (and s)
-//   once.
+// * gcn, lg, simple (mp_layer_ew_kernel or _ew3_kernel, _ew_block_kernel),
+//   for bytes in flight as the gather backward and the multi-aggregate: a
+//   lane group a row with float4 columns (F % 4 == 0), the row's slot ids
+//   loaded once beside its own operands and shared by __shfl_sync, four
+//   slots' v rows loaded before their adds (block mode: four list
+//   entries' rows), the conv and the activation template arguments,
+//   streaming stores of out and s.  The sums run in slot (list) order
+//   from +0 and the epilogue is the parent's, so out and s keep the
+//   parent kernel's bits (mp_layer_ew_ordered in ops/cuda/mp_layer.py
+//   forms the same sums in torch).
 // * gin, sage (mp_layer_tc_kernel): a CTA owns 128 rows (64 where 128 do
 //   not fit shared memory: hidden 384; and BF16 gin, below): the train
 //   batch's 18,688 rows are 146 CTAs, one round at two CTAs an SM.  Their
@@ -93,7 +99,7 @@ using gnnb_quant::F32;
 using gnnb_quant::INT8;
 
 constexpr int BB = gnnb::LIST_COLS;   // rows of an adjacency block
-constexpr int EW_R = 32;              // rows per CTA, elementwise convs
+constexpr int EW_R = 32;              // rows per CTA, elementwise block mode
 
 enum Conv { GIN = 0, SAGE = 1, GCN = 2, LG = 3, SIMPLE_SUM = 4,
             SIMPLE_MEAN = 5 };
@@ -116,6 +122,7 @@ struct LayerArgs {
   float eps;
   int stages;          // weight stages in shared memory (gin, sage)
   bool vec;            // F % 4 == 0 and v, s 16-byte aligned
+  int gs;              // lanes a row (gcn, lg, simple)
 };
 
 // s of global row r (row i of the CTA, in-degree d) at column c: over the
@@ -152,42 +159,252 @@ __device__ __forceinline__ void load_rows(const LayerArgs& a, int row0,
     __syncthreads();
 }
 
-// gcn, lg, simple_sum, simple_mean: one element per thread and pass (F32
-// or BF16: these convs run no product to quantize).
-template <bool BLOCK, int MODE>
-__global__ void __launch_bounds__(THREADS)
-mp_layer_ew_kernel(LayerArgs a) {
-  __shared__ int s_deg[EW_R], s_cnt[EW_R], s_ptr[EW_R + 1];
-  __shared__ int s_ent[BLOCK ? EW_R * BB : 1];
-  const int F = a.F;
-  const int row0 = blockIdx.x * EW_R;
-  load_rows<EW_R, BLOCK>(a, row0, s_deg, s_cnt, s_ptr, s_ent);
-  const float* vb = a.v + (size_t)(row0 / BB) * BB * F;
-  for (int e = threadIdx.x; e < EW_R * F; e += THREADS) {
-    const int i = e / F, c = e % F, r = row0 + i;
-    if (r >= a.n_rows) break;          // rows only grow with e
-    const int d = s_deg[i];
-    const float s =
-        neighbour_sum<BLOCK, MODE>(a, r, i, d, s_ent, s_ptr, vb, c);
-    const size_t o_idx = (size_t)r * F + c;
-    if (a.s != nullptr) a.s[o_idx] = s;
-    const float df = (float)d;
-    float o;
-    switch (a.conv) {
-      case GCN:
-        o = (1.f / sqrtf(df + 1.f)) * (s + a.v[o_idx]) + a.b0[c];
-        break;
-      case LG:
-        o = (d > 0 ? 1.f / sqrtf(fmaxf(df, 1.f)) : 0.f) * s;
-        break;
-      case SIMPLE_MEAN:
-        o = s / fmaxf(df, 1.f);
-        break;
-      default:
-        o = s;
+// ---------------------------------------------------------------------------
+// gcn, lg, simple_sum, simple_mean (F32 or BF16: these convs run no
+// product to quantize).  A group of GS lanes owns a row (GS = the row's
+// float4 chunks, or columns, rounded up to a power of two, at least
+// EW_U and at most 32: a warp a row at F = 128, two at 64, eight where
+// four lanes cover F), each lane V columns; the conv and the activation
+// are template arguments, index math 32-bit (N * F and N * W < 2^31,
+// checked at the entry), out and s streaming stores.
+
+constexpr int EW_U = 4;               // slots' loads in flight a lane
+// The ELL instances built for three CTAs an SM (mp_layer_ew3_kernel): f32
+// lg and simple spilled at the compiler's own 64-register choice (~25 %
+// slower); the rest run fastest at their own choice (gcn f32 80
+// registers, the bf16 ones 64), slower when held to three CTAs an SM
+__host__ __device__ constexpr bool ew_three(int mode, int conv) {
+  return mode == F32 && conv != GCN;
+}
+constexpr unsigned FULL = 0xffffffffu;
+enum EwAct { EW_RELU = 0, EW_ANY = 1 };   // EW_ANY: act at run time
+
+template <int V> struct Cols { float c[V]; };
+
+// V floats at p: gathered rows read-only without L1 allocation (a
+// sender's row is read by its few receivers, rarely from one SM),
+// streamed (read once) for skip, cached for b0
+__device__ __forceinline__ Cols<4> ld_nc(const float* p, Cols<4>*) {
+  Cols<4> r;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(r.c[0]), "=f"(r.c[1]), "=f"(r.c[2]), "=f"(r.c[3])
+      : "l"(p));
+  return r;
+}
+__device__ __forceinline__ Cols<1> ld_nc(const float* p, Cols<1>*) {
+  Cols<1> r;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(r.c[0]) : "l"(p));
+  return r;
+}
+__device__ __forceinline__ Cols<4> ld_cs(const float* p, Cols<4>*) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  return {{q.x, q.y, q.z, q.w}};
+}
+__device__ __forceinline__ Cols<1> ld_cs(const float* p, Cols<1>*) {
+  return {{__ldcs(p)}};
+}
+__device__ __forceinline__ Cols<4> ld_b(const float* p, Cols<4>*) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  return {{q.x, q.y, q.z, q.w}};
+}
+__device__ __forceinline__ Cols<1> ld_b(const float* p, Cols<1>*) {
+  return {{__ldg(p)}};
+}
+template <int V> __device__ __forceinline__ Cols<V>* tag() { return nullptr; }
+__device__ __forceinline__ void st_cs(float* p, Cols<4> v) {
+  __stcs(reinterpret_cast<float4*>(p),
+         make_float4(v.c[0], v.c[1], v.c[2], v.c[3]));
+}
+__device__ __forceinline__ void st_cs(float* p, Cols<1> v) {
+  __stcs(p, v.c[0]);
+}
+
+// a row's own operands at column c: v[r] (gcn), skip[r], b0 (gcn)
+template <int CONV, int V> struct Own {
+  Cols<V> v, skip, b;
+  __device__ __forceinline__ void load(const LayerArgs& a, int r, int c) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v.c[k] = skip.c[k] = b.c[k] = 0.f;
+    if (CONV == GCN) {
+      v = ld_nc(a.v + r * a.F + c, tag<V>());
+      b = ld_b(a.b0 + c, tag<V>());
     }
-    if (a.skip != nullptr) o += a.skip[o_idx];
-    a.out[o_idx] = act_fn(o, a.act);
+    if (a.skip != nullptr) skip = ld_cs(a.skip + r * a.F + c, tag<V>());
+  }
+};
+
+// the row's scale: gcn 1 / sqrt(d + 1), lg 1 / sqrt(max(d, 1)) (0 at
+// d = 0), IEEE square root and division as the parent formed them
+template <int CONV>
+__device__ __forceinline__ float row_scale(int d) {
+  const float df = (float)d;
+  if (CONV == GCN) return 1.f / sqrtf(df + 1.f);
+  if (CONV == LG) return d > 0 ? 1.f / sqrtf(fmaxf(df, 1.f)) : 0.f;
+  return 0.f;
+}
+
+// The epilogue of one lane's V elements of row r and its stores: the
+// parent's operations in the parent's order (gcn's scale times (s + v)
+// plus b0 a fused multiply-add, as the parent compiled it; the skip
+// added before the activation).
+template <int CONV, int ACT, int V>
+__device__ __forceinline__ void ew_store(const LayerArgs& a, int r, int c,
+                                         int d, float rs, Cols<V> s,
+                                         Own<CONV, V> own) {
+  Cols<V> o;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    float x;
+    if (CONV == GCN)
+      x = fmaf(rs, __fadd_rn(s.c[k], own.v.c[k]), own.b.c[k]);
+    else if (CONV == LG)
+      x = __fmul_rn(rs, s.c[k]);
+    else if (CONV == SIMPLE_MEAN)
+      x = s.c[k] / fmaxf((float)d, 1.f);
+    else
+      x = s.c[k];
+    if (a.skip != nullptr) x = __fadd_rn(x, own.skip.c[k]);
+    o.c[k] = ACT == EW_RELU ? fmaxf(x, 0.f) : act_fn(x, a.act);
+  }
+  const int idx = r * a.F + c;
+  if (a.s != nullptr) st_cs(a.s + idx, s);
+  st_cs(a.out + idx, o);
+}
+
+// ELL mode: lane 0 of the group loads r's degree and lane l slot l's
+// sender id, beside the row's own operands (one round), the group reads
+// the ids by __shfl_sync, and EW_U slots' v rows are loaded before
+// their adds, which run in slot order from +0 (each v rounded to bf16
+// first in BF16): the parent's sums, bit for bit.  The grid is the
+// instance's occupancy on every SM, each warp striding over row groups.
+template <int MODE, int CONV, int ACT, int V>
+__device__ __forceinline__ void ew_rows(const LayerArgs& a) {
+  const int F = a.F, W = a.W, GS = a.gs, RPW = 32 / GS;
+  const int lane = threadIdx.x & 31, gl = lane % GS, sub = lane / GS;
+  const int stride = gridDim.x * (THREADS / 32) * RPW;
+  for (int r0 = (blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5)) * RPW;
+       r0 < a.n_rows; r0 += stride) {
+    const int r = r0 + sub;
+    const bool rok = r < a.n_rows;
+    int d = 0, first = 0;
+    Own<CONV, V> own0;
+    if (rok) {
+      if (gl == 0) d = __ldg(a.deg + r);
+      if (gl < W) first = __ldg(a.nbr + r * W + gl);
+      if (V * gl < F) own0.load(a, r, V * gl);
+    }
+    d = __shfl_sync(FULL, d, 0, GS);
+    int most = d;   // the warp's longest row: its groups loop together
+    for (int o = 16; o > 0; o >>= 1)
+      most = max(most, __shfl_xor_sync(FULL, most, o));
+    const float rs = row_scale<CONV>(d);
+    const int* nb = a.nbr + (rok ? r : 0) * W;
+    for (int c0 = 0; c0 < F; c0 += GS * V) {
+      const int c = c0 + V * gl;
+      const bool cok = rok && c < F;
+      Own<CONV, V> own = own0;
+      if (c0 > 0 && cok) own.load(a, r, c);
+      Cols<V> s;
+#pragma unroll
+      for (int k = 0; k < V; ++k) s.c[k] = 0.f;
+      for (int wb = 0; wb < most; wb += GS) {
+        const int mine = wb == 0 ? first
+                         : rok && wb + gl < d ? __ldg(nb + wb + gl) : 0;
+        const int m = min(GS, most - wb);
+        for (int w = 0; w < m; w += EW_U) {
+          Cols<V> g[EW_U];
+#pragma unroll
+          for (int uu = 0; uu < EW_U; ++uu) {
+            const int i = __shfl_sync(FULL, mine, w + uu, GS);
+            if (cok && wb + w + uu < d)
+              g[uu] = ld_nc(a.v + i * F + c, tag<V>());
+          }
+#pragma unroll
+          for (int uu = 0; uu < EW_U; ++uu) {
+            if (!cok || wb + w + uu >= d) continue;
+#pragma unroll
+            for (int k = 0; k < V; ++k)
+              s.c[k] += MODE == BF16 ? bf16r(g[uu].c[k]) : g[uu].c[k];
+          }
+        }
+      }
+      if (cok) ew_store<CONV, ACT, V>(a, r, c, d, rs, s, own);
+    }
+  }
+}
+
+template <int MODE, int CONV, int ACT, int V>
+__global__ void __launch_bounds__(THREADS) mp_layer_ew_kernel(LayerArgs a) {
+  ew_rows<MODE, CONV, ACT, V>(a);
+}
+template <int MODE, int CONV, int ACT, int V>
+__global__ void __launch_bounds__(THREADS, 3)
+mp_layer_ew3_kernel(LayerArgs a) {
+  ew_rows<MODE, CONV, ACT, V>(a);
+}
+
+// the ELL kernel of an instance (only that one is instantiated)
+using EwKernel = void (*)(LayerArgs);
+template <int MODE, int CONV, int ACT, int V>
+EwKernel ew_kernel() {
+  if constexpr (ew_three(MODE, CONV))
+    return mp_layer_ew3_kernel<MODE, CONV, ACT, V>;
+  else
+    return mp_layer_ew_kernel<MODE, CONV, ACT, V>;
+}
+
+// Block mode: the CTA's EW_R rows' adjacency lists compacted in shared
+// memory (block_lists.cuh, as the parent), then the same lane groups, each
+// loading EW_U entries' v rows before their multiply-adds, in list order
+// from +0 (agg_row's fmaf(count, v, s)).
+template <int MODE, int CONV, int ACT, int V>
+__global__ void __launch_bounds__(THREADS)
+mp_layer_ew_block_kernel(LayerArgs a) {
+  __shared__ int s_deg[EW_R], s_cnt[EW_R], s_ptr[EW_R + 1];
+  __shared__ int s_ent[EW_R * BB];
+  const int F = a.F, GS = a.gs, RPW = 32 / GS;
+  const int lane = threadIdx.x & 31, gl = lane % GS;
+  const int row0 = blockIdx.x * EW_R;
+  // the group's first row's own operands, beside the adjacency reads
+  const int i0 = (threadIdx.x >> 5) * RPW + lane / GS;
+  Own<CONV, V> own0;
+  if (i0 < EW_R && row0 + i0 < a.n_rows && V * gl < F)
+    own0.load(a, row0 + i0, V * gl);
+  load_rows<EW_R, true>(a, row0, s_deg, s_cnt, s_ptr, s_ent);
+  const float* vb = a.v + (row0 / BB) * BB * F;
+  for (int i = i0; i < EW_R; i += (THREADS / 32) * RPW) {
+    const int r = row0 + i;
+    if (r >= a.n_rows) break;
+    const int d = s_deg[i], e0 = s_ptr[i], e1 = s_ptr[i + 1];
+    const float rs = row_scale<CONV>(d);
+    for (int c = V * gl; c < F; c += GS * V) {
+      Own<CONV, V> own = own0;
+      if (i != i0 || c != V * gl) own.load(a, r, c);
+      Cols<V> s;
+#pragma unroll
+      for (int k = 0; k < V; ++k) s.c[k] = 0.f;
+      for (int e = e0; e < e1; e += EW_U) {
+        Cols<V> g[EW_U];
+        float cnt[EW_U];
+#pragma unroll
+        for (int uu = 0; uu < EW_U; ++uu) {
+          if (e + uu >= e1) continue;
+          const int p = s_ent[e + uu];
+          cnt[uu] = (float)(p >> 8);
+          g[uu] = ld_nc(vb + (p & 0xFF) * F + c, tag<V>());
+        }
+#pragma unroll
+        for (int uu = 0; uu < EW_U; ++uu) {
+          if (e + uu >= e1) continue;
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            s.c[k] = fmaf(cnt[uu],
+                          MODE == BF16 ? bf16r(g[uu].c[k]) : g[uu].c[k],
+                          s.c[k]);
+        }
+      }
+      ew_store<CONV, ACT, V>(a, r, c, d, rs, s, own);
+    }
   }
 }
 
@@ -637,15 +854,62 @@ cudaError_t launch_mm(LayerArgs a, size_t optin, cudaStream_t s) {
                      : launch_rows<MODE, BLOCK, 64>(a, smem, s);
 }
 
+// an elementwise instance's launch: the block mode a CTA per EW_R rows;
+// the ELL mode the instance's occupancy on every SM (worked out at its
+// first launch on a device), each warp striding over row groups
+template <bool BLOCK, int MODE, int CONV, int ACT, int V>
+cudaError_t launch_ew(const LayerArgs& a, cudaStream_t s, int device) {
+  if (BLOCK) {
+    mp_layer_ew_block_kernel<MODE, CONV, ACT, V>
+        <<<(a.n_rows + EW_R - 1) / EW_R, THREADS, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  constexpr int MAX_DEV = 64;
+  static int per_sm[MAX_DEV], sms[MAX_DEV];
+  if (device < 0 || device >= MAX_DEV) return cudaErrorInvalidDevice;
+  if (per_sm[device] == 0) {
+    int p = 0, n = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &p, ew_kernel<MODE, CONV, ACT, V>(), THREADS, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return err;
+    sms[device] = n;
+    per_sm[device] = p;
+  }
+  const int groups = (THREADS / 32) * (32 / a.gs);   // rows a CTA a pass
+  const long long want = ((long long)a.n_rows + groups - 1) / groups;
+  const long long most = (long long)per_sm[device] * sms[device];
+  ew_kernel<MODE, CONV, ACT, V>()
+      <<<(int)(want < most ? want : most), THREADS, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool BLOCK, int MODE, int CONV>
+cudaError_t launch_conv(const LayerArgs& a, cudaStream_t s, int device) {
+  const bool relu = a.act == 1;
+  if (a.vec)
+    return relu ? launch_ew<BLOCK, MODE, CONV, EW_RELU, 4>(a, s, device)
+                : launch_ew<BLOCK, MODE, CONV, EW_ANY, 4>(a, s, device);
+  return relu ? launch_ew<BLOCK, MODE, CONV, EW_RELU, 1>(a, s, device)
+              : launch_ew<BLOCK, MODE, CONV, EW_ANY, 1>(a, s, device);
+}
+
 template <bool BLOCK, int MODE>
-cudaError_t launch(const LayerArgs& a, size_t optin, cudaStream_t s) {
+cudaError_t launch(const LayerArgs& a, size_t optin, cudaStream_t s,
+                   int device) {
   if (a.conv != GIN && a.conv != SAGE) {
     if constexpr (MODE == INT8) {
       return cudaErrorInvalidValue;   // no product to quantize
     } else {
-      mp_layer_ew_kernel<BLOCK, MODE>
-          <<<(a.n_rows + EW_R - 1) / EW_R, THREADS, 0, s>>>(a);
-      return cudaGetLastError();
+      switch (a.conv) {
+        case GCN: return launch_conv<BLOCK, MODE, GCN>(a, s, device);
+        case LG: return launch_conv<BLOCK, MODE, LG>(a, s, device);
+        case SIMPLE_SUM:
+          return launch_conv<BLOCK, MODE, SIMPLE_SUM>(a, s, device);
+        default: return launch_conv<BLOCK, MODE, SIMPLE_MEAN>(a, s, device);
+      }
     }
   }
   return launch_mm<MODE, BLOCK>(a, optin, s);
@@ -653,9 +917,9 @@ cudaError_t launch(const LayerArgs& a, size_t optin, cudaStream_t s) {
 
 template <int MODE>
 cudaError_t launch_mode(const LayerArgs& a, bool block, size_t optin,
-                        cudaStream_t s) {
-  return block ? launch<true, MODE>(a, optin, s)
-               : launch<false, MODE>(a, optin, s);
+                        cudaStream_t s, int device) {
+  return block ? launch<true, MODE>(a, optin, s, device)
+               : launch<false, MODE>(a, optin, s, device);
 }
 
 template <int MODE, bool BLOCK, int R>
@@ -696,9 +960,20 @@ cudaError_t info_mode(bool block, int w, int H, int R, int* regs,
                : info<MODE, false>(w, H, R, regs, smem_bytes, ctas, optin);
 }
 
+// lanes a row of the elementwise kernels: its chunks rounded up to a
+// power of two, at least EW_U (a pass takes EW_U slots from EW_U lanes'
+// ids) and at most 32
+int group_size(int lanes) {
+  int gs = EW_U;
+  while (gs < 32 && gs < lanes) gs *= 2;
+  return gs;
+}
+
 }  // namespace
 
 extern "C" {
+
+int gnnb_smem_per_block_optin(int device);   // readout.cu: read once
 
 // Rows of an adjacency block the block mode takes.
 int gnnb_mp_layer_block_rows() { return BB; }
@@ -736,6 +1011,38 @@ int gnnb_mp_layer_info(int mode, int block, int conv, int rows, int w,
   return (int)cudaErrorInvalidValue;
 }
 
+// Registers per thread and resident CTAs per SM of the elementwise
+// instance for (block, mode 0 f32 / 1 bf16, conv 2 gcn .. 5 simple_mean,
+// relu or the run-time activation, float4 columns), on the current
+// device.
+int gnnb_mp_layer_ew_info(int block, int mode, int conv, int relu, int vec,
+                          int* regs, int* ctas_per_sm) {
+  const void* k = nullptr;
+#define GNNB_EW(B, M, C, A, V)                                              \
+  if (block == B && mode == M && conv == C && relu == (A == EW_RELU) &&    \
+      vec == (V == 4))                                                     \
+    k = B ? (const void*)mp_layer_ew_block_kernel<M, C, A, V>              \
+          : (const void*)ew_kernel<M, C, A, V>();
+#define GNNB_EW_V(B, M, C, A) GNNB_EW(B, M, C, A, 4) GNNB_EW(B, M, C, A, 1)
+#define GNNB_EW_A(B, M, C) \
+  GNNB_EW_V(B, M, C, EW_RELU) GNNB_EW_V(B, M, C, EW_ANY)
+#define GNNB_EW_C(B, M)                                                     \
+  GNNB_EW_A(B, M, GCN) GNNB_EW_A(B, M, LG) GNNB_EW_A(B, M, SIMPLE_SUM)     \
+      GNNB_EW_A(B, M, SIMPLE_MEAN)
+  GNNB_EW_C(1, F32) GNNB_EW_C(1, BF16) GNNB_EW_C(0, F32) GNNB_EW_C(0, BF16)
+#undef GNNB_EW_C
+#undef GNNB_EW_A
+#undef GNNB_EW_V
+#undef GNNB_EW
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return (int)err;
+  *regs = fa.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, k,
+                                                            THREADS, 0);
+}
+
 // Launches the layer on `stream` of `device`.  `adj` non-null selects the
 // block mode (n_rows % 128 == 0), else the ELL mode reads nbr [N, W].
 // conv: 0 gin, 1 sage, 2 gcn, 3 lg, 4 simple_sum, 5 simple_mean; act: 0
@@ -765,13 +1072,14 @@ int gnnb_mp_layer(const void* v, const void* nbr, const void* adj,
   else
     ok = ok && Fout == F && (conv != GCN || b0 != nullptr);
   if (mode == INT8) ok = ok && mm && sw0 && sw1;
+  // the elementwise kernels' 32-bit index math
+  if (!mm)
+    ok = ok && (long long)n_rows * F < (1ll << 31) &&
+         (long long)n_rows * W < (1ll << 31);
   if (!ok) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return (int)err;
+  const int optin = mm ? gnnb_smem_per_block_optin(device) : 0;
+  if (mm && optin == 0) return (int)cudaErrorInvalidValue;
   LayerArgs a;
   a.v = (const float*)v;
   a.nbr = (const int*)nbr;
@@ -795,12 +1103,17 @@ int gnnb_mp_layer(const void* v, const void* nbr, const void* adj,
   a.act = act;
   a.eps = eps;
   a.stages = 0;
-  a.vec = F % 4 == 0 && (uintptr_t)v % 16 == 0 && (uintptr_t)s % 16 == 0;
+  a.vec = F % 4 == 0 &&
+         ((uintptr_t)v | (uintptr_t)s |
+          (mm ? 0 : (uintptr_t)skip | (uintptr_t)out | (uintptr_t)b0)) %
+                 16 ==
+             0;
+  a.gs = group_size(a.vec ? F / 4 : F);
   cudaStream_t st = (cudaStream_t)stream;
   const size_t fits = (size_t)optin;
-  if (mode == BF16) return (int)launch_mode<BF16>(a, block, fits, st);
-  if (mode == INT8) return (int)launch_mode<INT8>(a, block, fits, st);
-  return (int)launch_mode<F32>(a, block, fits, st);
+  if (mode == BF16) return (int)launch_mode<BF16>(a, block, fits, st, device);
+  if (mode == INT8) return (int)launch_mode<INT8>(a, block, fits, st, device);
+  return (int)launch_mode<F32>(a, block, fits, st, device);
 }
 
 }  // extern "C"

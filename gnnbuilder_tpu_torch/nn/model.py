@@ -333,6 +333,24 @@ class GNNModel(torch.nn.Module):
 
         return self._cached(mode, width, build)
 
+    def _readout_head(self, mode: str):
+        """The MLP head packed for the readout kernel in ``mode``
+        (``readout.pack_head``: one buffer, each Linear's weight in its
+        [out, in] layout), cached like ``_kernel_params`` (rebuilt after
+        ``set_params`` or an optimizer step)."""
+        width = self._stack_width()
+
+        def build():
+            from gnnbuilder_tpu_torch.ops.cuda.readout import pack_head
+
+            if mode == "f32":
+                weights = [(lin.weight.t(), lin.bias)
+                           for lin in self.mlp_head.linear_layers]
+                return pack_head(weights)
+            return pack_head(*self._mode_params(width, mode)[1], mode)
+
+        return self._cached(f"{mode} readout", width, build)
+
     def _staged_stack(self, width: int, mode: str):
         """The stack kernel's weights in ``mode`` laid out as it streams
         them (PNA: ``pna_block.stage_stack``; GCN, GIN, SAGE:
@@ -557,13 +575,11 @@ class GNNModel(torch.nn.Module):
         kw = dict(aggrs=self.pooling_aggrs, mx=mx, act=self.mlp_activation,
                   out_act=self.output_activation, starts=cfg["starts"])
         mode = cfg.get("mode", "f32")
-        if mode != "f32":    # inference modes: no backward
-            weights, scales = self._mode_params(self._stack_width(), mode)[1]
-            return fused_readout(h, g.n_node, weights, mode=mode,
-                                 scales=scales, **kw)
-        if torch.is_grad_enabled():
-            weights = [(lin.weight.t(), lin.bias)
-                       for lin in self.mlp_head.linear_layers]
-        else:
-            weights = self._kernel_params(self._stack_width())[1]
+        if mode != "f32" or not torch.is_grad_enabled():
+            # inference (the modes have no backward): the head packed once
+            return fused_readout(h, g.n_node, self._readout_head(mode),
+                                 mode=mode, **kw)
+        # the live weights, packed by the wrapper on every call
+        weights = [(lin.weight.t(), lin.bias)
+                   for lin in self.mlp_head.linear_layers]
         return fused_readout_vjp(h, g.n_node, weights, **kw)

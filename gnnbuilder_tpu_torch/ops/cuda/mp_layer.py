@@ -64,7 +64,8 @@ from gnnbuilder_tpu_torch.ops.quant import qdot, quantize_weight, to_bf16
 
 __all__ = ["fused_mp_layer", "mp_layer_plain", "MPLayerFunction",
            "fused_mp_layer_vjp", "fused_mp_layer_auto", "prepare_layer",
-           "weight_dtype", "MP_CONVS", "LAYER_ACTS", "MODES", "QUANT_CONVS"]
+           "mp_layer_ew_ordered", "weight_dtype", "MP_CONVS", "LAYER_ACTS",
+           "MODES", "QUANT_CONVS", "EW_CONVS"]
 
 # the convs the kernel takes, with their codes in the source
 MP_CONVS = {"gin": 0, "sage": 1, "gcn": 2, "lg": 3, "simple_sum": 4,
@@ -168,6 +169,73 @@ def mp_layer_plain(v, nbr_nodes, in_degree, conv, w0=None, b0=None, w1=None,
     return (out, s) if save_s else out
 
 
+def _ieee(op, a, b=None):
+    """sqrt(a) or a / b as the IEEE float32 operation rounds it: formed in
+    float64 and rounded once (53 >= 2 x 24 + 2 bits)."""
+    a = a.double()
+    return (a.sqrt() if op == "sqrt" else a / b.double()).to(torch.float32)
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) of float32 tensors: the float64 product is exact, its
+    sum with c rounded once more (a double rounding at an exact tie only
+    in principle)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+EW_CONVS = ("gcn", "lg", "simple_sum", "simple_mean")
+
+
+def mp_layer_ew_ordered(v, nbr_nodes, in_degree, conv, b0=None, skip=None,
+                        act=None, block_adj=None, mode: str = "f32"):
+    """gcn, lg, simple_sum and simple_mean as the kernel forms them:
+    (out, s).  s adds each row's valid ELL slots in slot order from +0
+    (with ``block_adj``, each nonzero count of the row in column order as
+    fmaf(count, v, s)), each v rounded to bf16 first in "bf16"; the
+    epilogue is the kernel's: gcn fmaf(1 / sqrt(d + 1), s + v, b0), lg
+    (d > 0 ? 1 / sqrt(max(d, 1)) : 0) * s, simple_mean s / max(d, 1)
+    (IEEE square roots and divisions), then + skip and the activation.
+    On the card the kernel's s is these bits, and so is out under relu
+    or no activation."""
+    if conv not in EW_CONVS:
+        raise ValueError(f"mp_layer_ew_ordered takes {EW_CONVS}; got "
+                         f"{conv!r}")
+    N, F = v.shape
+    src = to_bf16(v) if mode == "bf16" else v
+    s = v.new_zeros((N, F))
+    if block_adj is None:
+        for w in range(nbr_nodes.shape[1]):
+            on = (w < in_degree)[:, None]
+            s = torch.where(on, s + src[nbr_nodes[:, w].long()], s)
+    else:
+        T, B, _ = block_adj.shape
+        sb, vb = s.view(T, B, F), src.view(T, B, F)
+        for j in range(B):
+            cnt = block_adj[:, :, j:j + 1]
+            x = vb[:, j:j + 1, :].expand(T, B, F)
+            one = sb + x
+            many = _fma(cnt.expand(T, B, F), x, sb)
+            sb = torch.where(cnt == 0, sb, torch.where(cnt == 1, one, many))
+        s = sb.reshape(N, F)
+    d = in_degree.to(v.dtype)[:, None]
+    one = torch.ones((), dtype=v.dtype, device=v.device)
+    if conv == "gcn":
+        rs = _ieee("div", one.expand_as(d), _ieee("sqrt", d + 1.0))
+        o = _fma(rs.expand(N, F), s + v, b0.expand(N, F))
+    elif conv == "lg":
+        rs = torch.where(d > 0, _ieee("div", one.expand_as(d),
+                                      _ieee("sqrt", d.clamp(min=1.0))),
+                         v.new_zeros(()))
+        o = rs * s
+    elif conv == "simple_sum":
+        o = s
+    else:
+        o = _ieee("div", s, d.clamp(min=1.0).expand(N, F))
+    if skip is not None:
+        o = o + skip
+    return (o if act is None else ACTIVATIONS[act](o)), s
+
+
 def _out_width(conv, v, w0, w1):
     if conv == "gin":
         return w1.shape[1]
@@ -237,6 +305,25 @@ def _check(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, skip, act,
         raise ValueError(f"tensors on several devices: {devs}")
 
 
+_fn = (None, None)
+
+
+def _kernel_fn():
+    """The library's launcher, its argument types set once per library."""
+    global _fn
+    from gnnbuilder_tpu_torch.ops.cuda._build import load
+
+    lib = load()
+    if _fn[0] is not lib:
+        fn = lib.gnnb_mp_layer
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.restype = I
+        fn.argtypes = ([P] * 4 + [I] * 5 + [P] * 5
+                       + [I, ctypes.c_float, I, I] + [P] * 5 + [I])
+        _fn = (lib, fn)
+    return _fn[1]
+
+
 def _launch(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, eps, skip, act,
             save_s, block_adj, mode, s0, s1):
     from gnnbuilder_tpu_torch.ops.cuda._build import load
@@ -271,11 +358,7 @@ def _launch(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, eps, skip, act,
         raise ValueError("all inputs must be contiguous")
     if block and block_adj.data_ptr() % 16:
         raise ValueError("block_adj must be 16-byte aligned")
-    fn = lib.gnnb_mp_layer
-    fn.restype = ctypes.c_int
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([P] * 4 + [I] * 5 + [P] * 5 + [I, ctypes.c_float, I, I]
-                   + [P] * 5 + [I])
+    fn = _kernel_fn()
     out = torch.empty((N, Fout), dtype=torch.float32, device=dev)
     s = torch.empty_like(v) if save_s else None
 

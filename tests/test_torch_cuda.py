@@ -257,6 +257,81 @@ def test_readout_kernel_wide_head_matches_plain(cuda_device):
     _readout_case(cuda_device, None, 384)
 
 
+READOUT_HEADS = {1: (4,), 5: (64, 64, 64, 64, 3), 8: (32,) * 7 + (5,)}
+# graph sizes of the raw readout batch: empty graphs, single rows, and
+# QM9's largest (29 rows); the ghost takes the pad rows after them
+READOUT_SIZES = [0, 1, 29, 7, 0, 13, 29, 1, 18, 3] * 13
+
+
+def _readout_raw(dev, F, seed):
+    """x [N, F] and the batch's n_node, starts, mx and graph mask for
+    READOUT_SIZES plus the ghost (N a multiple of 128)."""
+    sizes = list(READOUT_SIZES)
+    n = sum(sizes)
+    N = (n + 127) // 128 * 128 + 128
+    n_node = torch.tensor(sizes + [N - n], dtype=torch.int32)
+    starts = (torch.cumsum(n_node, 0) - n_node).to(torch.int32)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(N, F, generator=g)
+    mx = segment.contiguous_segment_max(x, starts, n_node, N - n)
+    mask = torch.ones(len(sizes) + 1, dtype=torch.bool)
+    mask[-1] = False
+    return [t.to(dev) for t in (x, n_node, starts, mx)], mask.to(dev)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("F", [8, 11, 64, 128])
+@pytest.mark.parametrize("n_lin", sorted(READOUT_HEADS))
+def test_readout_kernel_every_mode_width_and_head(cuda_device, mode, F,
+                                                  n_lin):
+    """Graphs of 0, 1 and 29 rows and the ghost, heads of 1, 5 and 8
+    Linears, each mode: 1e-4 of max (f32; pooling sums in another order)
+    or the mode's hold on the real graphs, a finite ghost row, one launch
+    of the mode; a packed head gives the bits of its pairs."""
+    (x, n_node, starts, mx), m = _readout_raw(cuda_device, F, F + n_lin)
+    g = torch.Generator(device="cpu").manual_seed(n_lin)
+    dims = (3 * F,) + READOUT_HEADS[n_lin]
+    pairs = [((torch.randn(i, o, generator=g) / i ** 0.5).to(cuda_device),
+              (torch.randn(o, generator=g) * .1).to(cuda_device))
+             for i, o in zip(dims[:-1], dims[1:])]
+    head, scales = readout.prepare_head(pairs, mode)
+    kw = dict(aggrs=("add", "mean", "max"), mx=mx, act="relu",
+              out_act="softmax" if n_lin == 5 else None, starts=starts,
+              mode=mode)
+    before = readout.fused_readout.mode_launches[mode]
+    got = readout.fused_readout(x, n_node, head, scales=scales, **kw)
+    torch.cuda.synchronize()
+    assert readout.fused_readout.mode_launches[mode] == before + 1
+    want = readout.readout_plain(x, n_node, starts, head, kw["aggrs"], mx,
+                                 "relu", kw["out_act"], mode, scales)
+    assert torch.isfinite(got).all()
+    tol = MODE_TOL.get(mode, 1e-4)
+    assert _scaled_err(got[m], want[m]) <= tol, (mode, F, n_lin)
+    packed = readout.pack_head(head, scales, mode)
+    again = readout.fused_readout(x, n_node, packed, **kw)
+    assert torch.equal(again, got)
+
+
+def test_readout_kernel_head_from_device_memory(cuda_device):
+    """A head of ~1.3 MB (pooled 3 x 384 -> 256 -> 256 -> 3 padded wide)
+    exceeds shared memory: the kernel reads it from device memory; f32
+    and int8 against the plain version on the raw batch's real graphs."""
+    (x, n_node, starts, mx), m = _readout_raw(cuda_device, 384, 3)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    dims = (3 * 384, 256, 256, 3)
+    pairs = [((torch.randn(i, o, generator=g) / i ** 0.5).to(cuda_device),
+              (torch.randn(o, generator=g) * .1).to(cuda_device))
+             for i, o in zip(dims[:-1], dims[1:])]
+    for mode in ("f32", "int8"):
+        head, scales = readout.prepare_head(pairs, mode)
+        kw = dict(aggrs=("add", "mean", "max"), mx=mx, starts=starts,
+                  mode=mode)
+        got = readout.fused_readout(x, n_node, head, scales=scales, **kw)
+        want = readout.readout_plain(x, n_node, starts, head, kw["aggrs"],
+                                     mx, "relu", None, mode, scales)
+        assert _scaled_err(got[m], want[m]) <= MODE_TOL.get(mode, 1e-4)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     """On the card a wrapper launches its kernel or raises: F = 256, a
     256-row block and a head whose activation buffers exceed shared
@@ -871,6 +946,47 @@ def test_mp_layer_kernel_matches_plain(cuda_device, conv, mode):
         assert torch.isfinite(out[m]).all()
         assert _scaled_err(out[m], want[m]) <= 1e-4, (F, act)
         assert _scaled_err(s[m], want_s[m]) <= 1e-4, (F, act)
+
+
+@pytest.mark.parametrize("conv", mp_layer.EW_CONVS)
+@pytest.mark.parametrize("packing", ["ell", "block"])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_mp_layer_ew_kernel_bits(cuda_device, conv, packing, mode):
+    """Row 4's elementwise instances at F = 1, 2, 4, 8, 11, 64 and 128
+    (lane groups of four lanes and more; scalar and float4 columns): s
+    and, under relu or no activation, out the bits of
+    ``mp_layer_ew_ordered`` (tanh 1e-6 of max: torch's tanh is not
+    CUDA's), and within 1e-4 of max (bf16 2e-3) of the plain version."""
+    b = (_std_batch(device=cuda_device)[1] if packing == "ell"
+         else _batch()[1].to(cuda_device))
+    badj = b.block_adj if packing == "block" else None
+    g = torch.Generator(device="cpu").manual_seed(13)
+    for F in (1, 2, 4, 8, 11, 64, 128):
+        for act, with_skip in (("relu", True), (None, False),
+                               ("tanh", True)):
+            ops = _mp_operands(conv, F, g, cuda_device)
+            x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+            skip = (torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+                    if with_skip else None)
+            kw = dict(skip=skip, act=act, block_adj=badj, mode=mode)
+            f32 = mode == "f32"
+            got = mp_layer.fused_mp_layer(x, b.nbr_nodes, b.in_degree, conv,
+                                          save_s=f32, **ops, **kw)
+            out, s = got if f32 else (got, None)
+            torch.cuda.synchronize()
+            want_o, want_s = mp_layer.mp_layer_ew_ordered(
+                x, b.nbr_nodes, b.in_degree, conv, ops.get("b0"), **kw)
+            if f32:
+                assert torch.equal(s, want_s), (F, act)
+            if act == "tanh":
+                assert _scaled_err(out, want_o) <= 1e-6, (F, act)
+            else:
+                assert torch.equal(out, want_o), (F, act)
+            plain = mp_layer.mp_layer_plain(x, b.nbr_nodes, b.in_degree,
+                                            conv, **ops, **kw)
+            m = b.node_mask
+            tol = 1e-4 if f32 else MODE_TOL[mode]
+            assert _scaled_err(out[m], plain[m]) <= tol, (F, act)
 
 
 def test_csr_gather_is_bitwise_stable(cuda_device):
