@@ -107,7 +107,19 @@ weights):
   policy on both packings (both kernels' bf16 edge modes) and int8 (no
   GAT kernel: the JAX gate declines an edge conv there), against f32
   and the CPU; the times, the edge terms' torch time per forward and the
-  train step's profiler split.
+  train step's profiler split;
+* the measurement layer (``measurement_phases``): canonical PNA under
+  f32, bf16 and int8 and GCN, GIN and SAGE under f32 on the b1024
+  block-packed batches: ``Program.benchmark_inner`` (k chained forwards
+  captured in CUDA graphs and replayed, static and dynamic) beside
+  ``benchmark``'s CUDA events, ``cost_analysis``, ``program_min_bytes``,
+  ``profile_program``'s fraction of the roofline and the energy bound per
+  graph at the card's power limit; the same cost counted on the per-layer
+  path and on the CPU; each fit resolved, the inner latency
+  at most 1.05 x the events' per forward, every fraction of the roofline
+  at most 1, a replayed chain's last forward against an eager one on
+  each batch, the path's kernels in a profiled replay, and no host sync
+  in a warm forward (``set_sync_debug_mode("error")``).
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -115,7 +127,8 @@ kernel with CUDA events and splits the train step's device time by kernel
 with ``torch.profiler``.
 
 Output: one flushed, timestamped line before and after every phase; the
-ptxas report of the build; then, each on its own line, a ``kernels`` JSON
+ptxas report of the build; a ``measurement`` JSON line per measurement
+cell; then, each on its own line, a ``kernels`` JSON
 object, the card's name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
 CUDA is unavailable, when run without the package beside it, or when any
@@ -137,14 +150,18 @@ import time
 import numpy as np
 import torch
 
+# published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
+# tensor cores, TF32, bf16 and int8 on them, and HBM bandwidth
+from gnnbuilder_tpu_torch.bench.roofline import (
+    PEAK_BF16_FLOPS,
+    PEAK_BYTES_PER_S,
+    PEAK_F32_FLOPS,
+    PEAK_INT8_OPS,
+    PEAK_TF32_FLOPS,
+)
+
 T0 = time.time()
 SMI_TIMEOUT_S = 30
-
-# published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
-# tensor cores, TF32 on them, and HBM bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES_PER_S = 3.35e12
 
 # tolerance of every comparison below: max |got - want| <= TOL * max |want|
 # (and all values finite).  The kernels take their sums in another order
@@ -2004,8 +2021,6 @@ def edge_agg_phases(report, *, dev, graphs, batches, b0, tgraphs, tb,
 # this slice: the bf16 and int8 policies of Program on canonical PNA
 # inference, through the bf16 and int8 modes of rows 1, 2 and 5
 
-PEAK_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
-PEAK_INT8_OPS = 1979e12      # dense int8 on the tensor cores
 PREC_MODES = ("bf16", "int8")
 # each mode against its plain version in the same mode, layer by layer
 # on the same input: the sums run in another order, which can move a
@@ -3874,6 +3889,197 @@ def edge_gat_phases(report, *, dev, graphs, b0, tgraphs, tb, target,
     return out
 
 
+# the measurement layer on the main paths: canonical PNA under each policy
+# (rows 1 / 1b / 1i and 2 / 2b / 2i) and GCN, GIN, SAGE under f32 (rows 3
+# and 2; GIN's per-layer path and row 2), each on the b1024 block batches
+MEASURE_CELLS = (("pna", "f32"), ("pna", "bf16"), ("pna", "int8"),
+                 ("gcn", "f32"), ("gin", "f32"), ("sage", "f32"))
+# the kernels a profiled replay of each conv's captured forward must show
+MEASURE_KERNELS = {"pna": ("pna_block_stack_kernel", "readout_kernel"),
+                   "gcn": ("mp_block_stack_kernel", "readout_kernel"),
+                   "sage": ("mp_block_stack_kernel", "readout_kernel"),
+                   "gin": ("readout_kernel",)}
+# benchmark_inner's latency may exceed the events' per forward by at most
+# this factor (the events include the host's gaps; the slope does not)
+INNER_SLACK = 1.05
+
+
+def replay_kernels(run):
+    """{kernel name: launches} of one ``run(1)`` (a graph replay) under
+    torch.profiler (retaken, up to three times, when it caught no device
+    event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run(1)
+    torch.cuda.synchronize()
+    names = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(1)
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
+        if names:
+            break
+    return names
+
+
+def measurement_phases(*, dev, graphs, batches, prog, mp_progs, smi):
+    """``Program.benchmark_inner`` (static and dynamic: chained forwards
+    replayed from CUDA graphs), ``benchmark``'s events, ``cost_analysis``,
+    ``program_min_bytes``, ``profile_program`` and the energy bound per
+    graph for each of ``MEASURE_CELLS`` on the b1024 block batches, with
+    the checks: the same flops and bytes counted on the per-layer path
+    and on the CPU, every fit resolved, the inner latency at most
+    ``INNER_SLACK`` times the events' per forward, every fraction of the
+    roofline at most 1, a replayed chain's last forward within TOL of an
+    eager one on each batch, the path's kernels in a profiled replay, and
+    a warm forward raising nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Prints one
+    ``measurement`` JSON line per cell; returns {cell: results}."""
+    from gnnbuilder_tpu_torch import Program
+    from gnnbuilder_tpu_torch.bench.canonical import canonical_model
+    from gnnbuilder_tpu_torch.bench.energy import (
+        card_tdp_w,
+        energy_bound_j_per_graph,
+    )
+    from gnnbuilder_tpu_torch.bench.roofline import (
+        program_min_bytes,
+        roofline_report,
+    )
+    from gnnbuilder_tpu_torch.ops import dispatch
+    from gnnbuilder_tpu_torch.utils.profiling import profile_program
+
+    b0 = batches[0]
+    tdp = card_tdp_w()
+    results = {}
+    for conv, policy in MEASURE_CELLS:
+        cell = f"{conv} {policy}"
+        with phase(f"measurement: {cell} block b{BATCH_GRAPHS} (inner chain "
+                   f"in CUDA graphs, events, cost, roofline, energy)"):
+            p = prog if conv == "pna" else mp_progs[conv]
+            if policy != "f32":
+                p = Program(canonical_model(conv, "qm9", graphs=graphs),
+                            max_nodes=b0.num_nodes, max_edges=b0.num_edges,
+                            max_graphs=b0.num_graphs, block_size=128,
+                            precision=policy, device="cuda")
+                p.set_params(prog.params)
+            p.forward(b0)
+            torch.cuda.synchronize()
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                p.forward(b0)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.synchronize()
+            errs, kernels = [], {}
+            carry = torch.zeros((), device=dev)
+            for i, b in enumerate(batches):
+                with p._captured_chain(b, 2, carry) as (run, out):
+                    run(1)
+                    torch.cuda.synchronize()
+                    got = out.clone()
+                    if i == 0:
+                        kernels = replay_kernels(run)
+                want = p.forward(b)
+                m = b.graph_mask
+                ok, _, rel = close_enough(got[m], want[m])
+                errs.append(rel)
+                if not ok:
+                    raise AssertionError(f"{cell}: a replayed chain's last "
+                                         f"forward on batch {i} is {rel:.3e} "
+                                         f"of max off an eager one")
+            # the path's kernels among a replay's launches
+            found = {w: sum(n for k, n in kernels.items() if w in k)
+                     for w in MEASURE_KERNELS[conv]}
+            if not all(found.values()):
+                raise AssertionError(f"{cell}: a profiled replay launched "
+                                     f"{found} of {sum(kernels.values())} "
+                                     f"kernels: {sorted(kernels)}")
+            inner = p.benchmark_inner(b0, iters=20, repeats=5)
+            inner_dyn = p.benchmark_inner(b0, iters=20, repeats=5,
+                                          dynamic=True)
+            ev = p.benchmark(b0, iters=20, warmup=3)
+            cost = p.cost_analysis(b0)
+            # the count is the route's and the device's alike: the per-layer
+            # plain path on the card, and the same Program on the CPU
+            cpu = Program(canonical_model(conv, "qm9", graphs=graphs),
+                          max_nodes=b0.num_nodes, max_edges=b0.num_edges,
+                          max_graphs=b0.num_graphs, block_size=128,
+                          precision=policy, device="cpu")
+            cpu.set_params({k: v.cpu() for k, v in p.params.items()})
+            dispatch.set_fused_mode("never")
+            try:
+                others = [p.cost_analysis(b0),
+                          cpu.cost_analysis(b0.to("cpu"))]
+            finally:
+                dispatch.set_fused_mode("auto")
+            for c_ in others:
+                if (c_["flops"], c_["bytes accessed"]) != (
+                        cost["flops"], cost["bytes accessed"]):
+                    raise AssertionError(f"{cell}: cost_analysis differs by "
+                                         f"route or device: {c_} {cost}")
+            min_bytes = program_min_bytes(p, b0)
+            prof = profile_program(p, b0, iters=20)
+            graphs_ = int(b0.graph_mask.sum())
+            edges_ = int(b0.edge_mask.sum())
+            roof_inner = roofline_report(
+                inner["latency_s"], flops=cost["flops"],
+                min_bytes=min_bytes, xla_bytes=cost["bytes accessed"],
+                num_edges=edges_, device=dev)
+            res = dict(
+                cell=cell, batch_graphs=BATCH_GRAPHS, nodes=b0.num_nodes,
+                real_edges=edges_, smi=smi,
+                inner={k: inner[k] for k in ("latency_s", "overhead_s",
+                                             "resolved", "times_s")},
+                inner_dynamic={k: inner_dyn[k] for k in (
+                    "latency_s", "overhead_s", "resolved", "times_s")},
+                events_latency_s=ev["latency_s"],
+                flops=cost["flops"], bytes_accessed=cost["bytes accessed"],
+                peak_hbm_bytes=cost["peak_hbm_bytes"],
+                temp_size_in_bytes=cost["temp_size_in_bytes"],
+                min_bytes=min_bytes,
+                fraction_of_roofline=prof["fraction_of_roofline"],
+                fraction_of_roofline_inner=roof_inner[
+                    "fraction_of_roofline"],
+                bound=prof["bound"],
+                power_limit_w=tdp,
+                energy_bound_j_per_graph=energy_bound_j_per_graph(
+                    inner["latency_s"] / graphs_, tdp),
+                chain_vs_eager=errs, replay_kernels=found,
+                replay_launches=sum(kernels.values()))
+            print("measurement " + json.dumps(res), flush=True)
+            for name, r in (("static", inner), ("dynamic", inner_dyn)):
+                if not r["resolved"]:
+                    raise AssertionError(f"{cell}: benchmark_inner "
+                                         f"({name}) unresolved: {r}")
+                if r["latency_s"] > INNER_SLACK * ev["latency_s"]:
+                    raise AssertionError(
+                        f"{cell}: benchmark_inner ({name}) "
+                        f"{r['latency_s']:.6e} s > {INNER_SLACK} x the "
+                        f"events' {ev['latency_s']:.6e} s")
+            for name, f in (("events", prof["fraction_of_roofline"]),
+                            ("inner", roof_inner["fraction_of_roofline"])):
+                if not f <= 1.0:
+                    raise AssertionError(f"{cell}: fraction of roofline "
+                                         f"({name}) {f} > 1")
+            log(f"{cell}: inner {inner['latency_s'] * 1e3:.4f} ms "
+                f"(dynamic {inner_dyn['latency_s'] * 1e3:.4f}, overhead "
+                f"{inner['overhead_s'] * 1e3:.4f} ms a call), events "
+                f"{ev['latency_s'] * 1e3:.4f} ms; {cost['flops']:.4e} flops, "
+                f"{cost['bytes accessed']:.4e} bytes accessed, peak HBM "
+                f"{cost['peak_hbm_bytes']:.4e}, min bytes {min_bytes:.4e}; "
+                f"roofline {prof['fraction_of_roofline']:.4f} (events), "
+                f"{roof_inner['fraction_of_roofline']:.4f} (inner); energy "
+                f"<= {res['energy_bound_j_per_graph']:.4e} J/graph ({smi})")
+            results[cell] = res
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -4778,6 +4984,8 @@ def main():
         report, dev=dev, graphs=graphs, b0=b0, tgraphs=tgraphs, tb=tb,
         target=target, counted=counted, zero_counts=zero_counts,
         counts=counts, only=only, fresh_step=fresh_step, smi=smi)
+    measurement = measurement_phases(dev=dev, graphs=graphs, batches=batches,
+                                     prog=prog, mp_progs=mp_progs, smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -5174,6 +5382,7 @@ def main():
                                   heads=GAT_HEADS, **serving),
         "edge_gat": dict(batch_graphs=BATCH_GRAPHS, heads=GAT_HEADS,
                          edge_dim=4, **edge_gat),
+        "measurement": measurement,
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,48 +47,14 @@ import pathlib
 import subprocess
 import sys
 
-ITERS, WARMUP, PROF_ITERS = 10, 2, 5
+# the shared timing helpers; run as a script, this file's directory is
+# on sys.path and the package is imported later, from --root
+if __package__:
+    from .timing import _device_split, _events
+else:
+    from timing import _device_split, _events
+
 GINE_MODES = {"12": "f32", "12b": "bf16", "12i": "int8"}
-
-
-def _events(fn, iters=ITERS, warmup=WARMUP):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _device_split(fn, part_of, n=PROF_ITERS):
-    """Device ms and kernel launches per call of fn by part
-    (``part_of(kernel name)``)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    split, count = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        part = part_of(e.name.lower())
-        us = e.time_range.end - e.time_range.start
-        split[part] = split.get(part, 0.0) + us / 1e3 / n
-        count[part] = count.get(part, 0) + 1 / n
-    return split, count
 
 
 def _part(name):

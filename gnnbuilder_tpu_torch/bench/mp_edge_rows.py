@@ -48,46 +48,14 @@ import pathlib
 import subprocess
 import sys
 
-ITERS, WARMUP, PROF_ITERS = 10, 2, 5
+# the shared timing helpers; run as a script, this file's directory is
+# on sys.path and the package is imported later, from --root
+if __package__:
+    from .timing import _device_split, _events
+else:
+    from timing import _device_split, _events
+
 ROW_MODES = {"4": "f32", "4b": "bf16", "4i": "int8"}
-
-
-def _events(fn, iters=ITERS, warmup=WARMUP):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _device_split(fn, part_of, n=PROF_ITERS):
-    """Device ms per call of fn by part (``part_of(kernel name)``)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        part = part_of(e.name.lower())
-        us = e.time_range.end - e.time_range.start
-        split[part] = split.get(part, 0.0) + us / 1e3 / n
-    return split
 
 
 KERNELS = ("mp_layer_tc", "mp_layer_ew", "mp_layer", "edge_proj",
@@ -103,7 +71,7 @@ def _kernel_part(name):
 
 
 def _timed(fn):
-    split = _device_split(fn, _kernel_part)
+    split, _ = _device_split(fn, _kernel_part)
     return dict(ms=_events(fn),
                 device_ms=sum(v for k, v in split.items() if k != "other"),
                 split=split)
@@ -240,7 +208,7 @@ def _elementwise(report, tgraphs, std):
     step = train.make_train_step(
         model, torch.optim.Adam(model.parameters(), lr=1e-3))
     ms = _events(lambda: step(std, target), warmup=3)
-    split = _device_split(lambda: step(std, target), _step_part)
+    split, _ = _device_split(lambda: step(std, target), _step_part)
     report["train"]["gcn"] = dict(ms=ms, device_ms=sum(split.values()),
                                   split=split)
     print(f"gcn train step: {ms:.4f} ms (events), device busy "
@@ -255,7 +223,7 @@ def _elementwise(report, tgraphs, std):
                     seed=23)
         p.init_params()
         fn = lambda: p.forward(blk)
-        split = _device_split(fn, _step_part)
+        split, _ = _device_split(fn, _step_part)
         report["forward_ms"][f"{name} block"] = dict(
             ms=_events(fn, warmup=3), device_ms=sum(split.values()),
             split=split)
@@ -461,7 +429,7 @@ def main(argv=None) -> int:
         step = train.make_train_step(
             model, torch.optim.Adam(model.parameters(), lr=1e-3))
         ms = _events(lambda: step(std, target), warmup=3)
-        split = _device_split(lambda: step(std, target), _step_part)
+        split, _ = _device_split(lambda: step(std, target), _step_part)
         report["train"][conv] = dict(ms=ms, device_ms=sum(split.values()),
                                      split=split)
         print(f"{conv} train step: {ms:.4f} ms (events), device busy "

@@ -38,22 +38,14 @@ import subprocess
 import sys
 import time
 
-ITERS, WARMUP, PROF_ITERS = 10, 2, 5
+ITERS, PROF_ITERS = 10, 5
 
-
-def _events(fn):
-    import torch
-
-    for _ in range(WARMUP):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(ITERS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / ITERS
+# the shared timing helpers; run as a script, this file's directory is
+# on sys.path and the package is imported later, from --root
+if __package__:
+    from .timing import _events
+else:
+    from timing import _events
 
 
 def _launch_part(name, after_agg):

@@ -26,6 +26,13 @@ ELL widths) and the frozen ``int8_scales``, from which
 the card); ``export_bundle`` puts the parameters beside it as a state
 dict that ``load_bundle`` reads with ``torch.load(weights_only=True)``:
 no pickled code.
+
+Measurement, on the card only: ``benchmark`` times eager forwards with
+CUDA events (the host's gaps between launches included);
+``benchmark_inner`` replays k chained forwards captured in one CUDA graph
+and takes the slope over two k (device time per forward).
+``cost_analysis`` counts FLOPs and bytes from shapes
+(``compile/cost.py``), on the CPU too.
 """
 
 from __future__ import annotations
@@ -423,3 +430,232 @@ class Program:
             "edges_per_s": real_edges / dt,
             "device": torch.cuda.get_device_name(self.device),
         }
+
+    # ------------------------------------------------------------ diagnostics
+    def cost_analysis(self, example_batch: Optional[GraphBatch] = None
+                      ) -> dict:
+        """FLOPs and bytes of one forward, the JAX package's compiled-HLO
+        cost analysis: "flops" and "bytes accessed" counted from the
+        model's widths and the batch's shapes under the Program's policy
+        (``compile/cost.py`` states the rules; the same whichever route
+        runs the forward), "argument_size_in_bytes" (the batch's tensors
+        and the parameters), "output_size_in_bytes", and on the card
+        "temp_size_in_bytes" (the most the forward allocates beyond its
+        output, after one warm forward: ``max_memory_allocated`` over a
+        second) and "peak_hbm_bytes" (their sum).  On the CPU the temp and
+        peak keys are absent, as JAX's are where its memory analysis
+        fails."""
+        from gnnbuilder_tpu_torch.bench.roofline import batch_nbytes
+        from gnnbuilder_tpu_torch.compile.cost import forward_cost
+
+        if example_batch is None:
+            example_batch = self._dummy_batch()
+        if not self._initialized:
+            self.init_params(example_batch)
+        out = forward_cost(self.model, example_batch, self.precision.name)
+        out["argument_size_in_bytes"] = float(
+            sum(batch_nbytes(example_batch).values())
+            + sum(p.numel() * p.element_size()
+                  for p in self.params.values()))
+        out["output_size_in_bytes"] = float(
+            4 * example_batch.num_graphs * self.model.mlp_out_dim)
+        if self.device.type == "cuda":
+            dev = self.device
+            self.forward(example_batch)
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            y = self.forward(example_batch)
+            torch.cuda.synchronize(dev)
+            temp = (torch.cuda.max_memory_allocated(dev) - before
+                    - y.numel() * y.element_size())
+            out["temp_size_in_bytes"] = float(max(temp, 0))
+            out["peak_hbm_bytes"] = (out["argument_size_in_bytes"]
+                                     + out["output_size_in_bytes"]
+                                     + out["temp_size_in_bytes"])
+        return out
+
+    def _inner_chain(self, k: int):
+        """``chain(batch, c) -> (c', out)``: ``k`` forwards, each on the
+        batch's node features plus ``c * 1e-30`` (rounded to bf16 by the
+        bf16 policy's forward), each feeding ``c = sum(out)`` to the next,
+        so the card runs them one after another; ``out`` is the last
+        forward's output (the JAX package's ``_inner_chain_fn``, whose
+        scalar carry keeps a real data dependence without perturbing
+        the numerics).  ``benchmark_inner`` captures it in a CUDA graph;
+        on the CPU it runs as it is."""
+        def chain(batch: GraphBatch, c: torch.Tensor):
+            out = None
+            for _ in range(k):
+                x = batch.node_feat + c.to(batch.node_feat.dtype) * 1e-30
+                out = self.forward(batch.with_node_feat(x))
+                c = out.float().sum()
+            return c, out
+
+        return chain
+
+    def _cache_state(self):
+        """What the forward's caches hold: the model's (and the bf16
+        copy's) kernel operands and the kernels' index caches; capture
+        checks that it does not change (a cache filled while capturing
+        would live in the graph's memory pool)."""
+        from gnnbuilder_tpu_torch.ops.cuda import (
+            gat_layer,
+            gine_layer,
+            pna_layer,
+            readout,
+        )
+
+        models = {id(m): m for m in (self.model, self._policy_model())}
+        return (
+            tuple(sorted((i, mode, id(hit[1]))
+                         for i, m in models.items()
+                         for mode, hit in m._kernel_cache.items())),
+            tuple(f.cache_info().misses
+                  for f in (pna_layer._stage_plan, pna_layer._layers_plan,
+                            gat_layer._stage_plan)),
+            len(gine_layer._index_cache), len(readout._zeros))
+
+    @contextlib.contextmanager
+    def _captured_chain(self, batch: GraphBatch, k: int, carry):
+        """``_inner_chain(k)`` on ``batch`` captured once in one CUDA graph
+        whose replay writes the new carry into the 0-d tensor ``carry``.
+        Yields ``(run, out)``: ``run(n)`` replays the graph ``n`` times
+        (n k chained forwards) and returns ``carry``; ``out`` holds the
+        last forward's output after a replay.  First two forwards run on
+        a side stream: one fills the caches, then a warm one runs under
+        ``torch.cuda.set_sync_debug_mode("error")``, which raises where
+        the forward synchronizes with the host; capture raises if a cache
+        changes.  The graph keeps the addresses of the batch, the
+        parameters and the caches: it is freed on exit, and a Program
+        whose parameters change captures again.  Nothing falls back to
+        eager forwards."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        mode = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(side):
+            self._inner_chain(1)(batch, carry)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._inner_chain(1)(batch, carry)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"the {self.model.gnn_conv} forward cannot be captured "
+                    f"in a CUDA graph: it synchronizes with the host ({e})"
+                ) from e
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        state = self._cache_state()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                c, out = self._inner_chain(k)(batch, carry)
+                carry.copy_(c)
+        except RuntimeError as e:
+            raise RuntimeError(f"capturing {k} chained {self.model.gnn_conv} "
+                               f"forwards in a CUDA graph failed: {e}") from e
+        if self._cache_state() != state:
+            graph.reset()
+            raise RuntimeError("a kernel cache changed while the forward "
+                               "was captured; its tensors would live in "
+                               "the graph's memory pool")
+
+        def run(n: int = 1):
+            for _ in range(n):
+                graph.replay()
+            return carry
+
+        try:
+            yield run, out
+        finally:
+            graph.reset()
+
+    def benchmark_inner(self, batch: GraphBatch, k_lo: int = 1,
+                        k_hi: int = 5, iters: int = 20, repeats: int = 5,
+                        dynamic: bool = False) -> dict:
+        """Per-forward DEVICE time by the inner-chain protocol (the JAX
+        package's ``benchmark_inner``): time a call of k chained forwards
+        at two chain lengths, slope = (t_hi - t_lo) / (k_hi - k_lo).  A
+        call replays CUDA graphs (``_captured_chain``), so the host issues
+        one graph launch where an eager forward issues one launch per
+        kernel; the fixed cost of a call and of the fence cancels in the
+        slope, unlike ``benchmark``'s events around eager forwards, which
+        include the host's gaps between launches.  Static: one graph of k
+        forwards per k.  ``dynamic``: one graph of one forward replayed k
+        times, so every k runs the same graph (JAX's ``fori_loop``
+        chain).  Each timing is ``bench.timing.marginal_time`` with JAX's
+        widened-gap retries (``_inner_marginal``), the fit JAX's
+        (``_inner_fit``).
+
+        Returns latency_s (per forward), overhead_s (per call), resolved
+        (False when the fit is degenerate: then latency_s is the t_hi /
+        k_hi upper bound), times_s {k: seconds per call}, graphs_per_s,
+        edges_per_s and device.  CUDA only."""
+        if self.device.type != "cuda":
+            raise RuntimeError("benchmark measures the card; this Program "
+                               f"runs on {self.device}")
+        if not self._initialized:
+            self.init_params(batch)
+        carry = torch.zeros((), device=self.device)
+        times = {}
+        with contextlib.ExitStack() as stack:
+            if dynamic:
+                run, _ = stack.enter_context(
+                    self._captured_chain(batch, 1, carry))
+            for k in (k_lo, k_hi):
+                if dynamic:
+                    call = lambda _k=k: run(_k)
+                else:
+                    run_k, _ = stack.enter_context(
+                        self._captured_chain(batch, k, carry))
+                    call = run_k
+                call()
+                times[k] = _inner_marginal(call, iters, repeats)
+        slope, overhead, resolved = _inner_fit(times, k_lo, k_hi)
+        real_graphs = int(batch.graph_mask.sum())
+        real_edges = int(batch.edge_mask.sum())
+        return {
+            "latency_s": float(slope),
+            "overhead_s": float(overhead),
+            "resolved": bool(resolved),
+            "times_s": {int(k): float(v) for k, v in times.items()},
+            "graphs_per_s": real_graphs / slope,
+            "edges_per_s": real_edges / slope,
+            "device": torch.cuda.get_device_name(self.device),
+        }
+
+
+def _inner_marginal(call, iters: int, repeats: int) -> float:
+    """``marginal_time`` of ``call`` with the JAX package's retries: a
+    window below 2 ms is widened once to a gap that clears it, and a
+    clamped (~0) estimate is retried once at the widest gap."""
+    from gnnbuilder_tpu_torch.bench import timing
+
+    dt = timing.marginal_time(call, n_hi=iters, repeats=max(repeats, 3))
+    if dt * (iters - 5) < 2e-3:
+        gap = min(int(2e-3 / max(dt, 2e-5)) + 50, 400)
+        dt = timing.marginal_time(
+            call, n_lo=gap // 5, n_hi=gap, repeats=max(repeats, 3)
+        )
+        if dt < 1e-8:
+            dt = timing.marginal_time(
+                call, n_lo=80, n_hi=400, repeats=max(repeats, 3)
+            )
+    return dt
+
+
+def _inner_fit(times: dict, k_lo: int, k_hi: int):
+    """(latency per forward, overhead per call, resolved) from the seconds
+    per call at two chain lengths: the slope and its intercept, or, where
+    the fit is degenerate (flat in k, or a negative slope), the honest
+    upper bound t_hi / k_hi with no overhead and resolved False."""
+    slope = (times[k_hi] - times[k_lo]) / (k_hi - k_lo)
+    overhead = times[k_lo] - slope * k_lo
+    resolved = slope > 0 and times[k_hi] > 1.25 * times[k_lo]
+    if not resolved:
+        slope = times[k_hi] / k_hi
+        overhead = 0.0
+    return slope, max(overhead, 0.0), resolved

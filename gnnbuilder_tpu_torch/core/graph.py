@@ -123,6 +123,9 @@ class GraphBatch:
     def replace(self, **kw) -> "GraphBatch":
         return dataclasses.replace(self, **kw)
 
+    def with_node_feat(self, x: torch.Tensor) -> "GraphBatch":
+        return self.replace(node_feat=x)
+
     def to(self, device) -> "GraphBatch":
         """The same batch with every tensor on ``device``."""
         moved = {

@@ -2539,3 +2539,78 @@ def test_pna_step_after_adam_uses_the_updated_weights(cuda_device):
         dispatch.set_fused_mode("auto")
     assert _scaled_err(fresh[m], ref[m]) <= 1e-4
     assert _scaled_err(stale[m], ref[m]) > 1e-3
+
+
+def _captured_matches_eager(prog, b, k, dynamic=False):
+    """Replays of ``k`` chained forwards captured in a CUDA graph (one
+    graph of k, or with ``dynamic`` one of 1 replayed k times): the last
+    forward's output against an eager forward, error / max |value| on
+    graph_mask rows."""
+    carry = torch.zeros((), device=b.device)
+    with prog._captured_chain(b, 1 if dynamic else k, carry) as (run, out):
+        run(k if dynamic else 1)
+        run(k if dynamic else 1)
+        torch.cuda.synchronize()
+        got = out.clone()
+    want = prog.forward(b)
+    m = b.graph_mask
+    assert torch.isfinite(got[m]).all()
+    return _scaled_err(got[m], want[m])
+
+
+def test_benchmark_inner_on_a_small_pna_program(cuda_device):
+    """``benchmark_inner`` on canonical PNA, one 256-graph block batch:
+    static and dynamic fits resolved, k = 1 and 5 timed, and the last
+    forward of a replayed chain within 1e-4 of max of an eager one."""
+    gs, b = _batch(256)
+    model = canonical_model("pna", "qm9", graphs=gs)
+    p = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, block_size=128)
+    p.init_params()
+    bc = b.to(cuda_device)
+    for dynamic in (False, True):
+        r = p.benchmark_inner(bc, iters=10, repeats=3, dynamic=dynamic)
+        assert r["resolved"] is True, r
+        assert set(r["times_s"]) == {1, 5}
+        assert 0 < r["latency_s"] < r["times_s"][5]
+        assert r["overhead_s"] >= 0 and r["graphs_per_s"] > 0
+        assert _captured_matches_eager(p, bc, 3, dynamic) <= 1e-4
+
+
+# every conv's canonical model (name: conv, conv_kwargs, node width or
+# None for QM9's), as the smoke's slice phases run them
+CAPTURE_MODELS = {
+    "pna": ("pna", {}, None), "gcn": ("gcn", {}, None),
+    "gin": ("gin", {}, None), "sage": ("sage", {}, None),
+    "lg": ("lg", {}, 128), "simple": ("simple", {}, 128),
+    "simple_max": ("simple", {"aggregation": "max"}, 128),
+    "gine": ("gine", {}, None), "edge": ("edge", {}, None),
+    "gat": ("gat", {"heads": 4}, None),
+    "gat_edge": ("gat", {"heads": 4, "edge_dim": 4}, None),
+    "pna5": ("pna", {"aggregators": ("sum", "mean", "min", "max", "std")},
+             None)}
+
+
+@pytest.mark.parametrize("packing", ["block", "standard"])
+@pytest.mark.parametrize("name", sorted(CAPTURE_MODELS))
+def test_forward_captures_without_host_sync(cuda_device, name, packing):
+    """Every conv's forward, on both packings and under every policy,
+    captures in a CUDA graph: its warm forward raises nothing under
+    ``set_sync_debug_mode("error")``, no cache changes while capturing,
+    and a replay's output is within 1e-4 of max of an eager forward
+    (256 QM9 graphs; the readout kernel launched once per forward)."""
+    conv, ckw, width = CAPTURE_MODELS[name]
+    kw = (dict(block_size=128, node_multiple=128) if packing == "block"
+          else dict(node_multiple=256))
+    gs, (b,) = canonical_batches("qm9", n_graphs=256, batch_size=256,
+                                 node_dim=width, device=cuda_device, **kw)
+    for policy in ("f32", "bf16", "int8"):
+        model = canonical_model(conv, "qm9", graphs=gs, conv_kwargs=ckw)
+        p = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                    max_graphs=b.num_graphs,
+                    block_size=kw.get("block_size", 0), precision=policy)
+        p.init_params()
+        r0 = readout.fused_readout.launches
+        assert _captured_matches_eager(p, b, 2) <= 1e-4, policy
+        # cold, warm, 2 captured (a replay calls no wrapper), eager
+        assert readout.fused_readout.launches == r0 + 5, policy
