@@ -119,7 +119,20 @@ weights):
   at most 1.05 x the events' per forward, every fraction of the roofline
   at most 1, a replayed chain's last forward against an eager one on
   each batch, the path's kernels in a profiled replay, and no host sync
-  in a warm forward (``set_sync_debug_mode("error")``).
+  in a warm forward (``set_sync_debug_mode("error")``);
+* the trainer's pieces and golden verification
+  (``trainer_verify_phases``): the native packer's build seconds, its
+  batches bit-equal to the numpy path's, both host times per b1024
+  batch and per 64-graph micro-batch; 4 canonical PNA b1024 Adam steps
+  fed by ``GraphLoader`` against the same chunks fed directly (batches,
+  losses, weights bit for bit, the same host syncs a step); PNA, GAT and
+  GINE b1024 steps with ``remat=True`` against ``False`` (loss and
+  gradients bit for bit, the layer kernels replayed; peak memory and
+  step ms of both); a PNA block forward under ``dispatch.no_fused``
+  (no launch); ``verify.torch_ref`` models of the nine convs ported by
+  ``verify.port`` into card Programs against torch_ref on the CPU, and
+  PNA's ``run_parity_check`` on the card against CPU goldens from
+  ``gen_testbench_data``.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -128,13 +141,14 @@ with ``torch.profiler``.
 
 Output: one flushed, timestamped line before and after every phase; the
 ptxas report of the build; a ``measurement`` JSON line per measurement
-cell; then, each on its own line, a ``kernels`` JSON
-object, the card's name and power limit from nvidia-smi, and last
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
-CUDA is unavailable, when run without the package beside it, or when any
-check fails.  Its only threads are the servers' (every wait on them
-has a timeout, and each server is closed); every subprocess has a
-timeout.
+cell, a ``trainer_verify`` JSON line per part of that phase; then, each
+on its own line, a ``kernels`` JSON object, the card's name and power
+limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
+Exits non-zero, with no result, when CUDA is unavailable, when run
+without the package beside it, or when any check fails.  Its only
+threads are the servers' and the loader's producer (every wait on them
+has a timeout, each server is closed, each loader epoch is closed);
+every subprocess has a timeout.
 """
 
 import ctypes
@@ -4080,6 +4094,411 @@ def measurement_phases(*, dev, graphs, batches, prog, mp_progs, smi):
     return results
 
 
+# the trainer and verification phase: loader steps, remat steps, the
+# golden checks over this many QM9 graphs
+LOADER_STEPS = 4
+REMAT_CONVS = (("pna", {}), ("gat", {"heads": GAT_HEADS}), ("gine", {}))
+GOLDEN_GRAPHS = 64
+# the nine convs of the golden check: name -> (conv, conv_kwargs)
+GOLDEN_CONVS = {"gcn": ("gcn", {}), "gin": ("gin", {}),
+                "gine": ("gine", {}), "sage": ("sage", {}),
+                "pna": ("pna", None), "gat": ("gat", {}),
+                "gat-edge": ("gat", {"edge_dim": 4}), "edge": ("edge", {}),
+                "lg": ("lg", {}), "simple": ("simple", {})}
+# parity MAE against CPU goldens, of max |golden|
+PARITY_TOL = 1e-5
+
+
+def batch_diff(a, b):
+    """The first field of two GraphBatches that differs (dtype, shape,
+    bits or static value), else None; tensors compared on ``b``'s
+    device."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if (x is None or y is None or x.dtype != y.dtype
+                    or x.shape != y.shape
+                    or not torch.equal(x.to(y.device), y)):
+                return f.name
+        elif x != y:
+            return f.name
+    return None
+
+
+def plain_packing():
+    """A context in which ``core.packing`` runs its numpy plain versions
+    in place of the native packer (for the before / after times)."""
+    import contextlib
+    from unittest import mock
+
+    from gnnbuilder_tpu_torch.core import packing
+
+    stack = contextlib.ExitStack()
+    for name in ("concat_graphs", "sort_and_csr", "build_ell"):
+        stack.enter_context(mock.patch.object(
+            packing, name, getattr(packing, f"{name}_plain")))
+    return stack
+
+
+def trainer_verify_phases(*, dev, graphs, batches, b0, prog, tgraphs, tb,
+                          target, state0, fresh_step, zero_counts, counts,
+                          only, smi, native_build_s):
+    """The trainer's pieces and golden verification on the card, each
+    result on a ``trainer_verify`` JSON line; returns them all.
+
+    * native packer: its build seconds; the three b1024 block batches and
+      the standard train batch packed by it bit-equal to the numpy path
+      and to the batches the run packed; host ms per b1024 batch and per
+      64-graph serving micro-batch for both;
+    * loader: canonical PNA takes ``LOADER_STEPS`` b1024 standard-packed
+      Adam steps fed by ``GraphLoader`` (shuffled, two epochs of the
+      3,072 block graphs) and as many fed the same chunks packed
+      directly: every batch field, the losses and the weights after bit
+      for bit, the host syncs of a step the same; step ms both ways and
+      the producer's pack ms per batch;
+    * remat: PNA, GAT and GINE b1024 steps with ``remat=True`` against
+      ``False``: the loss and every gradient bit for bit, the layer
+      kernels replayed in the backward; peak allocated bytes and step ms
+      of both;
+    * ``no_fused``: a PNA block forward inside launches no kernel, outside
+      rows 1 and 2 as before; the outputs within TOL;
+    * golden: a ``verify.torch_ref`` model of each of the nine convs at
+      canonical widths, its weights ported by ``verify.port`` into a card
+      ``Program`` (block-packed ``GOLDEN_GRAPHS`` QM9 graphs), its forward
+      within TOL of the torch_ref forward on the CPU; canonical PNA's
+      ``gen_testbench_data`` from a CPU Program, ``run_parity_check`` on
+      the card, the MAE at most ``PARITY_TOL`` of max |golden|."""
+    import dataclasses
+
+    from gnnbuilder_tpu_torch import Program, train
+    from gnnbuilder_tpu_torch.bench.canonical import canonical_model
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+    from gnnbuilder_tpu_torch.data.loader import GraphLoader
+    from gnnbuilder_tpu_torch.nn.model import GNNModel
+    from gnnbuilder_tpu_torch.ops import dispatch
+    from gnnbuilder_tpu_torch.utils.stats import compute_pna_delta
+    from gnnbuilder_tpu_torch.verify import golden
+    from gnnbuilder_tpu_torch.verify import port as vport
+    from gnnbuilder_tpu_torch.verify import torch_ref
+
+    out = {}
+
+    def emit(part, res):
+        res = dict(part=part, smi=smi, **res)
+        print("trainer_verify " + json.dumps(res), flush=True)
+        out[part] = res
+
+    with phase("native packer: bit-equal to the numpy path, host ms per "
+               "batch"):
+        def pack(gs, b, **kw):
+            return build_graph_batch(
+                gs, node_budget=b.num_nodes, edge_budget=b.num_edges,
+                graph_budget=b.num_graphs, device="cpu", **kw)
+
+        cases = [(f"block b{BATCH_GRAPHS} #{i}",
+                  graphs[i * BATCH_GRAPHS:(i + 1) * BATCH_GRAPHS], b,
+                  dict(block_size=128)) for i, b in enumerate(batches)]
+        cases.append((f"standard train b{BATCH_GRAPHS}",
+                      tgraphs[:BATCH_GRAPHS], tb, dict(node_multiple=256)))
+        per_batch = {}
+        for name, gs, b, kw in cases:
+            native = pack(gs, b, **kw)
+            with plain_packing():
+                plain = pack(gs, b, **kw)
+            for what, other in (("numpy", plain), ("the run's", b)):
+                diff = batch_diff(native, other)
+                if diff is not None:
+                    raise AssertionError(f"native packing of {name}: "
+                                         f"{diff} differs from {what} "
+                                         f"batch")
+            t_native = host_ms(lambda: pack(gs, b, **kw), iters=3)
+            with plain_packing():
+                t_plain = host_ms(lambda: pack(gs, b, **kw), iters=3)
+            per_batch[name] = dict(native_ms=t_native, numpy_ms=t_plain)
+            log(f"packing {name}: native {t_native:.3f} ms, numpy "
+                f"{t_plain:.3f} ms on the host; bit-equal")
+        micro = {}
+        for name, kw in (("standard", {}), ("block", dict(block_size=128))):
+            gs = graphs[:64]
+            t_native = host_ms(lambda: build_graph_batch(gs, device="cpu",
+                                                         **kw))
+            with plain_packing():
+                t_plain = host_ms(lambda: build_graph_batch(
+                    gs, device="cpu", **kw))
+            micro[name] = dict(native_ms=t_native, numpy_ms=t_plain)
+            log(f"serving micro-batch of 64 ({name}): native "
+                f"{t_native:.3f} ms, numpy {t_plain:.3f} ms")
+        emit("native_packer", dict(build_s=native_build_s,
+                                   per_b1024_batch=per_batch,
+                                   per_64_graph_micro_batch=micro))
+
+    with phase(f"GraphLoader: {LOADER_STEPS} PNA b{BATCH_GRAPHS} steps fed "
+               f"by the loader against the same chunks fed directly"), \
+            torch.enable_grad():
+        lkw = dict(batch_size=BATCH_GRAPHS, shuffle=True, seed=0,
+                   node_multiple=256, device=dev)
+        loader = GraphLoader(graphs, **lkw)
+        twin = GraphLoader(graphs, **lkw)
+        chunks = twin._chunks()
+        twin._epoch = 1
+        chunks = (chunks + twin._chunks())[:LOADER_STEPS]
+
+        def direct(c):
+            return (build_graph_batch(
+                c, node_budget=loader.node_budget,
+                edge_budget=loader.edge_budget,
+                graph_budget=loader.graph_budget, node_multiple=256,
+                device=dev),
+                train.stack_targets(c, loader.graph_budget, device=dev))
+
+        fed = [direct(c) for c in chunks]
+
+        def pna():
+            m = canonical_model("pna", "qm9", graphs=tgraphs).to(dev)
+            m.load_state_dict(state0)
+            return m
+
+        pack_s = []
+
+        def epochs():
+            while True:
+                yield from loader.epoch()
+                pack_s.extend(loader.pack_seconds)
+
+        ma, mb = pna(), pna()
+        sa, sb = fresh_step(ma), fresh_step(mb)
+        def timed_steps(step, batches):
+            """(losses, host ms of each step to the card's end)."""
+            losses, ms = [], []
+            torch.cuda.synchronize()
+            for b, y in batches:
+                t = time.perf_counter()
+                losses.append(step(b, y))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            return losses, ms
+
+        it = epochs()
+        got = []
+
+        def from_loader():
+            for _ in range(LOADER_STEPS):
+                got.append(next(it))
+                yield got[-1]
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        la, ms_loader = timed_steps(sa, from_loader())
+        loader_ms = (time.perf_counter() - t) * 1e3 / LOADER_STEPS
+        it.close()
+        pack_ms = [s * 1e3 for s in pack_s + loader.pack_seconds]
+        lb, ms_direct = timed_steps(sb, fed)
+        direct_ms = sum(ms_direct) / LOADER_STEPS
+        for i, ((b, y), (db, dy)) in enumerate(zip(got, fed)):
+            diff = batch_diff(b, db)
+            if diff is not None or not torch.equal(y, dy):
+                raise AssertionError(f"loader batch {i}: {diff or 'target'}"
+                                     f" differs from build_graph_batch's")
+        if not all(torch.equal(x, z) for x, z in zip(la, lb)):
+            raise AssertionError(f"loader-fed losses {la} differ from the "
+                                 f"directly fed {lb}")
+        for (k, p), q in zip(ma.named_parameters(), mb.parameters()):
+            if not torch.equal(p, q):
+                raise AssertionError(f"loader-fed weights differ: {k}")
+        # the host syncs of one step, fed by the loader (the copy of its
+        # next batch included) and fed a batch already on the card
+        it = epochs()
+        next(it)
+        n_loader, at_loader = count_syncs(lambda: sa(*next(it)))
+        it.close()
+        fresh = direct(chunks[1])
+        n_direct, at_direct = count_syncs(lambda: sb(*fresh))
+        if n_loader != n_direct:
+            raise AssertionError(f"a loader-fed step syncs {n_loader} times "
+                                 f"({at_loader}), a direct one {n_direct} "
+                                 f"({at_direct})")
+        emit("loader", dict(
+            steps=LOADER_STEPS, losses=[float(x) for x in la],
+            step_ms_loader=loader_ms, step_ms_direct=direct_ms,
+            each_step_ms_loader=ms_loader, each_step_ms_direct=ms_direct,
+            producer_pack_ms=pack_ms, syncs_per_step=n_loader,
+            sync_lines=at_loader, budgets=[loader.node_budget,
+                                           loader.edge_budget,
+                                           loader.graph_budget]))
+        log(f"loader: {LOADER_STEPS} steps bit-equal (losses "
+            f"{[round(float(x), 6) for x in la]}), {loader_ms:.3f} ms a "
+            f"step fed by the loader (each {np.round(ms_loader, 3)}, the "
+            f"wait for its batch included), {direct_ms:.3f} ms fed directly "
+            f"(each {np.round(ms_direct, 3)}); the producer packs "
+            f"{np.round(pack_ms, 3)} ms a batch; "
+            f"{n_loader} host syncs a step both ways ({smi})")
+        del got, fed, ma, mb, sa, sb
+
+    with phase(f"remat: PNA, GAT and GINE b{BATCH_GRAPHS} steps with and "
+               f"without"), torch.enable_grad():
+        def grads(m):
+            m.zero_grad(set_to_none=True)
+            loss = train.masked_mse_loss(m(tb), target, tb.graph_mask)
+            loss.backward()
+            return loss.detach(), {k: p.grad for k, p in
+                                   m.named_parameters()}
+
+        remat = {}
+        for conv, ck in REMAT_CONVS:
+            torch.manual_seed(0)
+            ms = [canonical_model(conv, "qm9", graphs=tgraphs,
+                                  conv_kwargs=dict(ck), remat=r).to(dev)
+                  for r in (False, True)]
+            ms[1].load_state_dict(ms[0].state_dict())
+            res, launch = [], []
+            for m in ms:
+                zero_counts()
+                res.append(grads(m))
+                torch.cuda.synchronize()
+                launch.append({k: v for k, v in counts().items() if v})
+            (l0, g0), (l1, g1) = res
+            bad = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+            if not torch.equal(l0, l1) or bad:
+                raise AssertionError(f"remat {conv}: loss {float(l0)} / "
+                                     f"{float(l1)}, gradients differ: {bad}")
+            layer = {"pna": "pna_layer", "gat": "gat_layer",
+                     "gine": "gine_layer"}[conv]
+            if not launch[1].get(layer, 0) > launch[0].get(layer, 0) > 0:
+                raise AssertionError(f"remat {conv}: {layer} launched "
+                                     f"{launch} (plain, remat): the replay "
+                                     f"ran no layer kernel")
+            row = dict(launches_plain=launch[0], launches_remat=launch[1])
+            n_grads = len(g0)
+            del res, g0, g1, l0, l1
+            for name, m in zip(("plain", "remat"), ms):
+                m.zero_grad(set_to_none=True)
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                grads(m)
+                torch.cuda.synchronize()
+                row[f"peak_bytes_{name}"] = (torch.cuda.max_memory_allocated()
+                                             - base)
+                step = fresh_step(m)
+                row[f"step_ms_{name}"] = time_ms(lambda: step(tb, target),
+                                                 iters=3, warmup=1)
+            remat[conv] = row
+            log(f"remat {conv}: loss and {n_grads} gradients bit-equal; "
+                f"launches {launch[0]} plain, {launch[1]} remat; peak "
+                f"{row['peak_bytes_plain'] / 2**20:.1f} MiB plain, "
+                f"{row['peak_bytes_remat'] / 2**20:.1f} MiB remat above the "
+                f"resident; step {row['step_ms_plain']:.3f} ms plain, "
+                f"{row['step_ms_remat']:.3f} ms remat ({smi})")
+            del ms
+        emit("remat", remat)
+
+    with phase("no_fused: a PNA block forward launches no kernel inside"):
+        zero_counts()
+        with_k = prog.forward(b0)
+        torch.cuda.synchronize()
+        c_k = counts()
+        zero_counts()
+        with dispatch.no_fused():
+            without = prog.forward(b0)
+        torch.cuda.synchronize()
+        c_p = counts()
+        m = b0.graph_mask
+        ok, _, rel = close_enough(without[m], with_k[m])
+        if (c_k != only(pna_block_stack=1, readout=1) or c_p != only()
+                or not ok):
+            raise AssertionError(f"no_fused: launches {c_k} outside, {c_p} "
+                                 f"inside, outputs {rel:.3e} of max apart")
+        emit("no_fused", dict(launches_outside={k: v for k, v in c_k.items()
+                                                if v},
+                              launches_inside=sum(c_p.values()),
+                              rel_err=rel))
+        log(f"no_fused: no launch inside, rows 1 and 2 outside; outputs "
+            f"{rel:.3e} of max apart")
+
+    with phase(f"golden: torch_ref models of the nine convs ported into "
+               f"card Programs, {GOLDEN_GRAPHS} QM9 graphs; PNA's goldens "
+               f"from the CPU, parity on the card"):
+        delta = compute_pna_delta(tgraphs)
+        base = [g for g in graphs[:GOLDEN_GRAPHS]]
+        conv_rows, pna_prog = {}, None
+        for name, (conv, ck) in GOLDEN_CONVS.items():
+            same = conv in ("lg", "simple")
+            fin = 128 if same else base[0].x.shape[1]
+            gs = [dataclasses.replace(g, x=np.pad(
+                g.x, ((0, 0), (0, fin - g.x.shape[1])))) for g in base]
+            kw = dict(graph_input_feature_dim=fin, gnn_hidden_dim=128,
+                      gnn_num_layers=6, gnn_output_dim=128 if same else 64,
+                      gnn_conv=conv, gnn_skip_connection=True,
+                      graph_input_edge_dim=4,
+                      pooling_aggrs=("add", "mean", "max"),
+                      mlp_hidden_dim=64, mlp_hidden_layers=4, mlp_out_dim=1,
+                      conv_kwargs={"delta": delta} if ck is None else ck)
+            torch.manual_seed(0)
+            tm = torch_ref.TorchGNNModel(**kw)
+            offs = np.cumsum([0] + [g.x.shape[0] for g in gs])
+            with torch.no_grad():
+                want = tm(torch.from_numpy(np.concatenate([g.x for g in gs])),
+                          torch.from_numpy(np.concatenate(
+                              [g.edge_index + o for g, o in zip(gs, offs)],
+                              axis=1)),
+                          torch.from_numpy(np.repeat(
+                              np.arange(len(gs)), np.diff(offs))),
+                          num_graphs=len(gs),
+                          edge_attr=torch.from_numpy(np.concatenate(
+                              [g.edge_attr for g in gs])))
+            p = Program.from_dataset(GNNModel(**kw), gs, batch_size=len(gs),
+                                     block_size=128, device="cuda")
+            p.set_params(vport.port_model(conv, tm))
+            b = p.batch(gs)
+            zero_counts()
+            got = p.forward(b)[:len(gs)].cpu()
+            launches = {k: v for k, v in counts().items() if v}
+            ok, _, rel = close_enough(got, want)
+            conv_rows[name] = dict(rel_err=rel, launches=launches)
+            log(f"golden {name}: the card's Program.forward {rel:.3e} of "
+                f"max off torch_ref (launches {launches})")
+            if not ok:
+                raise AssertionError(f"golden {name}: {rel:.3e} of max off "
+                                     f"torch_ref")
+            if conv == "pna":
+                pna_kw, pna_params = kw, {k: v.cpu() for k, v in
+                                          p.params.items()}
+        bucket = dict(max_nodes=256, max_edges=512, max_graphs=2,
+                      block_size=128)
+        cpu_p = Program(GNNModel(**pna_kw), device="cpu", **bucket)
+        cpu_p.set_params(pna_params)
+        card_p = Program(GNNModel(**pna_kw), device="cuda", **bucket)
+        card_p.set_params(pna_params)
+        with tempfile.TemporaryDirectory() as d:
+            t = time.time()
+            info = cpu_p.gen_testbench_data(base, d)
+            gen_s = time.time() - t
+            gmax = max(float(np.abs(o).max())
+                       for o in golden.load_golden_outputs(d))
+            zero_counts()
+            t = time.time()
+            rep = card_p.run_parity_check(base, d)
+            parity_s = time.time() - t
+            launches = {k: v for k, v in counts().items() if v}
+        mae = rep["model_output_mae"]
+        emit("golden", dict(convs=conv_rows, pna_parity=dict(
+            num_graphs=rep["num_graphs"], mae=mae, max_abs_golden=gmax,
+            mae_of_max=mae / gmax, out_dim=info["out_dim"],
+            gen_testbench_s=gen_s, parity_s=parity_s, launches=launches)))
+        log(f"golden PNA: run_parity_check on the card against CPU goldens "
+            f"of {rep['num_graphs']} graphs: MAE {mae:.3e} ({mae / gmax:.3e}"
+            f" of max |golden| {gmax:.3e}); launches {launches}")
+        if (rep["num_graphs"] != len(base) or not mae <= PARITY_TOL * gmax
+                or launches.get("pna_block_stack") != len(base)
+                or launches.get("readout") != len(base)):
+            raise AssertionError(f"golden PNA parity: {rep}, launches "
+                                 f"{launches}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -4091,6 +4510,7 @@ def main():
         canonical_batches,
         canonical_model,
     )
+    from gnnbuilder_tpu_torch.native import build as native_build
     from gnnbuilder_tpu_torch.ops import dispatch, ell, segment
     from gnnbuilder_tpu_torch.ops.cuda import (
         _build,
@@ -4160,6 +4580,11 @@ def main():
         lib = _build.build()
         log(f"built in {time.time() - t:.2f}s: {lib}")
         print(f"--- ptxas\n{_build.build_log.strip()}", flush=True)
+        t = time.time()
+        native_lib = native_build.build()
+        native_build_s = time.time() - t
+        log(f"native packer built with g++ in {native_build_s:.2f}s: "
+            f"{native_lib}")
 
     with phase("tensor-core instructions and resources of each instance of "
                "the PNA stack, the PNA layer, the GAT projection and block, "
@@ -4986,6 +5411,11 @@ def main():
         counts=counts, only=only, fresh_step=fresh_step, smi=smi)
     measurement = measurement_phases(dev=dev, graphs=graphs, batches=batches,
                                      prog=prog, mp_progs=mp_progs, smi=smi)
+    trainer_verify = trainer_verify_phases(
+        dev=dev, graphs=graphs, batches=batches, b0=b0, prog=prog,
+        tgraphs=tgraphs, tb=tb, target=target, state0=state0,
+        fresh_step=fresh_step, zero_counts=zero_counts, counts=counts,
+        only=only, smi=smi, native_build_s=native_build_s)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -5383,6 +5813,7 @@ def main():
         "edge_gat": dict(batch_graphs=BATCH_GRAPHS, heads=GAT_HEADS,
                          edge_dim=4, **edge_gat),
         "measurement": measurement,
+        "trainer_verify": trainer_verify,
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,15 @@ torch and numpy only, and offers the same public surface but for the
 design-space exploration (``NOT_YET_PORTED``).  Its models (``GNNModel``
 with the nine convs, global pooling and an MLP head) run inference
 through ``Program.forward``, in float32 or under the bf16 and int8
-precision policies, training through ``train.make_train_step``, and
-serving through ``serve.GNNServer`` (micro-batching over a live
-``Program`` or over its ``export_bundle``).  On the card their hot paths
-run hand-written CUDA kernels (``ops/cuda``, built from ``csrc`` with
-nvcc at first use); on the CPU, which a caller asks for, the kernels'
-plain versions.
+precision policies, training through ``train.make_train_step`` (fed by
+``data.loader.GraphLoader``, with ``GNNModel(remat=True)`` to trade
+memory for a replay), golden verification through ``verify`` and
+``Program.run_parity_check``, and serving through ``serve.GNNServer``
+(micro-batching over a live ``Program`` or over its ``export_bundle``).
+On the card their hot paths run hand-written CUDA kernels (``ops/cuda``,
+built from ``csrc`` with nvcc at first use); on the CPU, which a caller
+asks for, the kernels' plain versions.  Batches are packed on the host
+by a C++ packer (``native``, built with g++ at first use).
 """
 
 from gnnbuilder_tpu_torch.compile.precision import Precision

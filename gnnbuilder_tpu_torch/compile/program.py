@@ -33,6 +33,10 @@ CUDA events (the host's gaps between launches included);
 and takes the slope over two k (device time per forward).
 ``cost_analysis`` counts FLOPs and bytes from shapes
 (``compile/cost.py``), on the CPU too.
+
+Verification: ``gen_testbench_data`` writes the reference's golden files
+(``verify/golden.py``), ``run_parity_check`` replays graphs against them
+on the Program's device.
 """
 
 from __future__ import annotations
@@ -381,6 +385,27 @@ class Program:
         fn = Program.load_exported(os.path.join(dirpath, BUNDLE_ARTIFACT),
                                    params, device)
         return fn, params
+
+    # ---------------------------------------------------------------- verify
+    def gen_testbench_data(self, graphs, out_dir: str, max_graphs=None,
+                           output_encoding: str = "regression",
+                           num_classes: Optional[int] = None) -> dict:
+        """Serialize params + per-graph goldens in the reference's binary
+        testbench format (code_gen.py:227-305), each golden from this
+        Program's forward on its device; see ``verify/golden.py``."""
+        from gnnbuilder_tpu_torch.verify import golden
+
+        return golden.gen_testbench_data(
+            self, graphs, out_dir, max_graphs=max_graphs,
+            output_encoding=output_encoding, num_classes=num_classes)
+
+    def run_parity_check(self, graphs, golden_dir: str) -> dict:
+        """MAE of this Program's forwards, on its device, against
+        serialized goldens: the build_and_run_testbench analog
+        (code_gen.py:339-395)."""
+        from gnnbuilder_tpu_torch.verify import golden
+
+        return golden.parity_check(self, graphs, golden_dir)
 
     def calibrate_int8(self, batches: Sequence[GraphBatch]) -> dict:
         """Record static int8 activation scales from representative

@@ -1,19 +1,32 @@
-"""Host-side graph packing: edge sort + CSR and ELL table build, in numpy.
+"""Host-side graph packing: edge sort + CSR and ELL table build.
 
 The tables are built once on the host and shipped to the device with the
-batch, rather than rebuilt per inference call.  This is the numpy path of
-the JAX package's packer; that package also has a C++ counting-sort packer
-with the same results, which this package does not carry yet.
+batch, rather than rebuilt per inference call.  ``concat_graphs``,
+``sort_and_csr`` and ``build_ell`` run the native C++ packer
+(``native/packing.cpp``, a counting sort, built with g++ at first use),
+as the JAX package's packer does; a failed build raises.  The numpy
+functions ``*_plain`` are their plain versions, with the same results bit
+for bit, which the tests hold the library against.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["sort_and_csr", "concat_graphs", "build_ell", "build_reverse_ell"]
+from gnnbuilder_tpu_torch.native import lib as _native
+
+__all__ = ["sort_and_csr", "concat_graphs", "build_ell", "build_reverse_ell",
+           "sort_and_csr_plain", "concat_graphs_plain", "build_ell_plain"]
 
 
-def concat_graphs(
+# the native packer: the arguments and results of the ``*_plain``
+# versions below, bit for bit
+concat_graphs = _native.concat_edges
+sort_and_csr = _native.sort_and_csr
+build_ell = _native.build_ell
+
+
+def concat_graphs_plain(
     edge_counts: np.ndarray,
     node_counts: np.ndarray,
     edge_index: np.ndarray,
@@ -37,7 +50,7 @@ def concat_graphs(
     return senders, receivers, node_graph
 
 
-def sort_and_csr(
+def sort_and_csr_plain(
     senders: np.ndarray,
     receivers: np.ndarray,
     num_nodes: int,
@@ -77,7 +90,7 @@ def sort_and_csr(
     return s, r, perm, row_offsets, in_degree
 
 
-def build_ell(
+def build_ell_plain(
     sorted_senders: np.ndarray,
     row_offsets: np.ndarray,
     e_pad: int,

@@ -48,9 +48,11 @@ cache holds per mode under inference).  Every ``Linear`` learns its
 
 from __future__ import annotations
 
+import contextvars
 from typing import Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gnnbuilder_tpu_torch.core.graph import GraphBatch
 from gnnbuilder_tpu_torch.nn.conv import (
@@ -84,6 +86,24 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _remat(conv, g, h, act, skip, kw):
+    """``conv(g, h, act, skip, **kw)`` under ``torch.utils.checkpoint``:
+    the tensors the layer's autograd saves are dropped after the forward
+    and rebuilt by running the layer again in the backward.  The replay
+    takes the same batch (its ``rev_csr`` cache included) and the same
+    operands the forward took (``kw``: the weights' layout made once per
+    step), and runs in a copy of the forward's context, so the dispatch
+    and precision contextvars it reads are the forward's even where the
+    backward runs on another thread (the card's autograd thread): the
+    replay takes the forward's path and saves the same bits."""
+    ctx = contextvars.copy_context()
+
+    def layer(h, skip):
+        return ctx.run(conv, g, h, act, skip, **kw)
+
+    return checkpoint(layer, h, skip, use_reentrant=False)
+
+
 class GNNModel(torch.nn.Module):
     def __init__(
         self,
@@ -108,6 +128,7 @@ class GNNModel(torch.nn.Module):
         mlp_p_hidden: int = 1,
         mlp_p_out: int = 1,
         conv_kwargs: Optional[dict] = None,
+        remat: bool = False,
     ):
         super().__init__()
         if gnn_conv not in SUPPORTED_GNN_CONVS:
@@ -158,6 +179,10 @@ class GNNModel(torch.nn.Module):
         self.mlp_p_hidden = mlp_p_hidden
         self.mlp_p_out = mlp_p_out
         self.conv_kwargs = dict(conv_kwargs or {})
+        # rematerialize each conv layer in the backward (the JAX package's
+        # ``nn.remat`` per conv): a train step keeps no layer's residuals
+        # and replays the layer's forward in the backward
+        self.remat = bool(remat)
 
         conv_cls = SUPPORTED_GNN_CONVS[gnn_conv]
         conv_kw = dict(self.conv_kwargs)
@@ -244,7 +269,10 @@ class GNNModel(torch.nn.Module):
                 skip = (h if self.gnn_skip_connection and 0 < i < L - 1
                         else None)
                 kw = {} if ops is None else {"operands": ops[i]}
-                h = conv(g, h, self.gnn_activation, skip, **kw)
+                if self.remat and torch.is_grad_enabled():
+                    h = _remat(conv, g, h, self.gnn_activation, skip, kw)
+                else:
+                    h = conv(g, h, self.gnn_activation, skip, **kw)
         fused = self._fused_readout(g, h)
         if fused is not None:
             return fused
@@ -472,6 +500,7 @@ class GNNModel(torch.nn.Module):
             mlp_p_out=self.mlp_p_out,
             conv_kwargs={k: list(v) if isinstance(v, tuple) else v
                          for k, v in self.conv_kwargs.items()},
+            remat=self.remat,
         )
 
     def _fused_gnn_stack(self, g: GraphBatch, h):

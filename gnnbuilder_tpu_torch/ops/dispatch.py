@@ -7,10 +7,16 @@ The gates decide on the batch and the model alone; which implementation a
 kernel function then runs is decided by the tensors' device inside it (a
 CUDA tensor launches the kernel, a CPU tensor runs its plain version).
 
-Modes (``set_fused_mode``):
+Modes (``set_fused_mode``, read back by ``get_fused_mode``):
 * "auto"  — the kernel functions whenever their preconditions hold
 * "never" — the per-layer plain path only (conv loop over the ELL table
             or the edge list, GlobalPooling, MLP), so a test can pin it
+
+``no_fused()`` is a context (a contextvar, so per thread and task) in
+which every kernel gate declines whatever the mode, as the JAX package's
+``no_fused``: a caller that runs the model where no kernel may run asks
+for the plain path with it.  Like the JAX context it leaves ``block_cfg``
+alone: the block product is a plain aggregation, not a kernel.
 
 Precision policies (``compile.precision``, activated by ``Program``):
 a gate whose kernel has the JAX package's mode under the active policy
@@ -36,7 +42,8 @@ import contextlib
 import contextvars
 from typing import Optional
 
-__all__ = ["set_fused_mode", "inference_mode", "policy", "inference_on",
+__all__ = ["set_fused_mode", "get_fused_mode", "no_fused",
+           "inference_mode", "policy", "inference_on",
            "block_cfg", "pna_stack_cfg", "mp_stack_cfg", "mp_layer_cfg",
            "pna_layer_cfg", "gat_block_cfg", "gat_layer_cfg", "agg_cfg",
            "gine_layer_cfg", "edge_block_cfg", "readout_config"]
@@ -59,6 +66,28 @@ _MODE = "auto"
 INT8_DECLINED = ("gat_block", "edge_block")
 # convs whose mp layer kernel runs no Linear: int8 leaves it in float32
 INT8_NEUTRAL_CONVS = ("gcn", "lg", "simple")
+
+# the caller's explicit request for the plain path (``no_fused``)
+_SUPPRESSED: contextvars.ContextVar = contextvars.ContextVar(
+    "gnnb_torch_fused_suppressed", default=False
+)
+
+
+@contextlib.contextmanager
+def no_fused():
+    """Every kernel gate declines inside: the model runs its plain
+    path."""
+    tok = _SUPPRESSED.set(True)
+    try:
+        yield
+    finally:
+        _SUPPRESSED.reset(tok)
+
+
+def _off() -> bool:
+    """Whether the kernel gates decline: mode "never" or ``no_fused``."""
+    return _MODE == "never" or _SUPPRESSED.get()
+
 
 # inference scope: the stack kernel has no backward, so the model takes it
 # only here; Program.forward enters it
@@ -119,6 +148,10 @@ def set_fused_mode(mode: str) -> None:
     _MODE = mode
 
 
+def get_fused_mode() -> str:
+    return _MODE
+
+
 def block_cfg(g) -> Optional[dict]:
     """{} when a conv's plain aggregation takes the block-diagonal product
     (``ops.block``) on batch ``g``, else None (the ELL table or the edge
@@ -145,7 +178,7 @@ def mp_stack_cfg(g, conv: str) -> Optional[dict]:
     takes ``mp_layer_cfg``'s route."""
     if conv not in MP_STACK_CONVS:
         return None
-    if _MODE == "never" or not inference_on():
+    if _off() or not inference_on():
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -168,7 +201,7 @@ def mp_layer_cfg(g, conv: str) -> Optional[dict]:
     JAX convs pop ``int8`` there).  The JAX package's alignment and
     batch-size gates are left out: they weighed the TPU's 128-lane
     padding and grid steps, which this kernel does not have."""
-    if _MODE == "never":
+    if _off():
         return None
     name = policy()
     quant = name == "int8" and conv not in INT8_NEUTRAL_CONVS
@@ -200,7 +233,7 @@ def pna_stack_cfg(g) -> Optional[dict]:
     block size beyond that are the kernel's to check: the CUDA wrapper
     raises on what it does not take rather than giving way to the plain
     version."""
-    if _MODE == "never" or not inference_on():
+    if _off() or not inference_on():
         return None
     if g.nbr_nodes is None or g.block_adj is None:
         return None
@@ -225,7 +258,7 @@ def pna_layer_cfg(g, act) -> Optional[dict]:
     take."""
     from gnnbuilder_tpu_torch.ops.cuda.pna_layer import LAYER_ACTS
 
-    if _MODE == "never" or g.nbr_nodes is None:
+    if _off() or g.nbr_nodes is None:
         return None
     if g.max_graph_nodes_static <= 0 or g.graph_starts is None:
         return None
@@ -250,7 +283,7 @@ def gat_block_cfg(g, act, edge: bool = False) -> Optional[dict]:
     take."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
-    if _MODE == "never" or not inference_on() or _int8_declined("gat_block"):
+    if _off() or not inference_on() or _int8_declined("gat_block"):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -281,7 +314,7 @@ def gat_layer_cfg(g, act, edge: bool = False) -> Optional[dict]:
     the TPU's 128-lane padding, which this kernel does not have."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
-    if _MODE == "never" or g.nbr_nodes is None or act not in GAT_ACTS:
+    if _off() or g.nbr_nodes is None or act not in GAT_ACTS:
         return None
     if edge and (g.nbr_edges is None or g.edge_feat is None
                  or policy() == "int8"):
@@ -300,7 +333,7 @@ def agg_cfg(g) -> Optional[dict]:
     the block product on a block-packed batch, while PNA's block path
     takes the kernel for max and min.  The TPU's lane, VMEM and tile
     gates are left out: this kernel takes any width and row count."""
-    if _MODE == "never" or g.nbr_nodes is None:
+    if _off() or g.nbr_nodes is None:
         return None
     if g.max_graph_nodes_static <= 0:
         return None
@@ -322,7 +355,7 @@ def gine_layer_cfg(g, act) -> Optional[dict]:
     the TPU's hardware verification and 128-lane padding."""
     from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
 
-    if _MODE == "never" or g.nbr_nodes is None or g.nbr_edges is None:
+    if _off() or g.nbr_nodes is None or g.nbr_edges is None:
         return None
     if act not in LAYER_ACTS:
         return None
@@ -339,7 +372,7 @@ def edge_block_cfg(g, act) -> Optional[dict]:
     ELL table, not under int8; here also an activation the kernel has."""
     from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
 
-    if _MODE == "never" or not inference_on() or _int8_declined("edge_block"):
+    if _off() or not inference_on() or _int8_declined("edge_block"):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -363,7 +396,7 @@ def readout_config(g, aggrs, act, out_act) -> Optional[dict]:
         READOUT_OUT_ACTS,
     )
 
-    if _MODE == "never":
+    if _off():
         return None
     if not ({"add", "mean"} & set(aggrs)):
         return None

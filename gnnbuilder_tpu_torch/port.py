@@ -17,6 +17,10 @@ flax kernel is
 on the way over.  Only numpy crosses the boundary: this module imports
 nothing of JAX.
 
+``params_to_jax`` is the inverse: a state dict back to the flax tree's
+names and layouts, as numpy (the golden files' parameter names and bytes,
+``verify.golden``).
+
 ``site_to_jax`` maps an int8 calibration site, a ``Linear``'s name in
 this package's model (``gnn_convs.0.lin``, ``mlp_head.linear_layers.2``),
 to the JAX package's flax module path (``gnn_convs_0/lin``,
@@ -28,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "site_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "site_to_jax"]
 
 # the flax leaves of each conv: {Linear name: has a bias}, plus GCN's
 # separate bias (an array, not a Linear); GIN's leaves are EdgeConv's too
@@ -94,6 +98,36 @@ def params_from_jax(flax_params) -> dict:
         i = int(key.rsplit("_", 1)[1])
         linear(f"mlp_head.linear_layers.{i}", head[key])
     return sd
+
+
+def params_to_jax(state_dict) -> dict:
+    """A state dict of this package's ``GNNModel`` -> the flax tree
+    ``{"params": {...}}`` of numpy float32 arrays that ``params_from_jax``
+    maps onto it: ``gnn_convs.{i}.{name}.weight`` [out, in] ->
+    ``gnn_convs_{i}/{name}/kernel`` [in, out], ``.bias`` -> ``/bias``,
+    a conv's own array ``gnn_convs.{i}.{name}`` -> ``gnn_convs_{i}/{name}``,
+    ``mlp_head.linear_layers.{i}`` -> ``mlp_head/linear_{i}``."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        a = value.detach().cpu().numpy().astype(np.float32)
+        parts = key.split(".")
+        if parts[0] == "gnn_convs" and len(parts) == 3:
+            tree.setdefault(f"gnn_convs_{parts[1]}", {})[parts[2]] = a
+            continue
+        if parts[0] == "gnn_convs" and len(parts) == 4:
+            node = tree.setdefault(f"gnn_convs_{parts[1]}", {})
+            name = parts[2]
+        elif parts[:2] == ["mlp_head", "linear_layers"] and len(parts) == 4:
+            node = tree.setdefault("mlp_head", {})
+            name = f"linear_{parts[2]}"
+        else:
+            raise ValueError(f"not a parameter of GNNModel: {key!r}")
+        leaf = parts[-1]
+        if leaf not in ("weight", "bias"):
+            raise ValueError(f"not a parameter of GNNModel: {key!r}")
+        node.setdefault(name, {})["kernel" if leaf == "weight" else "bias"] = (
+            np.ascontiguousarray(a.T) if leaf == "weight" else a)
+    return {"params": tree}
 
 
 def site_to_jax(site: str) -> str:

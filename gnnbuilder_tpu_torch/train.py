@@ -9,11 +9,12 @@ and each GCN, GIN, SAGE, LG and Simple (sum, mean) layer through the mp
 layer kernel (``MPLayerFunction``), each with its hand-written backward;
 the readout through ``ReadoutFunction``.  ``torch.optim.Adam``'s defaults (betas 0.9 / 0.999, eps 1e-8)
 are ``optax.adam``'s.  Checkpoints are ``torch.save`` of the model's and
-the optimizer's state dicts.
+the optimizer's state dicts; ``TrainState`` holds the same in memory.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Callable, Optional
 
@@ -29,6 +30,7 @@ __all__ = [
     "masked_bce_logits_loss",
     "roc_auc",
     "make_train_step",
+    "TrainState",
     "stack_targets",
     "save_checkpoint",
     "load_checkpoint",
@@ -84,6 +86,37 @@ def roc_auc(scores, labels) -> float:
     r_pos = ranks[: len(pos)].sum()
     n_p, n_n = len(pos), len(neg)
     return float((r_pos - n_p * (n_p + 1) / 2) / (n_p * n_n))
+
+
+class TrainState:
+    """The train state of the JAX package's ``TrainState``: ``params``
+    (the model's state dict, the form of ``Program.params``),
+    ``opt_state`` (``optimizer.state_dict()``) and ``step``.  ``capture``
+    copies them out of a model and its optimizer; ``restore`` loads them
+    back, so the steps after a restore repeat those after the capture."""
+
+    def __init__(self, params, opt_state, step: int = 0):
+        self.params = params
+        self.opt_state = opt_state
+        self.step = step
+
+    @classmethod
+    def capture(cls, model: torch.nn.Module,
+                optimizer: torch.optim.Optimizer,
+                step: int = 0) -> "TrainState":
+        """A copy of ``model``'s parameters and ``optimizer``'s state (the
+        optimizer updates its state tensors in place)."""
+        params = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
+        return cls(params, copy.deepcopy(optimizer.state_dict()), int(step))
+
+    def restore(self, model: torch.nn.Module,
+                optimizer: torch.optim.Optimizer) -> int:
+        """Load the state into ``model`` and ``optimizer``; returns the
+        step."""
+        model.load_state_dict(self.params)
+        optimizer.load_state_dict(copy.deepcopy(self.opt_state))
+        return self.step
 
 
 def make_train_step(model: torch.nn.Module,

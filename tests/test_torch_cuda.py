@@ -2614,3 +2614,107 @@ def test_forward_captures_without_host_sync(cuda_device, name, packing):
         assert _captured_matches_eager(p, b, 2) <= 1e-4, policy
         # cold, warm, 2 captured (a replay calls no wrapper), eager
         assert readout.fused_readout.launches == r0 + 5, policy
+
+
+# ------------------------------------------- trainer pieces, verification
+
+def _train_batch(n_graphs=256):
+    gs, (b,) = canonical_batches("qm9", n_graphs=n_graphs,
+                                 batch_size=n_graphs, node_multiple=256,
+                                 device="cuda")
+    return gs, b, train.stack_targets(gs, b.num_graphs, device="cuda")
+
+
+@pytest.mark.parametrize("conv,ck", [("pna", {}), ("gat", {"heads": 4})])
+def test_remat_step_gives_the_plain_step_gradient_bits(cuda_device, conv,
+                                                       ck):
+    """``GNNModel(remat=True)``: the loss and every gradient of a step
+    bit-equal to the plain model's, and the layer kernel replayed in the
+    backward."""
+    gs, b, y = _train_batch()
+    torch.manual_seed(0)
+    ms = [canonical_model(conv, "qm9", graphs=gs, gnn_num_layers=3,
+                          conv_kwargs=dict(ck), remat=r).to(cuda_device)
+          for r in (False, True)]
+    ms[1].load_state_dict(ms[0].state_dict())
+    kern = pna_layer.fused_pna_layer if conv == "pna" else \
+        gat_layer.fused_gat_layer
+    res = []
+    with torch.enable_grad():
+        for m in ms:
+            kern.launches = 0
+            loss = train.masked_mse_loss(m(b), y, b.graph_mask)
+            loss.backward()
+            torch.cuda.synchronize()
+            res.append((loss.detach(), kern.launches,
+                        {k: p.grad for k, p in m.named_parameters()}))
+    (l0, n0, g0), (l1, n1, g1) = res
+    assert torch.equal(l0, l1)
+    assert n0 == 3 and n1 == 6, (n0, n1)
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
+
+
+def test_loader_fed_step_matches_a_direct_one(cuda_device):
+    """A PNA step on ``GraphLoader``'s batch (packed on the host, copied
+    without waiting) and one on the same chunk packed directly: the same
+    batch, the same loss and weights, bit for bit."""
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+    from gnnbuilder_tpu_torch.data.loader import GraphLoader
+
+    gs = canonical_batches("qm9", n_graphs=512, batch_size=256,
+                           device="cpu")[0]
+    loader = GraphLoader(gs, batch_size=256, shuffle=True, seed=3,
+                         node_multiple=256)
+    chunk = loader._chunks()[0]
+    epoch = loader.epoch()
+    lb, ly = next(epoch)
+    epoch.close()
+    db = build_graph_batch(chunk, node_budget=loader.node_budget,
+                           edge_budget=loader.edge_budget,
+                           graph_budget=loader.graph_budget,
+                           node_multiple=256, device="cuda")
+    dy = train.stack_targets(chunk, loader.graph_budget, device="cuda")
+    assert torch.equal(ly, dy)
+    for name in ("node_feat", "nbr_nodes", "in_degree", "rev_nbr_nodes",
+                 "graph_starts", "edge_feat"):
+        assert torch.equal(getattr(lb, name), getattr(db, name)), name
+    torch.manual_seed(0)
+    ms = [canonical_model("pna", "qm9", graphs=gs, gnn_num_layers=3).to(
+        cuda_device) for _ in range(2)]
+    ms[1].load_state_dict(ms[0].state_dict())
+    losses = []
+    with torch.enable_grad():
+        for m, (b, y) in zip(ms, ((lb, ly), (db, dy))):
+            step = train.make_train_step(m, torch.optim.Adam(
+                m.parameters(), lr=1e-3))
+            losses.append(step(b, y))
+    assert torch.equal(*losses)
+    for p, q in zip(ms[0].parameters(), ms[1].parameters()):
+        assert torch.equal(p, q)
+
+
+def test_run_parity_check_on_the_card_against_cpu_goldens(cuda_device,
+                                                          tmp_path):
+    """Canonical PNA (block-packed, rows 1 and 2): goldens of 32 QM9
+    graphs from a CPU Program, ``run_parity_check`` on the card: MAE <=
+    1e-5 of max |golden|."""
+    from gnnbuilder_tpu_torch.verify import golden
+
+    gs = canonical_batches("qm9", n_graphs=32, batch_size=32,
+                           device="cpu")[0]
+    bucket = dict(max_nodes=256, max_edges=512, max_graphs=2,
+                  block_size=128)
+    cpu = Program(canonical_model("pna", "qm9", graphs=gs), device="cpu",
+                  **bucket)
+    cpu.init_params()
+    card = Program(canonical_model("pna", "qm9", graphs=gs), **bucket)
+    card.set_params({k: v.to("cuda") for k, v in cpu.params.items()})
+    cpu.gen_testbench_data(gs, str(tmp_path))
+    gmax = max(float(np.abs(o).max())
+               for o in golden.load_golden_outputs(str(tmp_path)))
+    pna_block.fused_pna_block_stack.launches = 0
+    rep = card.run_parity_check(gs, str(tmp_path))
+    assert rep["num_graphs"] == len(gs)
+    assert pna_block.fused_pna_block_stack.launches == len(gs)
+    assert rep["model_output_mae"] <= 1e-5 * gmax, rep
