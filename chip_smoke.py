@@ -132,7 +132,21 @@ weights):
   (no launch); ``verify.torch_ref`` models of the nine convs ported by
   ``verify.port`` into card Programs against torch_ref on the CPU, and
   PNA's ``run_parity_check`` on the card against CPU goldens from
-  ``gen_testbench_data``.
+  ``gen_testbench_data``;
+* distribution (``parallel_phases``, ``gnnbuilder_tpu_torch.parallel``):
+  a world of 1 over NCCL in this process, canonical PNA's halo forward
+  (row 5 once per layer on the rank's [halo | local | halo] window)
+  against ``Program.forward``, row 5 against its plain version on each
+  window, three halo Adam steps (rows 5, 6 and 7's CSR mode on the
+  windows) against ``make_train_step`` (losses and every gradient, two
+  runs bit for bit, the window's reverse CSR built once a step), the
+  all-gather strategy against the plain path, and one forward and step
+  each of GCN, GIN, SAGE (row 4) and GAT (rows 10, 11); then a world of 2
+  over gloo on the one card (two spawned processes, buffers staged
+  through host memory): PNA's forward and step on dp = 2 against the
+  world of 1, each rank's launches and its window's halos; CUDA-event
+  times of the halo forward and step beside ``Program.forward`` and
+  ``make_train_step``.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -4499,6 +4513,571 @@ def trainer_verify_phases(*, dev, graphs, batches, b0, prog, tgraphs, tb,
     return out
 
 
+# the parallel phase: a world of 1 over NCCL in this process, then a
+# world of 2 over gloo on the one card in two spawned processes
+PAR_STEPS = 3
+PAR_CONVS = ("gcn", "gin", "sage", "gat")
+PAR_WORLD = 2
+PAR_TIMEOUT_S = 300
+
+
+def _par_model(conv, tgraphs, dev, state=None):
+    """A canonical model on the card with ``state`` (or its own seeded
+    weights) and that state."""
+    from gnnbuilder_tpu_torch import Program
+    from gnnbuilder_tpu_torch.bench.canonical import canonical_model
+
+    kw = dict(conv_kwargs=dict(heads=GAT_HEADS)) if conv == "gat" else {}
+    m = canonical_model(conv, "qm9", graphs=tgraphs, **kw).to(dev)
+    if state is None:
+        p = Program(m, max_nodes=8, max_edges=8, max_graphs=2, device=dev,
+                    seed=53)
+        state = {k: v.clone() for k, v in p.init_params().items()}
+    m.load_state_dict(state)
+    return m, state
+
+
+def _halo_window_stats(sb, h, mesh):
+    """(sum |left halo|, sum |right halo|, valid ELL slots whose sender
+    lies in a halo) of this rank's window."""
+    from gnnbuilder_tpu_torch.ops import ell
+    from gnnbuilder_tpu_torch.parallel.halo import halo_exchange
+
+    xw = halo_exchange(sb.node_feat, h, "dp", mesh)
+    n = sb.num_nodes
+    base = mesh.index("dp") * n
+    ids = sb.nbr_nodes.long()
+    valid = ell.ell_mask(sb.nbr_nodes, sb.in_degree)
+    outside = valid & ((ids < base) | (ids >= base + n))
+    return (float(xw[:h].abs().sum()), float(xw[-h:].abs().sum()),
+            int(outside.sum()))
+
+
+def _gloo_rank(rank, world, init_file, state0, q):
+    """One rank of the two-rank gloo world on the one card: canonical PNA's
+    halo forward and one halo Adam step on dp = 2 (the library already
+    built by the parent), its launch counts and its window's halos."""
+    try:
+        import torch.distributed as dist
+
+        from gnnbuilder_tpu_torch import train
+        from gnnbuilder_tpu_torch.bench.canonical import canonical_batches
+        from gnnbuilder_tpu_torch.ops.cuda import (
+            ell_bwd,
+            pna_layer,
+            readout,
+            scatter_bwd,
+        )
+        from gnnbuilder_tpu_torch.parallel.mesh import make_mesh
+        from gnnbuilder_tpu_torch.parallel.sharding import shard_batch
+        from gnnbuilder_tpu_torch.parallel.train import (
+            _halo_size,
+            make_sharded_forward,
+            make_sharded_train_step,
+        )
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        mesh = make_mesh(device_type="cuda")
+        tgraphs, (tb,) = canonical_batches(
+            "qm9", n_graphs=TRAIN_GRAPHS, batch_size=BATCH_GRAPHS,
+            node_multiple=256, device="cpu")
+        dev = mesh.device
+        model, _ = _par_model("pna", tgraphs, dev, state0)
+        target = train.stack_targets(tgraphs[:BATCH_GRAPHS], tb.num_graphs,
+                                     device=dev)
+        sb = shard_batch(mesh, tb, halo=True)
+        h = _halo_size(tb, mesh)
+        kernels = {"pna_layer": pna_layer.fused_pna_layer,
+                   "pna_scatter_bwd": scatter_bwd.fused_pna_scatter_cstk,
+                   "ell_gather_bwd_csr": ell_bwd.fused_gather_backward_csr,
+                   "ell_gather_bwd": ell_bwd.fused_gather_backward,
+                   "readout": readout.fused_readout}
+
+        def zero():
+            for fn in kernels.values():
+                fn.launches = 0
+
+        def launched():
+            return {k: fn.launches for k, fn in kernels.items()}
+
+        with torch.no_grad():
+            left, right, into = _halo_window_stats(sb, h, mesh)
+            fwd = make_sharded_forward(model, mesh, tb, halo=True)
+            zero()
+            out = fwd(None, sb)
+            torch.cuda.synchronize()
+            fwd_counts = launched()
+        step, init = make_sharded_train_step(
+            model, lambda ps: torch.optim.Adam(ps, lr=1e-3), mesh, tb,
+            halo=True)
+        with torch.enable_grad():
+            p, o = init(state0)
+            zero()
+            p, o, loss = step(p, o, sb, target)
+            torch.cuda.synchronize()
+            step_counts = launched()
+        # numpy, pickled by value: a torch tensor would travel as a
+        # shared-memory handle that dies with this process
+        res = dict(out=out.cpu().numpy(), loss=float(loss),
+                   grads={k: v.grad.cpu().numpy() for k, v in p.items()},
+                   fwd_counts=fwd_counts, step_counts=step_counts,
+                   halo_sums=(left, right), into_halo=into,
+                   n_local=sb.num_nodes, halo=h)
+        dist.barrier()
+        dist.destroy_process_group()
+        q.put((rank, res, None))
+    except BaseException:
+        import traceback
+
+        q.put((rank, None, traceback.format_exc()))
+
+
+def _gloo_world(state0):
+    """Spawn the gloo world, wait for every rank (with a time limit) and
+    return their results; on any failure terminate the ranks and raise."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="gnnb_gloo_")
+    init_file = os.path.join(tmp, "pg")
+    cpu_state = {k: v.detach().cpu() for k, v in state0.items()}
+    procs = [ctx.Process(target=_gloo_rank,
+                         args=(r, PAR_WORLD, init_file, cpu_state, q))
+             for r in range(PAR_WORLD)]
+    for p_ in procs:
+        p_.start()
+    deadline = time.time() + PAR_TIMEOUT_S
+    results = [None] * PAR_WORLD
+    try:
+        for _ in range(PAR_WORLD):
+            try:
+                rank, res, err = q.get(
+                    timeout=max(deadline - time.time(), 1.0))
+            except queue_mod.Empty:
+                raise AssertionError(f"gloo world: no result within "
+                                     f"{PAR_TIMEOUT_S} s")
+            if err is not None:
+                raise AssertionError(f"gloo rank {rank} failed:\n{err}")
+            results[rank] = res
+        for p_ in procs:
+            p_.join(timeout=max(deadline - time.time(), 1.0))
+            if p_.exitcode != 0:
+                raise AssertionError(f"gloo rank exited with "
+                                     f"{p_.exitcode}")
+    finally:
+        for p_ in procs:
+            if p_.is_alive():
+                p_.terminate()
+                p_.join(timeout=10)
+    return results
+
+
+def parallel_phases(*, dev, tgraphs, tb, target, state0, fresh_step,
+                    zero_counts, counts, only, smi):
+    """``gnnbuilder_tpu_torch.parallel`` on the card; returns the
+    ``parallel`` report and its ``kernels`` entry.
+
+    (a) a world of 1 over NCCL in this process: canonical PNA's halo
+        forward (row 5 on the window in each layer) against
+        ``Program.forward`` of the same weights; row 5 against its plain
+        version on each layer's window; three halo Adam steps (rows 5, 6
+        and 7's CSR mode on the window; its reverse CSR built once a
+        step) against ``make_train_step``: the losses against its own
+        three Adam steps, every gradient against its gradient at the same
+        weights, and two runs bit for bit; the all-gather strategy (``halo=False``,
+        no kernel) against the plain path; one forward and one step each
+        of GCN, GIN, SAGE (row 4; row 7's CSR mode) and GAT (rows 10 and
+        11) against the single-device path;
+    (b) a world of 2 over gloo on the one card (spawned after the build):
+        PNA's halo forward and one step on dp = 2 against (a), each
+        rank's launch counts of rows 5, 6 and 7 and its window's halos;
+    (c) CUDA-event times of the world-1 halo forward and step against
+        ``Program.forward`` and ``make_train_step``."""
+    import torch.distributed as dist
+
+    from gnnbuilder_tpu_torch import Program, train
+    from gnnbuilder_tpu_torch.ops import dispatch, ell
+    from gnnbuilder_tpu_torch.ops.cuda import pna_layer
+    from gnnbuilder_tpu_torch.parallel import halo as halo_mod
+    from gnnbuilder_tpu_torch.parallel.mesh import make_mesh
+    from gnnbuilder_tpu_torch.parallel.sharding import shard_batch
+    from gnnbuilder_tpu_torch.parallel.train import (
+        _halo_size,
+        make_sharded_forward,
+        make_sharded_train_step,
+    )
+
+    out = {}
+    m = tb.graph_mask
+    pg_dir = tempfile.mkdtemp(prefix="gnnb_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device_type="cuda")
+        h = _halo_size(tb, mesh)
+        sb = shard_batch(mesh, tb, halo=True)
+        sb_ag = shard_batch(mesh, tb, halo=False)
+
+        def adam(ps):
+            return torch.optim.Adam(ps, lr=1e-3)
+
+        with phase(f"parallel (a): world of 1 over NCCL ({mesh}), halo "
+                   f"{h}: canonical PNA's halo forward against "
+                   f"Program.forward, row 5 on each layer's window "
+                   f"against its plain version"):
+            pmodel, _ = _par_model("pna", tgraphs, dev, state0)
+            pprog = Program(pmodel, max_nodes=tb.num_nodes,
+                            max_edges=tb.num_edges, max_graphs=tb.num_graphs,
+                            device=dev)
+            pprog.set_params(state0)
+            hmodel, _ = _par_model("pna", tgraphs, dev, state0)
+            fwd = make_sharded_forward(hmodel, mesh, tb, halo=True)
+            with torch.no_grad():
+                ref = pprog.forward(tb)
+                calls0 = halo_mod.halo_wrap_layer.calls
+                zero_counts()
+                got = fwd(None, sb)
+                torch.cuda.synchronize()
+                launches = counts()
+                wraps = halo_mod.halo_wrap_layer.calls - calls0
+            ok, abs_err, rel_err = close_enough(got[m], ref[m])
+            log(f"halo forward against Program.forward: max abs "
+                f"{abs_err:.3e}, {rel_err:.3e} of max |value| (tol {TOL}); "
+                f"{wraps} windows; launches {launches}")
+            if not ok or launches != only(pna_layer=6) or wraps != 6:
+                raise AssertionError("the halo forward disagrees with "
+                                     "Program.forward or missed row 5")
+            got_w1 = got.cpu()
+            out["pna_forward"] = dict(max_abs_err=abs_err, rel_err=rel_err,
+                                      launches=launches["pna_layer"],
+                                      windows=wraps)
+            # each layer's window, as halo_wrap_layer builds it
+            n = tb.num_nodes
+            n_pad = halo_mod.halo_pad_rows(n, h)
+            win = halo_mod._Scope(mesh, "dp", h).window(
+                tb.nbr_nodes, tb.in_degree, n_pad)
+            F0 = tb.feature_dim
+            x0 = torch.cat([tb.node_feat.new_zeros(h, F0), tb.node_feat,
+                            tb.node_feat.new_zeros(n_pad - h - n, F0)])
+
+            class _Win:
+                node_feat, nbr_nodes, in_degree = x0, win.nbr_ext, win.deg_ext
+
+            with torch.no_grad():
+                wlayers = layer_operands(hmodel, _Win, pna_layer)
+                err_w = 0.0
+                for i, (args, kw) in enumerate(wlayers):
+                    a = pna_layer.fused_pna_layer(*args, **kw)
+                    b = pna_layer.pna_layer_plain(*args, **kw)
+                    ok, e_, r_ = close_enough(a, b)
+                    err_w = max(err_w, e_)
+                    if not ok:
+                        raise AssertionError(f"row 5 on window {i}: {r_:.3e}"
+                                             f" of max |value|")
+                E = int(tb.in_degree.sum())
+                W = tb.ell_width
+                w_flops = w_bytes = w_gather = 0
+                for (args, kw), (Fi, Fl, Fo) in zip(wlayers,
+                                                    pna_widths(hmodel)):
+                    w_flops += layer_flops(n_pad, E, Fi, Fl, Fo, 5)
+                    w_gather += 5 * E * Fl
+                    w_bytes += 4 * (n_pad * Fi + n_pad * W + n_pad
+                                    + layer_weights(Fi, Fl, Fo)
+                                    + (n_pad * Fo if kw["skip"] is not None
+                                       else 0) + n_pad * Fo)
+                b_ms, b_by = bound_f32_products(w_flops - w_gather, w_gather,
+                                                w_bytes)
+
+                def run_w(fn):
+                    for args, kw in wlayers:
+                        fn(*args, **kw)
+
+                w_ms = time_ms(lambda: run_w(pna_layer.fused_pna_layer), 10)
+                w_plain = time_ms(lambda: run_w(pna_layer.pna_layer_plain), 3)
+            log(f"row 5 on the 6 windows (N={n_pad}): max abs {err_w:.3e} "
+                f"against the plain version; {w_ms:.4f} ms (plain "
+                f"{w_plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}) on {smi}")
+            entry = dict(
+                name="parallel", route="cuda",
+                source="gnnbuilder_tpu_torch/csrc/pna_layer.cu",
+                replaces="gnnbuilder_tpu/ops/pallas/pna_layer.py:927",
+                launches=launches["pna_layer"], max_abs_err=err_w,
+                ms=w_ms, plain_ms=w_plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None,
+                per="row 5 on canonical PNA's 6 halo windows, one forward")
+
+        with phase(f"parallel (a): {PAR_STEPS} halo Adam steps of canonical "
+                   f"PNA against make_train_step (losses and every "
+                   f"gradient), twice, bit for bit"):
+            built = []
+            orig_csr = ell.reverse_csr
+
+            def counting_csr(*a, **k):
+                built.append(1)
+                return orig_csr(*a, **k)
+
+            def halo_run():
+                hm, _ = _par_model("pna", tgraphs, dev, state0)
+                step, init = make_sharded_train_step(hm, adam, mesh, tb,
+                                                     halo=True)
+                with torch.enable_grad():
+                    p, o = init(state0)
+                    losses, grads, step_counts, befores = [], [], None, []
+                    for i in range(PAR_STEPS):
+                        befores.append({k: v.detach().clone()
+                                        for k, v in p.items()})
+                        zero_counts()
+                        built.clear()
+                        ell.reverse_csr = counting_csr
+                        try:
+                            p, o, loss = step(p, o, sb, target)
+                        finally:
+                            ell.reverse_csr = orig_csr
+                        torch.cuda.synchronize()
+                        if i == 0:
+                            step_counts = (counts(), len(built))
+                        losses.append(loss.clone())
+                        grads.append({k: v.grad.clone()
+                                      for k, v in p.items()})
+                return losses, grads, step_counts, (step, p, o), befores
+
+            runs = [halo_run() for _ in range(2)]
+            (h_losses, h_grads, (st_counts, n_csr), hstep, befores), again = (
+                runs[0], runs[1])
+            if st_counts != only(pna_layer=6, pna_scatter_bwd=6,
+                                 ell_gather_bwd_csr=6) or n_csr != 1:
+                raise AssertionError(f"halo step launches {st_counts}, "
+                                     f"{n_csr} reverse CSRs built")
+            same = all(torch.equal(a, b) for a, b in zip(h_losses, again[0]))
+            same = same and all(torch.equal(g1[k], g2[k])
+                                for g1, g2 in zip(h_grads, again[1])
+                                for k in g1)
+            if not same:
+                raise AssertionError("two halo runs differ")
+            # the reference's own Adam trajectory from the same weights
+            rmodel, _ = _par_model("pna", tgraphs, dev, state0)
+            rstep = fresh_step(rmodel)
+            r_losses, r_grads = [], []
+            with torch.enable_grad():
+                for _ in range(PAR_STEPS):
+                    r_losses.append(rstep(tb, target).clone())
+                    r_grads.append({k: v.grad.clone()
+                                    for k, v in rmodel.named_parameters()})
+            ok, l_err, l_rel = close_enough(torch.stack(h_losses),
+                                            torch.stack(r_losses))
+            # every step's gradients against make_train_step's at the same
+            # weights (the halo run's before that step): from the second
+            # step on, the two trajectories' weights differ where Adam's
+            # first update (+-lr whatever the gradient's size) took a
+            # gradient of ~0 with another sign in each
+            fmodel, _ = _par_model("pna", tgraphs, dev, state0)
+            fstep = train.make_train_step(
+                fmodel, torch.optim.SGD(fmodel.parameters(), lr=0.0))
+            g_err = free_err = 0.0
+            for s_, (gh, gr) in enumerate(zip(h_grads, r_grads)):
+                fmodel.load_state_dict(befores[s_])
+                with torch.enable_grad():
+                    fstep(tb, target)
+                for k, v in fmodel.named_parameters():
+                    ok_k, _, rel_k = close_enough(gh[k], v.grad)
+                    g_err = max(g_err, rel_k)
+                    ok = ok and ok_k
+                    if not ok_k:
+                        log(f"step {s_} {k}: {rel_k:.3e} of max |grad|")
+                    free_err = max(free_err,
+                                   close_enough(gh[k], gr[k])[2])
+            log(f"halo losses {[float(x) for x in h_losses]} against "
+                f"{[float(x) for x in r_losses]} ({l_rel:.3e} of max); "
+                f"gradients within {g_err:.3e} of max (tol {TOL}) of "
+                f"make_train_step's at the same weights ({free_err:.3e} "
+                f"against its own trajectory's); launches a step "
+                f"{st_counts}; reverse CSR built {n_csr} time(s) a step; two "
+                f"runs bit for bit")
+            if not ok:
+                raise AssertionError("halo steps disagree with "
+                                     "make_train_step")
+            out["pna_steps"] = dict(
+                losses=[float(x) for x in h_losses],
+                ref_losses=[float(x) for x in r_losses], loss_rel_err=l_rel,
+                grad_rel_err=g_err, trajectory_grad_rel_err=free_err,
+                launches=st_counts, reverse_csr=n_csr,
+                bitwise=True)
+
+        with phase("parallel (a): the all-gather strategy (halo=False) "
+                   "against the plain path"):
+            amodel, _ = _par_model("pna", tgraphs, dev, state0)
+            afwd = make_sharded_forward(amodel, mesh, tb, halo=False)
+            with torch.no_grad():
+                zero_counts()
+                got_ag = afwd(None, sb_ag)
+                torch.cuda.synchronize()
+                launches = counts()
+                dispatch.set_fused_mode("never")
+                try:
+                    plain = pmodel(tb)
+                finally:
+                    dispatch.set_fused_mode("auto")
+            ok, abs_err, rel_err = close_enough(got_ag[m], plain[m])
+            log(f"all-gather forward against the plain path: {rel_err:.3e} "
+                f"of max |value|; launches {launches}")
+            if not ok or launches != only():
+                raise AssertionError("the all-gather forward disagrees")
+            out["allgather_forward"] = dict(rel_err=rel_err)
+
+        with phase(f"parallel (a): one halo forward and one halo step each "
+                   f"of canonical {', '.join(PAR_CONVS)}"):
+            per_conv = {}
+            for conv in PAR_CONVS:
+                cm, st = _par_model(conv, tgraphs, dev)
+                cprog = Program(cm, max_nodes=tb.num_nodes,
+                                max_edges=tb.num_edges,
+                                max_graphs=tb.num_graphs, device=dev)
+                cprog.set_params(st)
+                kern = "gat_layer" if conv == "gat" else "mp_layer"
+                bwd = "gat_bwd" if conv == "gat" else "ell_gather_bwd_csr"
+                hm, _ = _par_model(conv, tgraphs, dev, st)
+                cfwd = make_sharded_forward(hm, mesh, tb, halo=True)
+                with torch.no_grad():
+                    ref = cprog.forward(tb)
+                    zero_counts()
+                    got = cfwd(None, sb)
+                    torch.cuda.synchronize()
+                    f_launch = counts()
+                ok_f, _, f_rel = close_enough(got[m], ref[m])
+                step, init = make_sharded_train_step(hm, adam, mesh, tb,
+                                                     halo=True)
+                rm, _ = _par_model(conv, tgraphs, dev, st)
+                rstep = fresh_step(rm)
+                with torch.enable_grad():
+                    p, o = init(st)
+                    zero_counts()
+                    p, o, loss = step(p, o, sb, target)
+                    torch.cuda.synchronize()
+                    s_launch = counts()
+                    rloss = rstep(tb, target)
+                ok_l, _, l_rel = close_enough(loss.reshape(1),
+                                              rloss.reshape(1))
+                g_rel = 0.0
+                ok_g = True
+                for k, v in rm.named_parameters():
+                    ok_k, _, r_k = close_enough(p[k].grad, v.grad)
+                    ok_g = ok_g and ok_k
+                    g_rel = max(g_rel, r_k)
+                log(f"{conv}: forward {f_rel:.3e} of max, launches "
+                    f"{f_launch}; step loss {l_rel:.3e}, gradients "
+                    f"{g_rel:.3e} of max, launches {s_launch}")
+                if not (ok_f and ok_l and ok_g):
+                    raise AssertionError(f"{conv}: the halo path disagrees "
+                                         f"with the single-device one")
+                if (f_launch != only(**{kern: 6})
+                        or s_launch != only(**{kern: 6, bwd: 6})):
+                    raise AssertionError(f"{conv}: halo launches {f_launch},"
+                                         f" {s_launch}")
+                per_conv[conv] = dict(forward_rel_err=f_rel,
+                                      loss_rel_err=l_rel, grad_rel_err=g_rel,
+                                      forward_launches=f_launch[kern],
+                                      step_launches={kern: s_launch[kern],
+                                                     bwd: s_launch[bwd]})
+            out["convs"] = per_conv
+
+        with phase("parallel (c): CUDA-event times of the world-1 halo "
+                   "forward and step"):
+            with torch.no_grad():
+                t_halo = time_ms(lambda: fwd(None, sb), 10)
+                t_prog = time_ms(lambda: pprog.forward(tb), 10)
+            step_, p_, o_ = hstep
+            with torch.enable_grad():
+                t_hstep = time_ms(lambda: step_(p_, o_, sb, target), 5)
+                rmodel.load_state_dict(state0)
+                rstep = fresh_step(rmodel)
+                t_rstep = time_ms(lambda: rstep(tb, target), 5)
+            log(f"parallel times b{BATCH_GRAPHS} (N={tb.num_nodes}) on "
+                f"{smi}: halo forward {t_halo:.4f} ms (Program.forward "
+                f"{t_prog:.4f} ms); halo step {t_hstep:.4f} ms "
+                f"(make_train_step {t_rstep:.4f} ms)")
+            from torch.profiler import ProfilerActivity, profile
+
+            def busy(fn, n=3):
+                """(device ms by part, busy, wall ms) a call."""
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t = time.time()
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+                    wall = (time.time() - t) * 1e3 / n
+                split = split_device_time(prof, n)
+                return split, sum(split.values()), wall
+
+            with torch.no_grad():
+                splits = {"halo forward": busy(lambda: fwd(None, sb)),
+                          "Program.forward": busy(
+                              lambda: pprog.forward(tb))}
+            for k, (split, b_, w_) in splits.items():
+                log(f"{k}: device busy {b_:.4f} of {w_:.4f} ms wall "
+                    f"(torch.profiler, 3 calls); by part "
+                    + ", ".join(f"{p} {v:.4f}" for p, v in split.items()
+                                if v))
+            out["times"] = dict(halo_forward_ms=t_halo,
+                                program_forward_ms=t_prog,
+                                halo_step_ms=t_hstep,
+                                train_step_ms=t_rstep, smi=smi,
+                                busy={k: dict(busy_ms=v[1], wall_ms=v[2],
+                                              by_part=v[0])
+                                      for k, v in splits.items()})
+    finally:
+        dist.destroy_process_group()
+
+    with phase(f"parallel (b): a world of {PAR_WORLD} over gloo on the one "
+               f"card (spawned ranks): PNA's halo forward and one step on "
+               f"dp = {PAR_WORLD} against the world of 1"):
+        ranks = _gloo_world(state0)
+        ref_g = {k: v.cpu() for k, v in h_grads[0].items()}
+        ref_l = float(h_losses[0])
+        per_rank = []
+        for r, res in enumerate(ranks):
+            res["out"] = torch.from_numpy(res["out"])
+            res["grads"] = {k: torch.from_numpy(v)
+                            for k, v in res["grads"].items()}
+            ok_f, _, f_rel = close_enough(res["out"][m.cpu()],
+                                          got_w1[m.cpu()])
+            l_rel = abs(res["loss"] - ref_l) / max(abs(ref_l), 1e-30)
+            g_rel = max(close_enough(res["grads"][k], ref_g[k])[2]
+                        for k in ref_g)
+            log(f"gloo rank {r}: {res['n_local']} rows, halo {res['halo']}, "
+                f"|left halo| {res['halo_sums'][0]:.3e}, |right halo| "
+                f"{res['halo_sums'][1]:.3e}, {res['into_halo']} ELL slots "
+                f"read the halo; forward {f_rel:.3e}, loss {l_rel:.3e}, "
+                f"gradients {g_rel:.3e} of max against the world of 1; "
+                f"forward launches {res['fwd_counts']}, step launches "
+                f"{res['step_counts']}")
+            facing = res["halo_sums"][1 if r == 0 else 0]
+            want_f = dict(pna_layer=6, pna_scatter_bwd=0,
+                          ell_gather_bwd_csr=0, ell_gather_bwd=0, readout=0)
+            want_s = dict(pna_layer=6, pna_scatter_bwd=6,
+                          ell_gather_bwd_csr=6, ell_gather_bwd=0, readout=0)
+            if not (ok_f and l_rel <= TOL and g_rel <= TOL and facing > 0
+                    and res["fwd_counts"] == want_f
+                    and res["step_counts"] == want_s):
+                raise AssertionError(f"gloo rank {r} disagrees with the "
+                                     f"world of 1 or missed its kernels")
+            per_rank.append(dict(forward_rel_err=f_rel, loss_rel_err=l_rel,
+                                 grad_rel_err=g_rel,
+                                 halo_sums=res["halo_sums"],
+                                 into_halo=res["into_halo"],
+                                 fwd_counts=res["fwd_counts"],
+                                 step_counts=res["step_counts"]))
+        out["gloo_world"] = per_rank
+    print("parallel " + json.dumps(out), flush=True)
+    return out, entry
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -5416,6 +5995,10 @@ def main():
         tgraphs=tgraphs, tb=tb, target=target, state0=state0,
         fresh_step=fresh_step, zero_counts=zero_counts, counts=counts,
         only=only, smi=smi, native_build_s=native_build_s)
+    parallel, parallel_entry = parallel_phases(
+        dev=dev, tgraphs=tgraphs, tb=tb, target=target, state0=state0,
+        fresh_step=fresh_step, zero_counts=zero_counts, counts=counts,
+        only=only, smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -5783,7 +6366,7 @@ def main():
              **report[name + ("" if mode == "f32" else f"_{mode}")])
         for name, src, line, modes in EDGE_KERNELS.values()
         for mode in modes
-    ]
+    ] + [parallel_entry]
     print(json.dumps({
         "kernels": kernels,
         "forward": dict(batch_graphs=BATCH_GRAPHS,
@@ -5814,6 +6397,7 @@ def main():
                          edge_dim=4, **edge_gat),
         "measurement": measurement,
         "trainer_verify": trainer_verify,
+        "parallel": parallel,
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

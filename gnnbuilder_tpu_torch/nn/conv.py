@@ -112,6 +112,12 @@ def _finish(out, act, skip):
     return out
 
 
+def _halo_on() -> bool:
+    from gnnbuilder_tpu_torch.parallel.halo import active_halo
+
+    return active_halo() is not None
+
+
 def _mp_layer(g: GraphBatch, conv: str, v, act, skip, **operands):
     """The layer through the mp layer kernel when ``dispatch.mp_layer_cfg``
     gives a route for ``conv``, else None (the caller's plain path)."""
@@ -479,6 +485,13 @@ class GATConv(torch.nn.Module):
         if g.edge_feat is None:
             raise ValueError("GATConv with edge_dim needs the batch's edge "
                              "features")
+        from gnnbuilder_tpu_torch.parallel.halo import active_scope
+
+        if active_scope() is not None:
+            raise NotImplementedError(
+                "GATConv with edge_dim has no sharded forward: its self-loop "
+                "term averages edge features per receiver over the whole "
+                "edge list")
         H, C, n = self.heads, self.out_channels, g.num_nodes
         e = g.edge_feat
         a_edge = (self.lin_edge(e).reshape(-1, H, C)
@@ -623,7 +636,10 @@ class GINEConv(torch.nn.Module):
         if g.edge_feat is None:
             raise ValueError("GINEConv requires edge features")
         e = self.lin_edge(g.edge_feat)
-        cfg = dispatch.gine_layer_cfg(g, act)
+        # under halo the kernel is skipped (the JAX conv's rule): the
+        # edge-slot gathers below take global ids into the replicated
+        # edge arrays
+        cfg = None if _halo_on() else dispatch.gine_layer_cfg(g, act)
         if cfg is not None:
             from gnnbuilder_tpu_torch.ops.cuda.gine_layer import (
                 fused_gine_layer_auto,
@@ -636,7 +652,8 @@ class GINEConv(torch.nn.Module):
                 mode=cfg.get("mode", "f32"), operands=operands)
         if g.nbr_nodes is not None:
             table = torch.relu(ell.ell_gather(x, g.nbr_nodes)
-                               + ell.ell_gather(e, g.nbr_edges))
+                               + ell.ell_gather(e, g.nbr_edges,
+                                                node_rows=False))
             mask = ell.ell_mask(g.nbr_nodes, g.in_degree)[..., None]
             agg = torch.where(mask, table, x.new_zeros(())).sum(1)
         else:

@@ -399,7 +399,8 @@ class GNNModel(torch.nn.Module):
         """Each PNA layer's kernel operands (None: the layers make their
         own): ``pna_layer.layer_operands`` of all layers at once, the
         padded weights of the mode and their staged layout, for layers
-        with the default aggregators and scalers (the kernel's).  Under
+        with the default aggregators and scalers (the kernel's), where the
+        layer's gate lets the kernel run.  Under
         inference in the active policy's mode, cached like
         ``_kernel_params`` (rebuilt after ``set_params`` or an optimizer
         step).  With a gradient, where the layer kernel runs (a card and
@@ -418,12 +419,13 @@ class GNNModel(torch.nn.Module):
             return layer_operands([c._weights() for c in self.gnn_convs],
                                   mode)
 
+        if dispatch.pna_layer_cfg(g, self.gnn_activation) is None:
+            return None
         if not torch.is_grad_enabled():
             return self._cached(f"{mode} pna layers", self._stack_width(),
                                 layers)
-        if (mode != "f32" or self.gnn_convs[0].lin.weight.device.type
-                != "cuda" or dispatch.pna_layer_cfg(g, self.gnn_activation)
-                is None):
+        if (mode != "f32"
+                or self.gnn_convs[0].lin.weight.device.type != "cuda"):
             return None
         return layers()
 
@@ -437,9 +439,11 @@ class GNNModel(torch.nn.Module):
         gradient, from the live weights on every call."""
         from gnnbuilder_tpu_torch.ops import dispatch
         from gnnbuilder_tpu_torch.ops.cuda.gine_layer import layer_operands
+        from gnnbuilder_tpu_torch.parallel.halo import active_halo
 
         if (self.gnn_conv != "gine" or not self.gnn_convs
-                or self.gnn_convs[0].lin0.weight.device.type != "cuda"):
+                or self.gnn_convs[0].lin0.weight.device.type != "cuda"
+                or active_halo() is not None):
             return None
         cfg = dispatch.gine_layer_cfg(g, self.gnn_activation)
         if cfg is None:
@@ -465,7 +469,8 @@ class GNNModel(torch.nn.Module):
         from gnnbuilder_tpu_torch.ops import dispatch
 
         mode = dispatch.policy()
-        if self.gnn_conv != "gat" or torch.is_grad_enabled():
+        if (self.gnn_conv != "gat" or torch.is_grad_enabled()
+                or dispatch._off()):
             return None
         width = self._stack_width()
         if mode == "f32":

@@ -38,6 +38,11 @@ class GlobalPooling(torch.nn.Module):
         return len(self.aggrs)
 
     def forward(self, g: GraphBatch, x):
+        from gnnbuilder_tpu_torch.parallel.halo import active_scope
+
+        scope = active_scope()
+        if scope is not None:
+            return self._sharded(g, x, scope)
         G = g.num_graphs
         seg = g.node_graph
         count = g.n_node.to(x.dtype)[:, None]
@@ -58,4 +63,38 @@ class GlobalPooling(torch.nn.Module):
                     x, g.graph_starts, g.n_node, g.max_graph_nodes_static))
             else:
                 outs.append(segment.segment_max(x, seg, G, count=count))
+        return torch.cat(outs, dim=-1)
+
+    def _sharded(self, g: GraphBatch, x, scope):
+        """Pooling of a rank's node rows in a sharded forward (the JAX
+        package's pooling under halo): add and mean sum the per-graph
+        partials over dp; max all-gathers each rank's per-graph max (-3e38
+        where the rank holds none of a graph's rows) and takes the max,
+        so its gradient goes to the rank, and row, that achieved it (split
+        evenly over ties, as the JAX max); an empty graph gives 0."""
+        from gnnbuilder_tpu_torch.parallel import _comm
+
+        mesh, axis = scope.mesh, scope.axis
+        G = g.num_graphs
+        seg = g.node_graph.long()
+        count = g.n_node.to(x.dtype)[:, None]
+        s = None
+        if "add" in self.aggrs or "mean" in self.aggrs:
+            s = _comm.all_reduce_sum(segment.segment_sum(x, seg, G), mesh,
+                                     axis)
+        outs = []
+        for a in self.aggrs:
+            if a == "add":
+                outs.append(s)
+            elif a == "mean":
+                outs.append(s / count.clamp(min=1.0))
+            else:
+                m = x.new_full((G,) + tuple(x.shape[1:]), float("-inf"))
+                m = m.scatter_reduce(0, seg[:, None].expand_as(x), x,
+                                     reduce="amax", include_self=True)
+                m = torch.where(torch.isfinite(m), m, m.new_full((), -3e38))
+                every = _comm.all_gather(m, mesh, axis)
+                m = every.view((mesh.shape[axis], G) + tuple(x.shape[1:]))
+                m = m.amax(dim=0)
+                outs.append(torch.where(count > 0, m, m.new_zeros(())))
         return torch.cat(outs, dim=-1)

@@ -583,7 +583,22 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
     ``stage_projection`` of its weights (each made here when None).  The
     edge-logit terms go through either; ``rev_csr`` as
     ``fused_gat_layer_vjp`` takes it.  The kernel takes any width, so
-    nothing is padded."""
+    nothing is padded.  Under a halo scope (``parallel.halo``) it runs on
+    this rank's [halo | local | halo] window through ``halo_wrap_layer``,
+    without the reverse table: the backward takes the window's reverse
+    CSR."""
+    from gnnbuilder_tpu_torch.parallel.halo import active_halo, halo_wrap_layer
+
+    if active_halo() is not None:
+        if edge_logits is not None:
+            raise NotImplementedError("the GAT layer's edge terms have no "
+                                      "halo window")
+        return halo_wrap_layer(
+            lambda xw, nb, dg, sk, rc: fused_gat_layer_auto(
+                xw, nb, dg, w, att_src, att_dst, bias, heads,
+                neg_slope=neg_slope, self_loops=self_loops, skip=sk, act=act,
+                mode=mode, prepared=prepared, staged=staged, rev_csr=rc),
+            x, nbr_nodes, in_degree, skip=skip)
     ops = [None if t is None else t.contiguous()
            for t in (x, skip, w, att_src, att_dst, bias, edge_logits,
                      self_edge_logit)]

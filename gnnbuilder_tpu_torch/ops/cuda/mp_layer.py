@@ -415,13 +415,15 @@ class MPLayerFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, v, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
-                block_adj, skip, w0, b0, w1, b1, conv, eps, act):
+                block_adj, skip, w0, b0, w1, b1, conv, eps, act,
+                rev_csr=None):
         out, s = fused_mp_layer(v, nbr_nodes, in_degree, conv, w0, b0, w1,
                                 b1, eps, skip=skip, act=act, save_s=True,
                                 block_adj=block_adj)
         ctx.save_for_backward(v, s, nbr_nodes, in_degree, rev_nbr_nodes,
                               out_degree, block_adj, skip, w0, b0, w1, b1)
         ctx.conv, ctx.eps, ctx.act = conv, float(eps), act
+        ctx.rev_csr = rev_csr
         return out
 
     @staticmethod
@@ -447,44 +449,58 @@ class MPLayerFunction(torch.autograd.Function):
         elif rev is not None:
             dv_agg = fused_gather_backward(ds, rev, out_deg, has_lin=True)
         else:
-            rev_ptr, rev_idx = reverse_csr(nbr, deg)
+            rev_ptr, rev_idx = (ctx.rev_csr()[:2] if ctx.rev_csr is not None
+                                else reverse_csr(nbr, deg))
             dv_agg = fused_gather_backward_csr(ds, rev_ptr, rev_idx,
                                                has_lin=True)
         dv = dv_agg if dv_self is None else dv_self + dv_agg
         return (dv, None, None, None, None, None, dskip, dw0, db0, dw1, db1,
-                None, None, None)
+                None, None, None, None)
 
 
 def fused_mp_layer_vjp(v, nbr_nodes, in_degree, conv: str, w0=None, b0=None,
                        w1=None, b1=None, eps: float = 0.0, skip=None,
                        rev_nbr_nodes=None, out_degree=None,
                        act: Optional[str] = None, block_adj=None,
-                       mode: str = "f32"):
+                       mode: str = "f32", rev_csr=None):
     """Differentiable ``fused_mp_layer``: the kernel forward with s saved
     and the hand-written backward, whose dv runs over ``block_adj`` when
     given, else over the reverse table when both ``rev_nbr_nodes`` and
     ``out_degree`` are given, else over the reverse CSR of
-    ``nbr_nodes``.  Mode "f32" only: the bf16 and int8 modes are
-    inference modes and raise here."""
+    ``nbr_nodes`` (``rev_csr()[:2]`` when ``rev_csr`` is given: a
+    callable returning ``reverse_csr(nbr_nodes, in_degree)``'s arrays
+    first, called only by that backward; else built there).  Mode "f32"
+    only: the bf16 and int8 modes are inference modes and raise here."""
     if mode != "f32":
         raise ValueError(f"mode {mode!r} is an inference mode: no backward")
     if block_adj is not None or rev_nbr_nodes is None or out_degree is None:
         rev_nbr_nodes = out_degree = None
     return MPLayerFunction.apply(v, nbr_nodes, in_degree, rev_nbr_nodes,
                                  out_degree, block_adj, skip, w0, b0, w1, b1,
-                                 conv, float(eps), act)
+                                 conv, float(eps), act, rev_csr)
 
 
 def fused_mp_layer_auto(v, nbr_nodes, in_degree, conv: str, w0=None,
                         b0=None, w1=None, b1=None, eps: float = 0.0,
                         skip=None, rev_nbr_nodes=None, out_degree=None,
                         act: Optional[str] = None, block_adj=None,
-                        mode: str = "f32"):
+                        mode: str = "f32", rev_csr=None):
     """The layer as a conv calls it: the differentiable path when grad
     mode is on and an input needs a gradient (mode "f32" only: an
     inference mode raises there), else the kernel without s; float32
     weights are brought to ``mode`` here (``prepare_layer``).  The kernel
-    takes any width, so nothing is padded."""
+    takes any width, so nothing is padded.  Under a halo scope
+    (``parallel.halo``) it runs on this rank's [halo | local | halo]
+    window through ``halo_wrap_layer``, without the reverse table (a
+    whole-batch layout): the backward takes the window's reverse CSR."""
+    from gnnbuilder_tpu_torch.parallel.halo import active_halo, halo_wrap_layer
+
+    if active_halo() is not None:
+        return halo_wrap_layer(
+            lambda xw, nb, dg, sk, rc: fused_mp_layer_auto(
+                xw, nb, dg, conv, w0=w0, b0=b0, w1=w1, b1=b1, eps=eps,
+                skip=sk, act=act, mode=mode, rev_csr=rc),
+            v, nbr_nodes, in_degree, skip=skip)
     ops = [None if t is None else t.contiguous()
            for t in (v, skip, w0, b0, w1, b1)]
     if torch.is_grad_enabled() and any(
@@ -493,7 +509,8 @@ def fused_mp_layer_auto(v, nbr_nodes, in_degree, conv: str, w0=None,
                                   *ops[2:], eps=eps, skip=ops[1],
                                   rev_nbr_nodes=rev_nbr_nodes,
                                   out_degree=out_degree, act=act,
-                                  block_adj=block_adj, mode=mode)
+                                  block_adj=block_adj, mode=mode,
+                                  rev_csr=rev_csr)
     if mode == "f32":
         return fused_mp_layer(ops[0], nbr_nodes, in_degree, conv, *ops[2:],
                               eps=eps, skip=ops[1], act=act,

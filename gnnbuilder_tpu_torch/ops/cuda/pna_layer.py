@@ -554,7 +554,7 @@ class PNALayerFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
                 skip, w_pre, b_pre, k_post, b_post, w_lin, b_lin, delta,
-                act, staged=None):
+                act, staged=None, rev_csr=None):
         args = [t.contiguous() for t in (x, w_pre, b_pre, k_post, b_post,
                                          w_lin, b_lin)]
         skip = None if skip is None else skip.contiguous()
@@ -567,6 +567,7 @@ class PNALayerFunction(torch.autograd.Function):
                               v, agg_cat, aux, mid, out)
         ctx.delta = float(delta)
         ctx.act = act
+        ctx.rev_csr = rev_csr
         return out
 
     @staticmethod
@@ -622,7 +623,8 @@ class PNALayerFunction(torch.autograd.Function):
                                        has_dev=True, n_cmp=2)
         else:
             dv = fused_pna_scatter_backward(d_mid, aux, agg_cat, deg, nbr,
-                                            v, ks_t, delta)
+                                            v, ks_t, delta,
+                                            rev_csr=ctx.rev_csr)
 
         # pre_nn chains: u = x w_i + b_pre (receiver), v = x w_j
         w_i, w_j = w_pre[:Fin], w_pre[Fin:]
@@ -630,23 +632,25 @@ class PNALayerFunction(torch.autograd.Function):
         dw_pre = torch.cat([x.t() @ du, x.t() @ dv], dim=0)
         db_pre = du.sum(0)
         return (dx, None, None, None, None, dskip, dw_pre, db_pre, dk_post,
-                db_post, dw_lin, db_lin, None, None, None)
+                db_post, dw_lin, db_lin, None, None, None, None)
 
 
 def fused_pna_layer_vjp(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
                         b_post, w_lin, b_lin, delta: float, skip=None,
                         act: Optional[str] = None, rev_nbr_nodes=None,
-                        out_degree=None, staged=None):
+                        out_degree=None, staged=None, rev_csr=None):
     """Differentiable ``fused_pna_layer``: the kernel forward with
     residuals and the hand-written backward, whose dv runs over the
     reverse table when both ``rev_nbr_nodes`` and ``out_degree`` are
-    given.  ``staged`` as for ``fused_pna_layer``."""
+    given, else over the reverse CSR (``rev_csr`` as
+    ``fused_pna_scatter_backward`` takes it).  ``staged`` as for
+    ``fused_pna_layer``."""
     if rev_nbr_nodes is None or out_degree is None:
         rev_nbr_nodes = out_degree = None
     return PNALayerFunction.apply(x, nbr_nodes, in_degree, rev_nbr_nodes,
                                   out_degree, skip, w_pre, b_pre, k_post,
                                   b_post, w_lin, b_lin, float(delta), act,
-                                  staged)
+                                  staged, rev_csr)
 
 
 def _rup(n: int, m: int = 128) -> int:
@@ -730,14 +734,27 @@ def layer_operands(layers, mode: str):
 def fused_pna_layer_auto(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
                          b_post, w_lin, b_lin, delta: float, skip=None,
                          act: Optional[str] = None, rev_nbr_nodes=None,
-                         out_degree=None, mode: str = "f32", operands=None):
+                         out_degree=None, mode: str = "f32", operands=None,
+                         rev_csr=None):
     """The layer at any widths: ``pad_operands`` outside the autograd
     Function, then the first Fout columns of the result.  Takes the
     differentiable path when grad mode is on and an input needs a
     gradient (mode "f32" only), else the kernel without residuals; float32
     weights are brought to ``mode`` after padding (``prepare_layer``), or
     taken from ``operands`` (``layer_operands`` of the same weights in
-    ``mode``), which also carry their staged layout."""
+    ``mode``), which also carry their staged layout.  Under a halo scope
+    (``parallel.halo``) it runs on this rank's [halo | local | halo]
+    window through ``halo_wrap_layer``, without the reverse table: the
+    backward takes the window's reverse CSR (``rev_csr``)."""
+    from gnnbuilder_tpu_torch.parallel.halo import active_halo, halo_wrap_layer
+
+    if active_halo() is not None:
+        return halo_wrap_layer(
+            lambda xw, nb, dg, sk, rc: fused_pna_layer_auto(
+                xw, nb, dg, w_pre, b_pre, k_post, b_post, w_lin, b_lin,
+                delta, skip=sk, act=act, mode=mode, operands=operands,
+                rev_csr=rc),
+            x, nbr_nodes, in_degree, skip=skip)
     Fout = w_lin.shape[1]
     if operands is not None:
         if operands["mode"] != mode:
@@ -763,7 +780,8 @@ def fused_pna_layer_auto(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
         out = fused_pna_layer_vjp(ops[0], nbr_nodes, in_degree, *ops[1:7],
                                   delta, skip=ops[7], act=act,
                                   rev_nbr_nodes=rev_nbr_nodes,
-                                  out_degree=out_degree, staged=staged)
+                                  out_degree=out_degree, staged=staged,
+                                  rev_csr=rev_csr)
     else:
         c = [None if t is None else t.contiguous() for t in ops]
         out = fused_pna_layer(c[0], nbr_nodes, in_degree, *c[1:7], delta,

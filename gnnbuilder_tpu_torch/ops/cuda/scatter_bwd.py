@@ -256,7 +256,7 @@ def _launch(d_mid, aux, agg_cat, in_degree, ks_t, delta):
 
 
 def fused_pna_scatter_backward(d_mid, aux, agg_cat, in_degree, nbr_nodes, v,
-                               ks_t, delta: float):
+                               ks_t, delta: float, rev_csr=None):
     """dv [N, F] of the PNA aggregation, on a batch with or without a
     reverse table.  d_mid [N, Fout] is the cotangent of mid; aux [N, 5F],
     agg_cat [N, 4F] (its std block is read) and v [N, F] are the forward's
@@ -264,13 +264,16 @@ def fused_pna_scatter_backward(d_mid, aux, agg_cat, in_degree, nbr_nodes, v,
     table; ks_t [3Fout, 4F] the transposed scaler blocks of k_post.  A
     CUDA ``v`` runs ``fused_pna_scatter_cstk`` (widths that are multiples
     of 128, else it raises), ``reverse_csr`` and
-    ``fused_gather_backward_csr``, each launch counted by its own wrapper;
-    a CPU ``v`` runs the plain version."""
+    ``fused_gather_backward_csr``, each launch counted by its own wrapper
+    (``rev_csr()[:2]`` in place of ``reverse_csr`` when ``rev_csr`` is
+    given: a callable returning the reverse CSR's arrays first, as a halo
+    window keeps it); a CPU ``v`` runs the plain version."""
     _check(d_mid, aux, agg_cat, in_degree, nbr_nodes, v, ks_t)
     if v.device.type == "cuda":
         cstk = fused_pna_scatter_cstk(d_mid, aux, agg_cat, in_degree, ks_t,
                                       delta)
-        rev_ptr, rev_idx = reverse_csr(nbr_nodes, in_degree)
+        rev_ptr, rev_idx = (rev_csr()[:2] if rev_csr is not None
+                            else reverse_csr(nbr_nodes, in_degree))
         return fused_gather_backward_csr(cstk, rev_ptr, rev_idx, v,
                                          has_lin=True, has_dev=True, n_cmp=2)
     if v.device.type != "cpu":

@@ -34,6 +34,15 @@ and GAT's and EdgeConv's block layers decline under int8
 the conv has edge features: then the layer kernel declines too.
 Under an active int8 calibration every gate that would give a kernel
 the int8 mode declines: the plain path owns the per-site state.
+
+Under a halo scope (``parallel.halo.halo_scope``: a model run on one
+rank's node rows) the gates follow the JAX package's: the block product,
+the stack kernels, GAT's and EdgeConv's block kernels, the
+multi-aggregate and the readout decline (their layouts span the whole
+batch); the per-layer mp, PNA and GAT kernels take the rank's rows, and
+their wrappers run them on its [halo | local | halo] window
+(``parallel.halo.halo_wrap_layer``); the mp layer takes its ELL mode
+there, never the block mode.
 """
 
 from __future__ import annotations
@@ -87,6 +96,13 @@ def no_fused():
 def _off() -> bool:
     """Whether the kernel gates decline: mode "never" or ``no_fused``."""
     return _MODE == "never" or _SUPPRESSED.get()
+
+
+def _halo_on() -> bool:
+    """Whether a halo scope is active (``parallel.halo``)."""
+    from gnnbuilder_tpu_torch.parallel.halo import active_halo
+
+    return active_halo() is not None
 
 
 # inference scope: the stack kernel has no backward, so the model takes it
@@ -159,7 +175,7 @@ def block_cfg(g) -> Optional[dict]:
     dense operand to bf16 (the JAX package's ``block_cfg``).  Needs a
     block-packed batch; "never" pins the ELL / edge-list paths, as in the
     JAX package."""
-    if _MODE == "never" or g.block_adj is None:
+    if _MODE == "never" or g.block_adj is None or _halo_on():
         return None
     return {"mm": "bf16"} if policy() == "bf16" else {}
 
@@ -178,7 +194,7 @@ def mp_stack_cfg(g, conv: str) -> Optional[dict]:
     takes ``mp_layer_cfg``'s route."""
     if conv not in MP_STACK_CONVS:
         return None
-    if _off() or not inference_on():
+    if _off() or not inference_on() or _halo_on():
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -207,7 +223,7 @@ def mp_layer_cfg(g, conv: str) -> Optional[dict]:
     quant = name == "int8" and conv not in INT8_NEUTRAL_CONVS
     if quant and _calibrating():
         return None
-    if g.block_adj is not None:
+    if g.block_adj is not None and not _halo_on():
         if conv not in BLOCK_LAYER_CONVS or g.block_size_static % 128:
             return None
         cfg = {"block": True}
@@ -233,7 +249,7 @@ def pna_stack_cfg(g) -> Optional[dict]:
     block size beyond that are the kernel's to check: the CUDA wrapper
     raises on what it does not take rather than giving way to the plain
     version."""
-    if _off() or not inference_on():
+    if _off() or not inference_on() or _halo_on():
         return None
     if g.nbr_nodes is None or g.block_adj is None:
         return None
@@ -283,7 +299,8 @@ def gat_block_cfg(g, act, edge: bool = False) -> Optional[dict]:
     take."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
-    if _off() or not inference_on() or _int8_declined("gat_block"):
+    if (_off() or not inference_on() or _int8_declined("gat_block")
+            or _halo_on()):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -333,7 +350,7 @@ def agg_cfg(g) -> Optional[dict]:
     the block product on a block-packed batch, while PNA's block path
     takes the kernel for max and min.  The TPU's lane, VMEM and tile
     gates are left out: this kernel takes any width and row count."""
-    if _off() or g.nbr_nodes is None:
+    if _off() or g.nbr_nodes is None or _halo_on():
         return None
     if g.max_graph_nodes_static <= 0:
         return None
@@ -372,7 +389,8 @@ def edge_block_cfg(g, act) -> Optional[dict]:
     ELL table, not under int8; here also an activation the kernel has."""
     from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
 
-    if _off() or not inference_on() or _int8_declined("edge_block"):
+    if (_off() or not inference_on() or _int8_declined("edge_block")
+            or _halo_on()):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -396,7 +414,7 @@ def readout_config(g, aggrs, act, out_act) -> Optional[dict]:
         READOUT_OUT_ACTS,
     )
 
-    if _off():
+    if _off() or _halo_on():
         return None
     if not ({"add", "mean"} & set(aggrs)):
         return None

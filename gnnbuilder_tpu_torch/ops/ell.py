@@ -28,8 +28,22 @@ def ell_mask(nbr_nodes, in_degree):
     return slot < in_degree[:, None]
 
 
-def ell_gather(values, table):
-    """Gather rows of ``values`` [M, F] by an ELL id table [N, W] -> [N, W, F]."""
+def ell_gather(values, table, node_rows: bool = True):
+    """Gather rows of ``values`` [M, F] by an ELL id table [N, W] -> [N, W, F].
+
+    Under a sharded forward's scope (``parallel.halo``: ``halo_scope`` or
+    ``allgather_scope``) ``values`` holds this rank's rows and ``table``
+    global ids: the gather reads the ring-exchanged [halo | local | halo]
+    window, out-of-window (ghost and pad) ids clamped to its edge and
+    masked by degree downstream, or the rows all-gathered over dp.
+    ``node_rows=False`` marks an edge-indexed gather (GINE's edge slots):
+    under halo the edge arrays replicate, so the ids are taken as they
+    are (the JAX package's ``ell_gather``)."""
+    from gnnbuilder_tpu_torch.parallel.halo import active_scope, scoped_gather
+
+    scope = active_scope()
+    if scope is not None:
+        return scoped_gather(scope, values, table, node_rows)
     return values[table.long()]
 
 
