@@ -146,7 +146,15 @@ weights):
   through host memory): PNA's forward and step on dp = 2 against the
   world of 1, each rank's launches and its window's halos; CUDA-event
   times of the halo forward and step beside ``Program.forward`` and
-  ``make_train_step``.
+  ``make_train_step``;
+* design-space exploration (``dse_phases``, ``gnnbuilder_tpu_torch.
+  dse``): ``measure_config`` on four QM9 design points (PNA b1024 block
+  f32, GCN b256 without an ELL table under bf16, GAT b64 standard f32,
+  GINE b256 block), each timed by ``Program.benchmark_inner`` over CUDA
+  graphs with its row, its kernels' launches and its forward against the
+  plain path; ``measure_many`` resuming a CSV; the ``ell_width``
+  override reaching packing; ``from_pretrained`` -> ``tune_kernels`` ->
+  ``verify`` where scikit-learn is installed.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -155,7 +163,8 @@ with ``torch.profiler``.
 
 Output: one flushed, timestamped line before and after every phase; the
 ptxas report of the build; a ``measurement`` JSON line per measurement
-cell, a ``trainer_verify`` JSON line per part of that phase; then, each
+cell, a ``trainer_verify`` JSON line per part of that phase, a ``dse``
+JSON line per design point; then, each
 on its own line, a ``kernels`` JSON object, the card's name and power
 limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when CUDA is unavailable, when run
@@ -5078,6 +5087,168 @@ def parallel_phases(*, dev, tgraphs, tb, target, state0, fresh_step,
     return out, entry
 
 
+# the DSE phase: design points of ``dse.measure.measure_config`` on QM9
+# (DSEConfig's defaults otherwise: hidden 128, output 64, 3 layers), each
+# with the kernels its forward must launch
+DSE_POINTS = (
+    ("pna b1024 block f32",
+     dict(conv="pna", batch_size=1024, block_size=128),
+     ("pna_block_stack", "readout")),
+    ("gcn b256 ell_width=0 bf16",
+     dict(conv="gcn", batch_size=256, ell_width=0, precision="bf16"),
+     ("readout",)),
+    ("gat b64 standard f32", dict(conv="gat", batch_size=64),
+     ("gat_layer", "readout")),
+    ("gine b256 block f32",
+     dict(conv="gine", batch_size=256, block_size=128),
+     ("gine_layer", "readout")),
+)
+DSE_ITERS = 12
+# the keys of a measure_config row beside the config's (the JAX package's)
+DSE_ROW_KEYS = ("dataset", "num_nodes", "num_edges", "latency_us",
+                "latency_per_graph_us", "graphs_per_s", "edges_per_s",
+                "protocol", "overhead_us", "flops", "bytes_accessed",
+                "peak_hbm_bytes", "compile_s", "measure_s")
+
+
+def dse_phases(*, dev, zero_counts, counts, smi):
+    """The design-space exploration on the card (``gnnbuilder_tpu_torch.
+    dse``): ``measure_config`` called directly on each of ``DSE_POINTS``
+    (``Program.benchmark_inner`` over CUDA graphs, ``cost_analysis``):
+    the row and its keys, the kernels launched (counts set to 0 just
+    before), the design point's forward against the plain path of the
+    same Program (TOL under f32, ``SLICE_CPU_TOL`` for a model under a
+    policy); ``measure_many`` resuming a temporary CSV;
+    ``set_kernel_overrides(ell_width=0)`` reaching packing on the card;
+    and, where scikit-learn imports, ``DSEEngine.from_pretrained`` ->
+    ``tune_kernels(apply=True)`` -> ``verify`` of the best point.  Prints
+    a ``dse`` JSON line per point; returns the results."""
+    import csv
+
+    from gnnbuilder_tpu_torch.core.graph import build_graph_batch
+    from gnnbuilder_tpu_torch.data.datasets import load_dataset
+    from gnnbuilder_tpu_torch.dse import (
+        DSEConfig,
+        DSEEngine,
+        measure_config,
+        measure_many,
+    )
+    from gnnbuilder_tpu_torch.dse.measure import _design_point, config_key
+    from gnnbuilder_tpu_torch.ops import dispatch
+
+    out = {"points": {}, "smi": smi}
+    for name, kw, need in DSE_POINTS:
+        with phase(f"dse: measure_config {name} (qm9)"):
+            cfg = DSEConfig(**kw)
+            zero_counts()
+            row = measure_config(cfg, dataset="qm9", iters=DSE_ITERS)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in counts().items() if v}
+            absent = [k for k in DSE_ROW_KEYS + tuple(cfg.to_dict())
+                      if k not in row]
+            if absent:
+                raise AssertionError(f"dse {name}: row lacks {absent}")
+            if not (row["latency_us"] > 0 and row["peak_hbm_bytes"] > 0
+                    and row["flops"] > 0
+                    and row["protocol"].startswith("inner")):
+                raise AssertionError(f"dse {name}: row {row}")
+            missed = [k for k in need if not launches.get(k)]
+            if missed:
+                raise AssertionError(f"dse {name}: launched {launches}, "
+                                     f"none of {missed}")
+            # the same design point (seeded), kernels against plain
+            _, prog, b = _design_point(cfg, "qm9", 0, dev)
+            got = prog.forward(b)
+            dispatch.set_fused_mode("never")
+            try:
+                want = prog.forward(b)
+            finally:
+                dispatch.set_fused_mode("auto")
+            tol = (TOL if cfg.precision == "f32"
+                   else SLICE_CPU_TOL[cfg.precision])
+            m = b.graph_mask
+            ok, _, rel = close_enough(got[m], want[m], tol)
+            if not ok or tuple(got.shape) != (b.num_graphs, 1):
+                raise AssertionError(f"dse {name}: forward {rel:.3e} of max "
+                                     f"off the plain path (tol {tol})")
+            res = dict(point=name, row=row, launches=launches,
+                       forward_rel_err=rel, tol=tol, smi=smi)
+            print("dse " + json.dumps(res), flush=True)
+            log(f"dse {name}: {row['latency_us']:.2f} us a forward "
+                f"({row['protocol']}), {row['graphs_per_s']:.1f} graphs/s, "
+                f"peak {row['peak_hbm_bytes']:.4e} bytes, measured in "
+                f"{row['measure_s']:.2f} s; launches {launches}; forward "
+                f"{rel:.3e} of max off the plain path ({smi})")
+            out["points"][name] = res
+
+    with phase("dse: measure_many resumes a temporary CSV"):
+        small = [DSEConfig(conv=c, batch_size=64, gnn_num_layers=2)
+                 for c in ("gcn", "sage", "gin")]
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "corpus.csv")
+            first = measure_many(small[:2], dataset="esol", iters=4,
+                                 out_csv=path, verbose=False)
+            rows = measure_many(small, dataset="esol", iters=4,
+                                out_csv=path, verbose=False)
+            with open(path) as f:
+                on_disk = list(csv.DictReader(f))
+        resumed = [isinstance(r["latency_us"], str) for r in rows]
+        if (len(first) != 2 or len(on_disk) != 3
+                or resumed != [True, True, False]
+                or [r["_key"] for r in on_disk] != [
+                    config_key(c) for c in small]):
+            raise AssertionError(f"dse: measure_many resumed {resumed}, "
+                                 f"{len(on_disk)} rows on disk")
+        log("dse: measure_many measured 2 points, then resumed them from "
+            "the CSV and measured the third")
+        out["resume"] = dict(measured_first=2, resumed=2, measured_then=1)
+
+    with phase("dse: set_kernel_overrides(ell_width=0) reaches packing on "
+               "the card"):
+        graphs = load_dataset("qm9", n=16, seed=0)
+        try:
+            dispatch.set_kernel_overrides(ell_width=0)
+            b0 = build_graph_batch(graphs, device=dev)
+            dispatch.set_kernel_overrides(ell_width=None)
+            b1 = build_graph_batch(graphs, device=dev)
+        finally:
+            dispatch.set_kernel_overrides(ell_width=None)
+        if not (b0.nbr_nodes is None and b1.nbr_nodes is not None
+                and b1.nbr_nodes.is_cuda):
+            raise AssertionError("dse: the ell_width override did not "
+                                 "reach packing")
+        log("dse: ell_width=0 packed no table, None the automatic one")
+
+    with phase("dse: from_pretrained -> tune_kernels -> verify"):
+        try:
+            import sklearn  # noqa: F401
+        except ImportError:
+            sklearn = None
+        if sklearn is None:
+            log("dse: scikit-learn is not installed here, so "
+                "DSEEngine.from_pretrained cannot fit the shipped card "
+                "corpus; that fit runs where scikit-learn is installed "
+                "(the CPU tests hold it against the JAX package's)")
+            out["pretrained"] = None
+        else:
+            eng = DSEEngine.from_pretrained("qm9")
+            try:
+                r = eng.tune_kernels("pna", batch_size=1024, apply=True)
+                truth = eng.verify([r["best"]], iters=DSE_ITERS)[0]
+            finally:
+                dispatch.set_kernel_overrides(ell_width=None)
+            if not truth["latency_per_graph_us"] > 0:
+                raise AssertionError(f"dse: verify gave {truth}")
+            out["pretrained"] = dict(
+                best=r["best"].to_dict(), applied=r["applied"],
+                predicted_us_per_graph=r["predicted_us_per_graph"],
+                measured_us_per_graph=truth["latency_per_graph_us"])
+            log(f"dse: tuned pna b1024 to {r['applied']}: predicted "
+                f"{r['predicted_us_per_graph']:.4f} us a graph, measured "
+                f"{truth['latency_per_graph_us']:.4f} ({smi})")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -5999,6 +6170,8 @@ def main():
         dev=dev, tgraphs=tgraphs, tb=tb, target=target, state0=state0,
         fresh_step=fresh_step, zero_counts=zero_counts, counts=counts,
         only=only, smi=smi)
+    dse = dse_phases(dev=dev, zero_counts=zero_counts, counts=counts,
+                     smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -6398,6 +6571,7 @@ def main():
         "measurement": measurement,
         "trainer_verify": trainer_verify,
         "parallel": parallel,
+        "dse": dse,
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

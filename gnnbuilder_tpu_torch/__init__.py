@@ -1,15 +1,19 @@
 """gnnbuilder_tpu_torch — the PyTorch/CUDA port of gnnbuilder_tpu.
 
 The JAX package ``gnnbuilder_tpu`` is the reference; this package imports
-torch and numpy only, and offers the same public surface but for the
-design-space exploration (``NOT_YET_PORTED``).  Its models (``GNNModel``
+torch and numpy only (and scikit-learn where a DSE cost model is fit or
+used), and offers the same public surface (``__all__`` is the JAX
+package's; ``FakeDataset`` and ``load_dataset`` are importable from here
+too).  Its models (``GNNModel``
 with the nine convs, global pooling and an MLP head) run inference
 through ``Program.forward``, in float32 or under the bf16 and int8
 precision policies, training through ``train.make_train_step`` (fed by
 ``data.loader.GraphLoader``, with ``GNNModel(remat=True)`` to trade
 memory for a replay), golden verification through ``verify`` and
-``Program.run_parity_check``, and serving through ``serve.GNNServer``
-(micro-batching over a live ``Program`` or over its ``export_bundle``).
+``Program.run_parity_check``, serving through ``serve.GNNServer``
+(micro-batching over a live ``Program`` or over its ``export_bundle``),
+and design-space exploration through ``dse`` (``DSEEngine``, with a
+cost model fit on a corpus measured on the card).
 On the card their hot paths run hand-written CUDA kernels (``ops/cuda``,
 built from ``csrc`` with nvcc at first use); on the CPU, which a caller
 asks for, the kernels' plain versions.  Batches are packed on the host
@@ -23,6 +27,7 @@ from gnnbuilder_tpu_torch.compile.program import (
 )
 from gnnbuilder_tpu_torch.core.graph import GraphBatch, build_graph_batch
 from gnnbuilder_tpu_torch.data.datasets import FakeDataset, load_dataset
+from gnnbuilder_tpu_torch.dse import CostModel, DSEConfig, DSEEngine
 from gnnbuilder_tpu_torch.nn.conv import (
     SUPPORTED_GNN_CONVS,
     EdgeConv,
@@ -53,8 +58,8 @@ from gnnbuilder_tpu_torch.utils.stats import (
 __version__ = "0.1.0"
 
 # names of the JAX package's public surface this package does not have
-# yet: the design-space exploration (ROADMAP)
-NOT_YET_PORTED = ("DSEEngine", "DSEConfig", "CostModel")
+# yet: none
+NOT_YET_PORTED = ()
 
 __all__ = [
     "GraphBatch",
@@ -76,12 +81,13 @@ __all__ = [
     "Program",
     "enable_persistent_cache",
     "Precision",
+    "DSEEngine",
+    "DSEConfig",
+    "CostModel",
     "compute_max_nodes_and_edges",
     "compute_average_nodes_and_edges",
     "compute_median_nodes_and_edges",
     "compute_average_degree",
     "compute_median_degree",
     "compute_in_deg_histogram",
-    "FakeDataset",
-    "load_dataset",
 ]

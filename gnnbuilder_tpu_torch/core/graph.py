@@ -22,7 +22,8 @@ import torch
 from gnnbuilder_tpu_torch.core import packing
 
 __all__ = ["GraphBatch", "build_graph_batch", "pad_sizes",
-           "resolve_block_size", "resolve_device", "ELL_MAX_WIDTH"]
+           "resolve_block_size", "resolve_device", "ELL_MAX_WIDTH",
+           "set_default_ell_width"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -180,6 +181,20 @@ def resolve_block_size(block_size, n_node_list) -> Optional[int]:
     return _BLOCK_AUTO_SIZE
 
 
+# process-wide default for build_graph_batch(ell_width=None): the DSE's
+# handle on the batch layout (ops/dispatch.set_kernel_overrides)
+_DEFAULT_ELL_WIDTH: Optional[int] = None
+
+
+def set_default_ell_width(w: Optional[int]) -> None:
+    """Set the ELL width that ``build_graph_batch`` packs with when called
+    with ``ell_width=None``: ``None`` restores the automatic policy, ``0``
+    packs no table (the edge-list path), an int fixes the width.  Only
+    batches packed after the call see it."""
+    global _DEFAULT_ELL_WIDTH
+    _DEFAULT_ELL_WIDTH = w
+
+
 def build_graph_batch(
     graphs,
     node_budget: Optional[int] = None,
@@ -203,8 +218,9 @@ def build_graph_batch(
     preserving, greedy) so no graph crosses a B-row boundary, pad rows sit
     between graphs, and ``block_adj`` carries the [N/B, B, B] adjacency.
     ``block_size="auto"`` applies ``resolve_block_size``.
-    ``ell_width``: None = batch max in-degree rounded up to 4 (no table
-    above ELL_MAX_WIDTH), 0 = no table, an int = that width.
+    ``ell_width``: None = the process default (``set_default_ell_width``),
+    and where that is None too, the batch max in-degree rounded up to 4
+    (no table above ELL_MAX_WIDTH); 0 = no table, an int = that width.
     """
     device = resolve_device(device)
     if block_size == "auto":
@@ -311,6 +327,8 @@ def build_graph_batch(
     )
 
     max_deg = int(in_degree.max()) if num_edges else 0
+    if ell_width is None:
+        ell_width = _DEFAULT_ELL_WIDTH
     if ell_width is None:
         w = max(_round_up(max_deg, 4), 4)
         ell_width = w if w <= ELL_MAX_WIDTH else 0

@@ -523,6 +523,7 @@ class GNNModel(torch.nn.Module):
         from gnnbuilder_tpu_torch.ops import dispatch
         from gnnbuilder_tpu_torch.ops.cuda.pna_block import (
             STACK_ACTS,
+            STACK_WIDTH,
             pna_block_stack_auto,
         )
 
@@ -532,6 +533,10 @@ class GNNModel(torch.nn.Module):
         if cfg is None:
             return None
         width = self._stack_width()
+        if width > STACK_WIDTH:
+            # the kernel holds one 128-wide row block; a wider stack takes
+            # the per-layer path (row 5 on the ELL table)
+            return None
         L = self.gnn_num_layers
         mode = cfg.get("mode", "f32")
         if mode == "f32":

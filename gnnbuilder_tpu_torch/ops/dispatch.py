@@ -35,6 +35,17 @@ the conv has edge features: then the layer kernel declines too.
 Under an active int8 calibration every gate that would give a kernel
 the int8 mode declines: the plain path owns the per-site state.
 
+``set_kernel_overrides`` is the DSE's handle on the knobs, with the JAX
+package's signature: ``ell_width`` sets the packing-time default
+(``core.graph.set_default_ell_width``); ``block_mode="off"`` makes
+``block_cfg``, the block stacks', GAT's and EdgeConv's block gates and
+the mp layer's block mode decline, as the JAX ``_BLOCK == "off"`` does
+(the convs then take the ELL table or the edge list).  The JAX package's
+other knobs schedule its Pallas kernels on the TPU (tile heights, window
+DMAs, the one-hot gather's precision, the block product's MXU
+precision); the card's kernels have no such schedule, so only ``None``,
+their one policy, is taken.
+
 Under a halo scope (``parallel.halo.halo_scope``: a model run on one
 rank's node rows) the gates follow the JAX package's: the block product,
 the stack kernels, GAT's and EdgeConv's block kernels, the
@@ -52,6 +63,7 @@ import contextvars
 from typing import Optional
 
 __all__ = ["set_fused_mode", "get_fused_mode", "no_fused",
+           "set_kernel_overrides",
            "inference_mode", "policy", "inference_on",
            "block_cfg", "pna_stack_cfg", "mp_stack_cfg", "mp_layer_cfg",
            "pna_layer_cfg", "gat_block_cfg", "gat_layer_cfg", "agg_cfg",
@@ -69,6 +81,22 @@ MP_STACK_CONVS = ("gcn", "sage")
 BLOCK_LAYER_CONVS = ("gcn", "lg", "simple")
 
 _MODE = "auto"
+
+# ``set_kernel_overrides(block_mode=)``: None, or "off" (no block route)
+_BLOCK: Optional[str] = None
+
+# the JAX package's knobs that schedule its Pallas kernels on the TPU and
+# have no counterpart in the card's kernels: knob -> what it sets there
+TPU_SCHEDULE_KNOBS = {
+    "tile_rows": "the Pallas node tile height",
+    "gather_mode": "the one-hot MXU gather's precision",
+    "sub_rows": "the window gather's sub-tile height",
+    "window_mode": "the window DMA schedule",
+}
+# block_mode values of the JAX package that are TPU A/B handles: "fused"
+# ranks the windowed kernels over the block route, the others pin the
+# block product's MXU precision
+BLOCK_AB_MODES = ("fused", "split2", "bf16", "highest")
 
 # kernels whose gate declines under int8 in the JAX package itself (its
 # ``_r4_block_cfg`` without ``int8_ok``): the plain path quantizes
@@ -168,14 +196,65 @@ def get_fused_mode() -> str:
     return _MODE
 
 
+_KEEP = object()  # sentinel: "leave this knob untouched"
+
+
+def set_kernel_overrides(
+    tile_rows=_KEEP, gather_mode=_KEEP, ell_width=_KEEP, sub_rows=_KEEP,
+    window_mode=_KEEP, block_mode=_KEEP,
+) -> None:
+    """Pin the kernel knobs a DSE design point selects (the JAX package's
+    signature).  Explicit ``None`` restores a knob's policy; an omitted
+    knob is left untouched.
+
+    ``ell_width`` is a packing-time layout knob: it sets the default of
+    ``build_graph_batch(ell_width=None)`` and so reaches only batches
+    packed after the call.  ``block_mode`` takes None or "off" (no block
+    route); the JAX package's A/B values raise.  ``tile_rows``,
+    ``gather_mode``, ``sub_rows`` and ``window_mode`` take None only:
+    they schedule the JAX package's Pallas kernels on the TPU, and the
+    card's kernels have no such schedule.  Every value is checked before
+    any is set."""
+    global _BLOCK
+    for knob, value in (("tile_rows", tile_rows),
+                        ("gather_mode", gather_mode),
+                        ("sub_rows", sub_rows),
+                        ("window_mode", window_mode)):
+        if value is not _KEEP and value is not None:
+            raise ValueError(
+                f"{knob}={value!r}: {knob} sets "
+                f"{TPU_SCHEDULE_KNOBS[knob]}, a Pallas/Mosaic schedule "
+                f"knob of the TPU kernels that the card's kernels lack; "
+                f"only None is taken")
+    if block_mode is not _KEEP:
+        if block_mode in BLOCK_AB_MODES:
+            raise ValueError(
+                f"block_mode={block_mode!r} is a TPU A/B handle of the JAX "
+                f"package (block route precedence or MXU precision) that "
+                f"is not ported; None or \"off\" is taken")
+        if block_mode not in (None, "off"):
+            raise ValueError(f"unknown block_mode {block_mode!r}")
+        _BLOCK = block_mode
+    if ell_width is not _KEEP:
+        from gnnbuilder_tpu_torch.core import graph
+
+        graph.set_default_ell_width(ell_width)
+
+
+def _block_off() -> bool:
+    """Whether ``set_kernel_overrides(block_mode="off")`` is in force."""
+    return _BLOCK == "off"
+
+
 def block_cfg(g) -> Optional[dict]:
     """{} when a conv's plain aggregation takes the block-diagonal product
     (``ops.block``) on batch ``g``, else None (the ELL table or the edge
     list); {"mm": "bf16"} under the bf16 policy, whose product rounds its
     dense operand to bf16 (the JAX package's ``block_cfg``).  Needs a
     block-packed batch; "never" pins the ELL / edge-list paths, as in the
-    JAX package."""
-    if _MODE == "never" or g.block_adj is None or _halo_on():
+    JAX package, and so does ``block_mode="off"``."""
+    if (_MODE == "never" or _block_off() or g.block_adj is None
+            or _halo_on()):
         return None
     return {"mm": "bf16"} if policy() == "bf16" else {}
 
@@ -194,7 +273,7 @@ def mp_stack_cfg(g, conv: str) -> Optional[dict]:
     takes ``mp_layer_cfg``'s route."""
     if conv not in MP_STACK_CONVS:
         return None
-    if _off() or not inference_on() or _halo_on():
+    if _off() or _block_off() or not inference_on() or _halo_on():
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -206,7 +285,8 @@ def mp_layer_cfg(g, conv: str) -> Optional[dict]:
     ``conv`` layer ("gcn", "gin", "sage", "lg" or "simple") on batch
     ``g``: {"block": True} (block mode) on a block-packed batch at a
     block size that is a multiple of 128 for gcn, lg and simple; {} (ELL
-    mode) on a standard-packed batch with an ELL table; else None (the
+    mode) on a standard-packed batch with an ELL table, and on a
+    block-packed one under ``block_mode="off"``; else None (the
     conv's plain path: the block product for GIN and SAGE and other block
     sizes on block batches, the edge list without a table).  In or
     out of inference scope, since the layer has a backward.  Under bf16
@@ -223,7 +303,7 @@ def mp_layer_cfg(g, conv: str) -> Optional[dict]:
     quant = name == "int8" and conv not in INT8_NEUTRAL_CONVS
     if quant and _calibrating():
         return None
-    if g.block_adj is not None and not _halo_on():
+    if g.block_adj is not None and not _halo_on() and not _block_off():
         if conv not in BLOCK_LAYER_CONVS or g.block_size_static % 128:
             return None
         cfg = {"block": True}
@@ -249,7 +329,7 @@ def pna_stack_cfg(g) -> Optional[dict]:
     block size beyond that are the kernel's to check: the CUDA wrapper
     raises on what it does not take rather than giving way to the plain
     version."""
-    if _off() or not inference_on() or _halo_on():
+    if _off() or _block_off() or not inference_on() or _halo_on():
         return None
     if g.nbr_nodes is None or g.block_adj is None:
         return None
@@ -299,8 +379,8 @@ def gat_block_cfg(g, act, edge: bool = False) -> Optional[dict]:
     take."""
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
-    if (_off() or not inference_on() or _int8_declined("gat_block")
-            or _halo_on()):
+    if (_off() or _block_off() or not inference_on()
+            or _int8_declined("gat_block") or _halo_on()):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None
@@ -389,8 +469,8 @@ def edge_block_cfg(g, act) -> Optional[dict]:
     ELL table, not under int8; here also an activation the kernel has."""
     from gnnbuilder_tpu_torch.ops.cuda.mp_layer import LAYER_ACTS
 
-    if (_off() or not inference_on() or _int8_declined("edge_block")
-            or _halo_on()):
+    if (_off() or _block_off() or not inference_on()
+            or _int8_declined("edge_block") or _halo_on()):
         return None
     if g.block_adj is None or g.block_size_static % 128:
         return None

@@ -2718,3 +2718,52 @@ def test_run_parity_check_on_the_card_against_cpu_goldens(cuda_device,
     assert rep["num_graphs"] == len(gs)
     assert pna_block.fused_pna_block_stack.launches == len(gs)
     assert rep["model_output_mae"] <= 1e-5 * gmax, rep
+
+
+DSE_ROW_KEYS = ("dataset", "num_nodes", "num_edges", "latency_us",
+                "latency_per_graph_us", "graphs_per_s", "edges_per_s",
+                "protocol", "overhead_us", "flops", "bytes_accessed",
+                "peak_hbm_bytes", "compile_s", "measure_s")
+
+
+@pytest.mark.parametrize("point,kernel", [
+    (dict(conv="pna", gnn_hidden_dim=256, batch_size=256, block_size=128),
+     "pna_layer"),
+    (dict(conv="gcn", batch_size=64, ell_width=0, block_size=128),
+     "mp_block_stack"),
+    (dict(conv="edge", batch_size=256, block_size=128), "edge_block")],
+    ids=["pna_h256_block", "gcn_b64_ell0_block", "edge_block"])
+def test_measure_config_on_the_card(cuda_device, point, kernel):
+    """A DSE design point timed on the card: the row's fields, a positive
+    latency by the inner chain, the route's kernel launched (PNA at
+    hidden 256 runs per layer: the stack kernel holds 128 features), the
+    knobs restored, and the design point's forward within 1e-4 of max of
+    the plain path."""
+    from gnnbuilder_tpu_torch.core import graph as graph_mod
+    from gnnbuilder_tpu_torch.dse import DSEConfig, measure_config
+    from gnnbuilder_tpu_torch.dse.measure import _design_point
+    from gnnbuilder_tpu_torch.ops.cuda import edge_block, mp_block
+
+    wrappers = dict(pna_layer=pna_layer.fused_pna_layer,
+                    mp_block_stack=mp_block.fused_mp_block_stack,
+                    edge_block=edge_block.fused_edge_block_layer)
+    cfg = DSEConfig(**point)
+    before = wrappers[kernel].launches
+    stack_before = pna_block.fused_pna_block_stack.launches
+    row = measure_config(cfg, dataset="qm9", iters=6)
+    assert all(k in row for k in DSE_ROW_KEYS + tuple(cfg.to_dict()))
+    assert row["latency_us"] > 0 and row["peak_hbm_bytes"] > 0
+    assert row["protocol"].startswith("inner")
+    assert wrappers[kernel].launches > before
+    assert pna_block.fused_pna_block_stack.launches == stack_before
+    assert graph_mod._DEFAULT_ELL_WIDTH is None
+    _, prog, b = _design_point(cfg, "qm9", 0, cuda_device)
+    with torch.no_grad():
+        got = prog.forward(b)
+        dispatch.set_fused_mode("never")
+        try:
+            want = prog.forward(b)
+        finally:
+            dispatch.set_fused_mode("auto")
+    m = b.graph_mask
+    assert _scaled_err(got[m], want[m]) <= 1e-4

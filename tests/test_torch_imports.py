@@ -34,6 +34,10 @@ def test_sources_found():
     assert "chip_smoke.py" in names
     assert os.path.join("gnnbuilder_tpu_torch", "parallel",
                         "halo.py") in names
+    for f in ("__init__", "space", "model", "measure", "engine",
+              "analysis", "build"):
+        assert os.path.join("gnnbuilder_tpu_torch", "dse",
+                            f + ".py") in names
     assert len(names) > 50
 
 

@@ -131,10 +131,12 @@ def test_per_layer_path_outside_inference_scope():
 @pytest.mark.parametrize("hidden,block_size", [(256, 128), (128, 256)])
 def test_stack_gate_takes_any_width_and_block(hidden, block_size):
     """The stack gate asks for a block-packed batch at a multiple of 128
-    rows, not for the CUDA kernel's width or block size: a wider model or
-    a 256-row batch takes the stack function too (its CUDA wrapper raises
-    on them; its plain version runs them on the CPU) and matches the
-    per-layer path."""
+    rows, not for the CUDA kernel's width or block size: a 256-row batch
+    takes the stack function too (its CUDA wrapper raises on it; its
+    plain version runs it on the CPU), while a model wider than the
+    kernel's 128 features (``pna_block.STACK_WIDTH``) runs per layer
+    (row 5 takes any width; the stack kernel raised on it on the card).
+    Both match the per-layer path."""
     gs, (b,) = canonical_batches("qm9", n_graphs=24, batch_size=24,
                                  block_size=block_size,
                                  node_multiple=block_size, device="cpu")
@@ -158,7 +160,8 @@ def test_stack_gate_takes_any_width_and_block(hidden, block_size):
         fused = _port_forward(p, b, "auto")
     finally:
         pna_block.pna_block_stack_auto = orig
-    assert calls == [block_size]
+    assert calls == ([block_size] if hidden <= pna_block.STACK_WIDTH
+                     else [])
     plain = _port_forward(p, b, "never")
     msk = b.graph_mask.numpy()
     np.testing.assert_allclose(fused[msk], plain[msk], atol=ATOL, rtol=RTOL)

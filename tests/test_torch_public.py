@@ -1,7 +1,8 @@
 """The port's public surface (``gnnbuilder_tpu_torch.__all__``) against
-the JAX package's: every public name of ``gnnbuilder_tpu`` is exported by
-the port or named on its ``NOT_YET_PORTED`` list, every exported name
-resolves, and the conv and pooling tables hold the same keys."""
+the JAX package's: the port exports every public name of
+``gnnbuilder_tpu`` (its ``__all__`` is the JAX package's, and its
+``NOT_YET_PORTED`` list is empty), every exported name resolves, and the
+conv and pooling tables hold the same keys."""
 
 import pytest
 
@@ -13,9 +14,12 @@ def test_every_jax_public_name_is_ported_or_listed():
     missing = [n for n in gnnb.__all__
                if n not in port.__all__ and n not in port.NOT_YET_PORTED]
     assert missing == []
-    assert set(port.NOT_YET_PORTED) == {"DSEEngine", "DSEConfig",
-                                        "CostModel"}
-    assert not set(port.NOT_YET_PORTED) & set(port.__all__)
+    assert port.NOT_YET_PORTED == ()
+    assert port.__all__ == gnnb.__all__
+    from gnnbuilder_tpu_torch import dse
+
+    assert (port.DSEEngine, port.DSEConfig, port.CostModel) == (
+        dse.DSEEngine, dse.DSEConfig, dse.CostModel)
 
 
 def test_exported_names_resolve_and_tables_match():
