@@ -154,7 +154,22 @@ weights):
   graphs with its row, its kernels' launches and its forward against the
   plain path; ``measure_many`` resuming a CSV; the ``ell_width``
   override reaching packing; ``from_pretrained`` -> ``tune_kernels`` ->
-  ``verify`` where scikit-learn is installed.
+  ``verify`` where scikit-learn is installed;
+* training under a precision policy (``policy_grad_phases``): one Adam
+  step of PNA, GIN, SAGE, GCN, GAT (heads 4) and GINE at the canonical
+  widths on the b1024 standard-packed train batch under
+  ``Precision.bf16()`` and ``Precision.int8()`` through the layer
+  kernels' autograd Functions (rows 5, 4, 10, 12 in the mode forward, the
+  readout in it, rows 6, 7 and 11 backward), counted per mode; the
+  gradients against the Functions' plain twins on the card
+  (``dispatch.plain_twins``; each layer on its kernel-path input, and the
+  whole model) and, on 64 graphs, against the CPU; two
+  steps bitwise twice; each conv's f32, bf16 and int8 step ms with its
+  device busy time; rows 4b, 4i, 5b and 5i with and without their
+  residual stores; and ``Program(block_size=256)`` forwards of PNA, GCN,
+  GIN, SAGE, LG, Simple and GAT on 1024 QM9 graphs block-packed at 256
+  rows (no block kernel takes them: the layer kernels over the ELL
+  table) against the per-layer plain path.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -164,7 +179,7 @@ with ``torch.profiler``.
 Output: one flushed, timestamped line before and after every phase; the
 ptxas report of the build; a ``measurement`` JSON line per measurement
 cell, a ``trainer_verify`` JSON line per part of that phase, a ``dse``
-JSON line per design point; then, each
+JSON line per design point, a ``policy_grad`` JSON line; then, each
 on its own line, a ``kernels`` JSON object, the card's name and power
 limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when CUDA is unavailable, when run
@@ -174,6 +189,7 @@ has a timeout, each server is closed, each loader epoch is closed);
 every subprocess has a timeout.
 """
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -5249,6 +5265,479 @@ def dse_phases(*, dev, zero_counts, counts, smi):
     return out
 
 
+# the train step under a precision policy (policy_grad_phases): each conv
+# with its conv_kwargs, at the canonical widths
+POLICY_CONVS = {"pna": None, "gin": None, "sage": None, "gcn": None,
+                "gat": {"heads": GAT_HEADS}, "gine": None}
+# each layer's kernel Function against its plain twin on the same card,
+# both on the inputs the kernel path gave that layer
+POLICY_TWIN_TOL = 1e-4
+# a whole model's gradients against another order of the same sums: the
+# card's kernels against the plain twins, 6 layers on the b1024 batch
+# (MODEL), and the card against the CPU, 64 graphs (CPU).  A float32 sum
+# taken in another order moves a bf16 rounding or an int8 level where it
+# lands near a boundary, and with it a ReLU decision near 0; the next
+# layer reads the moved value, so the moves spread layer by layer
+POLICY_MODEL_TOL = {"bf16": 2e-2, "int8": 5e-2}
+POLICY_CPU_TOL = {"bf16": 1e-2, "int8": 5e-2}
+POLICY_TIMED_STEPS = 10
+# the 256-row block forwards: conv -> (conv_kwargs, node width)
+BLOCK256_CONVS = {"pna": (None, None), "gcn": (None, None),
+                  "gin": (None, None), "sage": (None, None),
+                  "lg": (None, 128), "simple": (None, 128),
+                  "gat": ({"heads": GAT_HEADS}, None)}
+
+
+def policy_kernel(conv):
+    """The counted layer kernel a conv's layers launch forward."""
+    return {"pna": "pna_layer", "gine": "gine_layer",
+            "gat": "gat_layer"}.get(conv, "mp_layer")
+
+
+def policy_expected(conv, policy, L):
+    """{counted kernel: launches} of one train step of ``conv`` under
+    ``policy`` on a batch with a reverse table: the layer kernel forward,
+    the readout, and the backwards' kernels (rows 6 and 7 for PNA, row 7
+    for the mp convs, row 11 for GAT under bf16; int8 GAT's backward is
+    autograd of the float32 plain layer and GINE's a torch recompute)."""
+    out = {policy_kernel(conv): L, "readout": 1}
+    if conv == "pna":
+        out.update(pna_scatter_bwd=L, ell_gather_bwd=L)
+    elif conv in ("gin", "sage", "gcn"):
+        out["ell_gather_bwd"] = L
+    elif conv == "gat" and policy == "bf16":
+        out["gat_bwd"] = L
+    return out
+
+
+def layer_twin_errs(model, g, policy, seed=33):
+    """Per layer of ``model`` under ``policy``: (the largest error, of
+    max, of the gradients of x, the skip and the conv's parameters, its
+    kernel Function against its plain twin (``dispatch.plain_twins``),
+    both on the inputs the kernel path gave that layer; the ReLU
+    decisions the two forwards took apart).  A ReLU backward reads its
+    own forward's output, and a mode's output moves by a bf16 rounding or
+    an int8 level where another summation order lands near a boundary:
+    where the two decisions differ the two backwards differentiate two
+    functions, so the seeded cotangent is 0 there."""
+    from gnnbuilder_tpu_torch.compile.precision import Precision
+    from gnnbuilder_tpu_torch.ops import dispatch
+
+    seen = []
+    hooks = [conv.register_forward_pre_hook(
+        lambda _m, args, i=i: seen.append((i, args)))
+        for i, conv in enumerate(model.gnn_convs)]
+    try:
+        with Precision.from_name(policy).activate():
+            model(g)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    gen = torch.Generator(device=g.node_feat.device).manual_seed(seed)
+    errs, flips = [], []
+    for i, (gg, h, act, skip) in seen:
+        conv, runs = model.gnn_convs[i], []
+        for twin in (False, True):
+            x = h.detach().clone().requires_grad_()
+            sk = (None if skip is None
+                  else skip.detach().clone().requires_grad_())
+            ctx = dispatch.plain_twins() if twin else contextlib.nullcontext()
+            with Precision.from_name(policy).activate(), ctx:
+                ops = (model._gat_operands() or model._pna_operands(gg)
+                       or model._gine_operands(gg))
+                y = conv(gg, x, act, sk,
+                         **({} if ops is None else {"operands": ops[i]}))
+            runs.append((x, sk, y))
+        ct = torch.randn(y.shape, generator=gen, device=y.device)
+        if act == "relu":
+            apart = (runs[0][2] > 0) != (runs[1][2] > 0)
+            ct = ct.masked_fill(apart, 0.0)
+            flips.append(int(apart.sum()))
+        else:
+            flips.append(0)
+        res = []
+        for x, sk, y in runs:
+            model.zero_grad(set_to_none=True)
+            y.backward(ct)
+            got = {n: q.grad for n, q in conv.named_parameters()}
+            got["x"] = x.grad
+            if sk is not None:
+                got["skip"] = sk.grad
+            res.append(got)
+        if any(v is None for r in res for v in r.values()):
+            raise AssertionError(f"layer {i} under {policy}: a gradient is "
+                                 f"None")
+        errs.append(max(rel_err(res[0][k], res[1][k]) for k in res[1]))
+    return errs, flips
+
+
+def pna_mode_work(widths, n, e, w, skips, mode, residuals):
+    """([(operations, peak)], bytes) of row 5's six launches in ``mode``
+    (``precision_phases``' count); with ``residuals`` also v, agg_cat,
+    aux and mid written, once each."""
+    pk, wb = MODE_PEAK[mode], WEIGHT_BYTES[mode]
+    prod = sum(2 * n * (2 * fi * f + 12 * f * fo + fi * fo + fo * fo)
+               for fi, f, fo in widths)
+    lin = sum(2 * n * fo * fo for _, _, fo in widths)
+    terms = ([(prod, pk)] if mode == "bf16" else
+             [(lin, pk), (prod - lin, max(PEAK_F32_FLOPS,
+                                          PEAK_TF32_FLOPS / 3))])
+    quant = (sum(n * fo * 6 for _, _, fo in widths) if mode == "int8"
+             else 0)
+    terms.append((sum(5 * e * f for _, f, _ in widths) + quant,
+                  PEAK_F32_FLOPS))
+    nbytes = 0
+    for (fi, f, fo), sk in zip(widths, skips):
+        nbytes += 4 * (n * fi + n * w + n + f + 2 * fo + n * fo
+                       + (n * fo if sk else 0))
+        nbytes += (4 * (2 * fi * f + (fi + 12 * f) * fo) + wb * fo * fo
+                   + 4 * fo if mode == "int8" else
+                   wb * (2 * fi * f + (fi + 12 * f) * fo + fo * fo))
+        if residuals:
+            nbytes += 4 * n * (10 * f + fo)
+    return terms, nbytes
+
+
+def policy_grad_phases(report, *, dev, tgraphs, tb, target, counted,
+                       zero_counts, counts, only, smi):
+    """Training under the bf16 and int8 policies through the layer
+    kernels' autograd Functions, and the 256-row block forwards.
+
+    Per conv of ``POLICY_CONVS`` (canonical widths, 6 layers, seeded
+    weights) and policy: one Adam step of ``make_train_step`` on the b1024
+    standard-packed train batch inside ``Precision.from_name(p)
+    .activate()`` (the counts set to 0 just before and read just after:
+    the layer kernel in the policy's mode in every layer, the readout in
+    it, rows 6 and 7, or 11, in the backward); the gradients of the
+    kernel Functions against their plain twins (``dispatch.plain_twins``,
+    no launch): each layer on the inputs the kernel path gave it
+    (``layer_twin_errs``, on the ReLU decisions both forwards took) at
+    ``POLICY_TWIN_TOL`` of max, the whole model
+    at ``POLICY_MODEL_TOL``; two Adam steps from one
+    state twice, losses and weights the same bits; a 64-graph batch's
+    gradients against the CPU's at ``POLICY_CPU_TOL``; then CUDA-event ms
+    of the f32, bf16 and int8 steps with the device busy time of three
+    profiled ones.  The mode instances of rows 4 and 5 with and without
+    their residual stores, timed in one process, with the bound restated
+    for the stores.  ``Program(block_size=256)`` forwards of
+    ``BLOCK256_CONVS`` on 1024 QM9 graphs block-packed at 256 rows: no
+    block or stack kernel (each wrapper's ``BLOCK_ROWS`` is the
+    library's 128), the layer kernels over the ELL table, within TOL of
+    the per-layer plain path.  Returns the results."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnnbuilder_tpu_torch import Program, train
+    from gnnbuilder_tpu_torch.bench.canonical import (
+        canonical_batches,
+        canonical_model,
+    )
+    from gnnbuilder_tpu_torch.compile.precision import Precision
+    from gnnbuilder_tpu_torch.ops import dispatch
+    from gnnbuilder_tpu_torch.ops.cuda import (
+        _build,
+        gat_block,
+        mp_block,
+        mp_layer,
+        pna_block,
+        pna_layer,
+    )
+
+    out = {"steps": {}, "residuals": {}, "block256": {}}
+    torch.set_grad_enabled(True)
+    sgraphs, (sb,) = canonical_batches("qm9", n_graphs=64, batch_size=64,
+                                       node_multiple=256, device="cpu")
+    starget = train.stack_targets(sgraphs, sb.num_graphs, device="cpu")
+    sbc, starget_c = sb.to(dev), starget.to(dev)
+
+    def grads(model, g, tgt, policy, twin=False):
+        model.zero_grad()
+        with Precision.from_name(policy).activate():
+            ctx = dispatch.plain_twins() if twin else contextlib.nullcontext()
+            with ctx:
+                loss = train.masked_mse_loss(model(g), tgt, g.graph_mask)
+                loss.backward()
+        return {k: p.grad.detach().clone()
+                for k, p in model.named_parameters()}
+
+    def worst(got, want):
+        return max(rel_err(got[k].double().cpu(), want[k].double().cpu())
+                   for k in want)
+
+    for conv, kw in POLICY_CONVS.items():
+        with phase(f"policy_grad {conv}: a b{BATCH_GRAPHS} train step under "
+                   f"bf16 and int8 through the layer kernels"):
+            torch.manual_seed(31)
+            model = canonical_model(conv, "qm9", graphs=tgraphs,
+                                    conv_kwargs=dict(kw or {})).to(dev)
+            state0 = {k: v.clone() for k, v in model.state_dict().items()}
+            L = model.gnn_num_layers
+            kern = counted[policy_kernel(conv)]
+            res = {}
+            for policy in PREC_MODES:
+                mode = "f32" if (conv, policy) == ("gcn", "int8") else policy
+                model.load_state_dict(state0)
+                step = train.make_train_step(
+                    model, torch.optim.Adam(model.parameters(), lr=1e-3))
+                zero_counts()
+                with Precision.from_name(policy).activate():
+                    loss = float(step(tb, target).detach())
+                torch.cuda.synchronize()
+                launched = counts()
+                want = only(**policy_expected(conv, policy, L))
+                if launched != want:
+                    raise AssertionError(f"{conv} {policy} step launches "
+                                         f"{launched}, expected {want}")
+                if (kern.mode_launches[mode] != L
+                        or counted["readout"].mode_launches[policy] != 1):
+                    raise AssertionError(
+                        f"{conv} {policy}: the layer kernel ran "
+                        f"{kern.mode_launches}, the readout "
+                        f"{counted['readout'].mode_launches}")
+                fwd_launches = dict(launched)
+                # the kernel Functions against their plain twins, one state
+                model.load_state_dict(state0)
+                g_k = grads(model, tb, target, policy)
+                before = counts()
+                g_t = grads(model, tb, target, policy, twin=True)
+                torch.cuda.synchronize()
+                if counts() != before:
+                    raise AssertionError(f"{conv} {policy}: the plain twins "
+                                         f"launched a kernel")
+                model_err = worst(g_k, g_t)
+                if not all(torch.isfinite(v).all() for v in g_k.values()):
+                    raise AssertionError(f"{conv} {policy}: a gradient is "
+                                         f"not finite")
+                if model_err > POLICY_MODEL_TOL[policy]:
+                    raise AssertionError(f"{conv} {policy}: the model's "
+                                         f"gradients {model_err:.3e} of max "
+                                         f"off the plain twins'")
+                model.load_state_dict(state0)
+                layer_errs, flips = layer_twin_errs(model, tb, policy)
+                twin_err = max(layer_errs)
+                if twin_err > POLICY_TWIN_TOL:
+                    raise AssertionError(f"{conv} {policy}: per layer, "
+                                         f"gradients {layer_errs} of max off "
+                                         f"the plain twins'")
+                # two Adam steps from one state, twice: the same bits
+                runs = []
+                for _ in range(2):
+                    model.load_state_dict(state0)
+                    step = train.make_train_step(
+                        model, torch.optim.Adam(model.parameters(),
+                                                lr=1e-3))
+                    with Precision.from_name(policy).activate():
+                        ls = [step(tb, target).detach() for _ in range(2)]
+                    runs.append((torch.stack(ls),
+                                 {k: v.clone() for k, v in
+                                  model.state_dict().items()}))
+                bitwise = torch.equal(runs[0][0], runs[1][0]) and all(
+                    torch.equal(runs[0][1][k], runs[1][1][k])
+                    for k in runs[0][1])
+                if not bitwise:
+                    raise AssertionError(f"{conv} {policy}: two steps are "
+                                         f"not the same bits twice")
+                # a small batch against the CPU
+                model.load_state_dict(state0)
+                g_c = grads(model, sbc, starget_c, policy)
+                cpu_model = canonical_model(conv, "qm9", graphs=tgraphs,
+                                            conv_kwargs=dict(kw or {}))
+                cpu_model.load_state_dict({k: v.cpu()
+                                           for k, v in state0.items()})
+                g_cpu = grads(cpu_model, sb, starget, policy)
+                cpu_err = worst(g_c, g_cpu)
+                if cpu_err > POLICY_CPU_TOL[policy]:
+                    raise AssertionError(f"{conv} {policy}: 64-graph "
+                                         f"gradients {cpu_err:.3e} of max "
+                                         f"off the CPU's")
+                res[policy] = dict(loss=loss, launches=fwd_launches,
+                                   kernel_mode=mode, twin_err=twin_err,
+                                   layer_twin_errs=layer_errs,
+                                   relu_decisions_apart=flips,
+                                   model_twin_err=model_err,
+                                   cpu_err=cpu_err, bitwise_twice=bitwise,
+                                   two_step_losses=runs[0][0].tolist())
+                log(f"{conv} {policy}: step launches "
+                    f"{ {k: v for k, v in fwd_launches.items() if v} } "
+                    f"({policy_kernel(conv)} in {mode}); gradients off "
+                    f"the plain twins per layer "
+                    f"{[f'{e:.2e}' for e in layer_errs]} of max (tol "
+                    f"{POLICY_TWIN_TOL}; ReLU decisions apart {flips}), "
+                    f"the whole model {model_err:.3e} "
+                    f"(tol {POLICY_MODEL_TOL[policy]}); 64 graphs against "
+                    f"the CPU {cpu_err:.3e} (tol {POLICY_CPU_TOL[policy]});"
+                    f" two steps the same bits twice")
+            # the step times under each policy, f32 beside them
+            for prec in ("f32",) + PREC_MODES:
+                model.load_state_dict(state0)
+                step = train.make_train_step(
+                    model, torch.optim.Adam(model.parameters(), lr=1e-3))
+                with Precision.from_name(prec).activate():
+                    ms = time_ms(lambda: step(tb, target),
+                                 POLICY_TIMED_STEPS, warmup=3)
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        for _ in range(3):
+                            step(tb, target)
+                        torch.cuda.synchronize()
+                split = split_device_time(prof, 3)
+                busy = sum(split.values())
+                res.setdefault(prec, {}).update(
+                    step_ms=ms, device_busy_ms=busy,
+                    device_ms_by_part={k: v for k, v in split.items() if v})
+                log(f"{conv} {prec} train step b{BATCH_GRAPHS}: {ms:.4f} ms "
+                    f"(events, {POLICY_TIMED_STEPS} steps), device busy "
+                    f"{busy:.4f} ms ({smi})")
+            out["steps"][conv] = res
+            del model
+    torch.set_grad_enabled(False)
+
+    with phase("policy_grad: the mode instances of rows 4 and 5 with and "
+               "without their residual stores"):
+        torch.manual_seed(31)
+        pmodel = canonical_model("pna", "qm9", graphs=tgraphs).to(dev)
+        layers = layer_operands(pmodel, tb, pna_layer)
+        widths = pna_widths(pmodel)
+        n, e, w = tb.num_nodes, int(tb.in_degree.sum()), tb.ell_width
+        skips = [kw_["skip"] is not None for _, kw_ in layers]
+        for mode in PREC_MODES:
+            margs = []
+            for args, kw_ in layers:
+                wp, kp, wl, sl = pna_layer.prepare_layer(args[3], args[5],
+                                                         args[7], mode)
+                a = list(args)
+                a[3], a[5], a[7] = wp, kp, wl
+                margs.append((a, dict(kw_, mode=mode, s_lin=sl,
+                                      staged=pna_layer.stage_layer(
+                                          wp, kp, wl, mode))))
+
+            def run(save, _margs=margs):
+                for a, k in _margs:
+                    pna_layer.fused_pna_layer(*a, **k, save_res=save)
+
+            for a, k in margs:   # the same bits with the stores
+                o1 = pna_layer.fused_pna_layer(*a, **k)
+                o2 = pna_layer.fused_pna_layer(*a, **k, save_res=True)[0]
+                if not torch.equal(o1, o2):
+                    raise AssertionError(f"pna_layer {mode}: out moved with "
+                                         f"the residual stores")
+            timing = {}
+            for save in (False, True, True, False):
+                timing.setdefault(save, []).append(
+                    timed(lambda: run(save), 10)[0])
+            entry = {}
+            for save in (False, True):
+                terms, nbytes = pna_mode_work(widths, n, e, w, skips, mode,
+                                              save)
+                b_ms, b_by = bound_mixed(terms, nbytes)
+                entry["residual" if save else "no_residual"] = dict(
+                    device_ms=timing[save], bound_ms=b_ms, bound_by=b_by,
+                    bytes=nbytes)
+            out["residuals"][f"pna_layer_{mode}"] = entry
+            report[f"pna_layer_{mode}"]["residual_ms"] = min(
+                entry["residual"]["device_ms"])
+            report[f"pna_layer_{mode}"]["residual_bound_ms"] = (
+                entry["residual"]["bound_ms"])
+            log(f"pna_layer {mode}, a b{BATCH_GRAPHS} step's six: device "
+                f"{entry['no_residual']['device_ms']} ms without the "
+                f"residual stores, {entry['residual']['device_ms']} with "
+                f"(bound {entry['no_residual']['bound_ms']:.4f} / "
+                f"{entry['residual']['bound_ms']:.4f} ms by "
+                f"{entry['residual']['bound_by']}) on {smi}")
+        for conv in ("gin", "sage", "gcn"):
+            torch.manual_seed(31)
+            mmodel = canonical_model(conv, "qm9", graphs=tgraphs).to(dev)
+            f32_layers = mp_args(mmodel, tb, False)
+            for mode in (PREC_MODES if conv != "gcn" else ("bf16",)):
+                mls = in_mode(f32_layers, "mp_layer", mode)
+
+                def run(save, _mls=mls):
+                    for a, k in _mls:
+                        mp_layer.fused_mp_layer(*a, **k, save_s=save)
+
+                for a, k in mls:
+                    o1 = mp_layer.fused_mp_layer(*a, **k)
+                    o2 = mp_layer.fused_mp_layer(*a, **k, save_s=True)[0]
+                    if not torch.equal(o1, o2):
+                        raise AssertionError(f"mp_layer {conv} {mode}: out "
+                                             f"moved with the s store")
+                timing = {}
+                for save in (False, True, True, False):
+                    timing.setdefault(save, []).append(
+                        timed(lambda: run(save), 10)[0])
+                terms, nbytes = mode_work("mp_layer", mls, tb, mode)
+                s_bytes = sum(4 * n * a[0].shape[1] for a, _ in mls)
+                entry = {}
+                for save in (False, True):
+                    b_ms, b_by = bound_mixed(
+                        terms, nbytes + (s_bytes if save else 0))
+                    entry["residual" if save else "no_residual"] = dict(
+                        device_ms=timing[save], bound_ms=b_ms,
+                        bound_by=b_by)
+                out["residuals"][f"mp_layer_{conv}_{mode}"] = entry
+                if conv == "gin":
+                    report[f"mp_layer_{mode}"]["residual_ms"] = min(
+                        entry["residual"]["device_ms"])
+                    report[f"mp_layer_{mode}"]["residual_bound_ms"] = (
+                        entry["residual"]["bound_ms"])
+                log(f"mp_layer {conv} {mode}, a b{BATCH_GRAPHS} step's six: "
+                    f"device {entry['no_residual']['device_ms']} ms without "
+                    f"s, {entry['residual']['device_ms']} with (bound "
+                    f"{entry['no_residual']['bound_ms']:.4f} / "
+                    f"{entry['residual']['bound_ms']:.4f} ms) on {smi}")
+
+    with phase("policy_grad: Program(block_size=256) forwards through the "
+               "layer kernels"):
+        lib = _build.load()
+        for mod, fn in ((pna_block, lib.gnnb_pna_block_rows),
+                        (mp_block, lib.gnnb_mp_block_rows),
+                        (mp_layer, lib.gnnb_mp_layer_block_rows),
+                        (gat_block, lib.gnnb_gat_block_rows)):
+            if mod.BLOCK_ROWS != fn():
+                raise AssertionError(f"{mod.__name__}.BLOCK_ROWS is "
+                                     f"{mod.BLOCK_ROWS}, the library's "
+                                     f"{fn()}")
+        for conv, (kw, width) in BLOCK256_CONVS.items():
+            bgraphs, (bb,) = canonical_batches(
+                "qm9", n_graphs=BATCH_GRAPHS, batch_size=BATCH_GRAPHS,
+                block_size=256, node_multiple=256, node_dim=width,
+                device=dev)
+            torch.manual_seed(32)
+            bmodel = canonical_model(conv, "qm9", graphs=bgraphs,
+                                     conv_kwargs=dict(kw or {}))
+            prog = Program(bmodel, max_nodes=bb.num_nodes,
+                           max_edges=bb.num_edges, max_graphs=bb.num_graphs,
+                           block_size=256, device="cuda")
+            prog.init_params()
+            zero_counts()
+            got = prog.forward(bb)
+            torch.cuda.synchronize()
+            launched = counts()
+            want = only(**{policy_kernel(conv): bmodel.gnn_num_layers,
+                           "readout": 1})
+            if launched != want:
+                raise AssertionError(f"{conv} at 256-row blocks launches "
+                                     f"{launched}, expected {want}")
+            dispatch.set_fused_mode("never")
+            try:
+                ref = prog.forward(bb)
+            finally:
+                dispatch.set_fused_mode("auto")
+            m = bb.graph_mask
+            ok, abs_err, rel = close_enough(got[m], ref[m])
+            if not ok:
+                raise AssertionError(f"{conv} at 256-row blocks: "
+                                     f"{rel:.3e} of max off the plain path")
+            out["block256"][conv] = dict(launches={k: v for k, v in
+                                                   launched.items() if v},
+                                         rel_err=rel, nodes=bb.num_nodes)
+            log(f"{conv} Program(block_size=256) forward, N={bb.num_nodes}:"
+                f" launches { {k: v for k, v in launched.items() if v} }; "
+                f"{rel:.3e} of max |value| off the per-layer plain path "
+                f"(tol {TOL})")
+    print("policy_grad " + json.dumps(out), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -6172,6 +6661,10 @@ def main():
         only=only, smi=smi)
     dse = dse_phases(dev=dev, zero_counts=zero_counts, counts=counts,
                      smi=smi)
+    policy_grad = policy_grad_phases(
+        report, dev=dev, tgraphs=tgraphs, tb=tb, target=target,
+        counted=counted, zero_counts=zero_counts, counts=counts, only=only,
+        smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -6572,6 +7065,7 @@ def main():
         "trainer_verify": trainer_verify,
         "parallel": parallel,
         "dse": dse,
+        "policy_grad": policy_grad,
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

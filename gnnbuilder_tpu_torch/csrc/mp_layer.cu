@@ -24,8 +24,10 @@
 // The aggregation mode (ELL or block) is a template argument; both run the
 // same epilogue code.
 //
-// Modes (a template argument, as pna_layer.cu's MODE; inference only, no
-// s output), the JAX kernel's gather_mode / mm / quant:
+// Modes (a template argument, as pna_layer.cu's MODE), the JAX kernel's
+// gather_mode / mm / quant; each writes s with save_s (the sum as the mode
+// forms it, the JAX kernel's residual in that mode), a store that leaves
+// out's bits as they are without it:
 //   BF16 (1): each gathered v is rounded to bf16 before the sum, which
 //        stays float32; gin's and sage's products take bf16-rounded
 //        operands ((1 + eps) v + s, the mean, v, Z) and bf16 weights.
@@ -1048,7 +1050,7 @@ int gnnb_mp_layer_ew_info(int block, int mode, int conv, int relu, int vec,
 // conv: 0 gin, 1 sage, 2 gcn, 3 lg, 4 simple_sum, 5 simple_mean; act: 0
 // none, 1 relu, 2 gelu, 3 sigmoid, 4 tanh; mode: 0 f32, 1 bf16 (w0, w1
 // bfloat16), 2 int8 (gin and sage: w0, w1 int8 with column scales sw0,
-// sw1).  skip and s may be null; s only in mode 0.  All other arrays
+// sw1).  skip and s may be null.  All other arrays
 // contiguous f32 / i32 as documented in ops/cuda/mp_layer.py.  Returns the
 // cudaError_t of the launch (0 = success).
 int gnnb_mp_layer(const void* v, const void* nbr, const void* adj,
@@ -1063,7 +1065,7 @@ int gnnb_mp_layer(const void* v, const void* nbr, const void* adj,
   const bool mm = conv == GIN || conv == SAGE;
   bool ok = n_rows >= 0 && F >= 1 && Fout >= 1 && conv >= GIN &&
             conv <= SIMPLE_MEAN && act >= 0 && act <= 4 && out != nullptr &&
-            mode >= F32 && mode <= INT8 && (mode == F32 || s == nullptr);
+            mode >= F32 && mode <= INT8;
   ok = ok && (block ? n_rows % BB == 0 : (nbr != nullptr && W >= 1));
   if (conv == GIN)
     ok = ok && H >= 1 && w0 && b0 && w1 && b1;

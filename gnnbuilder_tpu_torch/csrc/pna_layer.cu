@@ -34,22 +34,23 @@
 //
 // Design: four launches (BF16: three; INT8: five), none of whose shared
 // memory grows with the widths, so any width the wrapper admits runs.
-//  0. In F32 and INT8, v = x Wj (pna_v_kernel) on the float64 tensor
-//     cores: the products of two floats are exact in double and the sums
-//     float64, rounded to float32 once, so v is the correctly rounded
-//     product but where the double sum lands within ~1e-16 of a rounding
-//     boundary, whatever the order.  The tie counts and the max / min routing of the backward
+//  0. v = x Wj (pna_v_kernel) on the float64 tensor cores: the products
+//     of two floats are exact in double and the sums float64, rounded to
+//     float32 once, so v is the correctly rounded product but where the
+//     double sum lands within ~1e-16 of a rounding boundary, whatever the
+//     order (BF16: of bf16-rounded x and the bf16 Wj, rounded to bf16
+//     after float32, as the plain version rounds it).  The tie counts and the max / min routing of the backward
 //     compare v's values, so any two implementations that round v
 //     correctly (the plain version does, by a float64 product) decide
 //     them alike; split TF32 in three passes (some 22 bits of each
 //     operand) or a float32 chain flip near ties between implementations.
 //  1. The x products (pna_proj_kernel, the projection of gat_common.cuh):
-//     [u | m0] = x [Wi | K0] (BF16: [v | u | m0] = x [Wj | Wi | K0]) over
-//     128-column regions, a CTA per 128 rows and region, x staged 32 k at
-//     a time by cp.async, each region's weights streamed once per CTA
-//     through the ring.  v goes to its output (a neighbour's v is needed
-//     before any receiver can aggregate), u + b_pre to the scratch
-//     `work`, m0 = x K0 + b_post to mid's buffer (mid_out, or `work`).
+//     [u | m0] = x [Wi | K0] over 128-column regions (BF16's stream also
+//     holds Wj's regions in front, which this launch skips), a CTA per
+//     128 rows and region, x staged 32 k at a time by cp.async, each
+//     region's weights streamed once per CTA through the ring.  u + b_pre
+//     goes to the scratch `work`, m0 = x K0 + b_post to mid's buffer
+//     (mid_out, or `work`).
 //  2. The aggregate and its product (pna_agg_kernel): a CTA per AM rows
 //     and 128 columns of Ks's output, 8 consumer warps (2 x 4, each 32
 //     rows x 32 columns) and a producer warp.  The aggregate is formed
@@ -90,7 +91,9 @@
 // is added atomically: two runs give the same bits.
 //
 // Modes (template argument MODE, the JAX kernel's mm / gather_mode /
-// quant; no residuals):
+// quant; each writes the residuals with save_res, stores that leave out's
+// bits as they are without them: v as the mode forms it, bf16-rounded in
+// BF16, so the backward's tie tests compare what the forward compared):
 //   F32  (0): every product but v (launch 0) split TF32 in three
 //        passes, hi*hi + hi*lo + lo*hi (hi = tf32(a), lo = tf32(a -
 //        hi)), summed in f32; the weights come split (stage_layer; Wj
@@ -98,8 +101,11 @@
 //        fragments are loaded.
 //   BF16 (1): weights bf16; every product rounds its activations to bf16
 //        where their fragments are loaded (x, the aggregate, mid) and
-//        sums in f32 (mm="bf16"); v is stored rounded to bf16
-//        (gather_mode="bf16").  u, m0, mid and the skip stay f32.
+//        sums in f32 (mm="bf16"); v, compared by max / min and rounded
+//        to bf16 next (gather_mode="bf16"), is launch 0's float64 product
+//        of bf16 x and Wj (read from w_pre), rounded once to float32 and
+//        then to bf16, so its ties and bf16 roundings are the plain
+//        version's.  u, m0, mid and the skip stay f32.
 //   INT8 (2): only the final Linear is quantized, as in the JAX kernel
 //        (PairLinear and BlockScaledLinear stay f32: launches 0 to 2 run
 //        as in F32, unfused): mid's rows quantized with one
@@ -256,9 +262,10 @@ pna_proj_kernel(ProjArgs a) {
 
 // ---------------------------------------------------------------- launch 0
 
-// v = x Wj (F32 and INT8) on the float64 tensor cores (mma.sync
-// m8n8k4: the products of two floats are exact in double, the sums
-// float64 FMAs), rounded to float32 once: a CTA per 64 rows and 128
+// v = x Wj on the float64 tensor cores (mma.sync m8n8k4: the products of
+// two floats are exact in double, the sums float64 FMAs), rounded to
+// float32 once (BF16, `wjb` given: x rounded to bf16 where it is loaded,
+// Wj bf16, and v rounded to bf16 after): a CTA per 64 rows and 128
 // columns, 8 warps of 32 rows x 32 columns (4 x 4 tiles), x and Wj
 // staged 16 k at a time in two buffers (the next k's loads issued before
 // this one's products; rows padded by 8 floats, so a fragment's four k
@@ -268,7 +275,8 @@ constexpr int VXLD = VM + 8, VWLD = VN + 8;
 
 __global__ void __launch_bounds__(VTHREADS, 2)
 pna_v_kernel(const float* __restrict__ x, const float* __restrict__ wj,
-             int n_rows, int Fin, int F, float* __restrict__ v) {
+             const uint16_t* __restrict__ wjb, int n_rows, int Fin, int F,
+             float* __restrict__ v) {
   __shared__ __align__(16) float xs[2][VK][VXLD];   // x transposed
   __shared__ __align__(16) float ws[2][VK][VWLD];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -280,15 +288,30 @@ pna_v_kernel(const float* __restrict__ x, const float* __restrict__ wj,
   const int wcol = 4 * (tid & 31);
   const bool x_ok = row0 + xr < n_rows;
   const float* xp = x + (size_t)(x_ok ? row0 + xr : 0) * Fin + xk;
-  const float* wp = wj + (size_t)wk * F + col0 + wcol;
+  const bool rnd = wjb != nullptr;
+  const size_t woff = (size_t)wk * F + col0 + wcol;
   float4 xa, wa[2];
+  auto bf = [](unsigned short h) { return __uint_as_float((unsigned)h << 16); };
   auto load = [&](int k0) {
     xa = x_ok ? __ldg(reinterpret_cast<const float4*>(xp + k0))
               : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (rnd) {
+      xa.x = bf16r(xa.x);
+      xa.y = bf16r(xa.y);
+      xa.z = bf16r(xa.z);
+      xa.w = bf16r(xa.w);
+    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wa[i] = __ldg(
-          reinterpret_cast<const float4*>(wp + (size_t)(k0 + 8 * i) * F));
+    for (int i = 0; i < 2; ++i) {
+      const size_t o = woff + (size_t)(k0 + 8 * i) * F;
+      if (rnd) {
+        const uint2 h = __ldg(reinterpret_cast<const uint2*>(wjb + o));
+        wa[i] = make_float4(bf(h.x & 0xFFFF), bf(h.x >> 16),
+                            bf(h.y & 0xFFFF), bf(h.y >> 16));
+      } else {
+        wa[i] = __ldg(reinterpret_cast<const float4*>(wj + o));
+      }
+    }
   };
   auto store = [&](int b) {
     xs[b][xk + 0][xr] = xa.x;
@@ -333,10 +356,15 @@ pna_v_kernel(const float* __restrict__ x, const float* __restrict__ wj,
     if (row >= n_rows) continue;
     float* dst = v + (size_t)row * F + col0 + 32 * wc + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      *reinterpret_cast<float2*>(dst + 8 * nt) =
-          make_float2(__double2float_rn(acc[mt][nt][0]),
-                      __double2float_rn(acc[mt][nt][1]));
+    for (int nt = 0; nt < 4; ++nt) {
+      float o0 = __double2float_rn(acc[mt][nt][0]);
+      float o1 = __double2float_rn(acc[mt][nt][1]);
+      if (rnd) {
+        o0 = bf16r(o0);
+        o1 = bf16r(o1);
+      }
+      *reinterpret_cast<float2*>(dst + 8 * nt) = make_float2(o0, o1);
+    }
   }
 }
 
@@ -933,7 +961,7 @@ int gnnb_pna_layer_info(int kernel, int mode, int* regs, int* smem_bytes,
     return (int)info(pna_agg_kernel<F32>, ATHREADS, AggSmem<F32>::END, regs,
                      smem_bytes, ctas_per_sm);
   }
-  if (kernel == 2 && mode != BF16)
+  if (kernel == 2)
     return (int)info(pna_v_kernel, VTHREADS, 0, regs, smem_bytes,
                      ctas_per_sm);
   return (int)cudaErrorInvalidValue;
@@ -942,10 +970,12 @@ int gnnb_pna_layer_info(int kernel, int mode, int* regs, int* smem_bytes,
 // Launches the layer on `stream` of `device`.  All arrays contiguous as
 // documented in ops/cuda/pna_layer.py: x, biases, skip and outputs f32;
 // s_wlin (mode 2) f32; skip, agg_out, aux_out and mid_out may be null (the
-// last three together, and always in modes 1 and 2).  The kernels read
+// last three together, in every mode).  The kernels read
 // the weights from `staged`, stage_layer's stream of w_pre, k_post and
 // w_lin (of staged_bytes bytes, 16-byte aligned), not from those three
-// pointers; `work` is the scratch of gnnb_pna_layer_work_bytes bytes.
+// pointers, but for BF16's v launch, which reads w_pre's Wj rows (bf16,
+// row-major, contiguous, 8-byte aligned); `work` is the scratch of
+// gnnb_pna_layer_work_bytes bytes.
 // Returns the cudaError_t of the launches (0 = success).
 int gnnb_pna_layer(const void* x, const void* nbr, const void* deg,
                    int n_rows, int ell_width, int Fin, int F, int Fout,
@@ -955,17 +985,17 @@ int gnnb_pna_layer(const void* x, const void* nbr, const void* deg,
                    const void* s_wlin, void* out, void* v, void* agg_out,
                    void* aux_out, void* mid_out, void* stream, int device,
                    const void* staged, long long staged_bytes, void* work) {
-  (void)w_pre, (void)k_post, (void)w_lin;
+  (void)k_post, (void)w_lin;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (Fin % CB || F % CB || Fout % CB || Fin < CB || F < CB || Fout < CB ||
       n_rows < 0 || mode < F32 || mode > INT8 || staged == nullptr ||
+      (mode == BF16 && (w_pre == nullptr || ((uintptr_t)w_pre & 7))) ||
       work == nullptr || ((uintptr_t)staged & 15) || ((uintptr_t)work & 15) ||
       staged_bytes != gnnb_pna_layer_staged_bytes(Fin, F, Fout, mode))
     return (int)cudaErrorInvalidValue;
   const bool save = agg_out != nullptr;
-  if (save != (aux_out != nullptr) || save != (mid_out != nullptr) ||
-      (mode != F32 && save))
+  if (save != (aux_out != nullptr) || save != (mid_out != nullptr))
     return (int)cudaErrorInvalidValue;
   if (mode == INT8 && s_wlin == nullptr) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaSuccess;
@@ -983,23 +1013,29 @@ int gnnb_pna_layer(const void* x, const void* nbr, const void* deg,
   float* u = (float*)(wk + wl.u);
   float* mid = save ? (float*)mid_out : (float*)(wk + wl.mid);
 
-  // 0. v = x Wj (F32, INT8)
-  if (mode != BF16) {
+  // 0. v = x Wj (BF16: from w_pre's bf16 Wj rows, row-major)
+  {
+    const bool b = mode == BF16;
     const dim3 grid((n_rows + VM - 1) / VM, F / VN);
     pna_v_kernel<<<grid, VTHREADS, 0, st>>>(
-        (const float*)x, (const float*)wst, n_rows, Fin, F, (float*)v);
+        (const float*)x, b ? nullptr : (const float*)wst,
+        b ? (const uint16_t*)w_pre + (size_t)Fin * F : nullptr, n_rows, Fin,
+        F, (float*)v);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
 
-  // 1. [u | m0] = x [Wi | K0] (BF16: [v | u | m0] = x [Wj | Wi | K0])
+  // 1. [u | m0] = x [Wi | K0] (BF16: past the stream's Wj regions)
   ProjArgs p{};
   p.x = (const float*)x;
-  p.wst = wst + sec.wj;
+  p.wst = wst + sec.wj +
+          (mode == BF16 ? (size_t)(F / CB) * (Fin / gnnb_gat::KC) *
+                              ProjLayout<BF16>::TB
+                        : 0);
   p.n_rows = n_rows;
   p.K = Fin;
   p.lin = 0;
-  p.first = mode == BF16 ? 0 : F / CB;
+  p.first = F / CB;
   p.v = (float*)v;
   p.u = u;
   p.m0 = mid;

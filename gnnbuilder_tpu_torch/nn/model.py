@@ -424,8 +424,7 @@ class GNNModel(torch.nn.Module):
         if not torch.is_grad_enabled():
             return self._cached(f"{mode} pna layers", self._stack_width(),
                                 layers)
-        if (mode != "f32"
-                or self.gnn_convs[0].lin.weight.device.type != "cuda"):
+        if self.gnn_convs[0].lin.weight.device.type != "cuda":
             return None
         return layers()
 
@@ -457,7 +456,7 @@ class GNNModel(torch.nn.Module):
         if not torch.is_grad_enabled():
             return self._cached(f"{mode} gine layers", self._stack_width(),
                                 layers)
-        return layers() if mode == "f32" else None
+        return layers()
 
     def _gat_operands(self):
         """Each GAT layer's kernel operands in the active policy's mode
@@ -614,11 +613,12 @@ class GNNModel(torch.nn.Module):
         kw = dict(aggrs=self.pooling_aggrs, mx=mx, act=self.mlp_activation,
                   out_act=self.output_activation, starts=cfg["starts"])
         mode = cfg.get("mode", "f32")
-        if mode != "f32" or not torch.is_grad_enabled():
-            # inference (the modes have no backward): the head packed once
+        if not torch.is_grad_enabled():
+            # inference: the head packed once per weights and mode
             return fused_readout(h, g.n_node, self._readout_head(mode),
                                  mode=mode, **kw)
-        # the live weights, packed by the wrapper on every call
+        # the live weights, brought to the mode and packed on every call
         weights = [(lin.weight.t(), lin.bias)
                    for lin in self.mlp_head.linear_layers]
-        return fused_readout_vjp(h, g.n_node, weights, **kw)
+        return fused_readout_vjp(h, g.n_node, weights, mode=mode,
+                                 plain=dispatch.twins_on(), **kw)

@@ -29,12 +29,19 @@ forms each output element with the same operations in the same order as
 its outputs are that loop's bits (the card tests check it); the plain
 version sums in another order.
 
-The bf16 mode (``mode="bf16"``; the JAX kernel's ``gather_mode="bf16"``,
-inference only: no backward) rounds each gathered v to bf16, reduces
+The bf16 mode (``mode="bf16"``; the JAX kernel's ``gather_mode="bf16"``)
+rounds each gathered v to bf16, reduces
 the rounded rows alone in float32 and applies u after the reduction, as
 the TPU kernel does: sum + deg u, u + mean, u + max, u + min (0 on an
 empty row), std of v alone.  There is no int8 mode: the JAX package
-keeps this kernel in float32 under the int8 policy.
+keeps this kernel in float32 under the int8 policy.  Its backward is the
+JAX ``_pallas_bwd`` with ``gather_mode="bf16"``: the u-free coefficient
+gather on the bf16-rounded v (the forward's values: the tie counts and
+the extrema tests compare what the forward compared, the std's
+deviations are taken from them), the gradient passing the rounding
+straight through to v; with u, autograd of the float32 plain version,
+as the JAX backward's ``jax.vjp`` of its reference.  The plain twin
+(``plain=True``) runs the plain forward and row 7's plain versions.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ import ctypes
 import torch
 
 from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import (
+    ell_gather_backward_csr_plain,
+    ell_gather_backward_plain,
     fused_gather_backward,
     fused_gather_backward_csr,
 )
@@ -223,14 +232,19 @@ fused_ell_aggregate.launches = 0
 fused_ell_aggregate.mode_launches = dict.fromkeys(MODES, 0)
 
 
-def ell_aggregate_cstk(v, nbr_nodes, in_degree, aggregators, out, ct):
+def ell_aggregate_cstk(v, nbr_nodes, in_degree, aggregators, out, ct,
+                       plain: bool = False):
     """The u-free backward's coefficient stack (the JAX ``_pallas_bwd``):
     (cstk, has_lin, has_dev, n_cmp) for ``ops.cuda.ell_bwd``, from the
     forward's output ``out`` and its cotangent ``ct`` [N, A*F].  sum and
     mean give the linear block, std the pair c/(deg std), c mean/(deg
     std), max and min each (extremum, c / ties), 0 on an empty row; the
     tie counts and, without a mean output, the mean come from the
-    forward table through the same kernels."""
+    forward table through the same kernels (their plain versions with
+    ``plain``)."""
+    mean_fn, ties_fn = ((ell_aggregate_plain, ell_gather_backward_plain)
+                        if plain else
+                        (fused_ell_aggregate, fused_gather_backward))
     F = v.shape[1]
     col = {a: slice(i * F, (i + 1) * F) for i, a in enumerate(aggregators)}
     deg = in_degree.to(v.dtype)[:, None]
@@ -244,7 +258,7 @@ def ell_aggregate_cstk(v, nbr_nodes, in_degree, aggregators, out, ct):
     blocks = [] if c_lin is None else [c_lin]
     if "std" in col:
         mean = (out[:, col["mean"]] if "mean" in col else
-                fused_ell_aggregate(v, nbr_nodes, in_degree, ("mean",)))
+                mean_fn(v, nbr_nodes, in_degree, ("mean",)))
         c_a = ct[:, col["std"]] / (denom * out[:, col["std"]])
         blocks += [c_a, c_a * mean]
     n_cmp = 0
@@ -255,8 +269,8 @@ def ell_aggregate_cstk(v, nbr_nodes, in_degree, aggregators, out, ct):
         if ones is None:
             ones = torch.cat([v, torch.ones_like(v)], dim=-1)
         ext = out[:, col[name]].contiguous()
-        ties = fused_gather_backward(ones, nbr_nodes, in_degree, v=ext,
-                                     has_lin=False, n_cmp=1)
+        ties = ties_fn(ones, nbr_nodes, in_degree, v=ext, has_lin=False,
+                       n_cmp=1)
         coef = torch.where(deg > 0, ct[:, col[name]],
                            v.new_zeros(())) / ties.clamp(min=1.0)
         blocks += [ext, coef]
@@ -269,15 +283,18 @@ class ELLAggregateFunction(torch.autograd.Function):
     """``fused_ell_aggregate`` with the JAX package's backward (module
     docstring): the coefficient gather without u, over the reverse table
     when ``rev_nbr_nodes`` is given, else over the reverse CSR; autograd
-    of the plain version with u."""
+    of the float32 plain version with u.  ``mode``: the forward's, and
+    under "bf16" the u-free backward on the bf16-rounded v.  ``plain``:
+    the plain twin."""
 
     @staticmethod
     def forward(ctx, v, u, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
-                aggregators):
-        out = fused_ell_aggregate(v, nbr_nodes, in_degree, aggregators, u)
+                aggregators, mode="f32", plain=False):
+        run = ell_aggregate_plain if plain else fused_ell_aggregate
+        out = run(v, nbr_nodes, in_degree, aggregators, u, mode=mode)
         ctx.save_for_backward(v, u, nbr_nodes, in_degree, rev_nbr_nodes,
                               out_degree, out)
-        ctx.aggregators = aggregators
+        ctx.aggregators, ctx.mode, ctx.plain = aggregators, mode, plain
         return out
 
     @staticmethod
@@ -292,37 +309,43 @@ class ELLAggregateFunction(torch.autograd.Function):
                 o = ell_aggregate_plain(vv, ell_own_pads(nbr, deg), deg,
                                         aggs, uu)
                 dv, du = torch.autograd.grad(o, (vv, uu), ct)
-            return dv, du, None, None, None, None, None
+            return dv, du, None, None, None, None, None, None, None
+        # the forward's gathered values: the JAX backward's fwd_gather_mode
+        vg = to_bf16(v).contiguous() if ctx.mode == "bf16" else v
         cstk, has_lin, has_dev, n_cmp = ell_aggregate_cstk(
-            v, nbr, deg, aggs, out, ct)
-        terms = dict(v=v, has_lin=has_lin, has_dev=has_dev, n_cmp=n_cmp)
+            vg, nbr, deg, aggs, out, ct, plain=ctx.plain)
+        terms = dict(v=vg, has_lin=has_lin, has_dev=has_dev, n_cmp=n_cmp)
         if rev is not None:
-            dv = fused_gather_backward(cstk, rev, odeg, **terms)
+            gather = (ell_gather_backward_plain if ctx.plain
+                      else fused_gather_backward)
+            dv = gather(cstk, rev, odeg, **terms)
         else:
+            gather = (ell_gather_backward_csr_plain if ctx.plain
+                      else fused_gather_backward_csr)
             rev_ptr, rev_idx = reverse_csr(nbr, deg)
-            dv = fused_gather_backward_csr(cstk, rev_ptr, rev_idx, **terms)
-        return dv, None, None, None, None, None, None
+            dv = gather(cstk, rev_ptr, rev_idx, **terms)
+        return dv, None, None, None, None, None, None, None, None
 
 
 def fused_ell_aggregate_vjp(v, nbr_nodes, in_degree, aggregators, u=None,
                             rev_nbr_nodes=None, out_degree=None,
                             mode: str = "f32"):
-    """Differentiable ``fused_ell_aggregate``: the kernel forward and the
-    backward of ``ELLAggregateFunction``, whose u-free dv runs over the
+    """Differentiable ``fused_ell_aggregate`` in ``mode``: the kernel
+    forward and the backward of ``ELLAggregateFunction`` (its plain twin
+    under ``dispatch.plain_twins``), whose u-free dv runs over the
     reverse table when both ``rev_nbr_nodes`` and ``out_degree`` are
-    given, else over the reverse CSR of ``nbr_nodes``.  In the bf16 mode
-    (inference) the kernel alone, which raises when grad mode is on and
-    v or u needs a gradient."""
-    if mode != "f32":
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (v, u)):
-            raise ValueError(f"mode {mode!r} is an inference mode: no "
-                             f"backward")
-        return fused_ell_aggregate(
-            v.contiguous(), nbr_nodes, in_degree, aggregators,
-            None if u is None else u.contiguous(), mode=mode)
+    given, else over the reverse CSR of ``nbr_nodes``.  Without a
+    gradient the kernel alone."""
+    from gnnbuilder_tpu_torch.ops import dispatch
+
+    v = v.contiguous()
+    u = None if u is None else u.contiguous()
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (v, u))):
+        return fused_ell_aggregate(v, nbr_nodes, in_degree, aggregators, u,
+                                   mode=mode)
     if rev_nbr_nodes is None or out_degree is None:
         rev_nbr_nodes = out_degree = None
     return ELLAggregateFunction.apply(
-        v.contiguous(), None if u is None else u.contiguous(), nbr_nodes,
-        in_degree, rev_nbr_nodes, out_degree, tuple(aggregators))
+        v, u, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
+        tuple(aggregators), mode, dispatch.twins_on())

@@ -56,10 +56,16 @@ from gnnbuilder_tpu_torch.ops.cuda.gat_layer import (
 from gnnbuilder_tpu_torch.ops.quant import to_bf16
 
 __all__ = ["fused_gat_block_layer", "gat_block_layer_plain",
-           "prepare_block", "build_block_edge_logits", "MODES"]
+           "prepare_block", "build_block_edge_logits", "BLOCK_ROWS",
+           "MODES"]
 
 # kernel modes, with their codes in the source
 MODES = {"f32": 0, "bf16": 1}
+# the rows of one block the kernel takes (``csrc/gat_block.cu``
+# ``gnnb_gat_block_rows``), for the gate, which loads no library: a batch
+# packed at another block size takes the layer kernel
+# (``dispatch.gat_block_cfg``)
+BLOCK_ROWS = 128
 
 
 def prepare_block(w, att_src, att_dst, mode: str):

@@ -31,14 +31,22 @@ package runs them in XLA.  Where the JAX gate ``_scatter_ok`` refuses
 the backward is autograd of ``gat_layer_plain``, as JAX takes
 ``jax.vjp`` of its reference.
 
-Inference modes (``mode``; the JAX kernel's ``mm="bf16"`` and
-``quant=True``, the serving precision; no backward: a mode meeting a
-gradient raises): only the projection h = x W changes.  "bf16" rounds x
+Modes (``mode``; the JAX kernel's ``mm="bf16"`` and ``quant=True``,
+the serving precision): only the projection h = x W changes.  "bf16" rounds x
 to bf16 against bfloat16 ``w``; "int8" quantizes x per row against int8
 ``w`` with column scales ``sw`` (``ops.quant.qdot``).  The logit halves,
 the softmax, the exact gather and the weighted sum stay float32, as in
 the JAX kernel (whose gather rounds nothing to bf16 in any mode).
-``prepare_layer`` brings a float32 ``w`` to a mode.
+``prepare_layer`` brings a float32 ``w`` to a mode.  ``GATLayerFunction``
+takes a mode, as the JAX ``_make_vjp_fn`` / ``_make_edge_vjp_fn`` do:
+the kernel forward in it; under "bf16" the backward above (row 11 where
+``scatter_ok`` holds, on the float32 recompute of h and the forward's
+out), under "int8" always autograd of the float32 plain layer (the JAX
+straight-through fallback: its scatter backward would mix int8 residuals
+with float32 logits); in a mode the fallback takes the activation's
+derivative from its own recompute, as ``jax.vjp`` of the reference does.
+Its plain twin (``plain=True``) runs ``gat_layer_plain`` forward and row
+11's plain version.
 
 What bounds the kernel on the H100: operations (the projection, which
 runs on the tensor cores: split TF32 in three passes in "f32", bf16 and
@@ -60,7 +68,10 @@ from typing import Optional
 import torch
 
 from gnnbuilder_tpu_torch.ops.activations import ACTIVATIONS, leaky_relu
-from gnnbuilder_tpu_torch.ops.cuda.gat_bwd import fused_gat_scatter_backward
+from gnnbuilder_tpu_torch.ops.cuda.gat_bwd import (
+    fused_gat_scatter_backward,
+    gat_scatter_backward_plain,
+)
 from gnnbuilder_tpu_torch.ops.cuda.mp_layer import (
     LAYER_ACTS,
     MODES,
@@ -466,16 +477,19 @@ class GATLayerFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
                 skip, le, ae_self, w, att_src, att_dst, bias, heads,
-                neg_slope, self_loops, act, rev_csr):
-        out = fused_gat_layer(x, nbr_nodes, in_degree, w, att_src, att_dst,
-                              bias, heads, neg_slope, self_loops, skip, act,
-                              edge_logits=le, self_edge_logit=ae_self)
+                neg_slope, self_loops, act, rev_csr, mode="f32",
+                mode_weights=None, plain=False):
+        wm, sw = (w, None) if mode_weights is None else mode_weights
+        run = gat_layer_plain if plain else fused_gat_layer
+        out = run(x, nbr_nodes, in_degree, wm, att_src, att_dst, bias, heads,
+                  neg_slope, self_loops, skip, act, mode=mode, sw=sw,
+                  edge_logits=le, self_edge_logit=ae_self)
         ctx.save_for_backward(x, nbr_nodes, in_degree, rev_nbr_nodes,
                               out_degree, skip, le, ae_self, w, att_src,
                               att_dst, bias, out)
         ctx.heads, ctx.neg_slope = heads, float(neg_slope)
         ctx.self_loops, ctx.act = bool(self_loops), act
-        ctx.rev_csr = rev_csr
+        ctx.rev_csr, ctx.mode, ctx.plain = rev_csr, mode, plain
         return out
 
     @staticmethod
@@ -483,11 +497,14 @@ class GATLayerFunction(torch.autograd.Function):
         (x, nbr, deg, rev, odeg, skip, le, ae_self, w, att_src, att_dst,
          bias, out) = ctx.saved_tensors
         H, ns, act = ctx.heads, ctx.neg_slope, ctx.act
-        if le is not None or not scatter_ok(ctx.self_loops, act):
-            # the activation's derivative from the kernel's output where it
-            # gives one, as below: the decisions of the forward that ran
-            # (a recompute's own could take a ReLU near 0 the other way)
-            from_out = act in SCATTER_ACTS
+        if (le is not None or ctx.mode == "int8"
+                or not scatter_ok(ctx.self_loops, act)):
+            # f32: the activation's derivative from the kernel's output
+            # where it gives one, as below: the decisions of the forward
+            # that ran (a recompute's own could take a ReLU near 0 the
+            # other way); a mode: the recompute's, as the JAX reference
+            # backward takes it
+            from_out = act in SCATTER_ACTS and ctx.mode == "f32"
             live = [x, skip, le, ae_self, w, att_src, att_dst, bias]
             with torch.enable_grad():
                 leaves = [None if t is None else t.detach().requires_grad_()
@@ -503,17 +520,23 @@ class GATLayerFunction(torch.autograd.Function):
             dx, dskip, dle, dae, dw, datt_src, datt_dst, dbias = [
                 None if t is None else next(got) for t in leaves]
             return (dx, None, None, None, None, dskip, dle, dae, dw,
-                    datt_src, datt_dst, dbias, None, None, None, None, None)
+                    datt_src, datt_dst, dbias, None, None, None, None, None,
+                    None, None, None)
         dz = _act_backward(ct, out, act).contiguous()
         N, HC = dz.shape
         C = HC // H
         h, a_src, a_dst = _project(x, w, att_src, att_dst, H)
-        dv_val, da_src_nbr, dsum, s, m, den = fused_gat_scatter_backward(
-            dz, h.reshape(N, HC).contiguous(), a_src.contiguous(),
-            a_dst.contiguous(), nbr, deg, H, neg_slope=ns, self_loops=True,
-            rev_nbr_nodes=rev, out_degree=odeg,
-            rev_csr=(ctx.rev_csr() if rev is None and ctx.rev_csr is not None
-                     else None))
+        terms = (dz, h.reshape(N, HC).contiguous(), a_src.contiguous(),
+                 a_dst.contiguous(), nbr, deg, H)
+        if ctx.plain:
+            dv_val, da_src_nbr, dsum, s, m, den = gat_scatter_backward_plain(
+                *terms, neg_slope=ns, self_loops=True)
+        else:
+            dv_val, da_src_nbr, dsum, s, m, den = fused_gat_scatter_backward(
+                *terms, neg_slope=ns, self_loops=True, rev_nbr_nodes=rev,
+                out_degree=odeg,
+                rev_csr=(ctx.rev_csr() if rev is None
+                         and ctx.rev_csr is not None else None))
         # the receiver's self-slot terms, with the same m and den
         dzv = dz.view(N, H, C)
         pre_s = a_src + a_dst
@@ -534,7 +557,8 @@ class GATLayerFunction(torch.autograd.Function):
         dbias = dz.sum(0)
         dskip = dz if skip is not None else None
         return (dx, None, None, None, None, dskip, None, None, dw, datt_src,
-                datt_dst, dbias, None, None, None, None, None)
+                datt_dst, dbias, None, None, None, None, None, None, None,
+                None)
 
 
 def fused_gat_layer_vjp(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
@@ -543,20 +567,20 @@ def fused_gat_layer_vjp(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                         act: Optional[str] = None, rev_nbr_nodes=None,
                         out_degree=None, mode: str = "f32",
                         edge_logits=None, self_edge_logit=None,
-                        rev_csr=None):
-    """Differentiable ``fused_gat_layer``: the kernel forward and the
-    backward of ``GATLayerFunction``, whose softmax backward gathers over
+                        rev_csr=None, prepared=None, plain: bool = False):
+    """Differentiable ``fused_gat_layer`` on a float32 ``w``: the kernel
+    forward in ``mode`` (on ``prepared`` = ``prepare_layer(w, mode)``,
+    made here when None) and the backward of ``GATLayerFunction``
+    (``plain``: its plain twin), whose softmax backward gathers over
     the reverse table when both ``rev_nbr_nodes`` and ``out_degree`` are
     given, else over the reverse CSR of ``nbr_nodes`` (``rev_csr()``'s
     when ``rev_csr`` is given: a callable returning ``reverse_csr(
     nbr_nodes, in_degree, positions=True)``, as ``GraphBatch.rev_csr``
     keeps it, called only by that backward; else built there); with
     ``edge_logits`` (and ``self_edge_logit``, 0 when None) autograd of
-    the plain layer.  Mode "f32" only: the bf16 and int8 modes are
-    inference modes and raise here (the JAX package's int8
-    straight-through backward is not ported)."""
-    if mode != "f32":
-        raise ValueError(f"mode {mode!r} is an inference mode: no backward")
+    the plain layer."""
+    if mode != "f32" and prepared is None:
+        prepared = prepare_layer(w.detach(), mode)
     if edge_logits is not None and self_edge_logit is None:
         self_edge_logit = x.new_zeros((x.shape[0], int(heads)))
     if rev_nbr_nodes is None or out_degree is None:
@@ -565,7 +589,9 @@ def fused_gat_layer_vjp(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                                   out_degree, skip, edge_logits,
                                   self_edge_logit, w, att_src, att_dst,
                                   bias, int(heads), float(neg_slope),
-                                  bool(self_loops), act, rev_csr)
+                                  bool(self_loops), act, rev_csr, mode,
+                                  prepared if mode != "f32" else None,
+                                  bool(plain))
 
 
 def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
@@ -575,10 +601,11 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
                          out_degree=None, mode: str = "f32", prepared=None,
                          edge_logits=None, self_edge_logit=None,
                          staged=None, rev_csr=None):
-    """The layer as GATConv calls it: the differentiable path when grad
-    mode is on and an input needs a gradient (mode "f32" only: an
-    inference mode raises there; the kernel then lays the live weights
-    out on every call), else the kernel alone, in ``mode`` with
+    """The layer as GATConv calls it: the differentiable path
+    (``GATLayerFunction`` in ``mode``; its plain twin under
+    ``dispatch.plain_twins``) when grad mode is on and an input needs a
+    gradient (the kernel then lays the live weights out on every call),
+    else the kernel alone, in ``mode`` with
     ``prepared`` = ``prepare_layer(w, mode)`` and ``staged`` =
     ``stage_projection`` of its weights (each made here when None).  The
     edge-logit terms go through either; ``rev_csr`` as
@@ -587,6 +614,7 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
     this rank's [halo | local | halo] window through ``halo_wrap_layer``,
     without the reverse table: the backward takes the window's reverse
     CSR."""
+    from gnnbuilder_tpu_torch.ops import dispatch
     from gnnbuilder_tpu_torch.parallel.halo import active_halo, halo_wrap_layer
 
     if active_halo() is not None:
@@ -608,7 +636,8 @@ def fused_gat_layer_auto(x, nbr_nodes, in_degree, w, att_src, att_dst, bias,
         return fused_gat_layer_vjp(
             ops[0], nbr_nodes, in_degree, *ops[2:6], heads, neg_slope,
             self_loops, ops[1], act, rev_nbr_nodes, out_degree, mode=mode,
-            rev_csr=rev_csr, **ekw)
+            rev_csr=rev_csr, prepared=prepared, plain=dispatch.twins_on(),
+            **ekw)
     wm, sw = ((ops[2], None) if mode == "f32" else
               prepared if prepared is not None else
               prepare_layer(ops[2], mode))

@@ -35,13 +35,17 @@ reads the caller's weights.  The plain version's f32 products go through
 mode its T w0 is the float64 product rounded once, as the kernel forms it
 (Z is rounded to bf16 next).
 
-Inference modes (``mode``; the JAX kernel's ``gather_mode="bf16"`` with
-``mm="bf16"``, and ``quant``; no backward): "bf16" rounds both gathered
+Modes (``mode``; the JAX kernel's ``gather_mode="bf16"`` with
+``mm="bf16"``, and ``quant``): "bf16" rounds both gathered
 rows, x_j and pe_e, to bf16 before ``relu(x_j + pe_e)`` (the sum stays
 float32) and the MLP's operands, with bfloat16 ``w0`` / ``w1``; "int8"
 quantizes both MLP products (``ops.quant.qdot``, int8 weights with
 per-column scales ``s0`` / ``s1``) and keeps the aggregation exact.
 ``mp_layer.prepare_layer`` brings float32 weights to a mode.
+``GINELayerFunction`` takes a mode: the kernel forward in it, the
+backward the same float32 recompute (the JAX VJP's under every mode; for
+"int8" its straight-through estimator).  Its plain twin (``plain=True``)
+runs ``gine_layer_plain`` forward.
 """
 
 from __future__ import annotations
@@ -351,16 +355,26 @@ fused_gine_layer.mode_launches = dict.fromkeys(MODES, 0)
 
 class GINELayerFunction(torch.autograd.Function):
     """``fused_gine_layer`` with the JAX package's backward, a recompute
-    of ``gine_layer_plain`` on the saved inputs (module docstring)."""
+    of the float32 ``gine_layer_plain`` on the saved inputs (module
+    docstring).  ``mode``: the forward in it on ``mode_weights`` = (w0,
+    w1, s0, s1) of the mode with their layout ``staged``; ``plain``: the
+    plain twin."""
 
     @staticmethod
     def forward(ctx, x, pe, nbr_nodes, nbr_edges, in_degree, skip, w0, b0,
-                w1, b1, eps, act, staged=None):
+                w1, b1, eps, act, staged=None, mode="f32", mode_weights=None,
+                plain=False):
         ctx.save_for_backward(x, pe, nbr_nodes, nbr_edges, in_degree, skip,
                               w0, b0, w1, b1)
         ctx.eps, ctx.act = eps, act
-        return fused_gine_layer(x, pe, nbr_nodes, nbr_edges, in_degree, w0,
-                                b0, w1, b1, eps, skip, act, staged=staged)
+        wm = (w0, w1, None, None) if mode_weights is None else mode_weights
+        if plain:
+            return gine_layer_plain(x, pe, nbr_nodes, nbr_edges, in_degree,
+                                    wm[0], b0, wm[1], b1, eps, skip, act,
+                                    mode, wm[2], wm[3])
+        return fused_gine_layer(x, pe, nbr_nodes, nbr_edges, in_degree,
+                                wm[0], b0, wm[1], b1, eps, skip, act,
+                                mode=mode, s0=wm[2], s1=wm[3], staged=staged)
 
     @staticmethod
     def backward(ctx, ct):
@@ -386,45 +400,55 @@ class GINELayerFunction(torch.autograd.Function):
                                                accumulate=True)
         dpe = torch.zeros_like(pe).index_put_((nbre[valid].long(),), dmsg)
         return (dx, dpe, None, None, None, dskip, dw0, db0, dw1, db1, None,
-                None, None)
+                None, None, None, None, None)
 
 
 def fused_gine_layer_vjp(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0, w1,
                          b1, eps: float = 0.0, skip=None,
                          act: Optional[str] = None, mode: str = "f32",
-                         staged=None):
-    """Differentiable ``fused_gine_layer``: the kernel forward (on the Ring
-    layout ``staged`` of these weights, if given) and the plain-recompute
-    backward.  Mode "f32" only: the bf16 and int8 modes are inference
-    modes and raise here."""
-    if mode != "f32":
-        raise ValueError(f"mode {mode!r} is an inference mode: no backward")
+                         staged=None, mode_weights=None,
+                         plain: bool = False):
+    """Differentiable ``fused_gine_layer`` on float32 weights: the kernel
+    forward in ``mode`` (on the Ring layout ``staged`` of its weights, if
+    given, and ``mode_weights`` = (w0, w1, s0, s1) of the mode, made here
+    when None) and the float32 plain-recompute backward; ``plain``: the
+    plain twin."""
+    if mode != "f32" and mode_weights is None:
+        mode_weights = prepare_layer(w0.detach().contiguous(),
+                                     w1.detach().contiguous(), mode)
     return GINELayerFunction.apply(x, pe, nbr_nodes, nbr_edges, in_degree,
                                    skip, w0, b0, w1, b1, float(eps), act,
-                                   staged)
+                                   staged, mode, mode_weights, bool(plain))
 
 
 def fused_gine_layer_auto(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0,
                           w1, b1, eps: float = 0.0, skip=None,
                           act: Optional[str] = None, mode: str = "f32",
                           operands=None):
-    """The layer as GINEConv calls it: the differentiable path when grad
-    mode is on and an input needs a gradient (mode "f32" only), else the
-    kernel alone.  ``operands``: this layer's ``layer_operands`` in
-    ``mode`` (the weights of the mode and their Ring layout), else float32
-    weights are brought to ``mode`` here and the kernel reads them as
-    they are.  The kernel takes any width, so nothing is padded."""
+    """The layer as GINEConv calls it: the differentiable path
+    (``GINELayerFunction`` in ``mode``; its plain twin under
+    ``dispatch.plain_twins``) when grad mode is on and an input needs a
+    gradient, else the kernel alone.  ``operands``: this layer's
+    ``layer_operands`` in ``mode`` (the weights of the mode and their
+    Ring layout), else float32 weights are brought to ``mode`` here and
+    the kernel reads them as they are.  The kernel takes any width, so
+    nothing is padded."""
+    from gnnbuilder_tpu_torch.ops import dispatch
+
     ops = [None if t is None else t.contiguous()
            for t in (x, pe, skip, w0, b0, w1, b1)]
     x, pe, skip, w0, b0, w1, b1 = ops
     staged = None if operands is None else operands[4]
+    mode_weights = (operands[:4] if operands is not None and mode != "f32"
+                    else None)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in ops):
         return fused_gine_layer_vjp(x, pe, nbr_nodes, nbr_edges, in_degree,
                                     w0, b0, w1, b1, eps, skip, act, mode,
-                                    staged)
-    if operands is not None and mode != "f32":
-        w0, w1, s0, s1 = operands[:4]
+                                    staged, mode_weights,
+                                    plain=dispatch.twins_on())
+    if mode_weights is not None:
+        w0, w1, s0, s1 = mode_weights
     else:
         w0, w1, s0, s1 = prepare_layer(w0, w1, mode)
     return fused_gine_layer(x, pe, nbr_nodes, nbr_edges, in_degree, w0, b0,

@@ -54,12 +54,17 @@ from gnnbuilder_tpu_torch.ops.quant import qdot, quantize_weight, to_bf16
 
 __all__ = ["fused_mp_block_stack", "mp_stack_plain", "mp_block_stack_auto",
            "stack_mp_params", "prepare_mp_stack", "stage_mp_stack",
-           "unstage_mp_stack", "CONV_CODES", "STACK_ACTS", "MODES"]
+           "unstage_mp_stack", "CONV_CODES", "STACK_ACTS", "BLOCK_ROWS",
+           "MODES"]
 
 # the convs the kernel takes, with their codes in the source
 CONV_CODES = {"gcn": 0, "gin": 1, "sage": 2}
 # epilogue activations the kernel takes, with their codes in the source
 STACK_ACTS = {None: 0, "relu": 1, "gelu": 2, "sigmoid": 3, "tanh": 4}
+# the rows of one block the kernel takes (``csrc/mp_block.cu``
+# ``gnnb_mp_block_rows``), for the gate, which loads no library: a batch
+# packed at another block size runs per layer (``dispatch.mp_stack_cfg``)
+BLOCK_ROWS = 128
 # kernel modes, with their codes in the source
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
 # (mode, L, F, device) -> the device's copy of _stream_order(mode, L, F)

@@ -34,8 +34,8 @@ Operands per conv (the JAX package's [in, out] layout): gin ``w0`` [F, H],
 rsqrt(deg + 1) formed by the caller; lg (v pre-scaled by the caller) and
 simple none.  gcn, lg and simple keep the width: Fout = F.
 
-Inference modes (``mode``; the JAX kernel's ``gather_mode="bf16"`` with
-``mm="bf16"``, and ``quant``; no s output, no backward): "bf16" rounds
+Modes (``mode``; the JAX kernel's ``gather_mode="bf16"`` with
+``mm="bf16"``, and ``quant``): "bf16" rounds
 each gathered v to bf16 (the sum stays float32) and, for gin and sage,
 the products' operands, with bfloat16 ``w0`` / ``w1`` (gin's first
 product, whose result is rounded to bf16 next, a float64 product rounded
@@ -43,7 +43,15 @@ once in both the kernel and the plain version); "int8" (gin and
 sage only, as in the JAX kernel) quantizes every epilogue product
 (``ops.quant.qdot``: per-row scales, int8 ``w0`` / ``w1`` with column
 scales ``s0`` / ``s1``, an exact sum) and keeps the aggregation exact.
-``prepare_layer`` brings float32 weights to a mode.
+``prepare_layer`` brings float32 weights to a mode.  Every mode writes s
+with ``save_s`` (the sum of the mode's gathered v: of bf16-rounded rows
+in "bf16", as the JAX kernel saves it), and ``MPLayerFunction`` takes a
+mode: the kernel forward in it, the float32 epilogue's gradients on that
+s with the float32 weights (the JAX VJP's; for "int8" its
+straight-through estimator), then dv as above (on a block batch under
+"bf16" the transposed product rounds ds to bf16, as the JAX backward's
+``block_spmm(mm="bf16")``).  Its plain twin (``plain=True``) runs
+``mp_layer_plain`` forward and row 7's plain versions.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ import torch
 from gnnbuilder_tpu_torch.ops.activations import ACTIVATIONS
 from gnnbuilder_tpu_torch.ops.block import block_spmm
 from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import (
+    ell_gather_backward_csr_plain,
+    ell_gather_backward_plain,
     fused_gather_backward,
     fused_gather_backward_csr,
 )
@@ -65,7 +75,7 @@ from gnnbuilder_tpu_torch.ops.quant import qdot, quantize_weight, to_bf16
 __all__ = ["fused_mp_layer", "mp_layer_plain", "MPLayerFunction",
            "fused_mp_layer_vjp", "fused_mp_layer_auto", "prepare_layer",
            "mp_layer_ew_ordered", "weight_dtype", "MP_CONVS", "LAYER_ACTS",
-           "MODES", "QUANT_CONVS", "EW_CONVS"]
+           "MODES", "QUANT_CONVS", "EW_CONVS", "BLOCK_ROWS"]
 
 # the convs the kernel takes, with their codes in the source
 MP_CONVS = {"gin": 0, "sage": 1, "gcn": 2, "lg": 3, "simple_sum": 4,
@@ -77,6 +87,11 @@ LAYER_ACTS = {None: 0, "relu": 1, "gelu": 2, "sigmoid": 3, "tanh": 4}
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
 # the convs with an int8 mode: the others run no product to quantize
 QUANT_CONVS = ("gin", "sage")
+# the rows of one block the block mode takes (``csrc/mp_layer.cu``
+# ``gnnb_mp_layer_block_rows``), for the gate, which loads no library: a
+# batch packed at another block size takes the ELL mode
+# (``dispatch.mp_layer_cfg``)
+BLOCK_ROWS = 128
 # the operands each conv takes, in the order (w0, b0, w1, b1)
 _OPERANDS = {"gin": (True, True, True, True),
              "sage": (True, True, True, False),
@@ -255,8 +270,6 @@ def _check(v, nbr_nodes, in_degree, conv, w0, b0, w1, b1, skip, act,
         raise ValueError(f"the int8 mode exists for {QUANT_CONVS} only; "
                          f"{conv} runs no product to quantize: run it in "
                          f"f32")
-    if mode != "f32" and save_s:
-        raise ValueError(f"mode {mode!r} is an inference mode: no s")
     if act not in LAYER_ACTS:
         raise ValueError(f"unsupported mp layer activation {act!r}")
     if v.dim() != 2 or v.dtype != torch.float32:
@@ -388,7 +401,8 @@ def fused_mp_layer(v, nbr_nodes, in_degree, conv: str, w0=None, b0=None,
     with the conv's operands (module docstring, typed by ``mode``:
     ``prepare_layer``), an optional skip [N, Fout] added before the
     activation ``act``.  Returns out [N, Fout], or (out, s) with
-    ``save_s`` (mode "f32" only), s [N, F] the neighbour sum.  A CUDA
+    ``save_s``, s [N, F] the neighbour sum of the mode's gathered v (out
+    the same bits as without).  A CUDA
     ``v`` launches the kernel, which takes any width within shared memory
     and raises on what it does not take; a CPU ``v`` runs the plain
     version."""
@@ -411,19 +425,24 @@ class MPLayerFunction(torch.autograd.Function):
     """``fused_mp_layer`` with the JAX package's hand-written backward
     (``mp_layer.py`` ``_make_vjp_fn``): the forward saves s; the backward
     takes the epilogue's gradients from s in torch, then dv = dv_self +
-    the transpose of the aggregation applied to ds (module docstring)."""
+    the transpose of the aggregation applied to ds (module docstring).
+    ``mode``: the forward in it on ``mode_weights`` = (w0, w1, s0, s1)
+    of the mode, the backward's epilogue in float32 on the float32
+    weights.  ``plain``: the plain twin."""
 
     @staticmethod
     def forward(ctx, v, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
                 block_adj, skip, w0, b0, w1, b1, conv, eps, act,
-                rev_csr=None):
-        out, s = fused_mp_layer(v, nbr_nodes, in_degree, conv, w0, b0, w1,
-                                b1, eps, skip=skip, act=act, save_s=True,
-                                block_adj=block_adj)
+                rev_csr=None, mode="f32", mode_weights=None, plain=False):
+        wm = (w0, w1, None, None) if mode_weights is None else mode_weights
+        run = mp_layer_plain if plain else fused_mp_layer
+        out, s = run(v, nbr_nodes, in_degree, conv, wm[0], b0, wm[1], b1,
+                     eps, skip=skip, act=act, save_s=True,
+                     block_adj=block_adj, mode=mode, s0=wm[2], s1=wm[3])
         ctx.save_for_backward(v, s, nbr_nodes, in_degree, rev_nbr_nodes,
                               out_degree, block_adj, skip, w0, b0, w1, b1)
         ctx.conv, ctx.eps, ctx.act = conv, float(eps), act
-        ctx.rev_csr = rev_csr
+        ctx.rev_csr, ctx.mode, ctx.plain = rev_csr, mode, plain
         return out
 
     @staticmethod
@@ -445,39 +464,48 @@ class MPLayerFunction(torch.autograd.Function):
             None if t is None else next(grads) for t in leaves]
         ds = ds.contiguous()
         if badj is not None:
-            dv_agg = block_spmm(badj, ds, transpose=True)
+            dv_agg = block_spmm(badj, ds, transpose=True,
+                                mm="bf16" if ctx.mode == "bf16" else None)
         elif rev is not None:
-            dv_agg = fused_gather_backward(ds, rev, out_deg, has_lin=True)
+            gather = (ell_gather_backward_plain if ctx.plain
+                      else fused_gather_backward)
+            dv_agg = gather(ds, rev, out_deg, has_lin=True)
         else:
             rev_ptr, rev_idx = (ctx.rev_csr()[:2] if ctx.rev_csr is not None
                                 else reverse_csr(nbr, deg))
-            dv_agg = fused_gather_backward_csr(ds, rev_ptr, rev_idx,
-                                               has_lin=True)
+            gather = (ell_gather_backward_csr_plain if ctx.plain
+                      else fused_gather_backward_csr)
+            dv_agg = gather(ds, rev_ptr, rev_idx, has_lin=True)
         dv = dv_agg if dv_self is None else dv_self + dv_agg
         return (dv, None, None, None, None, None, dskip, dw0, db0, dw1, db1,
-                None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def fused_mp_layer_vjp(v, nbr_nodes, in_degree, conv: str, w0=None, b0=None,
                        w1=None, b1=None, eps: float = 0.0, skip=None,
                        rev_nbr_nodes=None, out_degree=None,
                        act: Optional[str] = None, block_adj=None,
-                       mode: str = "f32", rev_csr=None):
-    """Differentiable ``fused_mp_layer``: the kernel forward with s saved
-    and the hand-written backward, whose dv runs over ``block_adj`` when
-    given, else over the reverse table when both ``rev_nbr_nodes`` and
-    ``out_degree`` are given, else over the reverse CSR of
-    ``nbr_nodes`` (``rev_csr()[:2]`` when ``rev_csr`` is given: a
-    callable returning ``reverse_csr(nbr_nodes, in_degree)``'s arrays
-    first, called only by that backward; else built there).  Mode "f32"
-    only: the bf16 and int8 modes are inference modes and raise here."""
-    if mode != "f32":
-        raise ValueError(f"mode {mode!r} is an inference mode: no backward")
+                       mode: str = "f32", rev_csr=None, plain: bool = False):
+    """Differentiable ``fused_mp_layer`` on float32 weights: the kernel
+    forward in ``mode`` (the weights brought to it here,
+    ``prepare_layer``) with s saved, and the hand-written backward, whose
+    dv runs over ``block_adj`` when given, else over the reverse table
+    when both ``rev_nbr_nodes`` and ``out_degree`` are given, else over
+    the reverse CSR of ``nbr_nodes`` (``rev_csr()[:2]`` when ``rev_csr``
+    is given: a callable returning ``reverse_csr(nbr_nodes, in_degree)``'s
+    arrays first, called only by that backward; else built there).
+    ``plain``: the plain twin (``MPLayerFunction``)."""
     if block_adj is not None or rev_nbr_nodes is None or out_degree is None:
         rev_nbr_nodes = out_degree = None
+    mode_weights = None
+    if mode != "f32":
+        mode_weights = (prepare_layer(w0.detach().contiguous(),
+                                      w1.detach().contiguous(), mode)
+                        if conv in ("gin", "sage") else (None,) * 4)
     return MPLayerFunction.apply(v, nbr_nodes, in_degree, rev_nbr_nodes,
                                  out_degree, block_adj, skip, w0, b0, w1, b1,
-                                 conv, float(eps), act, rev_csr)
+                                 conv, float(eps), act, rev_csr, mode,
+                                 mode_weights, bool(plain))
 
 
 def fused_mp_layer_auto(v, nbr_nodes, in_degree, conv: str, w0=None,
@@ -485,14 +513,16 @@ def fused_mp_layer_auto(v, nbr_nodes, in_degree, conv: str, w0=None,
                         skip=None, rev_nbr_nodes=None, out_degree=None,
                         act: Optional[str] = None, block_adj=None,
                         mode: str = "f32", rev_csr=None):
-    """The layer as a conv calls it: the differentiable path when grad
-    mode is on and an input needs a gradient (mode "f32" only: an
-    inference mode raises there), else the kernel without s; float32
-    weights are brought to ``mode`` here (``prepare_layer``).  The kernel
+    """The layer as a conv calls it: the differentiable path
+    (``MPLayerFunction`` in ``mode``; its plain twin under
+    ``dispatch.plain_twins``) when grad mode is on and an input needs a
+    gradient, else the kernel without s; float32 weights are brought to
+    ``mode`` here (``prepare_layer``).  The kernel
     takes any width, so nothing is padded.  Under a halo scope
     (``parallel.halo``) it runs on this rank's [halo | local | halo]
     window through ``halo_wrap_layer``, without the reverse table (a
     whole-batch layout): the backward takes the window's reverse CSR."""
+    from gnnbuilder_tpu_torch.ops import dispatch
     from gnnbuilder_tpu_torch.parallel.halo import active_halo, halo_wrap_layer
 
     if active_halo() is not None:
@@ -510,7 +540,7 @@ def fused_mp_layer_auto(v, nbr_nodes, in_degree, conv: str, w0=None,
                                   rev_nbr_nodes=rev_nbr_nodes,
                                   out_degree=out_degree, act=act,
                                   block_adj=block_adj, mode=mode,
-                                  rev_csr=rev_csr)
+                                  rev_csr=rev_csr, plain=dispatch.twins_on())
     if mode == "f32":
         return fused_mp_layer(ops[0], nbr_nodes, in_degree, conv, *ops[2:],
                               eps=eps, skip=ops[1], act=act,

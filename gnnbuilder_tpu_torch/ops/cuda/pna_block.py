@@ -50,13 +50,17 @@ from gnnbuilder_tpu_torch.ops.quant import (
 __all__ = ["fused_pna_block_stack", "pna_block_stack_plain",
            "pna_block_stack_auto", "stack_params", "prepare_stack",
            "stage_stack", "unstage_stack", "split_tf32", "STACK_ACTS",
-           "STACK_WIDTH", "MODES"]
+           "STACK_WIDTH", "BLOCK_ROWS", "MODES"]
 
 # epilogue activations the kernel takes, with their codes in the source
 STACK_ACTS = {None: 0, "relu": 1, "gelu": 2, "sigmoid": 3, "tanh": 4}
 # the kernel's feature width (``csrc/pna_block.cu`` F): a stack whose
 # widths pad to more runs per layer (``GNNModel._fused_gnn_stack``)
 STACK_WIDTH = 128
+# the rows of one block the kernel takes (``csrc/pna_block.cu``
+# ``gnnb_pna_block_rows``), for the gate, which loads no library: a batch
+# packed at another block size runs per layer (``dispatch.pna_stack_cfg``)
+BLOCK_ROWS = 128
 # kernel modes, with their codes in the source, and the weights' type
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
 _WEIGHT_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16,

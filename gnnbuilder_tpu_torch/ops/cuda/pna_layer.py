@@ -20,9 +20,9 @@ the reverse CSR built from the forward table, the same bits too.
 What bounds the kernel on the H100: operations (the five products, ~0.5
 MFLOP per row at 128 wide); they run on the tensor cores (split TF32 in
 three passes for "f32", bf16, s8 for the int8 mode's final Linear; v = x
-Wj of "f32" and "int8" in float64, rounded once, so its max / min ties
-are those of the correctly rounded product); see the source for the
-design.
+Wj in float64, rounded once, so its max / min ties are those of the
+correctly rounded product: in "bf16" of the bf16-rounded operands, then
+rounded to bf16); see the source for the design.
 
 Weights use the JAX package's [in, out] layout: ``w_pre`` [2Fin, F]
 (receiver rows first), ``k_post`` [Fin + 12F, Fout] (self rows, then the
@@ -36,12 +36,20 @@ makes each layer's operands (``layer_operands``: the padded weights and
 their layout) for all its layers at once, on every train step from the
 live weights and once per mode for inference, where it caches them.
 
-Inference modes (``mode``; the JAX kernel's ``mm``, ``gather_mode`` and
-``quant``; no residuals, no backward): "bf16", whose three weights are
-bfloat16 and whose products round their operands (and the gathered v)
-to bf16 and sum in float32; "int8", which quantizes the final Linear
-only (``w_lin`` int8 with per-column scales ``s_lin``, mid's rows
-quantized, an exact sum), as the JAX kernel does.
+Modes (``mode``; the JAX kernel's ``mm``, ``gather_mode`` and
+``quant``): "bf16", whose three weights are bfloat16 and whose products
+round their operands (and the gathered v) to bf16 and sum in float32;
+"int8", which quantizes the final Linear only (``w_lin`` int8 with
+per-column scales ``s_lin``, mid's rows quantized, an exact sum), as the
+JAX kernel does.  Every mode writes the residuals with ``save_res`` (v is
+the mode's: bf16-rounded in "bf16", so the backward's tie tests compare
+the values the forward compared, as the JAX backward's
+``fwd_gather_mode``), and ``PNALayerFunction`` takes a mode: the kernel
+forward in it, the f32 backward on its residuals with the float32
+weights (the JAX custom VJP's; for "int8" a straight-through estimator
+through the float32 ``w_lin``).  Its plain twin (``plain=True``, or the
+model under ``dispatch.plain_twins``) runs the plain forward in the mode
+and the same backward with the plain versions of rows 6 and 7.
 """
 
 from __future__ import annotations
@@ -53,7 +61,10 @@ from typing import Optional
 import torch
 
 from gnnbuilder_tpu_torch.ops.activations import ACTIVATIONS
-from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import fused_gather_backward
+from gnnbuilder_tpu_torch.ops.cuda.ell_bwd import (
+    ell_gather_backward_plain,
+    fused_gather_backward,
+)
 from gnnbuilder_tpu_torch.ops.cuda.gat_layer import _region_order
 from gnnbuilder_tpu_torch.ops.cuda.pna_block import (
     _fragment_index,
@@ -62,6 +73,8 @@ from gnnbuilder_tpu_torch.ops.cuda.pna_block import (
 from gnnbuilder_tpu_torch.ops.cuda.scatter_bwd import (
     fused_pna_scatter_backward,
     fused_pna_scatter_cstk,
+    pna_scatter_backward_plain,
+    pna_scatter_cstk_plain,
 )
 from gnnbuilder_tpu_torch.ops.ell import _STD_EPS, ell_mask
 from gnnbuilder_tpu_torch.ops.quant import (
@@ -346,10 +359,13 @@ def pna_layer_plain(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post,
         return _f32_dot(a, w)
 
     u = dot(x, w_pre[:Fin]) + b_pre
+    # correctly rounded, as the kernel's float64 FMAs give it (bf16: of
+    # the bf16-rounded x, then rounded to bf16), so the max / min ties
+    # are the kernel's
+    xv = to_bf16(x) if mode == "bf16" else x
+    v = (xv.double() @ w_pre[Fin:].double()).to(x.dtype)
     if mode == "bf16":
-        v = to_bf16(dot(x, w_pre[Fin:]))
-    else:       # correctly rounded, as the kernel's float64 FMAs give it
-        v = (x.double() @ w_pre[Fin:].double()).to(x.dtype)
+        v = to_bf16(v)
     m = ell_mask(nbr_nodes, in_degree)[..., None]
     g = v[nbr_nodes.long()]                               # [N, W, F]
     zero = x.new_zeros(())
@@ -406,8 +422,6 @@ def _check(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
                          f"{tuple(x.shape)} {x.dtype}")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
-    if mode != "f32" and save_res:
-        raise ValueError(f"mode {mode!r} is an inference mode: no residuals")
     N, Fin = x.shape
     F = w_pre.shape[1]
     Fout = w_lin.shape[1]
@@ -464,6 +478,8 @@ def _launch(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
         raise ValueError("nbr_nodes and in_degree must be int32")
     if staged is None:
         staged = stage_layer(w_pre, k_post, w_lin, mode)
+    if mode == "bf16":    # the v launch reads its Wj rows row-major
+        w_pre = w_pre.contiguous()
     ll = ctypes.c_longlong
     lib.gnnb_pna_layer_staged_bytes.restype = ll
     lib.gnnb_pna_layer_work_bytes.restype = ll
@@ -518,8 +534,9 @@ def fused_pna_layer(x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post,
     """One PNA layer.  x [N, Fin] float32; nbr_nodes [N, W] and in_degree
     [N] int32; weights as in the module docstring, typed by ``mode``
     (``prepare_layer``); skip [N, Fout] or None, added before ``act``.
-    Returns out [N, Fout], or with ``save_res`` (mode "f32" only) the
-    tuple (out, v [N, F], agg_cat [N, 4F], aux [N, 5F], mid [N, Fout]).  A
+    Returns out [N, Fout], or with ``save_res`` the tuple (out, v [N, F],
+    agg_cat [N, 4F], aux [N, 5F], mid [N, Fout]), v as the mode gathers
+    it, out the same bits as without (the residuals are stores only).  A
     CUDA ``x`` launches the kernel, which takes widths that are multiples
     of 128 and raises on others; a CPU ``x`` runs the plain version.
     ``staged``: ``stage_layer``'s layout of the same weights, which the
@@ -549,25 +566,40 @@ class PNALayerFunction(torch.autograd.Function):
     products, du through ``sel``, dv over the reverse table
     (``fused_pna_scatter_cstk`` then ``fused_gather_backward``) or, when
     ``rev_nbr_nodes`` is None, over the reverse CSR
-    (``fused_pna_scatter_backward``); then the pre_nn chains."""
+    (``fused_pna_scatter_backward``); then the pre_nn chains.
+
+    ``mode``: the forward runs the kernel in it on ``mode_weights`` =
+    ``prepare_layer`` of the float32 weights (w_pre, k_post, w_lin,
+    s_lin), the backward is the one above with the float32 weights, as
+    the JAX VJP's under ``mm`` / ``gather_mode`` / ``quant`` (int8: a
+    straight-through estimator, the gradient through the float32 w_lin).
+    ``plain``: the plain twin, ``pna_layer_plain`` forward and rows 6 and
+    7's plain versions in the backward, whatever the device."""
 
     @staticmethod
     def forward(ctx, x, nbr_nodes, in_degree, rev_nbr_nodes, out_degree,
                 skip, w_pre, b_pre, k_post, b_post, w_lin, b_lin, delta,
-                act, staged=None, rev_csr=None):
+                act, staged=None, rev_csr=None, mode="f32",
+                mode_weights=None, plain=False):
         args = [t.contiguous() for t in (x, w_pre, b_pre, k_post, b_post,
                                          w_lin, b_lin)]
         skip = None if skip is None else skip.contiguous()
         x, w_pre, b_pre, k_post, b_post, w_lin, b_lin = args
-        out, v, agg_cat, aux, mid = fused_pna_layer(
-            x, nbr_nodes, in_degree, w_pre, b_pre, k_post, b_post, w_lin,
-            b_lin, delta, skip=skip, act=act, save_res=True, staged=staged)
+        wm = ((w_pre, k_post, w_lin, None) if mode_weights is None
+              else mode_weights)
+        run = pna_layer_plain if plain else functools.partial(
+            fused_pna_layer, staged=staged)
+        out, v, agg_cat, aux, mid = run(
+            x, nbr_nodes, in_degree, wm[0], b_pre, wm[1], b_post, wm[2],
+            b_lin, delta, skip=skip, act=act, save_res=True, mode=mode,
+            s_lin=wm[3])
         ctx.save_for_backward(x, nbr_nodes, in_degree, rev_nbr_nodes,
                               out_degree, skip, w_pre, k_post, w_lin, b_lin,
                               v, agg_cat, aux, mid, out)
         ctx.delta = float(delta)
         ctx.act = act
         ctx.rev_csr = rev_csr
+        ctx.plain = plain
         return out
 
     @staticmethod
@@ -617,10 +649,16 @@ class PNALayerFunction(torch.autograd.Function):
         sel = ks_t[:, :F] + ks_t[:, F:2 * F] + ks_t[:, 2 * F:3 * F]
         du = torch.where(nonempty, dy @ sel, x.new_zeros(()))
         if rev is not None:
-            cstk = fused_pna_scatter_cstk(d_mid, aux, agg_cat, deg, ks_t,
-                                          delta)
-            dv = fused_gather_backward(cstk, rev, out_deg, v, has_lin=True,
-                                       has_dev=True, n_cmp=2)
+            cstk_fn, gather = ((pna_scatter_cstk_plain,
+                                ell_gather_backward_plain) if ctx.plain else
+                               (fused_pna_scatter_cstk,
+                                fused_gather_backward))
+            cstk = cstk_fn(d_mid, aux, agg_cat, deg, ks_t, delta)
+            dv = gather(cstk, rev, out_deg, v, has_lin=True, has_dev=True,
+                        n_cmp=2)
+        elif ctx.plain:
+            dv = pna_scatter_backward_plain(d_mid, aux, agg_cat, deg, nbr, v,
+                                            ks_t, delta)
         else:
             dv = fused_pna_scatter_backward(d_mid, aux, agg_cat, deg, nbr,
                                             v, ks_t, delta,
@@ -632,25 +670,36 @@ class PNALayerFunction(torch.autograd.Function):
         dw_pre = torch.cat([x.t() @ du, x.t() @ dv], dim=0)
         db_pre = du.sum(0)
         return (dx, None, None, None, None, dskip, dw_pre, db_pre, dk_post,
-                db_post, dw_lin, db_lin, None, None, None, None)
+                db_post, dw_lin, db_lin, None, None, None, None, None, None,
+                None)
 
 
 def fused_pna_layer_vjp(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
                         b_post, w_lin, b_lin, delta: float, skip=None,
                         act: Optional[str] = None, rev_nbr_nodes=None,
-                        out_degree=None, staged=None, rev_csr=None):
+                        out_degree=None, staged=None, rev_csr=None,
+                        mode: str = "f32", mode_weights=None,
+                        plain: bool = False):
     """Differentiable ``fused_pna_layer``: the kernel forward with
     residuals and the hand-written backward, whose dv runs over the
     reverse table when both ``rev_nbr_nodes`` and ``out_degree`` are
     given, else over the reverse CSR (``rev_csr`` as
-    ``fused_pna_scatter_backward`` takes it).  ``staged`` as for
-    ``fused_pna_layer``."""
+    ``fused_pna_scatter_backward`` takes it).  The weights are float32
+    (the backward's); in ``mode`` the forward takes ``mode_weights`` =
+    (w_pre, k_post, w_lin, s_lin) of the mode (``prepare_layer`` of the
+    same weights: made here when None), with ``staged`` their layout.
+    ``plain``: the plain twin (``PNALayerFunction``)."""
     if rev_nbr_nodes is None or out_degree is None:
         rev_nbr_nodes = out_degree = None
+    if mode != "f32" and mode_weights is None:
+        mode_weights = prepare_layer(*(t.detach().contiguous()
+                                       for t in (w_pre, k_post, w_lin)),
+                                     mode)
     return PNALayerFunction.apply(x, nbr_nodes, in_degree, rev_nbr_nodes,
                                   out_degree, skip, w_pre, b_pre, k_post,
                                   b_post, w_lin, b_lin, float(delta), act,
-                                  staged, rev_csr)
+                                  staged, rev_csr, mode, mode_weights,
+                                  bool(plain))
 
 
 def _rup(n: int, m: int = 128) -> int:
@@ -738,14 +787,16 @@ def fused_pna_layer_auto(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
                          rev_csr=None):
     """The layer at any widths: ``pad_operands`` outside the autograd
     Function, then the first Fout columns of the result.  Takes the
-    differentiable path when grad mode is on and an input needs a
-    gradient (mode "f32" only), else the kernel without residuals; float32
-    weights are brought to ``mode`` after padding (``prepare_layer``), or
-    taken from ``operands`` (``layer_operands`` of the same weights in
+    differentiable path (``PNALayerFunction`` in ``mode``; its plain twin
+    under ``dispatch.plain_twins``) when grad mode is on and an input
+    needs a gradient, else the kernel without residuals; float32 weights
+    are brought to ``mode`` after padding (``prepare_layer``), or taken
+    from ``operands`` (``layer_operands`` of the same weights in
     ``mode``), which also carry their staged layout.  Under a halo scope
     (``parallel.halo``) it runs on this rank's [halo | local | halo]
     window through ``halo_wrap_layer``, without the reverse table: the
     backward takes the window's reverse CSR (``rev_csr``)."""
+    from gnnbuilder_tpu_torch.ops import dispatch
     from gnnbuilder_tpu_torch.parallel.halo import active_halo, halo_wrap_layer
 
     if active_halo() is not None:
@@ -756,34 +807,46 @@ def fused_pna_layer_auto(x, nbr_nodes, in_degree, w_pre, b_pre, k_post,
                 rev_csr=rc),
             x, nbr_nodes, in_degree, skip=skip)
     Fout = w_lin.shape[1]
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, w_pre, b_pre, k_post, b_post, w_lin, b_lin, skip))
     if operands is not None:
         if operands["mode"] != mode:
             raise ValueError(f"operands of mode {operands['mode']!r} for a "
                              f"call in mode {mode!r}")
         ws = operands["weights"]
         Fin_p, Fout_p = ws[0].shape[0] // 2, ws[4].shape[1]
-        ops = (_pad(x, x.shape[0], Fin_p), *ws,
-               None if skip is None else _pad(skip, skip.shape[0], Fout_p))
         staged, s_lin = operands["staged"], operands["s_lin"]
+        if grad and mode != "f32":
+            # the backward's float32 weights, padded alike
+            ops = pad_operands(x, w_pre, b_pre, k_post, b_post, w_lin,
+                               b_lin, skip)
+        else:
+            ops = (_pad(x, x.shape[0], Fin_p), *ws,
+                   None if skip is None else _pad(skip, skip.shape[0],
+                                                  Fout_p))
+        mode_w = (ws[0], ws[2], ws[4], s_lin)
     else:
         ops = pad_operands(x, w_pre, b_pre, k_post, b_post, w_lin, b_lin,
                            skip)
-        staged, s_lin = None, None
+        staged = mode_w = None
         if mode != "f32":
-            w_pre_m, k_post_m, w_lin_m, s_lin = prepare_layer(
-                ops[1].contiguous(), ops[3].contiguous(), ops[5].contiguous(),
+            mode_w = prepare_layer(
+                *(t.detach().contiguous() for t in (ops[1], ops[3], ops[5])),
                 mode)
-            ops = (ops[0], w_pre_m, ops[2], k_post_m, ops[4], w_lin_m,
-                   ops[6], ops[7])
-    if mode == "f32" and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in ops):
+    if grad:
         out = fused_pna_layer_vjp(ops[0], nbr_nodes, in_degree, *ops[1:7],
                                   delta, skip=ops[7], act=act,
                                   rev_nbr_nodes=rev_nbr_nodes,
                                   out_degree=out_degree, staged=staged,
-                                  rev_csr=rev_csr)
+                                  rev_csr=rev_csr, mode=mode,
+                                  mode_weights=None if mode == "f32"
+                                  else mode_w,
+                                  plain=dispatch.twins_on())
     else:
         c = [None if t is None else t.contiguous() for t in ops]
+        if mode != "f32":
+            c[1], c[3], c[5], s_lin = mode_w
         out = fused_pna_layer(c[0], nbr_nodes, in_degree, *c[1:7], delta,
                               skip=c[7], act=act, mode=mode, s_lin=s_lin,
                               staged=staged)

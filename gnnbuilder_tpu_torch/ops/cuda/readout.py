@@ -20,9 +20,11 @@ itself), which for the live weights of a train step (``lin.weight.t()``,
 whose transpose is the parameter itself) is one concatenation of views.
 
 ``ReadoutFunction`` makes it differentiable as the JAX package's
-``fused_readout_vjp`` does: the kernel forward, and a backward that
-recomputes ``readout_plain`` under autograd (the JAX package has no
-backward kernel for the readout either).
+``fused_readout_vjp`` does: the kernel forward, in any mode, and a
+backward that recomputes the float32 ``readout_plain`` under autograd
+(the JAX package has no backward kernel for the readout either; under
+"int8" that is its straight-through estimator).  Its plain twin
+(``plain=True``) runs ``readout_plain`` in the mode forward.
 
 The ghost graph's row is finite garbage on both versions (they clip its
 row range differently); compare only rows where ``graph_mask`` is true.
@@ -32,7 +34,7 @@ whose weights are bfloat16 and whose products round their input rows to
 bf16 and sum in float32; "int8", whose weights are int8 with per-column
 scales (``prepare_head``) and whose products quantize their input rows
 and sum exactly (``ops.quant``).  The pooling is exact in every mode and
-the biases stay float32.  Only "f32" has a backward.
+the biases stay float32.
 """
 
 from __future__ import annotations
@@ -364,15 +366,24 @@ def _pairs(flat):
 
 
 class ReadoutFunction(torch.autograd.Function):
-    """``fused_readout`` forward; the backward recomputes ``readout_plain``
-    under autograd and returns the gradients of x, mx and every weight."""
+    """``fused_readout`` forward (in ``mode``, on ``prepare_head`` of the
+    float32 weights, or ``readout_plain`` when ``plain``: the twin); the
+    backward recomputes the float32 ``readout_plain`` under autograd and
+    returns the gradients of x, mx and every float32 weight."""
 
     @staticmethod
-    def forward(ctx, x, mx, n_node, starts, aggrs, act, out_act, *flat_w):
+    def forward(ctx, x, mx, n_node, starts, aggrs, act, out_act, mode,
+                plain, *flat_w):
         ctx.save_for_backward(x, mx, n_node, starts, *flat_w)
         ctx.cfg = (aggrs, act, out_act)
-        return fused_readout(x, n_node, _pairs(flat_w), aggrs=aggrs, mx=mx,
-                             act=act, out_act=out_act, starts=starts)
+        weights, scales = prepare_head(
+            _pairs([w.detach() for w in flat_w]), mode)
+        if plain:
+            return readout_plain(x, n_node, starts, weights, aggrs, mx, act,
+                                 out_act, mode, scales)
+        return fused_readout(x, n_node, weights, aggrs=aggrs, mx=mx,
+                             act=act, out_act=out_act, starts=starts,
+                             mode=mode, scales=scales)
 
     @staticmethod
     def backward(ctx, ct):
@@ -388,15 +399,20 @@ class ReadoutFunction(torch.autograd.Function):
             grads = list(torch.autograd.grad(out, inputs, ct))
         dx = grads.pop(0)
         dmx = None if mx is None else grads.pop(0)
-        return (dx, dmx, None, None, None, None, None, *grads)
+        return (dx, dmx, None, None, None, None, None, None, None, *grads)
 
 
 def fused_readout_vjp(x, n_node, weights, aggrs: Sequence[str] = ("add",),
                       mx=None, act: Optional[str] = "relu",
-                      out_act: Optional[str] = None, starts=None):
-    """Differentiable ``fused_readout`` (same arguments)."""
+                      out_act: Optional[str] = None, starts=None,
+                      mode: str = "f32", plain: bool = False):
+    """Differentiable ``fused_readout`` (same arguments, float32
+    ``weights``): the kernel forward in ``mode`` and the float32
+    backward; ``plain``: the plain twin."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options: {tuple(MODES)}")
     if starts is None:
         starts = _starts_of(n_node)
     flat = [t for wb in weights for t in wb]
     return ReadoutFunction.apply(x, mx, n_node, starts, tuple(aggrs), act,
-                                 out_act, *flat)
+                                 out_act, mode, bool(plain), *flat)

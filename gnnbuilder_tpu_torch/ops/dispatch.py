@@ -35,6 +35,16 @@ the conv has edge features: then the layer kernel declines too.
 Under an active int8 calibration every gate that would give a kernel
 the int8 mode declines: the plain path owns the per-site state.
 
+``plain_twins()`` is a context (a contextvar) in which every autograd
+Function of the layer kernels (``PNALayerFunction``,
+``MPLayerFunction``, ``GINELayerFunction``, ``GATLayerFunction``,
+``ELLAggregateFunction``, ``ReadoutFunction``) runs its plain twin: the
+plain forward in the gate's mode and the same backward formulas with the
+plain versions of the backward kernels, whatever the device.  The gates
+answer as outside it, so the twin takes the kernel path's route and
+modes: it is the reference that the card holds a train step's gradients
+to, launching no kernel.
+
 ``set_kernel_overrides`` is the DSE's handle on the knobs, with the JAX
 package's signature: ``ell_width`` sets the packing-time default
 (``core.graph.set_default_ell_width``); ``block_mode="off"`` makes
@@ -62,7 +72,8 @@ import contextlib
 import contextvars
 from typing import Optional
 
-__all__ = ["set_fused_mode", "get_fused_mode", "no_fused",
+__all__ = ["set_fused_mode", "get_fused_mode", "no_fused", "plain_twins",
+           "twins_on",
            "set_kernel_overrides",
            "inference_mode", "policy", "inference_on",
            "block_cfg", "pna_stack_cfg", "mp_stack_cfg", "mp_layer_cfg",
@@ -119,6 +130,27 @@ def no_fused():
         yield
     finally:
         _SUPPRESSED.reset(tok)
+
+
+_TWINS: contextvars.ContextVar = contextvars.ContextVar(
+    "gnnb_torch_plain_twins", default=False
+)
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """The layer kernels' autograd Functions run their plain twins
+    inside (module docstring)."""
+    tok = _TWINS.set(True)
+    try:
+        yield
+    finally:
+        _TWINS.reset(tok)
+
+
+def twins_on() -> bool:
+    """Whether ``plain_twins`` is active."""
+    return _TWINS.get()
 
 
 def _off() -> bool:
@@ -264,8 +296,9 @@ def mp_stack_cfg(g, conv: str) -> Optional[dict]:
     kernel (``ops.cuda.mp_block``) applies to batch ``g``, else None (the
     model runs the per-layer loop; GIN always does under "auto").
 
-    Preconditions: inference scope and a block-packed batch at a block
-    size that is a multiple of 128, and no active int8 calibration.
+    Preconditions: inference scope and a block-packed batch at the block
+    size the kernel takes (``mp_block.BLOCK_ROWS``; another, such as 256,
+    runs per layer on row 4's ELL mode), and no active int8 calibration.
     Unlike the PNA stack it needs no ELL table: the kernel aggregates
     from ``block_adj``.  The mode is the policy's ("int8" quantizes every
     product, "bf16" rounds the gathered rows and the products' operands:
@@ -275,7 +308,9 @@ def mp_stack_cfg(g, conv: str) -> Optional[dict]:
         return None
     if _off() or _block_off() or not inference_on() or _halo_on():
         return None
-    if g.block_adj is None or g.block_size_static % 128:
+    from gnnbuilder_tpu_torch.ops.cuda.mp_block import BLOCK_ROWS
+
+    if g.block_adj is None or g.block_size_static != BLOCK_ROWS:
         return None
     return _with_mode({"block_size": g.block_size_static})
 
@@ -283,12 +318,14 @@ def mp_stack_cfg(g, conv: str) -> Optional[dict]:
 def mp_layer_cfg(g, conv: str) -> Optional[dict]:
     """The per-layer mp kernel's route (``ops.cuda.mp_layer``) for a
     ``conv`` layer ("gcn", "gin", "sage", "lg" or "simple") on batch
-    ``g``: {"block": True} (block mode) on a block-packed batch at a
-    block size that is a multiple of 128 for gcn, lg and simple; {} (ELL
-    mode) on a standard-packed batch with an ELL table, and on a
-    block-packed one under ``block_mode="off"``; else None (the
-    conv's plain path: the block product for GIN and SAGE and other block
-    sizes on block batches, the edge list without a table).  In or
+    ``g``: {"block": True} (block mode) on a block-packed batch at the
+    block size the kernel takes (``mp_layer.BLOCK_ROWS``) for gcn, lg and
+    simple; {} (ELL mode) on a standard-packed batch with an ELL table,
+    on a block-packed one under ``block_mode="off"``, and for every conv
+    on a block-packed one at another block size (256: no block kernel
+    takes it, so the stacks and the block mode give way to the table);
+    else None (the conv's plain path: the block product for GIN and SAGE
+    on 128-row block batches, the edge list without a table).  In or
     out of inference scope, since the layer has a backward.  Under bf16
     every conv's route carries "mode": "bf16"; under int8 gin and sage
     carry "mode": "int8" (their epilogue products quantize) and decline
@@ -303,8 +340,11 @@ def mp_layer_cfg(g, conv: str) -> Optional[dict]:
     quant = name == "int8" and conv not in INT8_NEUTRAL_CONVS
     if quant and _calibrating():
         return None
-    if g.block_adj is not None and not _halo_on() and not _block_off():
-        if conv not in BLOCK_LAYER_CONVS or g.block_size_static % 128:
+    from gnnbuilder_tpu_torch.ops.cuda.mp_layer import BLOCK_ROWS
+
+    if (g.block_adj is not None and not _halo_on() and not _block_off()
+            and g.block_size_static == BLOCK_ROWS):
+        if conv not in BLOCK_LAYER_CONVS:
             return None
         cfg = {"block": True}
     elif g.nbr_nodes is not None:
@@ -321,8 +361,10 @@ def pna_stack_cfg(g) -> Optional[dict]:
     applies to batch ``g``, else None (the model runs the per-layer loop).
 
     Preconditions: inference scope and a block-packed batch (every
-    neighbour id inside its row's block) with its ELL table, at a block
-    size that is a multiple of 128, and no active int8 calibration.  The
+    neighbour id inside its row's block) with its ELL table, at the block
+    size the kernel takes (``pna_block.BLOCK_ROWS``; another, such as
+    256, runs per layer on row 5 over the ELL table), and no active int8
+    calibration.  The
     mode is the policy's: "int8" quantizes every Linear product of the
     stack, "bf16" rounds the products' operands and the gathered rows (the
     JAX package's ``quant=True`` and ``gather_mode="bf16"``).  Width and
@@ -331,9 +373,11 @@ def pna_stack_cfg(g) -> Optional[dict]:
     version."""
     if _off() or _block_off() or not inference_on() or _halo_on():
         return None
+    from gnnbuilder_tpu_torch.ops.cuda.pna_block import BLOCK_ROWS
+
     if g.nbr_nodes is None or g.block_adj is None:
         return None
-    if g.block_size_static % 128:
+    if g.block_size_static != BLOCK_ROWS:
         return None
     return _with_mode({"block_size": g.block_size_static})
 
@@ -368,8 +412,9 @@ def gat_block_cfg(g, act, edge: bool = False) -> Optional[dict]:
     (``ops.cuda.gat_block``) applies to batch ``g`` with epilogue
     activation ``act``, else None (GATConv tries the layer kernel, then
     its plain paths).  The JAX package's ``gat_block_cfg``: inference
-    scope (the kernel has no backward) and a block-packed batch at a
-    block size that is a multiple of 128, not under int8 (GAT's layer
+    scope (the kernel has no backward) and a block-packed batch at the
+    block size the kernel takes (``gat_block.BLOCK_ROWS``; another, such
+    as 256, takes the layer kernel, row 10), not under int8 (GAT's layer
     kernel takes the int8 policy); here also an activation the kernel
     has.  For a conv with edge features (``edge``) the batch must carry
     them and repeat no (sender, receiver) pair, as the JAX conv checks
@@ -377,12 +422,13 @@ def gat_block_cfg(g, act, edge: bool = False) -> Optional[dict]:
     two parallel edges' terms.  The block size beyond that is the
     kernel's to check: the CUDA wrapper raises on what it does not
     take."""
+    from gnnbuilder_tpu_torch.ops.cuda.gat_block import BLOCK_ROWS
     from gnnbuilder_tpu_torch.ops.cuda.gat_layer import GAT_ACTS
 
     if (_off() or _block_off() or not inference_on()
             or _int8_declined("gat_block") or _halo_on()):
         return None
-    if g.block_adj is None or g.block_size_static % 128:
+    if g.block_adj is None or g.block_size_static != BLOCK_ROWS:
         return None
     if edge and (g.edge_feat is None or g.multigraph_static):
         return None

@@ -6,6 +6,8 @@ also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from gnnbuilder_tpu_torch.bench.canonical import (
     canonical_batches,
     canonical_model,
 )
+from gnnbuilder_tpu_torch.compile.precision import Precision
 from gnnbuilder_tpu_torch.ops import dispatch, segment
 from gnnbuilder_tpu_torch import train
 from gnnbuilder_tpu_torch.ops import ell
@@ -2767,3 +2770,256 @@ def test_measure_config_on_the_card(cuda_device, point, kernel):
             dispatch.set_fused_mode("auto")
     m = b.graph_mask
     assert _scaled_err(got[m], want[m]) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_pna_layer_mode_residuals_leave_out_bit_equal(cuda_device, mode):
+    """Rows 5b / 5i with their residuals (the backward's under a policy):
+    out the same bits with and without them; the tie counts and
+    empty-row extrema exactly the plain version's in the mode (v the
+    mode's: bf16-rounded in "bf16"), the rest within 1e-4 of max."""
+    _, b = _std_batch(device=cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(21)
+    F = 128
+
+    def r(fan_in, *s):
+        return (torch.randn(*s, generator=g) / fan_in ** 0.5).to(cuda_device)
+
+    p = [r(2 * F, 2 * F, F), r(2 * F, F), r(13 * F, 13 * F, F),
+         r(13 * F, F), r(F, F, F), r(F, F)]
+    p[0], p[2], p[4], s_lin = pna_layer.prepare_layer(p[0], p[2], p[4], mode)
+    x = torch.randn(b.num_nodes, F, generator=g).to(cuda_device)
+    x[1::3] = x[0::3][: x[1::3].shape[0]]
+    args = (x, b.nbr_nodes, b.in_degree, *p, 1.8)
+    kw = dict(skip=torch.randn(b.num_nodes, F, generator=g).to(cuda_device),
+              act="relu", mode=mode, s_lin=s_lin)
+    before = pna_layer.fused_pna_layer.mode_launches[mode]
+    got = pna_layer.fused_pna_layer(*args, **kw, save_res=True)
+    out_only = pna_layer.fused_pna_layer(*args, **kw)
+    torch.cuda.synchronize()
+    assert pna_layer.fused_pna_layer.mode_launches[mode] == before + 2
+    assert torch.equal(out_only, got[0])
+    want = pna_layer.pna_layer_plain(*args, **kw, save_res=True)
+    for name, a, w in zip(("out", "v", "agg_cat", "aux", "mid"), got, want):
+        assert torch.isfinite(a).all(), name
+        if name == "aux":
+            torch.testing.assert_close(a[:, 3 * F:], w[:, 3 * F:], rtol=0,
+                                       atol=0)
+            a, w = a[:, :3 * F], w[:, :3 * F]
+            ok = b.in_degree > 0
+            torch.testing.assert_close(a[~ok], w[~ok], rtol=0, atol=0)
+            a, w = a[ok], w[ok]
+        # out rounds to bf16 or quantizes after float32 sums taken in
+        # another order: the modes' tolerances of the kernels' outputs
+        tol = {"bf16": 2e-3, "int8": 5e-3}[mode] if name == "out" else 1e-4
+        assert _scaled_err(a, w) <= tol, name
+    if mode == "bf16":
+        assert torch.equal(got[1], got[1].to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("conv,mode,packing", [
+    ("gin", "bf16", "ell"), ("sage", "bf16", "ell"), ("gcn", "bf16", "ell"),
+    ("lg", "bf16", "ell"), ("simple_sum", "bf16", "ell"),
+    ("simple_mean", "bf16", "ell"), ("gcn", "bf16", "block"),
+    ("gin", "int8", "ell"), ("sage", "int8", "ell")])
+def test_mp_layer_mode_s_leaves_out_bit_equal(cuda_device, conv, mode,
+                                              packing):
+    """Rows 4b / 4i with s (the backward's residual under a policy): out
+    the same bits with and without it; s within 1e-5 of max of the plain
+    version's in the mode (the sum of bf16-rounded v in "bf16")."""
+    b = (_std_batch(device=cuda_device)[1] if packing == "ell"
+         else _batch()[1].to(cuda_device))
+    g = torch.Generator(device="cpu").manual_seed(22)
+    ops = _mp_operands(conv, 128, g, cuda_device)
+    if conv in ("gin", "sage"):
+        ops["w0"], ops["w1"], ops["s0"], ops["s1"] = mp_layer.prepare_layer(
+            ops["w0"], ops["w1"], mode)
+    x = torch.randn(b.num_nodes, 128, generator=g).to(cuda_device)
+    kw = dict(ops, act="relu", mode=mode,
+              block_adj=b.block_adj if packing == "block" else None)
+    out, s = mp_layer.fused_mp_layer(x, b.nbr_nodes, b.in_degree, conv,
+                                     save_s=True, **kw)
+    out_only = mp_layer.fused_mp_layer(x, b.nbr_nodes, b.in_degree, conv,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_only)
+    _, want_s = mp_layer.mp_layer_plain(x, b.nbr_nodes, b.in_degree, conv,
+                                        save_s=True, **kw)
+    m = b.node_mask
+    assert torch.isfinite(s[m]).all()
+    assert _scaled_err(s[m], want_s[m]) <= 1e-5
+
+
+_CONVS_256 = {"pna": (None, "pna_layer"), "gcn": (None, "mp_layer"),
+              "gin": (None, "mp_layer"), "sage": (None, "mp_layer"),
+              "lg": (None, "mp_layer"), "simple": (None, "mp_layer"),
+              "gat": ({"heads": 4}, "gat_layer"),
+              "edge": (None, "edge_block")}
+
+
+@pytest.mark.parametrize("conv", sorted(_CONVS_256))
+def test_block_256_forward_through_layer_kernels(cuda_device, conv):
+    """``Program(block_size=256)`` on 256 QM9 graphs block-packed at 256
+    rows, which no block or stack kernel takes (each wrapper's
+    ``BLOCK_ROWS``, the library's 128, and each wrapper still raises on
+    256): every layer runs its layer kernel over the ELL table (EdgeConv
+    its kernel, which reads the table at any block size) and the readout
+    its kernel, and the output is within 1e-4 of max of the per-layer
+    plain path on the card."""
+    lib = _build.load()
+    assert pna_block.BLOCK_ROWS == lib.gnnb_pna_block_rows()
+    assert mp_block.BLOCK_ROWS == lib.gnnb_mp_block_rows()
+    assert mp_layer.BLOCK_ROWS == lib.gnnb_mp_layer_block_rows()
+    assert gat_block.BLOCK_ROWS == lib.gnnb_gat_block_rows()
+    kw, kernel = _CONVS_256[conv]
+    same = conv in ("lg", "simple")
+    gs, (b,) = canonical_batches("qm9", n_graphs=256, batch_size=256,
+                                 block_size=256, node_multiple=256,
+                                 node_dim=128 if same else None,
+                                 device="cpu")
+    model = canonical_model(conv, "qm9", graphs=gs,
+                            conv_kwargs=dict(kw or {}))
+    p = Program(model, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, block_size=256)
+    p.init_params()
+    bc = b.to(cuda_device)
+    fns = {"pna_stack": pna_block.fused_pna_block_stack,
+           "mp_stack": mp_block.fused_mp_block_stack,
+           "gat_block": gat_block.fused_gat_block_layer,
+           "pna_layer": pna_layer.fused_pna_layer,
+           "mp_layer": mp_layer.fused_mp_layer,
+           "gat_layer": gat_layer.fused_gat_layer,
+           "edge_block": edge_block.fused_edge_block_layer,
+           "readout": readout.fused_readout}
+    before = {k: f.launches for k, f in fns.items()}
+    out = p.forward(bc)
+    torch.cuda.synchronize()
+    launched = {k: f.launches - before[k] for k, f in fns.items()}
+    L = model.gnn_num_layers
+    assert launched == {k: (L if k == kernel else 1 if k == "readout"
+                            else 0) for k in fns}, launched
+    dispatch.set_fused_mode("never")
+    try:
+        ref = p.forward(bc)
+    finally:
+        dispatch.set_fused_mode("auto")
+    m = bc.graph_mask
+    assert torch.isfinite(out[m]).all()
+    assert _scaled_err(out[m], ref[m]) <= 1e-4
+    if conv == "pna":
+        with pytest.raises(ValueError, match="block_size=128"):
+            pna_block.fused_pna_block_stack(
+                bc.node_feat.new_zeros((bc.num_nodes, 128)), bc.nbr_nodes,
+                bc.in_degree, *model._kernel_params(128)[0],
+                deltas=[c.delta for c in model.gnn_convs],
+                skips=[False] * L, act="relu", block_size=256)
+
+
+_POLICY_CONVS = {"pna": None, "gin": None, "sage": None, "gcn": None,
+                 "gat": {"heads": 4}, "gine": None}
+
+
+def _layer_twin_grads(model, b, policy):
+    """Per layer of ``model`` under ``policy``: the gradients of x, the
+    skip and the conv's parameters of its kernel Function and of its
+    plain twin, both on the input the kernel path gave that layer, for
+    one seeded cotangent that is 0 where the two forwards' ReLU
+    decisions differ (each backward reads its own forward's output)."""
+    seen = []
+    hooks = [c.register_forward_pre_hook(lambda _m, a, i=i: seen.append(
+        (i, a))) for i, c in enumerate(model.gnn_convs)]
+    try:
+        with Precision.from_name(policy).activate():
+            model(b)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    out = []
+    for i, (g, h, act, skip) in seen:
+        conv, runs = model.gnn_convs[i], []
+        for twin in (False, True):
+            x = h.detach().clone().requires_grad_()
+            sk = (None if skip is None
+                  else skip.detach().clone().requires_grad_())
+            ctx = dispatch.plain_twins() if twin else contextlib.nullcontext()
+            with Precision.from_name(policy).activate(), ctx:
+                ops = (model._gat_operands() or model._pna_operands(g)
+                       or model._gine_operands(g))
+                y = conv(g, x, act, sk,
+                         **({} if ops is None else {"operands": ops[i]}))
+            runs.append((x, sk, y))
+        gen = torch.Generator(device=y.device).manual_seed(i)
+        ct = torch.randn(y.shape, generator=gen, device=y.device)
+        if act == "relu":
+            ct = ct.masked_fill((runs[0][2] > 0) != (runs[1][2] > 0), 0.0)
+        pair = []
+        for x, sk, y in runs:
+            model.zero_grad(set_to_none=True)
+            y.backward(ct)
+            got = {n: q.grad for n, q in conv.named_parameters()}
+            got["x"] = x.grad
+            if sk is not None:
+                got["skip"] = sk.grad
+            pair.append(got)
+        out.append(pair)
+    return out
+
+
+@pytest.mark.parametrize("policy", ["bf16", "int8"])
+@pytest.mark.parametrize("conv", sorted(_POLICY_CONVS))
+def test_policy_train_step_matches_plain_twin(cuda_device, conv, policy):
+    """``loss.backward()`` of the canonical model (2 layers) on a
+    128-graph standard-packed batch under ``Precision.from_name(policy)
+    .activate()``: the layer kernels run forward in the policy's mode
+    (GCN's mp layer in f32 under int8, as the JAX gate gives it) and the
+    readout in it; the same bits twice.  Against the plain twins
+    (``dispatch.plain_twins``: the same Functions with the plain
+    versions, no launch) on the card: each layer's gradients, on the
+    input the kernel path gave it and the ReLU decisions both forwards
+    took, within 1e-4 of max; the whole model's within bf16 2e-2 / int8
+    5e-2 (a float32 sum in another order moves a bf16 rounding, an int8
+    level or a ReLU decision near a boundary, and the next layer reads
+    the moved value)."""
+    gs, b = _std_batch(device=cuda_device)
+    target = train.stack_targets(gs, b.num_graphs, device=cuda_device)
+    torch.manual_seed(0)
+    model = canonical_model(conv, "qm9", graphs=gs, gnn_num_layers=2,
+                            conv_kwargs=dict(_POLICY_CONVS[conv] or {})
+                            ).to(cuda_device)
+    kernel = {"pna": pna_layer.fused_pna_layer,
+              "gine": gine_layer.fused_gine_layer,
+              "gat": gat_layer.fused_gat_layer}.get(conv,
+                                                    mp_layer.fused_mp_layer)
+    mode = "f32" if (conv, policy) == ("gcn", "int8") else policy
+
+    def grads(twin):
+        model.zero_grad()
+        with Precision.from_name(policy).activate():
+            ctx = (dispatch.plain_twins() if twin
+                   else contextlib.nullcontext())
+            with ctx:
+                train.masked_mse_loss(model(b), target,
+                                      b.graph_mask).backward()
+        torch.cuda.synchronize()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    m0 = kernel.mode_launches[mode]
+    r0 = readout.fused_readout.mode_launches[policy]
+    g1 = grads(False)
+    assert kernel.mode_launches[mode] == m0 + 2
+    assert readout.fused_readout.mode_launches[policy] == r0 + 1
+    g2 = grads(False)
+    n0 = kernel.launches
+    ref = grads(True)
+    assert kernel.launches == n0
+    for k in g1:
+        assert torch.isfinite(g1[k]).all(), k
+        assert torch.equal(g1[k], g2[k]), k
+        assert _scaled_err(g1[k], ref[k]) <= {"bf16": 2e-2,
+                                              "int8": 5e-2}[policy], k
+    for i, (got, ref_i) in enumerate(_layer_twin_grads(model, b, policy)):
+        assert got.keys() == ref_i.keys()
+        for k in ref_i:
+            assert ref_i[k] is not None and got[k] is not None, (i, k)
+            assert _scaled_err(got[k], ref_i[k]) <= 1e-4, (
+                i, k, _scaled_err(got[k], ref_i[k]))

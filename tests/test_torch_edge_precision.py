@@ -125,9 +125,14 @@ def test_ell_agg_modes_raise():
     with pytest.raises(ValueError, match="modes"):
         ell_agg.fused_ell_aggregate(v, tb.nbr_nodes, tb.in_degree, ("max",),
                                     mode="int8")
-    with pytest.raises(ValueError, match="inference mode"):
-        ell_agg.fused_ell_aggregate_vjp(v.requires_grad_(), tb.nbr_nodes,
-                                        tb.in_degree, ("max",), mode="bf16")
+    vg = v.clone().requires_grad_()
+    with pytest.raises(ValueError, match="modes"):
+        ell_agg.fused_ell_aggregate_vjp(vg, tb.nbr_nodes, tb.in_degree,
+                                        ("max",), mode="int8")
+    # bf16 has a backward (the JAX _pallas_bwd's)
+    ell_agg.fused_ell_aggregate_vjp(vg, tb.nbr_nodes, tb.in_degree,
+                                    ("max",), mode="bf16").sum().backward()
+    assert vg.grad is not None and torch.isfinite(vg.grad).all()
 
 
 # --------------------------------------------------------------- row 12
@@ -178,10 +183,16 @@ def test_gine_mode_meeting_a_gradient_raises():
     N, E = tb.num_nodes, tb.num_edges
     x, pe, p = _gine_operands(np.random.default_rng(0), N, E, 8)
     tp = {k: _t(a).requires_grad_() for k, a in p.items()}
-    with pytest.raises(ValueError, match="inference mode"):
+    with pytest.raises(ValueError, match="unknown mode"):
         gine_layer.fused_gine_layer_auto(
             _t(x), _t(pe), tb.nbr_nodes, tb.nbr_edges, tb.in_degree, **tp,
-            mode="bf16")
+            mode="fp8")
+    # bf16 and int8 have a backward (the float32 recompute)
+    for mode in ("bf16", "int8"):
+        gine_layer.fused_gine_layer_auto(
+            _t(x), _t(pe), tb.nbr_nodes, tb.nbr_edges, tb.in_degree, **tp,
+            mode=mode).sum().backward()
+        assert all(t.grad is not None for t in tp.values())
 
 
 # --------------------------------------------------------------- row 13

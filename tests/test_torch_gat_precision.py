@@ -201,10 +201,15 @@ def test_modes_raise_on_a_gradient_and_on_wrong_operands():
     jb, tb, x, p, _ = _layer_inputs(2, 8, 2, skip=False)
     w = _t(p["w"]).requires_grad_()
     rest = (_t(p["att_src"]), _t(p["att_dst"]), _t(p["bias"]), 2)
+    with pytest.raises(ValueError, match="unknown mode"):
+        gat_layer.fused_gat_layer_auto(_t(x), tb.nbr_nodes, tb.in_degree, w,
+                                       *rest, mode="fp8")
+    # the layer's modes have a backward (the JAX _make_vjp_fn's)
     for mode in ("bf16", "int8"):
-        with pytest.raises(ValueError, match="inference mode"):
-            gat_layer.fused_gat_layer_auto(_t(x), tb.nbr_nodes,
-                                           tb.in_degree, w, *rest, mode=mode)
+        w.grad = None
+        gat_layer.fused_gat_layer_auto(_t(x), tb.nbr_nodes, tb.in_degree, w,
+                                       *rest, mode=mode).sum().backward()
+        assert w.grad is not None and torch.isfinite(w.grad).all()
     with pytest.raises(ValueError, match="sw goes with"):
         gat_layer.fused_gat_layer(_t(x), tb.nbr_nodes, tb.in_degree,
                                   *gat_layer.prepare_layer(_t(p["w"]),

@@ -32,7 +32,15 @@ from gnnbuilder_tpu_torch.bench.canonical import (
     canonical_model,
 )
 from gnnbuilder_tpu_torch.ops import dispatch
-from gnnbuilder_tpu_torch.ops.cuda import pna_block, readout
+from gnnbuilder_tpu_torch.ops.cuda import (
+    gat_block,
+    gat_layer,
+    mp_block,
+    mp_layer,
+    pna_block,
+    pna_layer,
+    readout,
+)
 from gnnbuilder_tpu_torch.port import params_from_jax
 
 ATOL, RTOL = 5e-4, 1e-3
@@ -130,13 +138,13 @@ def test_per_layer_path_outside_inference_scope():
 
 @pytest.mark.parametrize("hidden,block_size", [(256, 128), (128, 256)])
 def test_stack_gate_takes_any_width_and_block(hidden, block_size):
-    """The stack gate asks for a block-packed batch at a multiple of 128
-    rows, not for the CUDA kernel's width or block size: a 256-row batch
-    takes the stack function too (its CUDA wrapper raises on it; its
-    plain version runs it on the CPU), while a model wider than the
-    kernel's 128 features (``pna_block.STACK_WIDTH``) runs per layer
-    (row 5 takes any width; the stack kernel raised on it on the card).
-    Both match the per-layer path."""
+    """The stack gate takes a block-packed batch at the kernel's block
+    size only (``pna_block.BLOCK_ROWS``): a 256-row batch runs per layer,
+    each layer through row 5 over the ELL table (the stack's CUDA
+    wrapper raises on 256-row blocks); a model wider than the kernel's
+    128 features (``pna_block.STACK_WIDTH``) passes the gate and runs per
+    layer too (row 5 takes any width; the stack kernel raised on it on
+    the card).  Both match the per-layer path."""
     gs, (b,) = canonical_batches("qm9", n_graphs=24, batch_size=24,
                                  block_size=block_size,
                                  node_multiple=block_size, device="cpu")
@@ -147,24 +155,114 @@ def test_stack_gate_takes_any_width_and_block(hidden, block_size):
                 device="cpu")
     p.init_params()
     with dispatch.inference_mode():
-        assert dispatch.pna_stack_cfg(b) == {"block_size": block_size}
-    calls = []
+        assert dispatch.pna_stack_cfg(b) == (
+            {"block_size": block_size}
+            if block_size == pna_block.BLOCK_ROWS else None)
+    calls, layers = [], []
     orig = pna_block.pna_block_stack_auto
+    orig_layer = pna_layer.fused_pna_layer
 
     def counted(*a, **k):
         calls.append(k["block_size"])
         return orig(*a, **k)
 
+    def counted_layer(*a, **k):
+        layers.append(k.get("mode", "f32"))
+        return orig_layer(*a, **k)
+
     pna_block.pna_block_stack_auto = counted
+    pna_layer.fused_pna_layer = counted_layer
     try:
         fused = _port_forward(p, b, "auto")
     finally:
         pna_block.pna_block_stack_auto = orig
-    assert calls == ([block_size] if hidden <= pna_block.STACK_WIDTH
-                     else [])
+        pna_layer.fused_pna_layer = orig_layer
+    stacked = (hidden <= pna_block.STACK_WIDTH
+               and block_size == pna_block.BLOCK_ROWS)
+    assert calls == ([block_size] if stacked else [])
+    assert layers == ([] if stacked else ["f32"] * 2)
     plain = _port_forward(p, b, "never")
     msk = b.graph_mask.numpy()
     np.testing.assert_allclose(fused[msk], plain[msk], atol=ATOL, rtol=RTOL)
+    assert np.abs(fused[msk] - plain[msk]).max() <= SCALED_TOL * np.abs(
+        plain[msk]).max()
+
+
+# per conv at 256-row blocks: (conv_kwargs, the kernel function its
+# layers reach, under inference scope); no stack or block kernel runs
+_ROUTES_256 = {
+    "pna": (None, "pna_layer"), "gcn": (None, "mp_layer"),
+    "gin": (None, "mp_layer"), "sage": (None, "mp_layer"),
+    "lg": (None, "mp_layer"), "simple": (None, "mp_layer"),
+    "gat": ({"heads": 2}, "gat_layer"),
+}
+
+
+@pytest.mark.parametrize("conv", sorted(_ROUTES_256))
+def test_gates_send_256_row_blocks_to_kernels_that_take_them(conv):
+    """A batch block-packed at 256 rows, which no block kernel takes
+    (each wrapper's ``BLOCK_ROWS`` is 128): the PNA stack goes per layer
+    to row 5, GCN, GIN, SAGE, LG and Simple to row 4's ELL mode, GAT to
+    row 10, all over the batch's ELL table, and the forward matches the
+    per-layer plain path; at 128 rows the gates answer as before.  Every
+    gate reads the rows from the wrapper module's constant, and loads no
+    library."""
+    kw, kernel = _ROUTES_256[conv]
+    same = conv in ("lg", "simple")
+    gs, (b,) = canonical_batches("qm9", n_graphs=24, batch_size=24,
+                                 block_size=256, node_multiple=256,
+                                 node_dim=128 if same else None,
+                                 device="cpu")
+    _, (b128,) = canonical_batches("qm9", n_graphs=24, batch_size=24,
+                                   block_size=128, node_multiple=128,
+                                   node_dim=128 if same else None,
+                                   device="cpu")
+    for mod in (pna_block, mp_block, mp_layer, gat_block):
+        assert mod.BLOCK_ROWS == 128
+    with dispatch.inference_mode():
+        assert dispatch.pna_stack_cfg(b) is None
+        assert dispatch.mp_stack_cfg(b, "gcn") is None
+        assert dispatch.gat_block_cfg(b, "relu") is None
+        for c in ("gcn", "gin", "sage", "lg", "simple"):
+            assert dispatch.mp_layer_cfg(b, c) == {}
+        assert dispatch.gat_layer_cfg(b, "relu") == {}
+        assert dispatch.pna_stack_cfg(b128) == {"block_size": 128}
+        assert dispatch.mp_stack_cfg(b128, "gcn") == {"block_size": 128}
+        assert dispatch.gat_block_cfg(b128, "relu") == {}
+        assert dispatch.mp_layer_cfg(b128, "gcn") == {"block": True}
+        assert dispatch.mp_layer_cfg(b128, "gin") is None
+    m = canonical_model(conv, "qm9", graphs=gs, gnn_num_layers=2,
+                        conv_kwargs=dict(kw or {}))
+    p = Program(m, max_nodes=b.num_nodes, max_edges=b.num_edges,
+                max_graphs=b.num_graphs, block_size=256, device="cpu")
+    p.init_params()
+    funcs = {"pna_stack": (pna_block, "fused_pna_block_stack"),
+             "mp_stack": (mp_block, "fused_mp_block_stack"),
+             "gat_block": (gat_block, "fused_gat_block_layer"),
+             "pna_layer": (pna_layer, "fused_pna_layer"),
+             "mp_layer": (mp_layer, "fused_mp_layer"),
+             "gat_layer": (gat_layer, "fused_gat_layer")}
+    calls = {k: [] for k in funcs}
+    orig = {k: getattr(mod, name) for k, (mod, name) in funcs.items()}
+
+    def counting(key):
+        def wrapped(*a, **k):
+            calls[key].append(k.get("block_adj") is not None)
+            return orig[key](*a, **k)
+        return wrapped
+
+    for k, (mod, name) in funcs.items():
+        setattr(mod, name, counting(k))
+    try:
+        fused = _port_forward(p, b, "auto")
+    finally:
+        for k, (mod, name) in funcs.items():
+            setattr(mod, name, orig[k])
+    # two layers through the kernel, none in block mode
+    assert calls == {k: ([False] * 2 if k == kernel else []) for k in funcs}
+    plain = _port_forward(p, b, "never")
+    msk = b.graph_mask.numpy()
+    assert np.isfinite(fused[msk]).all()
     assert np.abs(fused[msk] - plain[msk]).max() <= SCALED_TOL * np.abs(
         plain[msk]).max()
 

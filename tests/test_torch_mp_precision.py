@@ -185,19 +185,24 @@ def test_layer_modes_raise_where_the_kernel_has_none():
     with pytest.raises(ValueError, match="int8 mode exists for"):
         mp_layer.fused_mp_layer(v, tb.nbr_nodes, tb.in_degree, "gcn",
                                 b0=torch.zeros(16), mode="int8")
-    with pytest.raises(ValueError, match="inference mode"):
+    with pytest.raises(ValueError, match="int8 mode exists for"):
         mp_layer.fused_mp_layer(v, tb.nbr_nodes, tb.in_degree,
-                                "simple_sum", save_s=True, mode="bf16")
+                                "simple_sum", save_s=True, mode="int8")
     with pytest.raises(ValueError, match="in mode 'bf16'"):
         mp_layer.fused_mp_layer(v, tb.nbr_nodes, tb.in_degree, "sage",
                                 w0=torch.zeros(16, 16), b0=torch.zeros(16),
                                 w1=torch.zeros(16, 16), mode="bf16")
-    # an inference mode meeting a gradient
+    # a mode meeting a gradient: int8 still only for gin and sage, whose
+    # backward is the JAX straight-through one
+    vg = v.clone().requires_grad_()
+    with pytest.raises(ValueError, match="int8 mode exists for"):
+        mp_layer.fused_mp_layer_auto(vg, tb.nbr_nodes, tb.in_degree, "gcn",
+                                     b0=torch.zeros(16), mode="int8")
     w = torch.zeros(16, 16, requires_grad=True)
-    with pytest.raises(ValueError, match="inference mode"):
-        mp_layer.fused_mp_layer_auto(v, tb.nbr_nodes, tb.in_degree, "sage",
-                                     w0=w, b0=torch.zeros(16), w1=w,
-                                     mode="int8")
+    mp_layer.fused_mp_layer_auto(v, tb.nbr_nodes, tb.in_degree, "sage",
+                                 w0=w, b0=torch.zeros(16), w1=w,
+                                 mode="int8").sum().backward()
+    assert w.grad is not None
 
 
 # ----------------------------------------------------------------- stack

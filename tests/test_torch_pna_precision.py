@@ -308,9 +308,18 @@ def test_modes_reject_what_they_do_not_take():
     rng = np.random.default_rng(5)
     p = [torch.from_numpy(a) for a in _layer(rng, 128, 128, 128)]
     x = b.node_feat
-    with pytest.raises(ValueError, match="inference mode"):
+    with pytest.raises(ValueError, match="unknown mode"):
         pna_layer.fused_pna_layer(x, b.nbr_nodes, b.in_degree, *p, 1.0,
-                                  mode="int8", save_res=True)
+                                  mode="fp8", save_res=True)
+    # the modes write the residuals, out the same bits as without
+    q = list(p)
+    q[0], q[2], q[4], s_lin = pna_layer.prepare_layer(p[0], p[2], p[4],
+                                                      "int8")
+    res = pna_layer.fused_pna_layer(x, b.nbr_nodes, b.in_degree, *q, 1.0,
+                                    mode="int8", s_lin=s_lin, save_res=True)
+    assert len(res) == 5
+    assert torch.equal(res[0], pna_layer.fused_pna_layer(
+        x, b.nbr_nodes, b.in_degree, *q, 1.0, mode="int8", s_lin=s_lin))
     with pytest.raises(ValueError, match="w_lin"):
         pna_layer.fused_pna_layer(x, b.nbr_nodes, b.in_degree, *p, 1.0,
                                   mode="int8", s_lin=torch.ones(128))
