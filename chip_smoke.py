@@ -169,7 +169,20 @@ weights):
   residual stores; and ``Program(block_size=256)`` forwards of PNA, GCN,
   GIN, SAGE, LG, Simple and GAT on 1024 QM9 graphs block-packed at 256
   rows (no block kernel takes them: the layer kernels over the ELL
-  table) against the per-layer plain path.
+  table) against the per-layer plain path;
+* the paper's conv x dataset grid (``harness_phases``,
+  ``gnnbuilder_tpu_torch.bench.harness``): ``run_grid`` on the card for
+  GCN, GIN, PNA and SAGE on QM9 and ESOL at batch 1, 4 (standard
+  packing: rows 4 and 5) and 256 (128-row blocks: rows 1 and 3, GIN per
+  layer), row 2 everywhere; first each arm as ``bench_gpu`` builds it,
+  its first forward against the per-layer plain path with its launches
+  and its device busy time; then the grid's ms a forward and a graph,
+  graphs/s and ``vs_fpga_par``, and the ``torch_cpu`` baseline on (GCN,
+  QM9) in the same run;
+* the sharded repairs (``sharded_repair_phases``): a gloo world of two
+  ranks on the one card runs canonical GCN under int8 with its weights
+  sharded over tp = 2 and canonical edge GAT on dp = 2, both in the
+  all-gather strategy, against the one-rank forward.
 
 For each path it sets every launch count to 0 just before and checks the
 counts just after, then times the forwards, the train step and each
@@ -179,7 +192,8 @@ with ``torch.profiler``.
 Output: one flushed, timestamped line before and after every phase; the
 ptxas report of the build; a ``measurement`` JSON line per measurement
 cell, a ``trainer_verify`` JSON line per part of that phase, a ``dse``
-JSON line per design point, a ``policy_grad`` JSON line; then, each
+JSON line per design point, a ``policy_grad`` JSON line, the harness
+grid's lines; then, each
 on its own line, a ``kernels`` JSON object, the card's name and power
 limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result, when CUDA is unavailable, when run
@@ -4659,9 +4673,11 @@ def _gloo_rank(rank, world, init_file, state0, q):
         q.put((rank, None, traceback.format_exc()))
 
 
-def _gloo_world(state0):
-    """Spawn the gloo world, wait for every rank (with a time limit) and
-    return their results; on any failure terminate the ranks and raise."""
+def _gloo_world(state0, target=None):
+    """Spawn the gloo world of ``target`` (``_gloo_rank`` when None; each
+    rank gets ``state0`` on the CPU, or None), wait for every rank (with
+    a time limit) and return their results; on any failure terminate the
+    ranks and raise."""
     import multiprocessing as mp
     import queue as queue_mod
 
@@ -4669,8 +4685,9 @@ def _gloo_world(state0):
     q = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="gnnb_gloo_")
     init_file = os.path.join(tmp, "pg")
-    cpu_state = {k: v.detach().cpu() for k, v in state0.items()}
-    procs = [ctx.Process(target=_gloo_rank,
+    cpu_state = (None if state0 is None else
+                 {k: v.detach().cpu() for k, v in state0.items()})
+    procs = [ctx.Process(target=target or _gloo_rank,
                          args=(r, PAR_WORLD, init_file, cpu_state, q))
              for r in range(PAR_WORLD)]
     for p_ in procs:
@@ -5738,6 +5755,306 @@ def policy_grad_phases(report, *, dev, tgraphs, tb, target, counted,
     return out
 
 
+HARNESS_CONVS = ("gcn", "gin", "pna", "sage")
+HARNESS_DATASETS = ("qm9", "esol")
+HARNESS_BATCHES = (1, 4, 256)
+REPAIR_GRAPHS = 256      # QM9 graphs in the sharded repairs' batch
+REPAIR_INT8_TOL = 1e-6   # of max: the gathered int8 blocks are the product
+REPAIR_ATOL, REPAIR_RTOL = 2e-5, 1e-5    # the sharded forwards' tolerance
+
+
+def harness_expected(conv, block):
+    """The launches of one forward of a harness arm: the readout (row 2)
+    everywhere; on standard batches the layer kernel in each of the six
+    layers (row 5 for PNA, row 4 for the others); on 128-row blocks the
+    stack kernel (row 1 for PNA, row 3 for GCN and SAGE; GIN runs per
+    layer on the plain block product)."""
+    k = {"readout": 1}
+    if not block:
+        k["pna_layer" if conv == "pna" else "mp_layer"] = 6
+    elif conv == "pna":
+        k["pna_block_stack"] = 1
+    elif conv != "gin":
+        k["mp_block_stack"] = 1
+    return k
+
+
+def harness_part(name):
+    """The part of a forward's device time a kernel belongs to: the
+    port's kernels, or torch's."""
+    ours = ("pna_", "mp_layer", "mp_block", "readout", "gnnb")
+    return "port kernels" if any(k in name for k in ours) else "torch"
+
+
+def harness_phases(*, zero_counts, counts, only, smi):
+    """The conv x dataset grid of ``bench/harness.py`` on the card.
+
+    First each arm as ``bench_gpu`` builds it (``harness._program_arm``
+    on the card at ``bench_gpu``'s defaults: its Program and first batch
+    of each size), with a latency callable that holds the forward to the
+    per-layer plain path at TOL of max with its launches those of
+    ``harness_expected``, splits its device busy ms a forward by
+    ``harness_part`` under torch.profiler (five forwards), and times it
+    as ``bench_gpu`` does.  Then ``run_grid(backends=("gpu",))`` on
+    ``HARNESS_CONVS`` x ``HARNESS_DATASETS`` at batch 1, 4 and 256 into a
+    temporary directory, as a user calls it, the counts set to 0 just
+    before and read just after: each of rows 1-5 launched, and no other
+    kernel.  Then the ``torch_cpu`` arm on (gcn, qm9), the CPU baseline,
+    into the same directory.  Prints the grid: ms a forward and a graph
+    at b1, b4 and b256, graphs/s, ``vs_fpga_par`` and the ratio to the
+    CPU baseline of this run.  Returns the rows and the per-arm checks."""
+    import inspect
+
+    from gnnbuilder_tpu_torch.bench import harness
+    from gnnbuilder_tpu_torch.bench.timing import _device_split
+    from gnnbuilder_tpu_torch.ops import dispatch
+
+    checks = []
+
+    def checked(conv, dataset):
+        def latency(prog, batch, iters):
+            before = counts()
+            out = prog.forward(batch)
+            torch.cuda.synchronize()
+            after = counts()
+            launched = {k: after[k] - before[k] for k in after}
+            dispatch.set_fused_mode("never")
+            try:
+                ref = prog.forward(batch)
+            finally:
+                dispatch.set_fused_mode("auto")
+            m = batch.graph_mask
+            ok, abs_err, rel_err = close_enough(out[m], ref[m])
+            block = batch.block_adj is not None
+            bs = batch.num_graphs - 1
+            want = only(**harness_expected(conv, block))
+            fired = {k: v for k, v in launched.items() if v}
+            log(f"harness {conv} {dataset} b{bs} "
+                f"({'block 128' if block else 'standard'}, "
+                f"N={batch.num_nodes}): kernels vs per-layer plain max abs "
+                f"{abs_err:.3e}, {rel_err:.3e} of max |value| (tol {TOL});"
+                f" launches {fired}")
+            checks.append(dict(conv=conv, dataset=dataset, batch_size=bs,
+                               block=block, nodes=batch.num_nodes,
+                               launches=fired, max_abs_err=abs_err,
+                               rel_err=rel_err))
+            if not ok:
+                raise AssertionError(f"harness arm {conv} {dataset} b{bs} "
+                                     f"disagrees with the plain path")
+            if launched != want:
+                raise AssertionError(
+                    f"harness arm {conv} {dataset} b{bs}: launches {fired},"
+                    f" want {harness_expected(conv, block)}")
+            split, per_call = _device_split(lambda: prog.forward(batch),
+                                            harness_part)
+            # bench_gpu's timing: the median of three event windows
+            dt = prog.benchmark(batch, iters=max(iters, 12),
+                                repeats=3)["latency_s"]
+            busy = sum(split.values())
+            checks[-1].update(events_ms=dt * 1e3, busy_ms=split,
+                              device_launches=sum(per_call.values()),
+                              idle=1.0 - busy / (dt * 1e3))
+            log(f"  events {dt * 1e3:.4f} ms a forward; device busy "
+                f"{busy:.4f} ("
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+                + f"), {sum(per_call.values()):.0f} device launches; idle "
+                f"{checks[-1]['idle']:.3f} of the events")
+            return dt
+        return latency
+
+    defaults = {k: v.default for k, v in
+                inspect.signature(harness.bench_gpu).parameters.items()}
+    with phase(f"harness arms held to plain: {len(HARNESS_CONVS)} convs x "
+               f"{len(HARNESS_DATASETS)} datasets x batch "
+               f"{HARNESS_BATCHES}"):
+        for conv in HARNESS_CONVS:
+            for ds in HARNESS_DATASETS:
+                harness._program_arm(conv, ds, HARNESS_BATCHES,
+                                     defaults["n_graphs"],
+                                     defaults["iters"], "cuda",
+                                     checked(conv, ds))
+    n_arms = len(HARNESS_CONVS) * len(HARNESS_DATASETS) * len(
+        HARNESS_BATCHES)
+    if len(checks) != n_arms:
+        raise AssertionError(f"{len(checks)} arms checked, want {n_arms}")
+    rdir = tempfile.mkdtemp(prefix="gnnb_harness_")
+    with phase(f"harness grid on the card: {len(HARNESS_CONVS)} convs x "
+               f"{len(HARNESS_DATASETS)} datasets x batch "
+               f"{HARNESS_BATCHES}"):
+        zero_counts()
+        rows = harness.run_grid(
+            convs=HARNESS_CONVS, datasets=HARNESS_DATASETS,
+            backends=("gpu",), results_dir=rdir, verbose=False,
+            batch_sizes=HARNESS_BATCHES)
+        torch.cuda.synchronize()
+        launches = counts()
+        log(f"launches during the grid: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        path = ("pna_block_stack", "readout", "mp_block_stack",
+                "mp_layer", "pna_layer")
+        if any(not launches[k] for k in path) or any(
+                launches[k] for k in launches if k not in path):
+            raise AssertionError("the grid did not launch rows 1-5 alone")
+    with phase("harness CPU baseline: torch_cpu on (gcn, qm9)"):
+        threads = torch.get_num_threads()
+        try:
+            (base,) = harness.run_grid(convs=("gcn",), datasets=("qm9",),
+                                       backends=("torch_cpu",),
+                                       results_dir=rdir, verbose=False)
+        finally:
+            torch.set_num_threads(threads)
+        with open(os.path.join(rdir, "results.json")) as f:
+            merged = json.load(f)
+        if len(merged) != len(rows) + 1:
+            raise AssertionError("results.json did not merge the runs")
+        files = sorted(os.listdir(rdir))
+        want_files = 4 * len(rows) + 2 + 1
+        if len(files) != want_files:
+            raise AssertionError(f"{len(files)} results files, want "
+                                 f"{want_files}")
+    log(f"harness grid ({smi}; ms a forward, ms a graph, graphs/s):")
+    for r in rows:
+        for k, v in r.items():
+            if isinstance(v, float) and not (math.isfinite(v) and v > 0):
+                raise AssertionError(f"harness {r['conv']} {r['dataset']}: "
+                                     f"{k} = {v}")
+        cells = "; ".join(
+            f"b{bs} {r[f'latency_b{bs}_s'] * 1e3:.4f} ms, "
+            f"{r[f'latency_b{bs}_s'] * 1e3 / bs:.5f} ms/graph, "
+            f"{r[f'graphs_per_s_b{bs}']:.1f} graphs/s"
+            for bs in HARNESS_BATCHES)
+        extra = (f"; vs_fpga_par {r['vs_fpga_par']:.4f}"
+                 if "vs_fpga_par" in r else "")
+        if (r["conv"], r["dataset"]) == ("gcn", "qm9"):
+            r["vs_torch_cpu"] = base["latency_s"] / r["latency_s"]
+            extra += (f"; torch_cpu b1 {base['latency_s'] * 1e3:.4f} ms/"
+                      f"graph, {r['vs_torch_cpu']:.4f}x it")
+        log(f"  {r['conv']:5s} {r['dataset']:6s} {cells}; best b"
+            f"{r['best_batch_size']}, energy bound "
+            f"{r['energy_j_per_graph_bound']:.3e} J/graph at "
+            f"{r['energy_tdp_w_assumed']} W{extra}")
+    return dict(rows=rows, torch_cpu=base, checks=checks,
+                grid_launches={k: v for k, v in launches.items() if v})
+
+
+def _gloo_repair_rank(rank, world, init_file, state0, q):
+    """One rank of the two-rank gloo world of the sharded repairs on the
+    one card, in the all-gather strategy: canonical GCN under int8 with
+    its weights sharded over tp = 2, and canonical GAT with QM9's edge
+    features on dp = 2; each beside the one-rank forward on the plain
+    path (``no_fused``, as the strategy runs), and the int8 one beside
+    its float32 forward."""
+    del state0
+    try:
+        import torch.distributed as dist
+
+        from gnnbuilder_tpu_torch import Program
+        from gnnbuilder_tpu_torch.bench.canonical import (
+            canonical_batches,
+            canonical_model,
+        )
+        from gnnbuilder_tpu_torch.compile.precision import Precision
+        from gnnbuilder_tpu_torch.ops.dispatch import no_fused
+        from gnnbuilder_tpu_torch.parallel.mesh import make_mesh
+        from gnnbuilder_tpu_torch.parallel.sharding import (
+            shard_batch,
+            shard_params,
+        )
+        from gnnbuilder_tpu_torch.parallel.train import make_sharded_forward
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        graphs, (b,) = canonical_batches(
+            "qm9", n_graphs=REPAIR_GRAPHS, batch_size=REPAIR_GRAPHS,
+            node_multiple=256, device="cpu")
+        res = {}
+        for name, conv, kw, dp, tp, prec in (
+                ("int8_tp2", "gcn", {}, 1, 2, "int8"),
+                ("edge_gat_dp2", "gat", EDGE_GAT, 2, 1, None)):
+            mesh = make_mesh(dp=dp, tp=tp, device_type="cuda")
+            model = canonical_model(conv, "qm9", graphs=graphs, **kw)
+            Program(model, max_nodes=8, max_edges=8, max_graphs=2,
+                    device=mesh.device, seed=61).init_params()
+            full = b.to(mesh.device)
+            params = (shard_params(mesh, model.state_dict()) if tp > 1
+                      else None)
+            fwd = make_sharded_forward(model, mesh, full, halo=False)
+            sb = shard_batch(mesh, b, halo=False)
+            policy = (Precision.from_name(prec).activate() if prec
+                      else contextlib.nullcontext())
+            with torch.no_grad():
+                with policy:
+                    out = fwd(params, sb)
+                    with no_fused():
+                        single = model(full)
+                f32 = fwd(params, sb)
+            torch.cuda.synchronize()
+            whole = model.state_dict()
+            res[name] = dict(
+                out=out.cpu().numpy(), single=single.cpu().numpy(),
+                f32=f32.cpu().numpy(), mask=full.graph_mask.cpu().numpy(),
+                blocks=sum(tuple(v.shape) != tuple(whole[k].shape)
+                           for k, v in (params or {}).items()),
+                nodes=sb.num_nodes, edges=sb.num_edges)
+        dist.barrier()
+        dist.destroy_process_group()
+        q.put((rank, res, None))
+    except BaseException:
+        import traceback
+
+        q.put((rank, None, traceback.format_exc()))
+
+
+def sharded_repair_phases(*, smi):
+    """The sharded configurations that the port once refused, on the card:
+    a gloo world of two ranks (``_gloo_repair_rank``) runs canonical GCN's
+    int8 forward with its weights sharded over tp = 2 and canonical edge
+    GAT's forward on dp = 2, both in the all-gather strategy, each held
+    to its one-rank forward (int8 at ``REPAIR_INT8_TOL`` of max, the edge
+    GAT at the sharded forwards' atol / rtol); the int8 forward differs
+    from the float32 one, and weights are tp blocks.  No kernel runs
+    there (the strategy runs the plain path).  Returns the errors."""
+    out = {}
+    with phase(f"sharded repairs: int8 over tp = 2 and the edge GAT over "
+               f"dp = 2, a gloo world of {PAR_WORLD} on the one card"):
+        t = time.time()
+        ranks = _gloo_world(None, _gloo_repair_rank)
+        for name in ("int8_tp2", "edge_gat_dp2"):
+            for rank, res in enumerate(ranks):
+                r = res[name]
+                m = r["mask"]
+                got = torch.from_numpy(r["out"][m])
+                want = torch.from_numpy(r["single"][m])
+                if name == "int8_tp2":
+                    ok, abs_err, rel_err = close_enough(got, want,
+                                                        REPAIR_INT8_TOL)
+                else:
+                    _, abs_err, rel_err = close_enough(got, want)
+                    ok = bool(torch.isfinite(got).all()) and bool(
+                        torch.allclose(got, want, atol=REPAIR_ATOL,
+                                       rtol=REPAIR_RTOL))
+                f32_err = float(np.abs(r["out"][m] - r["f32"][m]).max())
+                log(f"{name} rank {rank} (N={r['nodes']}, E={r['edges']} "
+                    f"local; {r['blocks']} tp blocks): against the one-rank "
+                    f"forward max abs {abs_err:.3e}, {rel_err:.3e} of max "
+                    f"|value|" + (f"; against float32 {f32_err:.3e}"
+                                  if name == "int8_tp2" else ""))
+                if not ok:
+                    raise AssertionError(f"{name} rank {rank} disagrees "
+                                         f"with the one-rank forward")
+                if name == "int8_tp2" and not (
+                        r["blocks"] and f32_err > REPAIR_INT8_TOL
+                        * float(np.abs(r["f32"][m]).max())):
+                    raise AssertionError("int8_tp2: no tp block, or the "
+                                         "int8 policy did not reach it")
+                out.setdefault(name, []).append(dict(
+                    max_abs_err=abs_err, rel_err=rel_err,
+                    vs_f32_max_abs=f32_err, tp_blocks=int(r["blocks"])))
+        log(f"world of {PAR_WORLD}: {time.time() - t:.2f}s wall ({smi})")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -6665,6 +6982,9 @@ def main():
         report, dev=dev, tgraphs=tgraphs, tb=tb, target=target,
         counted=counted, zero_counts=zero_counts, counts=counts, only=only,
         smi=smi)
+    harness_grid = harness_phases(zero_counts=zero_counts, counts=counts,
+                                  only=only, smi=smi)
+    sharded_repairs = sharded_repair_phases(smi=smi)
 
     with phase("times (CUDA events)"):
         bench = prog.benchmark(b0, iters=20, warmup=3)
@@ -7066,6 +7386,8 @@ def main():
         "parallel": parallel,
         "dse": dse,
         "policy_grad": policy_grad,
+        "harness": harness_grid,
+        "sharded_repairs": sharded_repairs,
     }), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 from typing import Optional, Sequence
 
 import torch
@@ -431,22 +432,27 @@ class Program:
         return self.int8_scales
 
     def benchmark(self, batch: GraphBatch, iters: int = 25,
-                  warmup: int = 3) -> dict:
+                  warmup: int = 3, repeats: int = 1) -> dict:
         """Device time per forward, from CUDA events around ``iters``
-        back-to-back forwards after ``warmup`` untimed ones.  CUDA only."""
+        back-to-back forwards after ``warmup`` untimed ones; with
+        ``repeats`` > 1 the median of that many such windows (the JAX
+        package's ``repeats``).  CUDA only."""
         if self.device.type != "cuda":
             raise RuntimeError("benchmark measures the card; this Program "
                                f"runs on {self.device}")
         for _ in range(warmup):
             self.forward(batch)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            self.forward(batch)
-        end.record()
-        end.synchronize()
-        dt = start.elapsed_time(end) / 1e3 / iters
+        windows = []
+        for _ in range(max(repeats, 1)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                self.forward(batch)
+            end.record()
+            end.synchronize()
+            windows.append(start.elapsed_time(end) / 1e3 / iters)
+        dt = statistics.median(windows)
         real_graphs = int(batch.graph_mask.sum())
         real_edges = int(batch.edge_mask.sum())
         return {

@@ -481,23 +481,40 @@ class GATConv(torch.nn.Module):
         [E, H], and per node that of the mean of its incoming edge
         features [N, H] (PyG's ``fill_value="mean"``: the projection
         commutes with the mean, so the raw features are averaged; an
-        empty row's mean is 0)."""
+        empty row's mean is 0).
+
+        Under the all-gather strategy of a sharded forward the batch's
+        edge rows are this rank's: a_edge is formed on them (the ELL
+        gather all-gathers it), and the mean on all the edges for this
+        rank's node rows (``parallel.halo.scoped_edge_mean``).  There is
+        no halo forward: the JAX package's halo forward of this conv
+        averages over the global receivers into the rank's rows, which is
+        right on the first rank only, so it has no reference to be held
+        to."""
         if g.edge_feat is None:
             raise ValueError("GATConv with edge_dim needs the batch's edge "
                              "features")
-        from gnnbuilder_tpu_torch.parallel.halo import active_scope
+        from gnnbuilder_tpu_torch.parallel.halo import (
+            active_halo,
+            active_scope,
+            scoped_edge_mean,
+        )
 
-        if active_scope() is not None:
+        if active_halo() is not None:
             raise NotImplementedError(
-                "GATConv with edge_dim has no sharded forward: its self-loop "
+                "GATConv with edge_dim has no halo forward: its self-loop "
                 "term averages edge features per receiver over the whole "
-                "edge list")
+                "edge list; use the all-gather strategy (halo=False)")
         H, C, n = self.heads, self.out_channels, g.num_nodes
         e = g.edge_feat
         a_edge = (self.lin_edge(e).reshape(-1, H, C)
                   * self.att_edge).sum(-1)                     # [E, H]
-        mean_attr = segment.segment_mean(
-            e, g.receivers, n, count=g.in_degree.to(e.dtype)[:, None])
+        scope = active_scope()
+        if scope is None:
+            mean_attr = segment.segment_mean(
+                e, g.receivers, n, count=g.in_degree.to(e.dtype)[:, None])
+        else:
+            mean_attr = scoped_edge_mean(scope, e, g.receivers, g.in_degree)
         a_self = (self.lin_edge(mean_attr).reshape(n, H, C)
                   * self.att_edge).sum(-1)                     # [N, H]
         return a_edge, a_self

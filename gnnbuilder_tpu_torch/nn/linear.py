@@ -16,7 +16,11 @@ In the all-gather strategy of a sharded forward
 (``parallel.train.make_sharded_forward(halo=False)``) a Linear whose
 weight is sharded over tp (``tp_scope``) holds this rank's block of
 output features: it computes those output columns, with its bias's
-block, and all-gathers the columns over tp.
+block, and all-gathers the columns over tp.  Under int8 the block takes
+the int8 route too: a block holds whole output columns, the per-row
+activation scales read the whole (replicated) row and the weight scales
+are per column, so the gathered blocks are the unsharded int8 product
+exactly; a static scale is the site's, the same on every rank.
 """
 
 from __future__ import annotations
@@ -56,9 +60,6 @@ def _tp_block(mod):
     if s is None or id(mod) not in s[1]:
         return None
     mesh = s[0]
-    prec = active_precision()
-    if prec is not None and prec.name == "int8":
-        raise NotImplementedError("a tp-sharded Linear has no int8 route")
     k = mod.weight.shape[0]
     i = mesh.index("tp")
     bias = None if mod.bias is None else mod.bias[i * k:(i + 1) * k]
@@ -80,12 +81,15 @@ class Linear(torch.nn.Linear):
     site: Optional[str] = None
 
     def forward(self, x):
+        prec = active_precision()
+        int8 = prec is not None and prec.name == "int8"
         tp = _tp_block(self)
         if tp is not None:
-            return _gather_cols(
-                torch.nn.functional.linear(x, self.weight, tp[1]), tp[0])
-        prec = active_precision()
-        if prec is None or prec.name != "int8":
+            mesh, bias = tp
+            y = (int8_linear(x, self.weight.t(), bias, self.site) if int8
+                 else torch.nn.functional.linear(x, self.weight, bias))
+            return _gather_cols(y, mesh)
+        if not int8:
             return super().forward(x)
         return int8_linear(x, self.weight.t(), self.bias, self.site)
 

@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from gnnbuilder_tpu_torch.ops import ell
+from gnnbuilder_tpu_torch.ops import ell, segment
 from gnnbuilder_tpu_torch.parallel import _comm
 
 __all__ = [
@@ -51,6 +51,7 @@ __all__ = [
     "active_scope",
     "halo_pad_rows",
     "halo_wrap_layer",
+    "scoped_edge_mean",
 ]
 
 
@@ -62,6 +63,7 @@ class _Scope:
     def __init__(self, mesh, axis: str, halo: int):
         self.mesh, self.axis, self.halo = mesh, axis, int(halo)
         self._windows = {}
+        self._edge_means = {}
 
     def window(self, nbr_nodes, in_degree, n_pad: int):
         """The window tables of ``nbr_nodes`` for this rank, made once per
@@ -248,6 +250,30 @@ def scoped_gather(scope, values, table, node_rows: bool = True):
     xw = halo_exchange(values, h, scope.axis, scope.mesh)
     base = scope.mesh.index(scope.axis) * values.shape[0]
     return xw[(ids - base + h).clamp(0, xw.shape[0] - 1)]
+
+
+def scoped_edge_mean(scope, values, receivers, in_degree):
+    """The mean of each node's incoming edge rows, for this rank's node
+    rows, under the all-gather strategy: ``values`` [E_local, F] and
+    ``receivers`` [E_local] (global ids) are this rank's edge rows, and
+    all ranks' are gathered in rank order, summed by receiver, and this
+    rank's [n_local, F] slice taken over max(in_degree, 1) (0 on an empty
+    row).  Formed once per scope for a given ``values``, so a forward's
+    layers share it."""
+    key = id(values)
+    hit = scope._edge_means.get(key)
+    if hit is not None and hit[0] is values:
+        return hit[1]
+    n = in_degree.shape[0]
+    mesh, axis = scope.mesh, scope.axis
+    base = mesh.index(axis) * n
+    s = segment.segment_sum(
+        _comm.all_gather(values, mesh, axis),
+        _comm.all_gather(receivers, mesh, axis),
+        n * mesh.shape[axis])[base:base + n]
+    mean = s / in_degree.to(values.dtype)[:, None].clamp(min=1.0)
+    scope._edge_means[key] = (values, mean)
+    return mean
 
 
 def ell_aggregate_sharded(

@@ -38,6 +38,9 @@ def test_sources_found():
               "analysis", "build"):
         assert os.path.join("gnnbuilder_tpu_torch", "dse",
                             f + ".py") in names
+    for f in ("harness", "report"):
+        assert os.path.join("gnnbuilder_tpu_torch", "bench",
+                            f + ".py") in names
     assert len(names) > 50
 
 

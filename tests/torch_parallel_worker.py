@@ -121,9 +121,17 @@ def case_exchange(spec):
 def case_forward(spec):
     """The sharded forward (``halo`` or the all-gather strategy, with
     weights sharded over tp when ``tp`` > 1), its count of
-    ``halo_wrap_layer`` calls, and the single-rank forward."""
+    ``halo_wrap_layer`` calls, and the single-rank forward.  With
+    ``precision`` both run under that policy, the single rank on the
+    plain path (``no_fused``, the all-gather strategy's), and the
+    sharded forward is also run in float32 (``f32``); ``blocks`` counts
+    the parameters sharded over tp."""
+    import contextlib
+
     import torch
 
+    from gnnbuilder_tpu_torch.compile.precision import Precision
+    from gnnbuilder_tpu_torch.ops.dispatch import no_fused
     from gnnbuilder_tpu_torch.parallel import halo as halo_mod
     from gnnbuilder_tpu_torch.parallel.sharding import (
         shard_batch,
@@ -137,12 +145,26 @@ def case_forward(spec):
     params = (shard_params(mesh, model.state_dict())
               if mesh.shape["tp"] > 1 else None)
     fwd = make_sharded_forward(model, mesh, b, halo=spec["halo"])
+    sb = shard_batch(mesh, b, halo=spec["halo"])
+    prec = spec.get("precision")
+    policy = (Precision.from_name(prec).activate() if prec
+              else contextlib.nullcontext())
     before = halo_mod.halo_wrap_layer.calls
+    res = {}
     with torch.no_grad():
-        out = fwd(params, shard_batch(mesh, b, halo=spec["halo"]))
-        calls = halo_mod.halo_wrap_layer.calls - before
-        single = model(b)
-    return {"out": _np(out), "calls": np.int64(calls), "single": _np(single)}
+        with policy:
+            out = fwd(params, sb)
+            calls = halo_mod.halo_wrap_layer.calls - before
+            with no_fused() if prec else contextlib.nullcontext():
+                single = model(b)
+        if prec:
+            res["f32"] = _np(fwd(params, sb))
+    full = model.state_dict()
+    res["blocks"] = np.int64(sum(
+        tuple(v.shape) != tuple(full[k].shape)
+        for k, v in (params or {}).items()))
+    res.update(out=_np(out), calls=np.int64(calls), single=_np(single))
+    return res
 
 
 def case_step(spec):
